@@ -6,22 +6,37 @@
 Phases, each of which raises (and exits non-zero) on failure:
 
 1. require a CUDA device, print the card's name and power limit, and
-   build the port's kernels from csrc/ with nvcc;
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (Cornell-box triangles x 262,144 camera rays) and on
-   1,000,000 random rays x 300 random triangles: prim and occlusion must be
-   equal and t within 1 ulp; time both (CUDA events, median of 20 runs);
-3. render scenes/cbox.xml at 64x64, 16 spp, seed 0 through load_scene ->
-   render on the card, check it against tests/golden/cbox_64_16.npy
-   (tone-mapped RMSE < 5e-3), and check that the render launched every
-   kernel;
-4. time a few 512x512 passes of the regenerating wavefront and report
-   traced rays per second (closest-hit + shadow rays).
+   build the port's kernels from csrc/ with nvcc (one nvcc per source,
+   started together);
+2. hold each kernel against its plain PyTorch version on the card and
+   time both (CUDA events, median of 20 runs):
+   * K1/K2 (brute_hit.cu) at the Cornell box's shapes (its triangles x
+     262,144 camera rays) and on 1,000,000 random rays x 300 random
+     triangles: prim and occlusion equal, t within 1 ulp;
+   * K3/K4/K7/K8 (cluster_hit.cu) on the big-mesh stand-in
+     (tests/torch_meshes.py: 69,168 triangles in scenes/bunny.xml's
+     configuration) with 262,144 camera rays and 262,144 random
+     incoherent rays: K3 exactly equal, K4/K7 prim equal and t within
+     1 ulp, K4/K8 occlusion equal; also the natural overflow share;
+3. render through load_scene -> render on the card, each with the launch
+   counters set to 0 just before and read just after, and fail unless
+   every kernel of the path launched:
+   * scenes/cbox.xml at 64x64, 16 spp, seed 0 against
+     tests/golden/cbox_64_16.npy (tone-mapped RMSE < 5e-3): K1/K2;
+   * the stand-in at 64x64, 16 spp, seed 0 against
+     tests/golden/torch_bigmesh_64_16.npy (the JAX package's render,
+     tests/make_torch_bigmesh_golden.py; RMSE < 5e-3): K3/K4/K7/K8.  If
+     no ray overflows its cluster list, the render is repeated with K = 1
+     so that the fallback K7/K8 runs;
+4. time passes of the regenerating wavefront at 512x512, 16 spp per
+   pass, and report traced rays per second (closest-hit + shadow rays)
+   for the Cornell box and for the stand-in.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -32,9 +47,23 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 CBOX = os.path.join(HERE, "scenes", "cbox.xml")
 GOLDEN = os.path.join(HERE, "tests", "golden", "cbox_64_16.npy")
-KERNEL_SOURCE = "mitsuba_tpu_torch/csrc/brute_hit.cu"
+BIGMESH_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_bigmesh_64_16.npy")
+STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
+SOURCES = {"brute_hit": "mitsuba_tpu_torch/csrc/brute_hit.cu",
+           "cluster_hit": "mitsuba_tpu_torch/csrc/cluster_hit.cu"}
+# (wrapper, kernel source, TPU kernel replaced)
+KERNELS = (
+    ("closest_hit_v2", "brute_hit", "mitsuba_tpu/accel/pallas_kernels.py:434"),
+    ("any_hit_v2", "brute_hit", "mitsuba_tpu/accel/pallas_kernels.py:445"),
+    ("dense_cull", "cluster_hit", "mitsuba_tpu/accel/pairs.py:196"),
+    ("pair_hit_closest", "cluster_hit", "mitsuba_tpu/accel/pairs.py:821"),
+    ("pair_hit_any", "cluster_hit", "mitsuba_tpu/accel/pairs.py:821"),
+    ("cluster_traverse_closest", "cluster_hit", "mitsuba_tpu/accel/pallas_bvh.py:122"),
+    ("cluster_traverse_any", "cluster_hit", "mitsuba_tpu/accel/pallas_bvh.py:189"),
+)
 THROUGHPUT_SPP_CHUNK = 16
-THROUGHPUT_PASSES = 3
+THROUGHPUT_PASSES = 2
+N_RAYS = 262_144
 
 
 def check(cond, msg):
@@ -71,37 +100,189 @@ def ulp_diff_max(a, b):
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
-def compare_kernels(pk, name, o, d, t_max, tri_s, stats):
-    """One kernel-vs-plain comparison at one shape; records errors and times."""
+def record(stats, name, shape, err, kern, plain, extra=""):
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    stats.append({"name": name, "shape": shape, "max_abs_err": err,
+                  "ms": ms, "plain_ms": plain_ms})
+    print(f"  {name:24s} {shape:28s} max|err|={err:g} kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms {extra}", flush=True)
+
+
+def check_hits(name, kernel_out, plain_out):
+    """(t, prim, ...) of a kernel and its plain version: prim equal, t
+    within 1 ulp; returns max |t err| over hits and the hit share."""
     import torch
 
+    t1, p1, t2, p2 = kernel_out[0], kernel_out[1], plain_out[0], plain_out[1]
+    torch.cuda.synchronize()
+    check(torch.equal(p1, p2), f"{name}: prim differs on {int((p1 != p2).sum())} rays")
+    ulps = ulp_diff_max(t1, t2)
+    check(ulps <= 1, f"{name}: t differs by {ulps} ulp")
+    for a, b in zip(kernel_out[2:], plain_out[2:]):
+        check(torch.equal(a, b), f"{name}: u/v differ")
+    return float((t1 - t2).abs().max()), float((p1 >= 0).float().mean())
+
+
+def compare_brute(pk, name, o, d, t_max, tri_s, stats):
+    """K1 or K2 against its plain version at one shape."""
+    import torch
+
+    shape = f"rays={o.shape[0]} Tp={tri_s.shape[1]}"
     if name == "closest_hit_v2":
-        t1, p1 = pk.closest_hit_v2(o, d, t_max, tri_s)
-        t2, p2 = pk.closest_hit_plain(o, d, t_max, tri_s)
-        torch.cuda.synchronize()
-        check(torch.equal(p1, p2), f"{name}: prim differs on {int((p1 != p2).sum())} rays")
-        ulps = ulp_diff_max(t1, t2)
-        check(ulps <= 1, f"{name}: t differs by {ulps} ulp")
-        err = float((t1 - t2).abs().max())
-        frac = float((p1 >= 0).float().mean())
+        err, frac = check_hits(name, pk.closest_hit_v2(o, d, t_max, tri_s),
+                               pk.closest_hit_plain(o, d, t_max, tri_s))
         kern = lambda: pk.closest_hit_v2(o, d, t_max, tri_s)  # noqa: E731
         plain = lambda: pk.closest_hit_plain(o, d, t_max, tri_s)  # noqa: E731
     else:
-        a1 = pk.any_hit_v2(o, d, t_max, tri_s)
-        a2 = pk.any_hit_plain(o, d, t_max, tri_s)
-        torch.cuda.synchronize()
+        a1, a2 = pk.any_hit_v2(o, d, t_max, tri_s), pk.any_hit_plain(o, d, t_max, tri_s)
         check(torch.equal(a1, a2), f"{name}: occlusion differs on {int((a1 != a2).sum())} rays")
-        err = float((a1.int() - a2.int()).abs().max())
-        frac = float(a1.float().mean())
+        err, frac = 0.0, float(a1.float().mean())
         kern = lambda: pk.any_hit_v2(o, d, t_max, tri_s)  # noqa: E731
         plain = lambda: pk.any_hit_plain(o, d, t_max, tri_s)  # noqa: E731
-    ms, plain_ms = time_ms(kern), time_ms(plain)
-    stats.append({
-        "name": name, "rays": o.shape[0], "tris": tri_s.shape[1],
-        "hit_frac": frac, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-    })
-    print(f"  {name:15s} rays={o.shape[0]:8d} Tp={tri_s.shape[1]:4d} hit={frac:.3f} "
-          f"max|err|={err:g} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    record(stats, name, shape, err, kern, plain, f"hit={frac:.3f}")
+
+
+def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
+    """K3, K4 (closest, any), K7 and K8 against their plain versions on
+    one ray set: t_max = BIG for the closest-hit kernels, t_any for the
+    occlusion kernels."""
+    import torch
+
+    c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    kk = min(pairs.K, c)
+    t_big = torch.full((o.shape[0],), pairs.BIG, device=o.device)
+    tri, box, mbox, p2p = pack.cl_tri, pack.cl_box, pack.cl_mbox, pack.cl_pad2prim
+    shape = f"{label} rays={o.shape[0]} C={c}"
+
+    k3 = pairs.dense_cull(o, d, t_big, mbox, c, kk)
+    p3 = pairs.dense_cull_plain(o, d, t_big, mbox, c, kk)
+    torch.cuda.synchronize()
+    for a, b, what in zip(k3, p3, ("cid", "entry", "n_cl", "kept_max")):
+        check(torch.equal(a, b), f"dense_cull: {what} differs on {int((a != b).sum())} values")
+    cids = k3[0]
+    n_cl = k3[2].float()
+    record(stats, "dense_cull", shape, 0.0,
+           lambda: pairs.dense_cull(o, d, t_big, mbox, c, kk),
+           lambda: pairs.dense_cull_plain(o, d, t_big, mbox, c, kk),
+           f"clusters hit/ray={float(n_cl.mean()):.3f}")
+
+    args = (o, d, t_big, cids, tri, p2p, c, tc)
+    err, frac = check_hits("pair_hit_closest", pairs.pair_hit_closest(*args),
+                           pairs.pair_hit_closest_plain(*args))
+    record(stats, "pair_hit_closest", shape, err,
+           lambda: pairs.pair_hit_closest(*args),
+           lambda: pairs.pair_hit_closest_plain(*args), f"slot hit={frac:.3f}")
+    best_t, *_ = pairs.pair_closest(pack, o, d, t_big)
+    _, _, ov = pairs._cluster_lists_dense(pack, o, d, t_big)
+    n_ov = int(pairs._overflow(ov, best_t).sum())
+    print(f"  natural overflow ({label}, K={kk}): {n_ov} of {o.shape[0]} rays "
+          f"({n_ov / o.shape[0]:.4%})", flush=True)
+
+    k4a = pairs.pair_hit_any(o, d, t_any, cids, tri, c, tc)
+    p4a = pairs.pair_hit_any_plain(o, d, t_any, cids, tri, c, tc)
+    torch.cuda.synchronize()
+    check(torch.equal(k4a, p4a), "pair_hit_any: occlusion differs")
+    record(stats, "pair_hit_any", shape, 0.0,
+           lambda: pairs.pair_hit_any(o, d, t_any, cids, tri, c, tc),
+           lambda: pairs.pair_hit_any_plain(o, d, t_any, cids, tri, c, tc),
+           f"occluded={float(k4a.float().mean()):.3f}")
+
+    targs = (o, d, t_big, box, tri, tc)
+    err, frac = check_hits("cluster_traverse_closest", pb.cluster_traverse_closest(*targs),
+                           pb.cluster_traverse_closest_plain(*targs))
+    record(stats, "cluster_traverse_closest", shape, err,
+           lambda: pb.cluster_traverse_closest(*targs),
+           lambda: pb.cluster_traverse_closest_plain(*targs), f"hit={frac:.3f}")
+    aargs = (o, d, t_any, box, tri, tc)
+    k8, p8 = pb.cluster_traverse_any(*aargs), pb.cluster_traverse_any_plain(*aargs)
+    torch.cuda.synchronize()
+    check(torch.equal(k8, p8), "cluster_traverse_any: occlusion differs")
+    record(stats, "cluster_traverse_any", shape, 0.0,
+           lambda: pb.cluster_traverse_any(*aargs),
+           lambda: pb.cluster_traverse_any_plain(*aargs),
+           f"occluded={float(k8.float().mean()):.3f}")
+
+
+def counters(pk, pairs, pb):
+    return {"closest_hit_v2": pk.closest_hit_v2, "any_hit_v2": pk.any_hit_v2,
+            "dense_cull": pairs.dense_cull, "pair_hit_closest": pairs.pair_hit_closest,
+            "pair_hit_any": pairs.pair_hit_any,
+            "cluster_traverse_closest": pb.cluster_traverse_closest,
+            "cluster_traverse_any": pb.cluster_traverse_any}
+
+
+def render_checked(mt, counted, scene, golden_path, dev, label):
+    """Render at 64x64, 16 spp, seed 0 with the given launch counters set
+    to 0 just before; check finiteness and the golden gate.  Returns the
+    launches."""
+    import numpy as np
+
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    img = mt.render(scene, spp=16, seed=0, device=dev)
+    render_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    golden = np.load(golden_path)
+    check(img.shape == golden.shape, f"{label}: image shape {img.shape} != {golden.shape}")
+    check(bool(np.isfinite(img).all()), f"{label}: image has non-finite values")
+    rmse = float(np.sqrt(np.mean((img / (1 + img) - golden / (1 + golden)) ** 2)))
+    print(f"phase 3: {label} 64x64 16 spp on the card in {render_s:.2f} s: "
+          f"tone-mapped RMSE vs golden {rmse:.6g} (gate 5e-3), mean {img.mean():.6f}, "
+          f"launches {launches}", flush=True)
+    check(rmse < 5e-3, f"{label}: golden gate failed: RMSE {rmse}")
+    return launches
+
+
+def throughput(make_render_pass, new_film, pack, scene, dev, label, card):
+    """Traced rays per second over THROUGHPUT_PASSES passes at 512x512
+    after one warm-up pass."""
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler,
+                          THROUGHPUT_SPP_CHUNK, dev)
+    film = new_film(h, w, dev)
+    t0 = time.time()
+    film, _ = rp(film, 0, 0)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.time()
+    for i in range(THROUGHPUT_PASSES):
+        film, n_rays = rp(film, (i + 1) * THROUGHPUT_SPP_CHUNK, 0)
+        total = total + n_rays
+    n_total = int(total)  # synchronises
+    elapsed = time.time() - t0
+    check(bool(torch.isfinite(film).all()), f"{label} 512x512 film has non-finite values")
+    rays_s = n_total / elapsed
+    print(f"phase 4: {label} {w}x{h}, {THROUGHPUT_PASSES} passes x {THROUGHPUT_SPP_CHUNK} spp: "
+          f"{n_total} rays in {elapsed:.3f} s = {rays_s:.6g} rays/s "
+          f"(first pass {warm_s:.3f} s) on {card}", flush=True)
+    print(json.dumps({"throughput": {
+        "scene": label, "width": w, "height": h, "spp_chunk": THROUGHPUT_SPP_CHUNK,
+        "passes": THROUGHPUT_PASSES, "rays": n_total, "seconds": elapsed,
+        "rays_per_s": rays_s, "card": card,
+    }}), flush=True)
+
+
+def camera_rays(scene, dev):
+    """One ray through each pixel centre of the scene's sensor."""
+    import torch
+
+    from mitsuba_tpu_torch.sensor.plugins import generate_rays
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    cam = rec.pack(w, h, dev)
+    ys, xs = torch.meshgrid(
+        torch.arange(h, device=dev, dtype=torch.float32),
+        torch.arange(w, device=dev, dtype=torch.float32), indexing="ij",
+    )
+    pos01 = torch.stack([(xs.reshape(-1) + 0.5) / w, (ys.reshape(-1) + 0.5) / h], -1)
+    o, d = generate_rays(cam, pos01, torch.zeros_like(pos01))
+    return o.contiguous(), d.contiguous()
 
 
 def main():
@@ -115,11 +296,14 @@ def main():
     sys.path.insert(0, HERE)
     import mitsuba_tpu_torch as mt
     from mitsuba_tpu_torch import native
+    from mitsuba_tpu_torch.accel import pairs
+    from mitsuba_tpu_torch.accel import pallas_bvh as pb
     from mitsuba_tpu_torch.accel import pallas_kernels as pk
     from mitsuba_tpu_torch.film.film import new_film
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
-    from mitsuba_tpu_torch.sensor.plugins import generate_rays
+    sys.path.append(os.path.join(HERE, "tests"))
+    from torch_meshes import bunny_scene_xml, bunny_standin, write_ply
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # camera transforms in full fp32
@@ -132,33 +316,25 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- phase 1: build ----
+    # ---- phase 1: build (one nvcc per source, in parallel) ----
     t0 = time.time()
-    lib_path = native.build("brute_hit")
-    print(f"phase 1: built {os.path.relpath(lib_path, HERE)} in {time.time() - t0:.2f} s",
-          flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+        libs = dict(zip(SOURCES, ex.map(native.build, SOURCES)))
+    print(f"phase 1: built {sorted(os.path.relpath(p, HERE) for p in libs.values())} "
+          f"in {time.time() - t0:.2f} s", flush=True)
 
     # ---- phase 2: kernels vs plain on the card ----
     print("phase 2: kernels vs plain versions", flush=True)
     stats = []
     scene = mt.load_scene(CBOX)
-    w = h = 512
-    scene.sensor.record.film.width = scene.sensor.record.film.height = w
+    scene.sensor.record.film.width = scene.sensor.record.film.height = 512
     pack = pack_scene(scene, dev)
-    cam = scene.sensor.record.pack(w, h, dev)
-    ys, xs = torch.meshgrid(
-        torch.arange(h, device=dev, dtype=torch.float32),
-        torch.arange(w, device=dev, dtype=torch.float32), indexing="ij",
-    )
-    pos01 = torch.stack([(xs.reshape(-1) + 0.5) / w, (ys.reshape(-1) + 0.5) / h], -1)
-    o, d = generate_rays(cam, pos01, torch.zeros_like(pos01))
-    o, d = o.contiguous(), d.contiguous()
+    o, d = camera_rays(scene, dev)
     n_cam = o.shape[0]
-    compare_kernels(pk, "closest_hit_v2", o, d, torch.full((n_cam,), 1e30, device=dev),
-                    pack.tri_s, stats)
-    compare_kernels(pk, "any_hit_v2", o, d, torch.full((n_cam,), 1000.0, device=dev),
-                    pack.tri_s, stats)
-
+    compare_brute(pk, "closest_hit_v2", o, d, torch.full((n_cam,), 1e30, device=dev),
+                  pack.tri_s, stats)
+    compare_brute(pk, "any_hit_v2", o, d, torch.full((n_cam,), 1000.0, device=dev),
+                  pack.tri_s, stats)
     rng = np.random.default_rng(0)
     n_tri, n_ray = 300, 1_000_000
     v0 = rng.uniform(-1, 1, (n_tri, 3)).astype(np.float32)
@@ -169,73 +345,79 @@ def main():
     d_r = rng.normal(size=(n_ray, 3)).astype(np.float32)
     d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
     d_r = torch.as_tensor(d_r, device=dev)
-    compare_kernels(pk, "closest_hit_v2", o_r, d_r, torch.full((n_ray,), 1e30, device=dev),
-                    tri_r, stats)
-    compare_kernels(pk, "any_hit_v2", o_r, d_r,
-                    torch.as_tensor(rng.uniform(0.2, 3, n_ray).astype(np.float32), device=dev),
-                    tri_r, stats)
+    compare_brute(pk, "closest_hit_v2", o_r, d_r, torch.full((n_ray,), 1e30, device=dev),
+                  tri_r, stats)
+    compare_brute(pk, "any_hit_v2", o_r, d_r,
+                  torch.as_tensor(rng.uniform(0.2, 3, n_ray).astype(np.float32), device=dev),
+                  tri_r, stats)
 
-    # ---- phase 3: the slice on the card, through the kernels ----
+    os.makedirs(os.path.dirname(STANDIN_PLY), exist_ok=True)
+    write_ply(STANDIN_PLY, *bunny_standin(seed=0))
+    big = mt.load_scene_string(bunny_scene_xml(STANDIN_PLY))  # 512x512
+    t0 = time.time()
+    big_pack = pack_scene(big, dev)
+    print(f"  stand-in mesh: {len(big.shapes[0].meshes[0].indices)} triangles, "
+          f"C = {big_pack.meta['n_clusters']} clusters of <= {big_pack.meta['cluster_tc']} "
+          f"(cluster_vmem_ok={big_pack.meta['cluster_vmem_ok']}), packed in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    o, d = camera_rays(big, dev)
+    t_any = torch.as_tensor(rng.uniform(0.02, 0.3, N_RAYS).astype(np.float32), device=dev)
+    compare_cluster(pairs, pb, "camera", big_pack, o, d, t_any, stats)
+    center = torch.tensor([-0.02, 0.1, 0.0], device=dev)
+    o_r = center + torch.as_tensor(rng.uniform(-0.15, 0.15, (N_RAYS, 3)).astype(np.float32),
+                                   device=dev)
+    d_r = rng.normal(size=(N_RAYS, 3)).astype(np.float32)
+    d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
+    compare_cluster(pairs, pb, "random", big_pack, o_r.contiguous(),
+                    torch.as_tensor(d_r, device=dev), t_any, stats)
+
+    # ---- phase 3: the slices on the card, through the kernels ----
+    counted = counters(pk, pairs, pb)
     scene64 = mt.load_scene(CBOX)
     scene64.sensor.record.film.width = scene64.sensor.record.film.height = 64
-    pk.closest_hit_v2.launches = 0
-    pk.any_hit_v2.launches = 0
-    t0 = time.time()
-    img = mt.render(scene64, spp=16, seed=0, device=dev)
-    render_s = time.time() - t0
-    launches = {"closest_hit_v2": pk.closest_hit_v2.launches,
-                "any_hit_v2": pk.any_hit_v2.launches}
-    golden = np.load(GOLDEN)
-    check(img.shape == golden.shape, f"image shape {img.shape} != {golden.shape}")
-    check(bool(np.isfinite(img).all()), "image has non-finite values")
-    rmse = float(np.sqrt(np.mean((img / (1 + img) - golden / (1 + golden)) ** 2)))
-    print(f"phase 3: cbox 64x64 16 spp on the card in {render_s:.2f} s: "
-          f"tone-mapped RMSE vs golden {rmse:.6g} (gate 5e-3), mean {img.mean():.6f}, "
-          f"launches {launches}", flush=True)
-    check(rmse < 5e-3, f"golden gate failed: RMSE {rmse}")
+    launches = render_checked(
+        mt, {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")},
+        scene64, GOLDEN, dev, "cbox")
+    big64 = mt.load_scene_string(bunny_scene_xml(STANDIN_PLY, 64, 64))
+    cluster_names = [k for k, src, _ in KERNELS if src == "cluster_hit"]
+    for fn in (pairs.pair_closest, pairs.pair_any):
+        fn.rays = fn.overflow_rays = 0
+    big_launches = render_checked(mt, {k: counted[k] for k in cluster_names},
+                                  big64, BIGMESH_GOLDEN, dev, "stand-in")
+    for fn in (pairs.pair_closest, pairs.pair_any):
+        print(f"  {fn.__name__}: {fn.overflow_rays} of {fn.rays} rays overflowed "
+              f"(K={pairs.K}) and took the fallback", flush=True)
+    if not (big_launches["cluster_traverse_closest"] and big_launches["cluster_traverse_any"]):
+        natural_k = pairs.K
+        pairs.K = 1
+        print(f"  the fallback did not run at K={natural_k}; again with K=1", flush=True)
+        big_launches = render_checked(mt, {k: counted[k] for k in cluster_names},
+                                      big64, BIGMESH_GOLDEN, dev, "stand-in (K=1)")
+        pairs.K = natural_k
+    launches.update(big_launches)
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
-    # ---- phase 4: throughput, cbox 512x512 ----
-    rec = scene.sensor.record
-    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler,
-                          THROUGHPUT_SPP_CHUNK, dev)
-    film = new_film(h, w, dev)
-    t0 = time.time()
-    film, _ = rp(film, 0, 0)
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for i in range(THROUGHPUT_PASSES):
-        film, n_rays = rp(film, (i + 1) * THROUGHPUT_SPP_CHUNK, 0)
-        total = total + n_rays
-    n_total = int(total)  # synchronises
-    elapsed = time.time() - t0
-    check(bool(torch.isfinite(film).all()), "512x512 film has non-finite values")
-    rays_s = n_total / elapsed
-    print(f"phase 4: cbox 512x512, {THROUGHPUT_PASSES} passes x {THROUGHPUT_SPP_CHUNK} spp: "
-          f"{n_total} rays in {elapsed:.3f} s = {rays_s:.6g} rays/s "
-          f"(first pass {warm_s:.3f} s) on {card}", flush=True)
-    print(json.dumps({"throughput": {
-        "scene": "cbox", "width": w, "height": h, "spp_chunk": THROUGHPUT_SPP_CHUNK,
-        "passes": THROUGHPUT_PASSES, "rays": n_total, "seconds": elapsed,
-        "rays_per_s": rays_s, "card": card,
-    }}), flush=True)
+    # ---- phase 4: throughput at 512x512 ----
+    throughput(make_render_pass, new_film, pack, scene, dev, "cbox", card)
+    throughput(make_render_pass, new_film, big_pack, big, dev, "bigmesh-standin", card)
 
-    main_shape = {s["name"]: s for s in stats[:2]}
+    # the main shape of each kernel: cbox camera rays for K1/K2, the
+    # stand-in's camera rays for the others
+    first = {}
+    for s in stats:
+        first.setdefault(s["name"], s)
     kernels = []
-    for name, line in (("closest_hit_v2", 434), ("any_hit_v2", 445)):
+    for name, src, replaces in KERNELS:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": f"mitsuba_tpu/accel/pallas_kernels.py:{line}",
+            "source": SOURCES[src],
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(s["max_abs_err"] for s in stats if s["name"] == name),
-            "ms": main_shape[name]["ms"],
-            "plain_ms": main_shape[name]["plain_ms"],
+            "ms": first[name]["ms"],
+            "plain_ms": first[name]["plain_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,13 @@
 """Ray-scene intersection (port of mitsuba_tpu/accel/intersect.py, the
-brute-force branch for scenes of at most 512 triangles).
+triangle branches of `intersect` / `occluded`).
 
-`intersect` and `occluded` go through the K1/K2 wrappers of
-accel/pallas_kernels.py: the CUDA kernels for tensors on a GPU, their
-plain versions for tensors on the CPU.
+Scenes of at most 512 triangles go through the K1/K2 wrappers of
+accel/pallas_kernels.py, BVH scenes through the pair pipeline of
+accel/pairs.py (K3/K4, with the K7/K8 fallback): the CUDA kernels for
+tensors on a GPU, their plain versions for tensors on the CPU.
+`_bvh_traverse` / `_bvh_traverse_any` are the reference's stackless BVH
+walks (the path its intersect takes off the TPU), kept as the references
+the tests hold the pair pipeline to.
 """
 
 from __future__ import annotations
@@ -13,7 +17,9 @@ from typing import NamedTuple
 
 import torch
 
+from mitsuba_tpu_torch.accel import pairs
 from mitsuba_tpu_torch.accel import pallas_kernels as pk
+from mitsuba_tpu_torch.accel.bvh import LEAF_SIZE
 from mitsuba_tpu_torch.core import math as mm
 from mitsuba_tpu_torch.core.gather import take_fused
 
@@ -94,13 +100,109 @@ def _brute_force_any(pack, o, d, t_max):
     return pk.any_hit_plain(o, d, _t_max_rays(t_max, o), pack.tri_s)
 
 
+def _bvh_setup(pack, d, octants):
+    """(end, first-node offset [R] of each ray's layout, 1/d)."""
+    n_layouts = pack.meta.get("bvh_n_layouts", 1)
+    end = pack.bvh_nodes.shape[0] // n_layouts
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    if octants and n_layouts == 8:
+        oct_ = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+        base = oct_ * end
+    else:
+        base = torch.zeros(d.shape[0], dtype=torch.int64, device=d.device)
+    return end, base, inv_d
+
+
+def _bvh_step(pack, o, inv_d, node, base, end, t_lim):
+    """One lockstep step of every ray: its node's slab test against
+    t_lim, and its leaf triangles.  Returns (active, box_hit, is_leaf,
+    skip, tidx [R, LEAF_SIZE], t9 [R, LEAF_SIZE, 9])."""
+    active = node < end
+    ni = torch.clamp(node, max=end - 1)
+    nd = pack.bvh_nodes[base + ni]
+    lo, hi = nd[:, 0:3], nd[:, 3:6]
+    first, count, skip = nd[:, 6].long(), nd[:, 7].long(), nd[:, 8].long()
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    tn = torch.minimum(t0, t1).amax(dim=-1)
+    tf = torch.maximum(t0, t1).amin(dim=-1)
+    box_hit = (tf >= torch.clamp(tn, min=0.0)) & (tn < t_lim)
+    is_leaf = count > 0
+    lanes = torch.arange(LEAF_SIZE, device=o.device)[None]
+    tidx = torch.where(lanes < count[:, None], first[:, None] + lanes,
+                       pack.tri9.shape[0] - 1)  # padded far-away triangle
+    return active, box_hit, is_leaf, skip, tidx, pack.tri9[tidx]
+
+
+def _bvh_traverse(pack, o, d, t_max):
+    """Closest hit by the stackless walk over the threaded BVH
+    (reference intersect.py:195-286); each ray walks the node layout of
+    its direction octant.  Returns (t, prim, u, v); t = t_max on a miss."""
+    r = o.shape[0]
+    end, base, inv_d = _bvh_setup(pack, d, octants=True)
+    node = torch.zeros(r, dtype=torch.int64, device=o.device)
+    best_t = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r).clone()
+    best_prim = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+    best_u = torch.zeros(r, dtype=torch.float32, device=o.device)
+    best_v = torch.zeros(r, dtype=torch.float32, device=o.device)
+    while bool((node < end).any()):
+        active, box_hit, is_leaf, skip, tidx, t9 = _bvh_step(
+            pack, o, inv_d, node, base, end, best_t
+        )
+        hit, t, u, v = _moller_trumbore(
+            o[:, None], d[:, None], t9[..., 0:3], t9[..., 3:6], t9[..., 6:9],
+            best_t[:, None],
+        )
+        hit = hit & (box_hit & is_leaf & active)[:, None]
+        t = torch.where(hit, t, torch.inf)
+        tk, k = t.min(dim=-1)
+        better = tk < best_t
+        k = k[:, None]
+        best_prim = torch.where(better, tidx.gather(1, k)[:, 0].to(torch.int32), best_prim)
+        best_u = torch.where(better, u.gather(1, k)[:, 0], best_u)
+        best_v = torch.where(better, v.gather(1, k)[:, 0], best_v)
+        best_t = torch.minimum(best_t, tk)
+        nxt = torch.where(box_hit & ~is_leaf, node + 1, skip)
+        node = torch.where(active, nxt, node)
+    return best_t, best_prim, best_u, best_v
+
+
+def _bvh_traverse_any(pack, o, d, t_max):
+    """Any-hit walk over the threaded BVH (reference intersect.py:289-352):
+    a ray stops at its first hit."""
+    r = o.shape[0]
+    end, base, inv_d = _bvh_setup(pack, d, octants=False)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r)
+    node = torch.zeros(r, dtype=torch.int64, device=o.device)
+    occ = torch.zeros(r, dtype=torch.bool, device=o.device)
+    while bool((node < end).any()):
+        active, box_hit, is_leaf, skip, _, t9 = _bvh_step(
+            pack, o, inv_d, node, base, end, t_max
+        )
+        hit, _, _, _ = _moller_trumbore(
+            o[:, None], d[:, None], t9[..., 0:3], t9[..., 3:6], t9[..., 6:9],
+            t_max[:, None],
+        )
+        found = (hit & (box_hit & is_leaf & active)[:, None]).any(dim=-1)
+        occ = occ | found
+        nxt = torch.where(box_hit & ~is_leaf, node + 1, skip)
+        nxt = torch.where(found, end, nxt)  # early exit on the first hit
+        node = torch.where(active, nxt, node)
+    return occ
+
+
 def intersect(pack, o, d, t_max=math.inf) -> Hit:
     """Closest-hit query (= Scene::rayIntersect, reference scene.h:187)."""
+    if pack.meta.get("use_bvh", False):
+        best_t, prim, u, v = pairs.pair_closest(pack, o, d, t_max)
+        return Hit(valid=prim >= 0, t=best_t, prim=prim, u=u, v=v)
     return _closest(pack, o, d, t_max, pk.closest_hit_v2)
 
 
 def occluded(pack, o, d, t_max) -> torch.Tensor:
     """Boolean shadow query; t_max is already shortened by the caller."""
+    if pack.meta.get("use_bvh", False):
+        return pairs.pair_any(pack, o, d, t_max)
     return pk.any_hit_v2(o, d, t_max, pack.tri_s)
 
 

@@ -1,0 +1,262 @@
+"""Per-ray cluster traversal: the pair pipeline's overflow fallback (port
+of mitsuba_tpu/accel/pallas_bvh.py `cluster_closest` / `cluster_any`,
+kernels K7 `_closest_kernel` and K8 `_any_kernel`).
+
+The reference sorts rays into coherent 1024-ray chunks, and each chunk
+visits the union of the clusters its lanes' slab tests hit, in order of
+the chunk's nearest entry (`_chunk_prepass`).  What one lane computes is
+its own walk: its slab-hit clusters in order of (entry, cluster id),
+stopping once the next entry exceeds its best t (closest) or at its first
+hit (any).  The port computes exactly that walk per ray; the coherence
+sort and the cone prepass are TPU packet devices and are not ported.
+
+`cluster_traverse_closest` / `cluster_traverse_any` launch the CUDA
+kernels of csrc/cluster_hit.cu for tensors on a GPU and run their plain
+PyTorch versions for tensors on the CPU; there is no fallback from one to
+the other.  Each counts its kernel launches in `.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mitsuba_tpu_torch import native
+from mitsuba_tpu_torch.accel.pallas_kernels import mt_test
+
+RAY_EPS = 1e-4
+BIG = 3e38
+# rays per step of the plain versions: bounds their [rays, clusters, 3]
+# temporaries (~0.6 GB each at 1k clusters)
+PLAIN_RAY_CHUNK = 1 << 16
+
+
+# ---------------------------------------------------------------------------
+# the CUDA library (csrc/cluster_hit.cu), shared with accel/pairs.py
+# ---------------------------------------------------------------------------
+
+def _declare(lib):
+    p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.mts_cluster_limits.argtypes = [p, p]
+    lib.mts_cluster_limits.restype = i
+    lib.mts_dense_cull.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
+    lib.mts_pair_closest.argtypes = [p, p, p, p, p, p, i, i, i, i, lg, p, p, p, p, p]
+    lib.mts_pair_any.argtypes = [p, p, p, p, p, i, i, i, i, lg, p, p]
+    lib.mts_cluster_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p]
+    lib.mts_cluster_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p]
+    for fn in ("mts_dense_cull", "mts_pair_closest", "mts_pair_any",
+               "mts_cluster_closest", "mts_cluster_any"):
+        getattr(lib, fn).restype = i
+
+
+def cluster_lib():
+    return native.load("cluster_hit", _declare)
+
+
+def kernel_limits():
+    """(max clusters, max list length K) of the compiled kernels."""
+    mc, mk = ctypes.c_int(), ctypes.c_int()
+    cluster_lib().mts_cluster_limits(ctypes.byref(mc), ctypes.byref(mk))
+    return mc.value, mk.value
+
+
+def launch(entry, device, *args):
+    """Launch a cluster_hit.cu entry point (see native.launch)."""
+    native.launch(cluster_lib, entry, device, *args)
+
+
+def safe_inv(d):
+    """1 / where(|d| < 1e-20, 1e-20, d)."""
+    return 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+
+
+def _chunks(r):
+    return [(s, min(s + PLAIN_RAY_CHUNK, r)) for s in range(0, r, PLAIN_RAY_CHUNK)]
+
+
+# ---------------------------------------------------------------------------
+# plain versions of K7 / K8
+# ---------------------------------------------------------------------------
+
+def _chunk_prepass(o, d, t_max, cl_box):
+    """The reference's exact prepass (pallas_bvh.py:417-442), per ray:
+    every ray slab-tests every cluster box (padded clusters are inverted
+    and excluded); the ray's visit order is its hits sorted by entry
+    distance, ties by cluster id.
+
+    Returns (order [R, Cp] i64, entry [R, Cp] and tn [R, Cp] in that
+    order (entry BIG past the hits), n_hit [R])."""
+    lo, hi = cl_box[0:3].T, cl_box[3:6].T  # [Cp, 3]
+    valid_c = cl_box[3] >= cl_box[0]
+    inv = safe_inv(d)
+    t0 = (lo[None] - o[:, None]) * inv[:, None]  # [R, Cp, 3]
+    t1 = (hi[None] - o[:, None]) * inv[:, None]
+    mn, mx = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tn = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]), mn[..., 2])
+    tf = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]), mx[..., 2])
+    ent = torch.clamp(tn, min=0.0)
+    hit = (tf >= ent) & (tn < t_max[:, None]) & valid_c[None]
+    key = torch.where(hit, ent, BIG)
+    entry, order = torch.sort(key, dim=1, stable=True)
+    return order, entry, torch.gather(tn, 1, order), hit.sum(dim=1)
+
+
+def _cluster_rows(cl_tri, cid, tc):
+    """The 9 triangle rows of each ray's cluster: [9, n, tc]."""
+    col = cid[:, None] * tc + torch.arange(tc, device=cid.device)[None]
+    return cl_tri[:, col]
+
+
+def _traverse_plain(o, d, t_max, cl_box, cl_tri, tc, closest):
+    """Shared walk of the plain K7/K8: visit each ray's prepass hits in
+    order while (closest) the next entry <= best t or (any) no hit yet."""
+    r = o.shape[0]
+    best_t = t_max.clone()
+    slot = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+    best_u = torch.zeros(r, dtype=torch.float32, device=o.device)
+    best_v = torch.zeros(r, dtype=torch.float32, device=o.device)
+    occ = t_max <= 0.0
+    cols = torch.arange(tc, dtype=torch.int32, device=o.device)
+    for s, e in _chunks(r):
+        order, entry, tn_s, n_hit = _chunk_prepass(o[s:e], d[s:e], t_max[s:e], cl_box)
+        running = torch.ones(e - s, dtype=torch.bool, device=o.device)
+        for h in range(int(n_hit.max()) if e > s else 0):
+            bt = best_t[s:e]
+            if closest:
+                running &= (h < n_hit) & (entry[:, h] <= bt)
+                visit = running & (tn_s[:, h] < bt)
+            else:
+                running &= (h < n_hit) & ~occ[s:e]
+                visit = running
+            rows = torch.nonzero(visit).squeeze(1)
+            if rows.numel() == 0:
+                if not bool(running.any()):
+                    break
+                continue
+            cid = order[rows, h]
+            ray = [o[s:e][rows, a:a + 1] for a in range(3)] + [
+                d[s:e][rows, a:a + 1] for a in range(3)
+            ]
+            t_lim = bt[rows] if closest else t_max[s:e][rows]
+            t, u, v, hit = mt_test(ray, _cluster_rows(cl_tri, cid, tc), t_lim[:, None])
+            g = rows + s
+            if closest:
+                t = torch.where(hit, t, torch.inf)
+                tmin = t.amin(dim=1)
+                row = torch.where(t == tmin[:, None], cols, tc).amin(dim=1)
+                better = tmin < t_lim
+                rsel = row.clamp(max=tc - 1).long()[:, None]
+                best_t[g] = torch.where(better, tmin, t_lim)
+                slot[g] = torch.where(better, (cid * tc + row).to(torch.int32), slot[g])
+                best_u[g] = torch.where(better, u.gather(1, rsel)[:, 0], best_u[g])
+                best_v[g] = torch.where(better, v.gather(1, rsel)[:, 0], best_v[g])
+            else:
+                occ[g] = occ[g] | hit.any(dim=1)
+    if closest:
+        return best_t, slot, best_u, best_v
+    return occ
+
+
+def cluster_traverse_closest_plain(o, d, t_max, cl_box, cl_tri, tc):
+    """Plain K7.  o, d: [R, 3]; t_max: [R] finite.  Returns (t [R]: the
+    closest hit's t, t_max on a miss; slot [R] i32: cid * tc + row, -1 on
+    a miss; u, v [R])."""
+    return _traverse_plain(o, d, t_max, cl_box, cl_tri, tc, closest=True)
+
+
+def cluster_traverse_any_plain(o, d, t_max, cl_box, cl_tri, tc):
+    """Plain K8: bool [R], some triangle hit with t in (RAY_EPS, t_max),
+    or t_max <= 0 (the reference's initial occlusion)."""
+    return _traverse_plain(o, d, t_max, cl_box, cl_tri, tc, closest=False)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: kernel on a GPU, plain version on the CPU
+# ---------------------------------------------------------------------------
+
+def _prepare(o, d, t_max, cl_box, cl_tri, tc):
+    r = o.shape[0]
+    native.check_tensors(
+        o, ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
+        ("t_max", t_max, torch.float32, (r,)),
+        ("cl_box", cl_box, torch.float32, None),
+        ("cl_tri", cl_tri, torch.float32, None),
+    )
+    if cl_box.ndim != 2 or cl_box.shape[0] != 8:
+        raise ValueError(f"cl_box must be [8, Cp], got {tuple(cl_box.shape)}")
+    if cl_tri.ndim != 2 or cl_tri.shape[0] != 9 or cl_tri.shape[1] % tc:
+        raise ValueError(f"cl_tri must be [9, C*{tc}], got {tuple(cl_tri.shape)}")
+    return (o.contiguous(), d.contiguous(), t_max.contiguous(),
+            cl_box.contiguous(), cl_tri.contiguous())
+
+
+def _kernel_args(o, d, t_max, cl_box, cl_tri, tc):
+    cp = cl_box.shape[1]
+    max_c, _ = kernel_limits()
+    if cp > max_c:
+        raise ValueError(f"the traversal kernels take at most {max_c} clusters, got {cp}")
+    return (o, d, t_max, cl_box, cl_tri, o.shape[0], cp, tc, cl_tri.shape[1])
+
+
+def cluster_traverse_closest(o, d, t_max, cl_box, cl_tri, tc):
+    """K7: see cluster_traverse_closest_plain."""
+    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
+    if o.device.type == "cpu":
+        return cluster_traverse_closest_plain(o, d, t_max, cl_box, cl_tri, tc)
+    r = o.shape[0]
+    t = torch.empty(r, dtype=torch.float32, device=o.device)
+    slot = torch.empty(r, dtype=torch.int32, device=o.device)
+    u = torch.empty(r, dtype=torch.float32, device=o.device)
+    v = torch.empty(r, dtype=torch.float32, device=o.device)
+    launch("mts_cluster_closest", o.device,
+           *_kernel_args(o, d, t_max, cl_box, cl_tri, tc), t, slot, u, v)
+    cluster_traverse_closest.launches += 1
+    return t, slot, u, v
+
+
+def cluster_traverse_any(o, d, t_max, cl_box, cl_tri, tc):
+    """K8: see cluster_traverse_any_plain."""
+    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
+    if o.device.type == "cpu":
+        return cluster_traverse_any_plain(o, d, t_max, cl_box, cl_tri, tc)
+    occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
+    launch("mts_cluster_any", o.device,
+           *_kernel_args(o, d, t_max, cl_box, cl_tri, tc), occ)
+    cluster_traverse_any.launches += 1
+    return occ > 0
+
+
+cluster_traverse_closest.launches = 0
+cluster_traverse_any.launches = 0
+
+
+def finite_tmax(t_max, o):
+    """(t_max broadcast to [R], and with inf mapped to BIG)."""
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    t_max = t_max.expand(o.shape[0])
+    return t_max, torch.where(torch.isfinite(t_max), t_max, BIG).contiguous()
+
+
+def cluster_closest(pack, o, d, t_max):
+    """Closest hit by per-ray cluster traversal.  Returns (t, prim, u, v)
+    as accel/intersect._bvh_traverse does (t = t_max on a miss, prim = -1,
+    u = v = 0)."""
+    miss_t, tm = finite_tmax(t_max, o)
+    best_t, slot, u, v = cluster_traverse_closest(
+        o, d, tm, pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"]
+    )
+    prim = torch.where(
+        slot >= 0, pack.cl_pad2prim[torch.clamp(slot, min=0).long()], -1
+    )
+    hit = prim >= 0
+    return (
+        torch.where(hit, best_t, miss_t), prim,
+        torch.where(hit, u, 0.0), torch.where(hit, v, 0.0),
+    )
+
+
+def cluster_any(pack, o, d, t_max):
+    """Boolean occlusion by per-ray cluster traversal (first hit exits)."""
+    _, tm = finite_tmax(t_max, o)
+    return cluster_traverse_any(o, d, tm, pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"])

@@ -42,14 +42,13 @@ def pack_triangles_sublane(tri_v0, tri_e1, tri_e2, n_tris):
     return np.ascontiguousarray(np.concatenate([v0.T, e1.T, e2.T], axis=0))
 
 
-def _mt_hit(o, d, tri_s, t_lim):
-    """[R,1] ray components against [1,Tp] triangle rows -> (t, hit)
-    [R, Tp].  Same expression order as the CUDA kernel's mt_hit."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        tri_s[k:k + 1, :] for k in range(9)
-    )
+def mt_test(ray, tri, t_lim):
+    """Moller-Trumbore in the CUDA kernels' expression order (mt_hit in
+    csrc/brute_hit.cu and csrc/cluster_hit.cu).  ray: (ox, oy, oz, dx, dy,
+    dz); tri: the 9 rows (v0xyz, e1xyz, e2xyz); all broadcast against each
+    other and t_lim.  Returns (t, u, v, hit)."""
+    ox, oy, oz, dx, dy, dz = ray
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -67,7 +66,17 @@ def _mt_hit(o, d, tri_s, t_lim):
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     hit = (
         ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-        & (t > RAY_EPS) & (t < t_lim[:, None])
+        & (t > RAY_EPS) & (t < t_lim)
+    )
+    return t, u, v, hit
+
+
+def _mt_hit(o, d, tri_s, t_lim):
+    """[R,1] ray components against [1,Tp] triangle rows -> (t, hit)
+    [R, Tp]."""
+    ray = [o[:, a:a + 1] for a in range(3)] + [d[:, a:a + 1] for a in range(3)]
+    t, _, _, hit = mt_test(
+        ray, [tri_s[k:k + 1, :] for k in range(9)], t_lim[:, None]
     )
     return t, hit
 
@@ -130,15 +139,10 @@ def _prepare(o, d, t_max, tri_s):
     r = o.shape[0]
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
     t_max = t_max.expand(r)
-    for name, x, shape in (
-        ("o", o, (r, 3)), ("d", d, (r, 3)), ("tri_s", tri_s, None),
-    ):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != o.device:
-            raise ValueError(f"{name} is on {x.device}, o on {o.device}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+    native.check_tensors(
+        o, ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
+        ("tri_s", tri_s, torch.float32, None),
+    )
     if tri_s.ndim != 2 or tri_s.shape[0] != 9:
         raise ValueError(f"tri_s must be [9, Tp], got {tuple(tri_s.shape)}")
     return o.contiguous(), d.contiguous(), t_max.contiguous(), tri_s.contiguous()
@@ -147,22 +151,13 @@ def _prepare(o, d, t_max, tri_s):
 def _launch(entry, o, d, t_max, tri_s, *outs):
     """Launch a brute_hit.cu entry point on the current stream of o's
     device; raises on a launch error."""
-    if o.device.type != "cuda":
-        raise ValueError(f"no kernel for device {o.device}")
     if tri_s.shape[1] > MAX_TRIS:
         raise ValueError(
             f"brute-force kernels take at most {MAX_TRIS} triangles, "
             f"got {tri_s.shape[1]}"
         )
-    fn = getattr(_lib(), entry)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = fn(
-            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), tri_s.data_ptr(),
-            o.shape[0], tri_s.shape[1], *(x.data_ptr() for x in outs), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    native.launch(_lib, entry, o.device, o, d, t_max, tri_s,
+                  o.shape[0], tri_s.shape[1], *outs)
 
 
 def closest_hit_v2(o, d, t_max, tri_s):

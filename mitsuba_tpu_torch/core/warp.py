@@ -12,6 +12,13 @@ from mitsuba_tpu_torch.core.math import safe_sqrt
 INV_PI = 1.0 / math.pi
 
 
+def square_to_uniform_sphere(s):
+    z = 1.0 - 2.0 * s[..., 1]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * s[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
 def square_to_uniform_disk_concentric(s):
     """Shirley-Chiu concentric disk mapping."""
     r1 = 2.0 * s[..., 0] - 1.0

@@ -1,4 +1,5 @@
-"""Emitter plugins (port of mitsuba_tpu/emitter/plugins.py): `area`."""
+"""Emitter plugins (port of mitsuba_tpu/emitter/plugins.py): `area` and
+`constant`."""
 
 from __future__ import annotations
 
@@ -8,7 +9,9 @@ import numpy as np
 
 from mitsuba_tpu_torch.scene.registry import register
 
-AREA = 0  # emitter kind, as numbered in the reference
+# emitter kinds, as numbered in the reference
+AREA = 0
+CONSTANT = 5
 
 
 @dataclass
@@ -28,6 +31,19 @@ class AreaEmitter:
         self.props = props
         self.record = EmitterRecord(
             kind=AREA,
+            radiance=props.get_spectrum("radiance", np.ones(3, np.float32)),
+            sampling_weight=props.get_float("samplingWeight", 1.0),
+        )
+
+
+@register("emitter", "constant")
+class ConstantEmitter:
+    """reference: src/emitters/constant.cpp"""
+
+    def __init__(self, props):
+        self.props = props
+        self.record = EmitterRecord(
+            kind=CONSTANT,
             radiance=props.get_spectrum("radiance", np.ones(3, np.float32)),
             sampling_weight=props.get_float("samplingWeight", 1.0),
         )

@@ -3,9 +3,10 @@ mitsuba_tpu/integrator/path.py `path_trace_regen`, reference
 src/integrators/path/path.cpp:119-300).
 
 Lane i owns a pixel; when its path terminates it starts the pixel's next
-sample at once.  One bounce per iteration: closest hit, emitter hit with
-MIS, next-event estimation with a shadow ray, diffuse BSDF sampling and
-Russian roulette.  The reference's `lax.while_loop` becomes a host loop
+sample at once.  One bounce per iteration: closest hit, environment
+radiance on escape and emitter hit (both with MIS), next-event
+estimation with a shadow ray, diffuse BSDF sampling and Russian
+roulette.  The reference's `lax.while_loop` becomes a host loop
 that checks its exit condition every EXIT_CHECK_EVERY iterations;
 iterations in which no lane has work change nothing.
 """
@@ -60,8 +61,8 @@ def _check_integrator(pack, integ):
         raise NotImplementedError(f"integrator '{integ.kind}' not yet ported")
     if integ.strict_normals or integ.hide_emitters:
         raise NotImplementedError("path options strictNormals/hideEmitters not yet ported")
-    if pack.meta.get("has_env", False) or pack.meta.get("has_sss", False):
-        raise NotImplementedError("environment lights / subsurface not yet ported")
+    if pack.meta.get("has_envmap", False) or pack.meta.get("has_sss", False):
+        raise NotImplementedError("envmap lights / subsurface not yet ported")
 
 
 def path_trace_regen(
@@ -135,6 +136,15 @@ def path_trace_regen(
         hit = intersect(pack, o, d)
         its = fill_interaction(pack, o, d, hit)
         found = its.valid & active
+
+        # escaped rays: environment radiance with MIS
+        if pack.meta.get("has_env", False):
+            escape = active & ~its.valid
+            env_l = em.eval_env(pack, d)
+            w_env = torch.where(
+                prev_delta, 1.0, mi_weight(prev_pdf, em.pdf_direct_env(pack, d))
+            )
+            L = L + torch.where(escape[..., None], thr * env_l * w_env[..., None], 0.0)
 
         if pack.meta["has_area"]:
             cos_l = mm.dot(its.ns, its.wi_world)

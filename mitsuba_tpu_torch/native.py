@@ -1,11 +1,19 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native code.
 
-Each kernel source under `csrc/` exposes a plain C interface.  At first
-use it is compiled with `nvcc` for Hopper (`sm_90a`) into a shared
-library under `<repo>/build/kernels/<name>-<source hash>/` and loaded
-with `ctypes`; later calls in the process reuse the loaded library, and
-later processes reuse the file while the source is unchanged.  Nothing
-is built or loaded when the module is imported.
+* CUDA kernels: each source under `csrc/` exposes a plain C interface.
+  At first use it is compiled with `nvcc` for Hopper (`sm_90a`) into a
+  shared library under `<repo>/build/kernels/<name>-<source hash>/` and
+  loaded with `ctypes`.
+* Host libraries: the reference's C++ BVH builder
+  (`mitsuba_tpu/native/bvh_builder.cpp`) is compiled with `g++` and the
+  reference's flags into `<repo>/build/native/`, so that the port builds
+  the same tree from the same source (the source is read, not copied,
+  and nothing of the JAX package is imported).
+
+Later calls in the process reuse a loaded library, and later processes
+reuse the file while the source is unchanged.  Nothing is built or
+loaded when the module is imported.  `check_tensors` and `launch` are the
+kernel wrappers' shared argument check and launch.
 """
 
 from __future__ import annotations
@@ -13,13 +21,20 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO_DIR = os.path.dirname(_PKG_DIR)
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+BUILD_DIR = os.path.join(_REPO_DIR, "build", "kernels")
+HOST_BUILD_DIR = os.path.join(_REPO_DIR, "build", "native")
+# the reference's host sources (mitsuba_tpu/native/) and g++ flags
+# (mitsuba_tpu/native/__init__.py _build)
+HOST_SRC_DIR = os.path.join(_REPO_DIR, "mitsuba_tpu", "native")
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native")
 
 # Bit-comparable arithmetic with the plain PyTorch versions: no fused
 # multiply-add contraction, IEEE division and square root.
@@ -51,39 +66,55 @@ def find_nvcc() -> str:
     )
 
 
-def _source_hash(path: str) -> str:
+def _source_hash(path: str, flags, extra: str = "") -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
+    h.update(extra.encode())
     return h.hexdigest()[:16]
+
+
+def _host_cpu() -> str:
+    """The CPU a -march=native build targets: its model and feature flags,
+    so that a build directory copied to another machine is not reused."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            info = [ln for ln in f if ln.startswith(("model name", "flags"))][:2]
+    except OSError:
+        info = []
+    return platform.machine() + "".join(info)
 
 
 def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     return os.path.join(
-        BUILD_DIR, f"{name}-{_source_hash(src)}", f"lib{name}.so"
+        BUILD_DIR, f"{name}-{_source_hash(src, NVCC_FLAGS)}", f"lib{name}.so"
     )
+
+
+def _compile(cmd_head, src, out, what):
+    """Run `cmd_head -o <tmp> src` and move the result to `out`."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([*cmd_head, "-o", tmp, src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{what} failed for {src} (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
 
 
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless its library is already built;
     returns the library path."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
     out = library_path(name)
     if os.path.isfile(out):
         return out
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {src} (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    return _compile([find_nvcc(), *NVCC_FLAGS], src, out, "nvcc")
 
 
 def load(name: str, declare) -> ctypes.CDLL:
@@ -96,3 +127,58 @@ def load(name: str, declare) -> ctypes.CDLL:
             declare(lib)
             _loaded[name] = lib
         return lib
+
+
+def load_host(name: str, source: str, declare) -> ctypes.CDLL | None:
+    """Build (if needed) and load the reference's host source
+    mitsuba_tpu/native/<source> as build/native/<name>-<hash>/lib<name>.so,
+    cached per process.  Returns None when no C++ compiler can build it
+    (the caller then takes its numpy fallback, as the reference does)."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        src = os.path.join(HOST_SRC_DIR, source)
+        out = os.path.join(
+            HOST_BUILD_DIR, f"{name}-{_source_hash(src, HOST_CXX_FLAGS, _host_cpu())}",
+            f"lib{name}.so",
+        )
+        lib = None
+        cxx = shutil.which("g++")
+        if cxx is not None:
+            try:
+                if not os.path.isfile(out):
+                    _compile([cxx, *HOST_CXX_FLAGS], src, out, "g++")
+                lib = ctypes.CDLL(out)
+                declare(lib)
+            except (RuntimeError, OSError):
+                lib = None
+        _loaded[name] = lib
+        return lib
+
+
+def check_tensors(o, *named):
+    """Raise unless every (name, tensor, dtype, shape) lies on o's device
+    with that dtype and shape (shape None: any)."""
+    for name, x, dtype, shape in named:
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.device != o.device:
+            raise ValueError(f"{name} is on {x.device}, o on {o.device}")
+        if shape is not None and tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+
+
+def launch(get_lib, entry, device, *args):
+    """Call kernel entry point `entry` of the library `get_lib()` returns
+    on the current stream of `device`; tensors pass as their data
+    pointers.  Raises unless the device is a GPU, and on a launch error."""
+    import torch
+
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    fn = getattr(get_lib(), entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")

@@ -1,7 +1,8 @@
 """Scene packing: host scene description -> flat device tensors
 (`ScenePack`); the port of mitsuba_tpu/scene/builder.py for the slice it
-renders: triangle meshes of at most 512 triangles, diffuse materials
-with constant reflectance, and area emitters.
+renders: triangle meshes (brute force up to 512 triangles, BVH + cluster
+tables above), diffuse materials with constant reflectance, area
+emitters and a constant environment.
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -15,15 +16,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mitsuba_tpu_torch.accel import pairs
+from mitsuba_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh, octant_node_rows
+from mitsuba_tpu_torch.accel.clusters import pack_clusters
 from mitsuba_tpu_torch.accel.pallas_kernels import pack_triangles_sublane
 from mitsuba_tpu_torch.bsdf.plugins import DIFFUSE, BSDFRecord
-from mitsuba_tpu_torch.emitter.plugins import AREA
+from mitsuba_tpu_torch.emitter.eval import PORTED_KINDS
+from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT
 
-# scenes above this many triangles need the BVH (not ported yet)
+# scenes above this many triangles go through the BVH and cluster tables
 BRUTE_FORCE_MAX_TRIS = 512
-# rows of padding after the triangle tables (the reference's BVH leaf
-# size, mitsuba_tpu/accel/bvh.py LEAF_SIZE default)
-LEAF_SIZE = 8
 
 # the arrays and meta keys the ported slice reads
 SLICE_ARRAYS = (
@@ -35,15 +37,20 @@ SLICE_ARRAYS = (
 )
 SLICE_META = (
     "n_spheres", "n_emitters", "present_types", "emitter_kinds", "use_bvh",
-    "has_area", "has_env",
+    "has_area", "has_env", "has_envmap", "env_idx",
+)
+# ... and, for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters
+BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_mbox", "cl_pad2prim")
+BVH_META = (
+    "bvh_n_layouts", "n_clusters", "cluster_tc", "n_supers",
+    "cluster_super_g", "cluster_vmem_ok",
 )
 # meta flags of reference features the port does not render yet:
 # (key, value meaning "absent", feature name)
 _UNPORTED_FEATURES = (
-    ("use_bvh", False, "BVH traversal (scenes above 512 triangles)"),
     ("n_spheres", 0, "analytic spheres"),
     ("n_cyls", 0, "analytic cylinders"),
-    ("has_env", False, "environment emitters"),
+    ("has_envmap", False, "envmap emitters"),
     ("has_media", False, "participating media"),
     ("has_sss", False, "subsurface scattering"),
     ("has_textures", False, "textures"),
@@ -82,9 +89,30 @@ def check_slice(meta: dict):
             f"bsdf types {sorted(types - {DIFFUSE})} not yet ported"
         )
     kinds = set(meta.get("emitter_kinds", ()))
-    if kinds - {AREA}:
+    if kinds - PORTED_KINDS:
         raise NotImplementedError(
-            f"emitter kinds {sorted(kinds - {AREA})} not yet ported"
+            f"emitter kinds {sorted(kinds - PORTED_KINDS)} not yet ported"
+        )
+    if meta.get("use_bvh", False):
+        _check_clusters(meta)
+
+
+def _check_clusters(meta: dict):
+    """The reference takes K3/K4 with the K7/K8 fallback only up to
+    DENSE_C clusters with VMEM-resident tiles; past those bounds it runs
+    kernels the port does not have yet."""
+    c = meta.get("n_clusters", 0)
+    if c == 0:
+        raise NotImplementedError("BVH traversal without cluster tables not yet ported")
+    if c > pairs.DENSE_C:
+        raise NotImplementedError(
+            f"{c} clusters (> DENSE_C = {pairs.DENSE_C}): the two-level cull "
+            "and window kernel (K5/K6) not yet ported"
+        )
+    if not meta.get("cluster_vmem_ok", False):
+        raise NotImplementedError(
+            f"{c} clusters beyond the VMEM-resident tiles: the streamed "
+            "fallback kernels (K9/K10) not yet ported"
         )
 
 
@@ -174,11 +202,13 @@ def pack_scene(scene, device) -> ScenePack:
         "tri_emit": cat(temits, (), np.int32),
     }
     n_tris = len(tri["tri_v0"])
-    if n_tris > BRUTE_FORCE_MAX_TRIS:
-        raise NotImplementedError(
-            f"BVH traversal (scenes above {BRUTE_FORCE_MAX_TRIS} triangles, "
-            f"this one has {n_tris}) not yet ported"
-        )
+    use_bvh = n_tris > BRUTE_FORCE_MAX_TRIS
+    if use_bvh:
+        v0, e1, e2 = tri["tri_v0"], tri["tri_e1"], tri["tri_e2"]
+        lo = np.minimum(v0, np.minimum(v0 + e1, v0 + e2))
+        hi = np.maximum(v0, np.maximum(v0 + e1, v0 + e2))
+        bvh = build_bvh(v0 + (e1 + e2) / 3.0, lo, hi)
+        tri = {k: a[bvh.order] for k, a in tri.items()}
     tri_s = pack_triangles_sublane(
         tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris
     )
@@ -186,11 +216,24 @@ def pack_scene(scene, device) -> ScenePack:
         np.cross(tri["tri_e1"], tri["tri_e2"]), axis=-1
     )
     tri_emit = tri["tri_emit"]
-    # pad so index-clamped gathers never leave the tables
+    # pad with LEAF_SIZE far-away rows: index-clamped gathers and the
+    # cluster tiles' dummy slots (index n_tris) never leave the tables
     pad_fill = {"tri_v0": 1e30, "tri_emit": -1}
     for k, a in tri.items():
         pad = np.full((LEAF_SIZE,) + a.shape[1:], pad_fill.get(k, 0), a.dtype)
         tri[k] = np.concatenate([a, pad])
+
+    bvh_arrays, bvh_meta = {}, {}
+    if use_bvh:
+        bvh_nodes, n_layouts = octant_node_rows(bvh)
+        tri9 = np.concatenate(
+            [tri["tri_v0"], tri["tri_e1"], tri["tri_e2"]], axis=1
+        ).astype(np.float32)
+        cl_arrays, cl_meta = pack_clusters(
+            bvh, tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris
+        )
+        bvh_arrays = {"bvh_nodes": bvh_nodes, "tri9": tri9, **cl_arrays}
+        bvh_meta = {"bvh_n_layouts": n_layouts, **cl_meta}
 
     # ---------------- material table ----------------
     n_mat = max(len(materials), 1)
@@ -217,12 +260,15 @@ def pack_scene(scene, device) -> ScenePack:
     }
     idx_parts, cdf_parts = [], []
     at_cursor = 0
+    env_idx = -1
     weights = np.zeros(n_em, np.float64)
-    for i, rec in enumerate(emitters):
-        if rec.kind != AREA:
-            raise NotImplementedError(f"emitter kind {rec.kind} not yet ported")
+    for i, rec in enumerate(emitters):  # kinds: check_slice below
         em["em_kind"][i] = rec.kind
         em["em_rgb"][i] = rec.radiance
+        weights[i] = rec.sampling_weight
+        if rec.kind == CONSTANT:
+            env_idx = i
+            continue
         ids = np.nonzero(tri_emit == i)[0]
         areas = tri_area[ids]
         total = float(areas.sum())
@@ -232,7 +278,6 @@ def pack_scene(scene, device) -> ScenePack:
         at_cursor += len(ids)
         idx_parts.append(ids.astype(np.int32))
         cdf_parts.append((np.cumsum(areas) / max(total, 1e-12)).astype(np.float32))
-        weights[i] = rec.sampling_weight
     if not emitters:
         weights = np.ones(1)
     pmf = weights / weights.sum() if weights.sum() > 0 else weights
@@ -242,6 +287,7 @@ def pack_scene(scene, device) -> ScenePack:
     arrays = {
         **tri,
         "tri_s": tri_s,
+        **bvh_arrays,
         **mt,
         **em,
         "area_tri_idx": (
@@ -260,8 +306,12 @@ def pack_scene(scene, device) -> ScenePack:
         "n_emitters": len(emitters),
         "present_types": tuple(sorted(present_types)) or (DIFFUSE,),
         "emitter_kinds": tuple(sorted({r.kind for r in emitters})),
-        "use_bvh": False,
+        "use_bvh": use_bvh,
+        **bvh_meta,
         "has_area": any(r.kind == AREA for r in emitters),
-        "has_env": False,
+        "env_idx": env_idx,
+        "has_env": env_idx >= 0,
+        "has_envmap": False,
     }
+    check_slice(meta)
     return ScenePack(_to_device(arrays, device), meta)

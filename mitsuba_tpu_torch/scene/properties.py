@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -22,6 +23,22 @@ class Properties:
     _values: dict[str, Any] = field(default_factory=dict)
     # nested child plugins in document order: list of (name, plugin)
     children: list = field(default_factory=list)
+    # directories searched for relative file names (the scene file's first)
+    search_paths: list = field(default_factory=list)
+
+    def resolve_path(self, filename: str) -> str:
+        """Absolute names as given; relative ones against search_paths,
+        then the working directory."""
+        if os.path.isabs(filename) and os.path.exists(filename):
+            return filename
+        for base in self.search_paths + ["."]:
+            cand = os.path.join(base, filename)
+            if os.path.exists(cand):
+                return cand
+        raise FileNotFoundError(
+            f"{self.plugin_name}: cannot resolve '{filename}' "
+            f"(searched {self.search_paths})"
+        )
 
     def __contains__(self, name):
         return name in self._values

@@ -3,6 +3,7 @@
 * `rectangle`: the XY square spanning [-1,1]^2, normal +z
   (reference src/shapes/rectangle.cpp:99-110)
 * `cube`: [-1,1]^3 with per-face normals (reference src/shapes/cube.cpp:24-30)
+* `ply`: a triangle mesh from a PLY file (reference src/shapes/ply/*)
 
 Other shape plugins are not registered and raise NotImplementedError.
 """
@@ -14,7 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from mitsuba_tpu_torch.core.transform import Transform
-from mitsuba_tpu_torch.io.meshes import MeshData
+from mitsuba_tpu_torch.io.meshes import MeshData, load_ply
 from mitsuba_tpu_torch.scene.registry import register
 
 
@@ -58,10 +59,13 @@ class _ShapeBase:
     def __init__(self, props):
         self.props = props
         self.instance = ShapeInstance(id=props.id)
-        mesh = self._mesh()
         t = props.get_transform("toWorld")
         flip = props.get_bool("flipNormals", False)
-        self.instance.meshes.append(_apply_transform(mesh, t, flip))
+        for mesh in self._meshes():
+            self.instance.meshes.append(_apply_transform(mesh, t, flip))
+
+    def _meshes(self) -> list[MeshData]:
+        return [self._mesh()]
 
     def _mesh(self) -> MeshData:
         raise NotImplementedError
@@ -105,3 +109,14 @@ class CubeShape(_ShapeBase):
             np.asarray(nrm, np.float32),
             np.asarray(uv, np.float32),
         )
+
+
+@register("shape", "ply")
+class PlyShape(_ShapeBase):
+    def _meshes(self):
+        meshes = load_ply(self.props.resolve_path(self.props.get_string("filename")))
+        if self.props.get_bool("faceNormals", False):
+            for mesh in meshes:
+                mesh.normals = None
+                mesh.face_normals = True
+        return meshes

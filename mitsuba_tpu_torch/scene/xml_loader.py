@@ -272,7 +272,10 @@ class SceneLoader:
             return self.ids[rid]
         category = _TAG_TO_CATEGORY.get(tag, tag)
         type_name = self._attr(el, "type")
-        props = Properties(plugin_name=f"{category}:{type_name}", id=el.get("id", ""))
+        props = Properties(
+            plugin_name=f"{category}:{type_name}", id=el.get("id", ""),
+            search_paths=self.search_paths,
+        )
         self._fill_props(props, el)
         obj = registry.create(category, type_name, props)
         if el.get("id"):

@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under mitsuba_tpu_torch/, and not
-chip_smoke.py, imports JAX or the JAX package (checked on the source's
-syntax tree, so lazy imports inside functions count too)."""
+"""The port stands alone: nothing under mitsuba_tpu_torch/, and neither
+chip_smoke.py nor the mesh generator it imports (tests/torch_meshes.py),
+imports JAX or the JAX package (checked on the source's syntax tree, so
+lazy imports inside functions count too)."""
 
 import ast
 import glob
@@ -12,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "mitsuba_tpu"}
 SOURCES = sorted(
     glob.glob(os.path.join(ROOT, "mitsuba_tpu_torch", "**", "*.py"), recursive=True)
-) + [os.path.join(ROOT, "chip_smoke.py")]
+) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_meshes.py")]
 
 
 def _imported_roots(path):

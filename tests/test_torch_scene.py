@@ -136,12 +136,19 @@ def test_unported_features_raise(snippet):
 
 def test_unported_pack_features_raise():
     jp = jpack_scene(jload(CBOX))
-    for key, value in (("has_env", True), ("use_bvh", True), ("present_types", (0, 3))):
+    # use_bvh without cluster tables: the reference's plain BVH walk is
+    # not a ported render path
+    for key, value in (("has_envmap", True), ("use_bvh", True), ("present_types", (0, 3))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             pack_from_numpy(_jax_np(jp), {**jp.meta, key: value}, "cpu")
 
 
-def test_large_scene_raises():
+def test_large_scene_raises(monkeypatch):
+    """Above 512 triangles the pack carries a BVH and cluster tables; past
+    the cluster count the ported kernels cover (K3/K4 with K7/K8), the
+    reference runs K5/K6, and packing raises."""
+    from mitsuba_tpu_torch.accel import pairs
+
     cubes = "".join(
         f'<shape type="cube"><transform name="toWorld"><translate x="{3 * i}"/></transform></shape>'
         for i in range(43)  # 43 * 12 = 516 triangles
@@ -149,5 +156,8 @@ def test_large_scene_raises():
     scene = load_scene_string(
         f'<scene version="0.5.0"><sensor type="perspective"/>{cubes}</scene>'
     )
-    with pytest.raises(NotImplementedError, match="BVH"):
+    meta = pack_scene(scene, "cpu").meta
+    assert meta["use_bvh"] and meta["n_clusters"] > 1
+    monkeypatch.setattr(pairs, "DENSE_C", meta["n_clusters"] - 1)
+    with pytest.raises(NotImplementedError, match="K5/K6"):
         pack_scene(scene, "cpu")

@@ -1,0 +1,121 @@
+"""Seeded test meshes for the port's big-mesh slice (plain numpy; imports
+neither JAX nor torch, so chip_smoke.py can use it on a machine without
+JAX).
+
+`bunny_standin` stands in for the Stanford bunny of scenes/bunny.xml
+until bunny.ply is in the repository: a UV sphere of the bunny's size
+(264 x 132 gives 69,168 triangles; the bunny has 69,451) whose radius is
+displaced by a seeded sum of low-frequency sinusoids, so the surface is
+non-convex, shadows and lights itself.  It is scaled into the region the
+scene's camera looks at.  `bunny_scene_xml` is scenes/bunny.xml with the
+mesh file replaced, so the configuration stays the scene's own.
+"""
+
+import os
+import re
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUNNY_XML = os.path.join(ROOT, "scenes", "bunny.xml")
+# where the camera of scenes/bunny.xml looks, and the bunny's extent
+STANDIN_CENTER = (-0.02, 0.1, 0.0)
+STANDIN_RADIUS = 0.07
+
+
+def uv_sphere(n_phi, n_theta, seed=None, amp=0.0, n_waves=6):
+    """Closed UV sphere (two pole vertices, n_theta - 1 rings of n_phi),
+    wound counter-clockwise seen from outside; 2 * n_phi * (n_theta - 1)
+    triangles.  With amp > 0 the unit radius is scaled by 1 + amp * (a
+    seeded sum of n_waves sinusoids of low frequency along random
+    directions).  Returns (positions [V, 3] f32, indices [T, 3] u32)."""
+    theta = np.pi * np.arange(1, n_theta) / n_theta  # ring polar angles
+    phi = 2.0 * np.pi * np.arange(n_phi) / n_phi
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    ring = np.stack(
+        [st * np.cos(phi)[None], ct * np.ones_like(phi)[None], st * np.sin(phi)[None]],
+        axis=-1,
+    ).reshape(-1, 3)
+    dirs = np.concatenate([[[0.0, 1.0, 0.0]], ring, [[0.0, -1.0, 0.0]]])
+    if amp > 0.0:
+        rng = np.random.default_rng(seed)
+        axes = rng.normal(size=(n_waves, 3))
+        axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+        freq = rng.uniform(2.0, 5.0, n_waves)
+        phase = rng.uniform(0.0, 2.0 * np.pi, n_waves)
+        weight = rng.uniform(0.5, 1.0, n_waves)
+        waves = np.sin(freq[None] * (dirs @ axes.T) + phase[None]) * weight[None]
+        dirs = dirs * (1.0 + amp * waves.sum(axis=-1) / weight.sum())[:, None]
+
+    def vid(ring_i, j):  # vertex id of ring ring_i (0-based), column j
+        return 1 + ring_i * n_phi + (j % n_phi)
+
+    south = 1 + (n_theta - 1) * n_phi
+    tris = []
+    for j in range(n_phi):
+        tris.append([0, vid(0, j + 1), vid(0, j)])
+        for i in range(n_theta - 2):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j), vid(i + 1, j + 1)
+            tris += [[a, b, d], [a, d, c]]
+        tris.append([south, vid(n_theta - 2, j), vid(n_theta - 2, j + 1)])
+    return dirs.astype(np.float32), np.asarray(tris, np.uint32)
+
+
+def bunny_standin(seed=0, n_phi=264, n_theta=132):
+    """The displaced sphere at the bunny's place and size."""
+    pos, idx = uv_sphere(n_phi, n_theta, seed=seed, amp=0.35)
+    pos = pos / np.abs(pos).max() * STANDIN_RADIUS + np.asarray(STANDIN_CENTER)
+    return pos.astype(np.float32), idx
+
+
+def write_ply(path, positions, indices, normals=None, texcoords=None,
+              fmt="binary_little_endian"):
+    """PLY writer: float vertex properties (x y z [nx ny nz] [u v]) and
+    uchar-counted int face lists; fmt is "ascii" or a binary format."""
+    cols = [positions]
+    props = ["x", "y", "z"]
+    if normals is not None:
+        cols.append(normals)
+        props += ["nx", "ny", "nz"]
+    if texcoords is not None:
+        cols.append(texcoords)
+        props += ["u", "v"]
+    verts = np.concatenate(cols, axis=1).astype(np.float32)
+    header = (
+        f"ply\nformat {fmt} 1.0\ncomment seeded test mesh\n"
+        f"element vertex {len(verts)}\n"
+        + "".join(f"property float {p}\n" for p in props)
+        + f"element face {len(indices)}\n"
+        "property list uchar int vertex_indices\nend_header\n"
+    )
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        if fmt == "ascii":
+            for row in verts:
+                f.write((" ".join(repr(float(x)) for x in row) + "\n").encode())
+            for tri in indices:
+                f.write(("3 " + " ".join(str(int(i)) for i in tri) + "\n").encode())
+            return
+        end = {"binary_little_endian": "<", "binary_big_endian": ">"}[fmt]
+        f.write(verts.astype(end + "f4").tobytes())
+        faces = np.zeros(len(indices), np.dtype([("n", "u1"), ("i", end + "i4", 3)]))
+        faces["n"] = 3
+        faces["i"] = indices
+        f.write(faces.tobytes())
+
+
+def bunny_scene_xml(ply_path, width=None, height=None):
+    """scenes/bunny.xml reading `ply_path` in place of bunny.ply,
+    optionally at another film size."""
+    with open(BUNNY_XML) as f:
+        xml = f.read()
+    # the one file name in the scene is its mesh's
+    xml, n = re.subn(r'(<string name="filename" value=")[^"]*(")',
+                     lambda m: m.group(1) + ply_path + m.group(2), xml)
+    if n != 1:
+        raise ValueError(f"{BUNNY_XML} names {n} files, expected its one mesh")
+    if width is not None:
+        xml = xml.replace('name="width" value="512"', f'name="width" value="{width}"')
+        xml = xml.replace('name="height" value="512"', f'name="height" value="{height}"')
+    return xml
