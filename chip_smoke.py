@@ -18,9 +18,20 @@ Phases, each of which raises (and exits non-zero) on failure:
      configuration) with 262,144 camera rays and 262,144 random
      incoherent rays: K3 exactly equal, K4/K7 prim equal and t within
      1 ulp, K4/K8 occlusion equal; also the natural overflow share;
-3. render through load_scene -> render on the card, each with the launch
-   counters set to 0 just before and read just after, and fail unless
-   every kernel of the path launched:
+   * K5/K6/K9/K10 (cluster_stream.cu) on the dense stand-in (870,480
+     triangles, 9,856 clusters) with the same two ray sets: K5 exactly
+     equal, K6 closest/any as K4; K9/K10 on a seeded subset of 16,384
+     rays of each set (the plain walk is slow at 9,856 clusters, and the
+     fallback's batches are of that order), the kernels also timed on
+     all rays; also the natural overflow share at K = 3, KS = 8, and K4
+     on the cluster lists K6 takes (equal results), timed beside K6;
+   each kernel's time beside its bound (the larger of its operations
+   over the card's FP32 rate and its bytes over the memory rate, from
+   this run's inputs, counting only the real triangles of padded
+   tables: see `bound`);
+3. render through load_scene -> pack_scene -> render on the card, each
+   with the launch counters set to 0 just before the render and read just
+   after, and fail unless every kernel of the path launched:
    * scenes/cbox.xml at 64x64, 16 spp, seed 0 against
      tests/golden/cbox_64_16.npy (tone-mapped RMSE < 5e-3): K1/K2;
    * the stand-in at 64x64, 16 spp, seed 0 against
@@ -28,9 +39,13 @@ Phases, each of which raises (and exits non-zero) on failure:
      tests/make_torch_bigmesh_golden.py; RMSE < 5e-3): K3/K4/K7/K8.  If
      no ray overflows its cluster list, the render is repeated with K = 1
      so that the fallback K7/K8 runs;
+   * the dense stand-in at 64x64, 16 spp, seed 0 against
+     tests/golden/torch_densemesh_64_16.npy (RMSE < 5e-3): K5/K6/K9/K10,
+     and none of K3/K4/K7/K8 (the dispatch); K = KS = 1 again if the
+     fallback did not run; with its pack time and peak device memory;
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
-   for the Cornell box and for the stand-in.
+   for the Cornell box and for both stand-ins.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -48,9 +63,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CBOX = os.path.join(HERE, "scenes", "cbox.xml")
 GOLDEN = os.path.join(HERE, "tests", "golden", "cbox_64_16.npy")
 BIGMESH_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_bigmesh_64_16.npy")
+DENSE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_densemesh_64_16.npy")
 STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
+DENSE_PLY = os.path.join(HERE, "build", "dense_standin.ply")
 SOURCES = {"brute_hit": "mitsuba_tpu_torch/csrc/brute_hit.cu",
-           "cluster_hit": "mitsuba_tpu_torch/csrc/cluster_hit.cu"}
+           "cluster_hit": "mitsuba_tpu_torch/csrc/cluster_hit.cu",
+           "cluster_stream": "mitsuba_tpu_torch/csrc/cluster_stream.cu"}
 # (wrapper, kernel source, TPU kernel replaced)
 KERNELS = (
     ("closest_hit_v2", "brute_hit", "mitsuba_tpu/accel/pallas_kernels.py:434"),
@@ -60,10 +78,27 @@ KERNELS = (
     ("pair_hit_any", "cluster_hit", "mitsuba_tpu/accel/pairs.py:821"),
     ("cluster_traverse_closest", "cluster_hit", "mitsuba_tpu/accel/pallas_bvh.py:122"),
     ("cluster_traverse_any", "cluster_hit", "mitsuba_tpu/accel/pallas_bvh.py:189"),
+    ("two_level_cull", "cluster_stream", "mitsuba_tpu/accel/pairs.py:310"),
+    ("window_hit_closest", "cluster_stream", "mitsuba_tpu/accel/pairs.py:666"),
+    ("window_hit_any", "cluster_stream", "mitsuba_tpu/accel/pairs.py:666"),
+    ("cluster_stream_closest", "cluster_stream", "mitsuba_tpu/accel/pallas_bvh.py:222"),
+    ("cluster_stream_any", "cluster_stream", "mitsuba_tpu/accel/pallas_bvh.py:333"),
 )
 THROUGHPUT_SPP_CHUNK = 16
 THROUGHPUT_PASSES = 2
 N_RAYS = 262_144
+N_STREAM_SUBSET = 16_384  # rays of the K9/K10 vs plain comparison
+# the card's published peaks (H100 SXM, NVIDIA's data sheet): FP32 outside
+# the tensor cores, and HBM3
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations of one test, counted from the kernels' expressions
+# (csrc/ray_tri.cuh): Moller-Trumbore 53, a slab test 25
+MT_OPS = 53
+SLAB_OPS = 25
+# padding columns of the triangle tables hold the far triangle (v0 = 1e30),
+# which no ray hits: the bounds count only the triangles below this
+FAR_V0 = 1e29
 
 
 def check(cond, msg):
@@ -100,12 +135,25 @@ def ulp_diff_max(a, b):
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
-def record(stats, name, shape, err, kern, plain, extra=""):
-    ms, plain_ms = time_ms(kern), time_ms(plain)
-    stats.append({"name": name, "shape": shape, "max_abs_err": err,
-                  "ms": ms, "plain_ms": plain_ms})
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops, n_bytes):
+    """(least ms, what bounds it): the larger of the operations over the
+    FP32 rate and the bytes (inputs read once, outputs written once) over
+    the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def record(stats, name, shape, err, kern, plain, ops, n_bytes, extra="", plain_reps=20):
+    ms, plain_ms = time_ms(kern), time_ms(plain, plain_reps)
+    bound_ms, bound_by = bound(ops, n_bytes)
+    stats.append({"name": name, "shape": shape, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
     print(f"  {name:24s} {shape:28s} max|err|={err:g} kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms {extra}", flush=True)
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) {extra}", flush=True)
 
 
 def check_hits(name, kernel_out, plain_out):
@@ -127,19 +175,86 @@ def compare_brute(pk, name, o, d, t_max, tri_s, stats):
     """K1 or K2 against its plain version at one shape."""
     import torch
 
-    shape = f"rays={o.shape[0]} Tp={tri_s.shape[1]}"
+    r, tp = o.shape[0], tri_s.shape[1]
+    n_tri = int((tri_s[0] < FAR_V0).sum())  # the real triangles of the Tp columns
+    shape = f"rays={r} Tp={tp}"
     if name == "closest_hit_v2":
-        err, frac = check_hits(name, pk.closest_hit_v2(o, d, t_max, tri_s),
-                               pk.closest_hit_plain(o, d, t_max, tri_s))
+        out = pk.closest_hit_v2(o, d, t_max, tri_s)
+        err, frac = check_hits(name, out, pk.closest_hit_plain(o, d, t_max, tri_s))
         kern = lambda: pk.closest_hit_v2(o, d, t_max, tri_s)  # noqa: E731
         plain = lambda: pk.closest_hit_plain(o, d, t_max, tri_s)  # noqa: E731
+        tests = r * n_tri  # every triangle, to prove none is nearer
     else:
-        a1, a2 = pk.any_hit_v2(o, d, t_max, tri_s), pk.any_hit_plain(o, d, t_max, tri_s)
+        out = a1 = pk.any_hit_v2(o, d, t_max, tri_s)
+        a2 = pk.any_hit_plain(o, d, t_max, tri_s)
         check(torch.equal(a1, a2), f"{name}: occlusion differs on {int((a1 != a2).sum())} rays")
         err, frac = 0.0, float(a1.float().mean())
         kern = lambda: pk.any_hit_v2(o, d, t_max, tri_s)  # noqa: E731
         plain = lambda: pk.any_hit_plain(o, d, t_max, tri_s)  # noqa: E731
-    record(stats, name, shape, err, kern, plain, f"hit={frac:.3f}")
+        n_occ = int(a1.sum())  # an occluded ray needs one test at least
+        tests = (r - n_occ) * n_tri + n_occ
+    record(stats, name, shape, err, kern, plain, tests * MT_OPS,
+           nbytes(o, d, t_max, tri_s, *out), f"hit={frac:.3f}")
+
+
+def cluster_sizes(pack):
+    """[C] i64: the real triangles of each cluster's Tc slots."""
+    tc = pack.meta["cluster_tc"]
+    return (pack.cl_tri[0] < FAR_V0).reshape(-1, tc).sum(1)
+
+
+def pair_tests(cids, sizes, occ=None):
+    """Moller-Trumbore tests the (ray, slot) pairs need at least: a
+    closest-hit pair tests its cluster's real triangles; an occluded pair
+    one."""
+    import torch
+
+    c = sizes.numel()
+    valid = cids < c
+    n = torch.where(valid, sizes[cids.clamp(max=c - 1).long()], 0)
+    if occ is not None:
+        n = torch.where(valid & occ, 1, n)
+    return int(n.sum())
+
+
+def walk_ops(r, sizes, tc, slot=None, occ=None):
+    """Operations a per-ray cluster walk needs at least: closest, every
+    ray slab-tests every cluster and a ray with a hit tests its cluster's
+    real triangles; any, an unoccluded ray slab-tests every cluster and an
+    occluded one tests a box and a triangle."""
+    c = sizes.numel()
+    if occ is None:
+        hit = slot >= 0
+        return r * c * SLAB_OPS + int(sizes[(slot[hit] // tc).long()].sum()) * MT_OPS
+    n_occ = int(occ.sum())
+    return (r - n_occ) * c * SLAB_OPS + n_occ * (SLAB_OPS + MT_OPS)
+
+
+def compare_walks(pb, label, closest, stream, args, sizes, stats, plain_reps=20):
+    """K7/K8 (stream False) or K9/K10 against the plain walk on args =
+    (o, d, t_max, cl_box, cl_tri, tc); sizes: cluster_sizes."""
+    import torch
+
+    c, tc = sizes.numel(), args[5]
+    kind = "closest" if closest else "any"
+    name = f"cluster_{'stream' if stream else 'traverse'}_{kind}"
+    kern, plain = getattr(pb, name), getattr(pb, f"{name}_plain")
+    r = args[0].shape[0]
+    shape = f"{label} rays={r} C={c}"
+    out = kern(*args)
+    if closest:
+        err, frac = check_hits(name, out, plain(*args))
+        ops = walk_ops(r, sizes, tc, slot=out[1])
+    else:
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"{name}: occlusion differs")
+        err, frac = 0.0, float(out.float().mean())
+        ops = walk_ops(r, sizes, tc, occ=out)
+    outs = out if closest else (out,)
+    record(stats, name, shape, err, lambda: kern(*args), lambda: plain(*args), ops,
+           nbytes(*args[:5], *outs), f"{'hit' if closest else 'occluded'}={frac:.3f}",
+           plain_reps=plain_reps)
 
 
 def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
@@ -149,10 +264,12 @@ def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
     import torch
 
     c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    sizes = cluster_sizes(pack)
     kk = min(pairs.K, c)
-    t_big = torch.full((o.shape[0],), pairs.BIG, device=o.device)
+    r = o.shape[0]
+    t_big = torch.full((r,), pairs.BIG, device=o.device)
     tri, box, mbox, p2p = pack.cl_tri, pack.cl_box, pack.cl_mbox, pack.cl_pad2prim
-    shape = f"{label} rays={o.shape[0]} C={c}"
+    shape = f"{label} rays={r} C={c}"
 
     k3 = pairs.dense_cull(o, d, t_big, mbox, c, kk)
     p3 = pairs.dense_cull_plain(o, d, t_big, mbox, c, kk)
@@ -164,19 +281,18 @@ def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
     record(stats, "dense_cull", shape, 0.0,
            lambda: pairs.dense_cull(o, d, t_big, mbox, c, kk),
            lambda: pairs.dense_cull_plain(o, d, t_big, mbox, c, kk),
+           r * c * SLAB_OPS, nbytes(o, d, t_big, mbox.reshape(-1, 6)[:c], *k3),
            f"clusters hit/ray={float(n_cl.mean()):.3f}")
 
     args = (o, d, t_big, cids, tri, p2p, c, tc)
-    err, frac = check_hits("pair_hit_closest", pairs.pair_hit_closest(*args),
-                           pairs.pair_hit_closest_plain(*args))
+    out = pairs.pair_hit_closest(*args)
+    err, frac = check_hits("pair_hit_closest", out, pairs.pair_hit_closest_plain(*args))
     record(stats, "pair_hit_closest", shape, err,
            lambda: pairs.pair_hit_closest(*args),
-           lambda: pairs.pair_hit_closest_plain(*args), f"slot hit={frac:.3f}")
-    best_t, *_ = pairs.pair_closest(pack, o, d, t_big)
-    _, _, ov = pairs._cluster_lists_dense(pack, o, d, t_big)
-    n_ov = int(pairs._overflow(ov, best_t).sum())
-    print(f"  natural overflow ({label}, K={kk}): {n_ov} of {o.shape[0]} rays "
-          f"({n_ov / o.shape[0]:.4%})", flush=True)
+           lambda: pairs.pair_hit_closest_plain(*args),
+           pair_tests(cids, sizes) * MT_OPS, nbytes(o, d, t_big, cids, tri, p2p, *out),
+           f"slot hit={frac:.3f}")
+    overflow_share(pairs, pack, o, d, t_big, label)
 
     k4a = pairs.pair_hit_any(o, d, t_any, cids, tri, c, tc)
     p4a = pairs.pair_hit_any_plain(o, d, t_any, cids, tri, c, tc)
@@ -185,44 +301,129 @@ def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
     record(stats, "pair_hit_any", shape, 0.0,
            lambda: pairs.pair_hit_any(o, d, t_any, cids, tri, c, tc),
            lambda: pairs.pair_hit_any_plain(o, d, t_any, cids, tri, c, tc),
+           pair_tests(cids, sizes, k4a) * MT_OPS, nbytes(o, d, t_any, cids, tri, k4a),
            f"occluded={float(k4a.float().mean()):.3f}")
 
-    targs = (o, d, t_big, box, tri, tc)
-    err, frac = check_hits("cluster_traverse_closest", pb.cluster_traverse_closest(*targs),
-                           pb.cluster_traverse_closest_plain(*targs))
-    record(stats, "cluster_traverse_closest", shape, err,
-           lambda: pb.cluster_traverse_closest(*targs),
-           lambda: pb.cluster_traverse_closest_plain(*targs), f"hit={frac:.3f}")
-    aargs = (o, d, t_any, box, tri, tc)
-    k8, p8 = pb.cluster_traverse_any(*aargs), pb.cluster_traverse_any_plain(*aargs)
+    compare_walks(pb, label, True, False, (o, d, t_big, box, tri, tc), sizes, stats)
+    compare_walks(pb, label, False, False, (o, d, t_any, box, tri, tc), sizes, stats)
+
+
+def overflow_share(pairs, pack, o, d, t_big, label):
+    """The share of rays whose cluster lists overflow in pair_closest."""
+    pairs.pair_closest.rays = pairs.pair_closest.overflow_rays = 0
+    pairs.pair_closest(pack, o, d, t_big)
+    n_ov, n = pairs.pair_closest.overflow_rays, pairs.pair_closest.rays
+    print(f"  natural overflow ({label}, K={pairs.K}, KS={pairs.KS}): {n_ov} of {n} rays "
+          f"({n_ov / n:.4%})", flush=True)
+
+
+def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
+    """K5, K6 (closest, any), K9 and K10 against their plain versions on
+    one ray set of the dense stand-in; K9/K10 on a seeded subset, and
+    timed on all rays too."""
+    import numpy as np
+    import torch
+
+    m = pack.meta
+    c, tc, s, g = m["n_clusters"], m["cluster_tc"], m["n_supers"], m["cluster_super_g"]
+    ks = min(pairs.KS, s)
+    kk = min(pairs.K, ks * g)
+    r = o.shape[0]
+    t_big = torch.full((r,), pairs.BIG, device=o.device)
+    tri, box, sup, mbox, p2p = pack.cl_tri, pack.cl_box, pack.cl_sup, pack.cl_mbox, pack.cl_pad2prim
+    sizes = cluster_sizes(pack)
+    shape = f"{label} rays={r} C={c}"
+
+    cull_args = (o, d, t_big, sup, mbox, s, c, ks, kk)
+    k5 = pairs.two_level_cull(*cull_args)
+    p5 = pairs.two_level_cull_plain(*cull_args)
     torch.cuda.synchronize()
-    check(torch.equal(k8, p8), "cluster_traverse_any: occlusion differs")
-    record(stats, "cluster_traverse_any", shape, 0.0,
-           lambda: pb.cluster_traverse_any(*aargs),
-           lambda: pb.cluster_traverse_any_plain(*aargs),
-           f"occluded={float(k8.float().mean()):.3f}")
+    for a, b, what in zip(k5, p5, ("cid", "entry", "n_sup", "kept_max_sup", "n_cl", "kept_max_cl")):
+        check(torch.equal(a, b), f"two_level_cull: {what} differs on {int((a != b).sum())} values")
+    cids, n_sup = k5[0], k5[2]
+    slabs = r * s + int(torch.clamp(n_sup, max=ks).sum()) * g
+    record(stats, "two_level_cull", shape, 0.0,
+           lambda: pairs.two_level_cull(*cull_args), lambda: pairs.two_level_cull_plain(*cull_args),
+           slabs * SLAB_OPS, nbytes(o, d, t_big, sup, mbox, *k5),
+           f"supers hit/ray={float(n_sup.float().mean()):.3f} "
+           f"clusters hit/ray={float(k5[4].float().mean()):.3f}")
+
+    queue = pairs.pair_queue(cids)
+    args = (o, d, t_big, *queue, kk, tri, p2p, c, tc)
+    out = pairs.window_hit_closest(*args)
+    err, frac = check_hits("window_hit_closest", out, pairs.window_hit_closest_plain(*args))
+    record(stats, "window_hit_closest", shape, err,
+           lambda: pairs.window_hit_closest(*args), lambda: pairs.window_hit_closest_plain(*args),
+           pair_tests(cids, sizes) * MT_OPS, nbytes(o, d, t_big, *queue, tri, p2p, *out),
+           f"slot hit={frac:.3f} queue sort {time_ms(lambda: pairs.pair_queue(cids)):.4f} ms")
+    k4_beside_k6(pairs, "pair_hit_closest", out, stats[-1]["ms"], shape,
+                 (o, d, t_big, cids, tri, p2p, c, tc))
+    overflow_share(pairs, pack, o, d, t_big, label)
+
+    args = (o, d, t_any, *queue, kk, tri, c, tc)
+    k6a = pairs.window_hit_any(*args)
+    p6a = pairs.window_hit_any_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(k6a, p6a), "window_hit_any: occlusion differs")
+    record(stats, "window_hit_any", shape, 0.0,
+           lambda: pairs.window_hit_any(*args), lambda: pairs.window_hit_any_plain(*args),
+           pair_tests(cids, sizes, k6a) * MT_OPS, nbytes(o, d, t_any, *queue, tri, k6a),
+           f"occluded={float(k6a.float().mean()):.3f}")
+    k4_beside_k6(pairs, "pair_hit_any", (k6a,), stats[-1]["ms"], shape,
+                 (o, d, t_any, cids, tri, c, tc))
+
+    sub = torch.as_tensor(np.sort(rng.choice(r, N_STREAM_SUBSET, replace=False)), device=o.device)
+    o_s, d_s = o[sub].contiguous(), d[sub].contiguous()
+    sub_label = f"{label} subset"
+    compare_walks(pb, sub_label, True, True, (o_s, d_s, t_big[sub].contiguous(), box, tri, tc),
+                  sizes, stats, plain_reps=3)
+    compare_walks(pb, sub_label, False, True, (o_s, d_s, t_any[sub].contiguous(), box, tri, tc),
+                  sizes, stats, plain_reps=3)
+    for name, tm in (("cluster_stream_closest", t_big), ("cluster_stream_any", t_any)):
+        fn = getattr(pb, name)
+        print(f"  {name:24s} {shape:28s} kernel {time_ms(lambda: fn(o, d, tm, box, tri, tc), 5):.4f} ms "
+              f"(all rays)", flush=True)
+
+
+def k4_beside_k6(pairs, name, k6_out, k6_ms, shape, args):
+    """K4 (the per-pair kernel, which reads each pair's cluster from L2
+    or memory) on the cluster lists K6 just took from the sorted queue:
+    the same per-slot results, and both times, to weigh the window
+    design on this mesh."""
+    import torch
+
+    fn = getattr(pairs, name)
+    out = fn(*args)
+    out = out if isinstance(out, tuple) else (out,)
+    torch.cuda.synchronize()
+    for a, b in zip(out, k6_out):
+        check(torch.equal(a, b), f"{name} differs from the window kernel on the same lists")
+    print(f"  {name + ' (K4)':24s} {shape:28s} on K6's lists: kernel {time_ms(lambda: fn(*args)):.4f} ms, "
+          f"K6 {k6_ms:.4f} ms", flush=True)
 
 
 def counters(pk, pairs, pb):
-    return {"closest_hit_v2": pk.closest_hit_v2, "any_hit_v2": pk.any_hit_v2,
-            "dense_cull": pairs.dense_cull, "pair_hit_closest": pairs.pair_hit_closest,
-            "pair_hit_any": pairs.pair_hit_any,
-            "cluster_traverse_closest": pb.cluster_traverse_closest,
-            "cluster_traverse_any": pb.cluster_traverse_any}
+    """Each kernel's wrapper (and launch counter) by name."""
+    return {name: getattr(mod, name) for mod in (pk, pairs, pb) for name, _, _ in KERNELS
+            if hasattr(mod, name)}
 
 
-def render_checked(mt, counted, scene, golden_path, dev, label):
+def render_checked(mt, counted, scene, golden_path, dev, label, pack=None):
     """Render at 64x64, 16 spp, seed 0 with the given launch counters set
     to 0 just before; check finiteness and the golden gate.  Returns the
     launches."""
     import numpy as np
+    import torch
 
     for fn in counted.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    img = mt.render(scene, spp=16, seed=0, device=dev)
+    img = mt.render(scene, spp=16, seed=0, device=dev, pack=pack)
     render_s = time.time() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"  {label}: peak device memory of the render "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     golden = np.load(golden_path)
     check(img.shape == golden.shape, f"{label}: image shape {img.shape} != {golden.shape}")
     check(bool(np.isfinite(img).all()), f"{label}: image has non-finite values")
@@ -303,7 +504,7 @@ def main():
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
     sys.path.append(os.path.join(HERE, "tests"))
-    from torch_meshes import bunny_scene_xml, bunny_standin, write_ply
+    from torch_meshes import bunny_scene_xml, bunny_standin, dense_standin, write_ply
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # camera transforms in full fp32
@@ -368,8 +569,23 @@ def main():
                                    device=dev)
     d_r = rng.normal(size=(N_RAYS, 3)).astype(np.float32)
     d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
-    compare_cluster(pairs, pb, "random", big_pack, o_r.contiguous(),
-                    torch.as_tensor(d_r, device=dev), t_any, stats)
+    o_r, d_r = o_r.contiguous(), torch.as_tensor(d_r, device=dev)
+    compare_cluster(pairs, pb, "random", big_pack, o_r, d_r, t_any, stats)
+
+    write_ply(DENSE_PLY, *dense_standin(seed=0))
+    dense = mt.load_scene_string(bunny_scene_xml(DENSE_PLY))  # 512x512
+    t0 = time.time()
+    dense_pack = pack_scene(dense, dev)
+    dense_pack_s = time.time() - t0
+    dm = dense_pack.meta
+    print(f"  dense stand-in mesh: {len(dense.shapes[0].meshes[0].indices)} triangles, "
+          f"C = {dm['n_clusters']} clusters, S = {dm['n_supers']} superclusters "
+          f"(cluster_vmem_ok={dm['cluster_vmem_ok']}), packed in {dense_pack_s:.2f} s", flush=True)
+    check(dm["n_clusters"] > pairs.DENSE_C and not dm["cluster_vmem_ok"],
+          "the dense stand-in does not take the dense-mesh path")
+    o, d = camera_rays(dense, dev)
+    compare_dense(pairs, pb, "camera", dense_pack, o, d, t_any, stats, rng)
+    compare_dense(pairs, pb, "random", dense_pack, o_r, d_r, t_any, stats, rng)
 
     # ---- phase 3: the slices on the card, through the kernels ----
     counted = counters(pk, pairs, pb)
@@ -395,15 +611,41 @@ def main():
                                       big64, BIGMESH_GOLDEN, dev, "stand-in (K=1)")
         pairs.K = natural_k
     launches.update(big_launches)
+
+    dense64 = mt.load_scene_string(bunny_scene_xml(DENSE_PLY, 64, 64))
+    stream_names = [k for k, src, _ in KERNELS if src == "cluster_stream"]
+    dense_counted = {k: counted[k] for k in cluster_names + stream_names}
+    print(f"  dense stand-in: pack_scene {dense_pack_s:.2f} s (phase 2; the pack does "
+          f"not depend on the film size)", flush=True)
+    for fn in (pairs.pair_closest, pairs.pair_any):
+        fn.rays = fn.overflow_rays = 0
+    dense_launches = render_checked(mt, dense_counted, dense64, DENSE_GOLDEN, dev,
+                                    "dense stand-in", pack=dense_pack)
+    for fn in (pairs.pair_closest, pairs.pair_any):
+        print(f"  {fn.__name__}: {fn.overflow_rays} of {fn.rays} rays overflowed "
+              f"(K={pairs.K}, KS={pairs.KS}) and took the fallback", flush=True)
+    if not (dense_launches["cluster_stream_closest"] and dense_launches["cluster_stream_any"]):
+        natural = pairs.K, pairs.KS
+        pairs.K = pairs.KS = 1
+        print(f"  the fallback did not run at K, KS = {natural}; again with K = KS = 1", flush=True)
+        dense_launches = render_checked(mt, dense_counted, dense64, DENSE_GOLDEN, dev,
+                                        "dense stand-in (K = KS = 1)", pack=dense_pack)
+        pairs.K, pairs.KS = natural
+    for k in cluster_names:  # the dispatch: none of the big-mesh kernels
+        check(dense_launches[k] == 0, f"the dense render launched {k}")
+    launches.update({k: dense_launches[k] for k in stream_names})
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
     # ---- phase 4: throughput at 512x512 ----
     throughput(make_render_pass, new_film, pack, scene, dev, "cbox", card)
     throughput(make_render_pass, new_film, big_pack, big, dev, "bigmesh-standin", card)
+    throughput(make_render_pass, new_film, dense_pack, dense, dev, "densemesh-standin", card)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, the
-    # stand-in's camera rays for the others
+    # stand-ins' camera rays for the others (K9/K10: the seeded subset);
+    # no single PyTorch call computes any of these functions, so no
+    # library time
     first = {}
     for s in stats:
         first.setdefault(s["name"], s)
@@ -418,6 +660,9 @@ def main():
             "max_abs_err": max(s["max_abs_err"] for s in stats if s["name"] == name),
             "ms": first[name]["ms"],
             "plain_ms": first[name]["plain_ms"],
+            "bound_ms": first[name]["bound_ms"],
+            "bound_by": first[name]["bound_by"],
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

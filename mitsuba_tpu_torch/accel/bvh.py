@@ -6,10 +6,10 @@ Layout: nodes in depth-first order.  For node i:
 * miss -> continue at skip[i]
 * leaf -> test prims [first, first+count), then continue at skip[i]
 
-`build_bvh` runs the reference's C++ builder (mitsuba_tpu/native/
-bvh_builder.cpp, compiled by `native.load_host`), so the port and the
-reference pack the same tree; without a C++ compiler it falls back to
-the numpy builder, as the reference does.
+`build_bvh` runs the port's copy of the reference's C++ builder
+(csrc/host/bvh_builder.cpp, compiled by `native.load_host`), so the port
+and the reference pack the same tree; without a C++ compiler it falls
+back to the numpy builder, as the reference does.
 """
 
 from __future__ import annotations
@@ -116,7 +116,7 @@ def _declare_bvh(lib):
 
 
 def _build_bvh_native(centroids, prim_lo, prim_hi) -> BVH | None:
-    """The reference's C++ binned-SAH builder; None if it cannot be built."""
+    """The C++ binned-SAH builder; None if it cannot be built."""
     lib = native.load_host("bvh", "bvh_builder.cpp", _declare_bvh)
     if lib is None:
         return None

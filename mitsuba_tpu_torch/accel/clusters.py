@@ -5,18 +5,23 @@ big-mesh path reads).
 Host-side output (numpy, packed into the ScenePack):
 * cl_tri   [9, C*Tc] f32 - per-cluster padded triangle tiles (v0, e1, e2
   rows; padding slots hold the builder's far triangle, never hit); read
-  by K4 and K7/K8
+  by K4, K6 and K7-K10
 * cl_box   [8, Cp] f32 - cluster AABB lo(3)/hi(3) (+2 zero rows);
-  padded clusters get inverted boxes; read by K7/K8
+  padded clusters get inverted boxes; read by K7-K10
+* cl_sup   [8, Sp] f32 - supercluster boxes, the unions of SUPER_G
+  consecutive clusters (same layout; padded supers are inverted boxes,
+  which K5 masks by row index); read by K5
 * cl_mbox  [Sp, G*6] f32 - the cluster boxes again, in supercluster
-  rows of G members; padded members are point boxes at 1e30; read by K3
-* cl_pad2prim [C*Tc] i32 - padded slot -> triangle id; read by K4, K7/K8
+  rows of G members; padded members are point boxes at 1e30; read by
+  K3 and K5
+* cl_pad2prim [C*Tc] i32 - padded slot -> triangle id; read by K4, K6,
+  K7-K10
 
 The reference also packs tables that only its TPU kernels read: the
 bilinear Moller-Trumbore operand `cl_mt` and its f32 prim-id rows
-`cl_primf` (K4's MXU form; the port's K4 runs Moller-Trumbore on cl_tri
-and reads cl_pad2prim), the supercluster boxes `cl_sup` (the two-level
-cull K5) and the cluster spheres `cl_sph` (the cone prepass).
+`cl_primf` (the MXU form of K4/K6/K9/K10; the port's kernels run
+Moller-Trumbore on cl_tri and read cl_pad2prim) and the cluster spheres
+`cl_sph` (the cone prepass).
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ SUPER_G = 16  # clusters per supercluster row of cl_mbox
 # the reference keeps cl_tri resident in a 6 MiB VMEM budget; beyond it
 # (cluster_vmem_ok false) its fallback is K9/K10, not K7/K8
 CLUSTER_VMEM_MAX = 6 * 1024 * 1024
+# the reference's HBM budget for its streamed per-cluster MT operands
+# (C * Tc * 256 bytes); past it the reference packs no clusters and walks
+# the BVH with XLA, which the port does not render
+CLUSTER_HBM_MAX = 768 * 1024 * 1024
 
 
 def cut_clusters(bvh, tc: int = CLUSTER_TC):
@@ -66,11 +75,12 @@ def cut_clusters(bvh, tc: int = CLUSTER_TC):
 
 def pack_clusters(bvh, tri_v0, tri_e1, tri_e2, n_tris, tc: int = CLUSTER_TC):
     """Cluster arrays and meta for the big-mesh kernels, or None for an
-    empty BVH.  tri_* are the BVH-ordered triangle tables, padded with the
-    far triangle at index n_tris."""
+    empty BVH or one past CLUSTER_HBM_MAX (where the reference's
+    pack_clusters returns None).  tri_* are the BVH-ordered triangle
+    tables, padded with the far triangle at index n_tris."""
     first, cnt, lo, hi = cut_clusters(bvh, tc)
     c = len(first)
-    if c == 0:
+    if c == 0 or c * tc * 256 > CLUSTER_HBM_MAX:
         return None
     cp = max(((c + 7) // 8) * 8, 8)
 
@@ -89,8 +99,16 @@ def pack_clusters(bvh, tri_v0, tri_e1, tri_e2, n_tris, tc: int = CLUSTER_TC):
     cl_box[0:3, :c] = lo.T
     cl_box[3:6, :c] = hi.T
 
+    # super si covers cluster ids [si*G, (si+1)*G)
     s = (c + SUPER_G - 1) // SUPER_G
     sp = max(((s + 7) // 8) * 8, 8)
+    cl_sup = np.zeros((8, sp), np.float32)
+    cl_sup[0:3, :] = 1e30
+    cl_sup[3:6, :] = -1e30
+    for si in range(s):
+        seg = slice(si * SUPER_G, min((si + 1) * SUPER_G, c))
+        cl_sup[0:3, si] = lo[seg].min(axis=0)
+        cl_sup[3:6, si] = hi[seg].max(axis=0)
     cl_mbox = np.full((sp * SUPER_G, 6), 1e30, np.float32)
     cl_mbox[:c, 0:3] = lo
     cl_mbox[:c, 3:6] = hi
@@ -98,6 +116,7 @@ def pack_clusters(bvh, tri_v0, tri_e1, tri_e2, n_tris, tc: int = CLUSTER_TC):
     return {
         "cl_tri": cl_tri,
         "cl_box": cl_box,
+        "cl_sup": cl_sup,
         "cl_mbox": cl_mbox.reshape(sp, SUPER_G * 6),
         "cl_pad2prim": tri_idx.astype(np.int32),
     }, {

@@ -1,6 +1,7 @@
 """Per-ray cluster traversal: the pair pipeline's overflow fallback (port
 of mitsuba_tpu/accel/pallas_bvh.py `cluster_closest` / `cluster_any`,
-kernels K7 `_closest_kernel` and K8 `_any_kernel`).
+kernels K7 `_closest_kernel` / K8 `_any_kernel` and K9
+`_mxu_closest_kernel` / K10 `_mxu_any_kernel`).
 
 The reference sorts rays into coherent 1024-ray chunks, and each chunk
 visits the union of the clusters its lanes' slab tests hit, in order of
@@ -10,10 +11,18 @@ stopping once the next entry exceeds its best t (closest) or at its first
 hit (any).  The port computes exactly that walk per ray; the coherence
 sort and the cone prepass are TPU packet devices and are not ported.
 
-`cluster_traverse_closest` / `cluster_traverse_any` launch the CUDA
-kernels of csrc/cluster_hit.cu for tensors on a GPU and run their plain
-PyTorch versions for tensors on the CPU; there is no fallback from one to
-the other.  Each counts its kernel launches in `.launches`.
+As in the reference (pallas_bvh.py:583), `cluster_closest` / `cluster_any`
+take K7/K8 when the pack's triangle tiles fit the reference's VMEM budget
+(`cluster_vmem_ok`, at most 1,365 clusters of 128) and K9/K10 past it.
+K7/K8 keep every cluster box in shared memory; K9/K10 stream the boxes
+through it in tiles and have no cluster cap.  Both compute the same walk,
+so they share one plain version.
+
+`cluster_traverse_*` (K7/K8, csrc/cluster_hit.cu) and `cluster_stream_*`
+(K9/K10, csrc/cluster_stream.cu) launch their CUDA kernels for tensors on
+a GPU and run their plain PyTorch versions for tensors on the CPU; there
+is no fallback from one to the other.  Each counts its kernel launches in
+`.launches`.
 """
 
 from __future__ import annotations
@@ -27,14 +36,54 @@ from mitsuba_tpu_torch.accel.pallas_kernels import mt_test
 
 RAY_EPS = 1e-4
 BIG = 3e38
-# rays per step of the plain versions: bounds their [rays, clusters, 3]
-# temporaries (~0.6 GB each at 1k clusters)
-PLAIN_RAY_CHUNK = 1 << 16
+# bytes of one [rays, Cp, 3] f32 temporary per step of the plain versions
+# (they hold about six at once): the step is sized from it and Cp
+PLAIN_CHUNK_BYTES = 1 << 29
 
 
 # ---------------------------------------------------------------------------
-# the CUDA library (csrc/cluster_hit.cu), shared with accel/pairs.py
+# the CUDA libraries (csrc/cluster_stream.cu, csrc/cluster_hit.cu), shared
+# with accel/pairs.py
 # ---------------------------------------------------------------------------
+
+def _declare_stream(lib):
+    p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.mts_stream_limits.argtypes = [p, p, p]
+    lib.mts_two_level_cull.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                       p, p, p, p, p, p, p]
+    lib.mts_window_closest.argtypes = [p, p, p, p, p, lg, i, p, p, i, i, lg,
+                                       p, p, p, p, p]
+    lib.mts_window_any.argtypes = [p, p, p, p, p, lg, i, p, i, i, lg, p, p]
+    lib.mts_stream_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p]
+    lib.mts_stream_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p]
+    for fn in ("mts_stream_limits", "mts_two_level_cull", "mts_window_closest",
+               "mts_window_any", "mts_stream_closest", "mts_stream_any"):
+        getattr(lib, fn).restype = i
+
+
+def stream_lib():
+    return native.load("cluster_stream", _declare_stream)
+
+
+def stream_limits():
+    """(max supers, max kept supers KS, max list length K) of K5."""
+    ms, mks, mk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    stream_lib().mts_stream_limits(ctypes.byref(ms), ctypes.byref(mks), ctypes.byref(mk))
+    return ms.value, mks.value, mk.value
+
+
+def launch_stream(entry, device, *args):
+    """Launch a cluster_stream.cu entry point (see native.launch)."""
+    native.launch(stream_lib, entry, device, *args)
+
+
+def check_aligned(*named):
+    """Raise unless each (name, tensor) starts on a 16-byte boundary (the
+    cp.async copies of csrc/cluster_stream.cu)."""
+    for name, x in named:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
 
 def _declare(lib):
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
@@ -71,8 +120,10 @@ def safe_inv(d):
     return 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
 
 
-def _chunks(r):
-    return [(s, min(s + PLAIN_RAY_CHUNK, r)) for s in range(0, r, PLAIN_RAY_CHUNK)]
+def _chunks(r, cp):
+    """Ray ranges of the plain versions' steps against cp boxes."""
+    step = max(PLAIN_CHUNK_BYTES // (12 * max(cp, 1)), 1)
+    return [(s, min(s + step, r)) for s in range(0, r, step)]
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +169,7 @@ def _traverse_plain(o, d, t_max, cl_box, cl_tri, tc, closest):
     best_v = torch.zeros(r, dtype=torch.float32, device=o.device)
     occ = t_max <= 0.0
     cols = torch.arange(tc, dtype=torch.int32, device=o.device)
-    for s, e in _chunks(r):
+    for s, e in _chunks(r, cl_box.shape[1]):
         order, entry, tn_s, n_hit = _chunk_prepass(o[s:e], d[s:e], t_max[s:e], cl_box)
         running = torch.ones(e - s, dtype=torch.bool, device=o.device)
         for h in range(int(n_hit.max()) if e > s else 0):
@@ -169,6 +220,11 @@ def cluster_traverse_any_plain(o, d, t_max, cl_box, cl_tri, tc):
     """Plain K8: bool [R], some triangle hit with t in (RAY_EPS, t_max),
     or t_max <= 0 (the reference's initial occlusion)."""
     return _traverse_plain(o, d, t_max, cl_box, cl_tri, tc, closest=False)
+
+
+# K9/K10 compute K7/K8's walk with the boxes streamed: the same plain versions
+cluster_stream_closest_plain = cluster_traverse_closest_plain
+cluster_stream_any_plain = cluster_traverse_any_plain
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +283,45 @@ def cluster_traverse_any(o, d, t_max, cl_box, cl_tri, tc):
     return occ > 0
 
 
-cluster_traverse_closest.launches = 0
-cluster_traverse_any.launches = 0
+def _stream_args(o, d, t_max, cl_box, cl_tri, tc):
+    check_aligned(("cl_box", cl_box))
+    if cl_box.shape[1] % 4:
+        raise ValueError(f"cl_box must have a multiple of 4 columns, got {cl_box.shape[1]}")
+    return (o, d, t_max, cl_box, cl_tri, o.shape[0], cl_box.shape[1], tc, cl_tri.shape[1])
+
+
+def cluster_stream_closest(o, d, t_max, cl_box, cl_tri, tc):
+    """K9: K7's walk with the boxes streamed (no cluster cap); see
+    cluster_traverse_closest_plain."""
+    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
+    if o.device.type == "cpu":
+        return cluster_stream_closest_plain(o, d, t_max, cl_box, cl_tri, tc)
+    r = o.shape[0]
+    t = torch.empty(r, dtype=torch.float32, device=o.device)
+    slot = torch.empty(r, dtype=torch.int32, device=o.device)
+    u = torch.empty(r, dtype=torch.float32, device=o.device)
+    v = torch.empty(r, dtype=torch.float32, device=o.device)
+    launch_stream("mts_stream_closest", o.device,
+                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc), t, slot, u, v)
+    cluster_stream_closest.launches += 1
+    return t, slot, u, v
+
+
+def cluster_stream_any(o, d, t_max, cl_box, cl_tri, tc):
+    """K10: K8's walk with the boxes streamed; see cluster_traverse_any_plain."""
+    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
+    if o.device.type == "cpu":
+        return cluster_stream_any_plain(o, d, t_max, cl_box, cl_tri, tc)
+    occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
+    launch_stream("mts_stream_any", o.device,
+                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc), occ)
+    cluster_stream_any.launches += 1
+    return occ > 0
+
+
+for _fn in (cluster_traverse_closest, cluster_traverse_any,
+            cluster_stream_closest, cluster_stream_any):
+    _fn.launches = 0
 
 
 def finite_tmax(t_max, o):
@@ -238,14 +331,19 @@ def finite_tmax(t_max, o):
     return t_max, torch.where(torch.isfinite(t_max), t_max, BIG).contiguous()
 
 
+def _resident(pack):
+    """K7/K8 (boxes and tiles resident) or K9/K10 (streamed), as the
+    reference chooses (pallas_bvh.py:583)."""
+    return pack.meta.get("cluster_vmem_ok", True)
+
+
 def cluster_closest(pack, o, d, t_max):
     """Closest hit by per-ray cluster traversal.  Returns (t, prim, u, v)
     as accel/intersect._bvh_traverse does (t = t_max on a miss, prim = -1,
     u = v = 0)."""
     miss_t, tm = finite_tmax(t_max, o)
-    best_t, slot, u, v = cluster_traverse_closest(
-        o, d, tm, pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"]
-    )
+    walk = cluster_traverse_closest if _resident(pack) else cluster_stream_closest
+    best_t, slot, u, v = walk(o, d, tm, pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"])
     prim = torch.where(
         slot >= 0, pack.cl_pad2prim[torch.clamp(slot, min=0).long()], -1
     )
@@ -259,4 +357,5 @@ def cluster_closest(pack, o, d, t_max):
 def cluster_any(pack, o, d, t_max):
     """Boolean occlusion by per-ray cluster traversal (first hit exits)."""
     _, tm = finite_tmax(t_max, o)
-    return cluster_traverse_any(o, d, tm, pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"])
+    walk = cluster_traverse_any if _resident(pack) else cluster_stream_any
+    return walk(o, d, tm, pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"])

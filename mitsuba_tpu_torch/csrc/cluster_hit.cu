@@ -56,65 +56,15 @@
 // Each entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() of the launch.
 
-#include <cuda_runtime.h>
+#include "ray_tri.cuh"
 
 namespace {
+
+using namespace mts;
 
 constexpr int kThreads = 256;
 constexpr int kMaxClusters = 1920;  // shared-memory box capacity (46 KB)
 constexpr int kMaxK = 8;            // longest per-ray cluster list
-constexpr float kBig = 3e38f;       // the reference's BIG
-constexpr float kRayEps = 1e-4f;
-constexpr float kDetEps = 1e-12f;
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
-  return Ray{o[3 * i], o[3 * i + 1], o[3 * i + 2],
-             d[3 * i], d[3 * i + 1], d[3 * i + 2]};
-}
-
-// 1 / where(|c| < 1e-20, 1e-20, c)
-__device__ __forceinline__ float safe_inv(float c) {
-  return 1.0f / (fabsf(c) < 1e-20f ? 1e-20f : c);
-}
-
-// Moller-Trumbore against column col of cl_tri (row stride ct); same
-// expression order as K1 (brute_hit.cu) and the plain versions.
-__device__ __forceinline__ bool mt_hit(const float* __restrict__ tri, long ct,
-                                       long col, const Ray& r, float t_lim,
-                                       float* t_hit, float* u_hit,
-                                       float* v_hit) {
-  const float v0x = tri[0 * ct + col], v0y = tri[1 * ct + col],
-              v0z = tri[2 * ct + col];
-  const float e1x = tri[3 * ct + col], e1y = tri[4 * ct + col],
-              e1z = tri[5 * ct + col];
-  const float e2x = tri[6 * ct + col], e2y = tri[7 * ct + col],
-              e2z = tri[8 * ct + col];
-
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool ok = fabsf(det) > kDetEps;
-  const float inv_det = ok ? 1.0f / det : 0.0f;
-  const float tx = r.ox - v0x;
-  const float ty = r.oy - v0y;
-  const float tz = r.oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  *t_hit = t;
-  *u_hit = u;
-  *v_hit = v;
-  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kRayEps &&
-         t < t_lim;
-}
 
 // Stage n boxes as SoA rows s[a * kMaxClusters + cid], a = lox..hiz, from
 // a box table with element (cid, a) at box[cid * cid_stride + a * a_stride].
@@ -129,8 +79,6 @@ __device__ __forceinline__ void stage_boxes(float* s, const float* box, int n,
 }
 
 // ---------------------------------------------------------------- K3
-// Slab order of the reference's dense cull: per axis (box - o) * inv, then
-// tn = max(tn, min(t0, t1)) and tf = min(tf, max(t0, t1)) from -BIG / BIG.
 __global__ void __launch_bounds__(kThreads)
 dense_cull_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ t_max,
@@ -152,38 +100,14 @@ dense_cull_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
   int n_cl = 0;
   for (int cid = 0; cid < c; ++cid) {
-    float tn = -kBig, tf = kBig;
-    {
-      const float t0 = (s_box[0 * kMaxClusters + cid] - r.ox) * ix;
-      const float t1 = (s_box[3 * kMaxClusters + cid] - r.ox) * ix;
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
-    }
-    {
-      const float t0 = (s_box[1 * kMaxClusters + cid] - r.oy) * iy;
-      const float t1 = (s_box[4 * kMaxClusters + cid] - r.oy) * iy;
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
-    }
-    {
-      const float t0 = (s_box[2 * kMaxClusters + cid] - r.oz) * iz;
-      const float t1 = (s_box[5 * kMaxClusters + cid] - r.oz) * iz;
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
-    }
-    const float ent = fmaxf(tn, 0.0f);
-    if (!(tf >= ent && tn < tm)) continue;
+    float ent;
+    if (!cull_slab(s_box[0 * kMaxClusters + cid], s_box[1 * kMaxClusters + cid],
+                   s_box[2 * kMaxClusters + cid], s_box[3 * kMaxClusters + cid],
+                   s_box[4 * kMaxClusters + cid], s_box[5 * kMaxClusters + cid],
+                   r, ix, iy, iz, tm, &ent))
+      continue;
     ++n_cl;
-    if (!(ent < key[kk - 1])) continue;
-    // insert after every kept entry <= ent (keeps cid order on ties)
-    int j = kk - 1;
-    while (j > 0 && ent < key[j - 1]) {
-      key[j] = key[j - 1];
-      idx[j] = idx[j - 1];
-      --j;
-    }
-    key[j] = ent;
-    idx[j] = cid;
+    keep_smallest(key, idx, kk, ent, cid);
   }
   for (int j = 0; j < kk; ++j) {
     cid_out[(long)i * kk + j] = key[j] < kBig ? idx[j] : c;
@@ -250,19 +174,14 @@ pair_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }
 
 // ---------------------------------------------------------------- K7/K8
-// The pallas_bvh slab (reference _slab): per axis (box - o) * inv,
-// tn = max of the per-axis mins, tf = min of the per-axis maxes.
-__device__ __forceinline__ void slab(const float* s, int cid, const Ray& r,
-                                     float ix, float iy, float iz, float* tn,
-                                     float* tf) {
-  const float t0x = (s[0 * kMaxClusters + cid] - r.ox) * ix;
-  const float t1x = (s[3 * kMaxClusters + cid] - r.ox) * ix;
-  const float t0y = (s[1 * kMaxClusters + cid] - r.oy) * iy;
-  const float t1y = (s[4 * kMaxClusters + cid] - r.oy) * iy;
-  const float t0z = (s[2 * kMaxClusters + cid] - r.oz) * iz;
-  const float t1z = (s[5 * kMaxClusters + cid] - r.oz) * iz;
-  *tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  *tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+// Slab test of shared-memory box cid (SoA rows of stride kMaxClusters).
+__device__ __forceinline__ void box_slab(const float* s, int cid, const Ray& r,
+                                         float ix, float iy, float iz,
+                                         float* tn, float* tf) {
+  slab(s[0 * kMaxClusters + cid], s[1 * kMaxClusters + cid],
+       s[2 * kMaxClusters + cid], s[3 * kMaxClusters + cid],
+       s[4 * kMaxClusters + cid], s[5 * kMaxClusters + cid], r, ix, iy, iz,
+       tn, tf);
 }
 
 // The next cluster after (last_e, last_c) in (entry, cid) order among the
@@ -278,7 +197,7 @@ __device__ __forceinline__ int next_cluster(const float* s, int cp,
   for (int cid = 0; cid < cp; ++cid) {
     if (!(s[3 * kMaxClusters + cid] >= s[0 * kMaxClusters + cid])) continue;
     float tn, tf;
-    slab(s, cid, r, ix, iy, iz, &tn, &tf);
+    box_slab(s, cid, r, ix, iy, iz, &tn, &tf);
     const float e = fmaxf(tn, 0.0f);
     if (!(tf >= e && tn < tm)) continue;
     if (e < last_e || (e == last_e && cid <= last_c)) continue;

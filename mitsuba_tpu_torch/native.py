@@ -4,11 +4,10 @@
   At first use it is compiled with `nvcc` for Hopper (`sm_90a`) into a
   shared library under `<repo>/build/kernels/<name>-<source hash>/` and
   loaded with `ctypes`.
-* Host libraries: the reference's C++ BVH builder
-  (`mitsuba_tpu/native/bvh_builder.cpp`) is compiled with `g++` and the
+* Host libraries: the port's copy of the reference's C++ BVH builder
+  (`csrc/host/bvh_builder.cpp`) is compiled with `g++` and the
   reference's flags into `<repo>/build/native/`, so that the port builds
-  the same tree from the same source (the source is read, not copied,
-  and nothing of the JAX package is imported).
+  the same tree as the reference from its own source.
 
 Later calls in the process reuse a loaded library, and later processes
 reuse the file while the source is unchanged.  Nothing is built or
@@ -19,6 +18,7 @@ kernel wrappers' shared argument check and launch.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import platform
@@ -31,9 +31,9 @@ _REPO_DIR = os.path.dirname(_PKG_DIR)
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_REPO_DIR, "build", "kernels")
 HOST_BUILD_DIR = os.path.join(_REPO_DIR, "build", "native")
-# the reference's host sources (mitsuba_tpu/native/) and g++ flags
+# the port's host sources and the reference's g++ flags
 # (mitsuba_tpu/native/__init__.py _build)
-HOST_SRC_DIR = os.path.join(_REPO_DIR, "mitsuba_tpu", "native")
+HOST_SRC_DIR = os.path.join(CSRC_DIR, "host")
 HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native")
 
 # Bit-comparable arithmetic with the plain PyTorch versions: no fused
@@ -66,10 +66,11 @@ def find_nvcc() -> str:
     )
 
 
-def _source_hash(path: str, flags, extra: str = "") -> str:
+def _source_hash(path: str, flags, extra: str = "", headers=()) -> str:
     h = hashlib.sha256()
-    with open(path, "rb") as f:
-        h.update(f.read())
+    for p in (path, *headers):
+        with open(p, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     h.update(extra.encode())
     return h.hexdigest()[:16]
@@ -87,9 +88,13 @@ def _host_cpu() -> str:
 
 
 def library_path(name: str) -> str:
+    """Where csrc/<name>.cu is built: keyed on the source, the headers
+    beside it and the flags."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     return os.path.join(
-        BUILD_DIR, f"{name}-{_source_hash(src, NVCC_FLAGS)}", f"lib{name}.so"
+        BUILD_DIR, f"{name}-{_source_hash(src, NVCC_FLAGS, headers=headers)}",
+        f"lib{name}.so",
     )
 
 
@@ -130,8 +135,8 @@ def load(name: str, declare) -> ctypes.CDLL:
 
 
 def load_host(name: str, source: str, declare) -> ctypes.CDLL | None:
-    """Build (if needed) and load the reference's host source
-    mitsuba_tpu/native/<source> as build/native/<name>-<hash>/lib<name>.so,
+    """Build (if needed) and load the host source csrc/host/<source>
+    as build/native/<name>-<hash>/lib<name>.so,
     cached per process.  Returns None when no C++ compiler can build it
     (the caller then takes its numpy fallback, as the reference does)."""
     with _lock:

@@ -79,9 +79,10 @@ def make_render_pass(pack, integ, sensor_rec, film_rec, sampler_rec, spp_chunk,
     return render_pass
 
 
-def render(scene, spp=None, seed=0, *, device, pack=None):
-    """Render a SceneDescription on `device`; returns the linear HDR
-    image as numpy [H, W, 3] (= RenderJob::run, reference
+def render(scene, spp=None, seed=0, *, device="cuda", pack=None):
+    """Render a SceneDescription on `device` (the card unless the caller
+    asks for another, e.g. "cpu"); returns the linear HDR image as numpy
+    [H, W, 3] (= RenderJob::run, reference
     src/librender/renderjob.cpp:87-113)."""
     device = torch.device(device)
     if pack is None:

@@ -16,7 +16,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mitsuba_tpu_torch.accel import pairs
 from mitsuba_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh, octant_node_rows
 from mitsuba_tpu_torch.accel.clusters import pack_clusters
 from mitsuba_tpu_torch.accel.pallas_kernels import pack_triangles_sublane
@@ -40,7 +39,7 @@ SLICE_META = (
     "has_area", "has_env", "has_envmap", "env_idx",
 )
 # ... and, for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters
-BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_mbox", "cl_pad2prim")
+BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_sup", "cl_mbox", "cl_pad2prim")
 BVH_META = (
     "bvh_n_layouts", "n_clusters", "cluster_tc", "n_supers",
     "cluster_super_g", "cluster_vmem_ok",
@@ -98,21 +97,14 @@ def check_slice(meta: dict):
 
 
 def _check_clusters(meta: dict):
-    """The reference takes K3/K4 with the K7/K8 fallback only up to
-    DENSE_C clusters with VMEM-resident tiles; past those bounds it runs
-    kernels the port does not have yet."""
-    c = meta.get("n_clusters", 0)
-    if c == 0:
-        raise NotImplementedError("BVH traversal without cluster tables not yet ported")
-    if c > pairs.DENSE_C:
+    """The port renders BVH scenes through the cluster tables (K3-K10).
+    The reference packs none past its HBM budget (CLUSTER_HBM_MAX, at
+    24,576 clusters of 128) and walks the BVH with XLA there, which is
+    not a ported render path."""
+    if meta.get("n_clusters", 0) == 0:
         raise NotImplementedError(
-            f"{c} clusters (> DENSE_C = {pairs.DENSE_C}): the two-level cull "
-            "and window kernel (K5/K6) not yet ported"
-        )
-    if not meta.get("cluster_vmem_ok", False):
-        raise NotImplementedError(
-            f"{c} clusters beyond the VMEM-resident tiles: the streamed "
-            "fallback kernels (K9/K10) not yet ported"
+            "BVH traversal without cluster tables (the reference's XLA BVH "
+            "walk, past its cluster HBM budget) not yet ported"
         )
 
 
@@ -128,8 +120,9 @@ def pack_from_numpy(arrays: dict, meta: dict, device) -> ScenePack:
     return ScenePack(_to_device(arrays, device), dict(meta))
 
 
-def pack_scene(scene, device) -> ScenePack:
-    """scene: SceneDescription from the XML loader."""
+def pack_scene(scene, device="cuda") -> ScenePack:
+    """scene: SceneDescription from the XML loader; the pack lies on
+    `device` (the card unless the caller asks for another)."""
     materials: list[BSDFRecord] = []
     mat_index: dict[int, int] = {}
     default_bsdf = BSDFRecord(type=DIFFUSE)
@@ -229,9 +222,8 @@ def pack_scene(scene, device) -> ScenePack:
         tri9 = np.concatenate(
             [tri["tri_v0"], tri["tri_e1"], tri["tri_e2"]], axis=1
         ).astype(np.float32)
-        cl_arrays, cl_meta = pack_clusters(
-            bvh, tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris
-        )
+        cl = pack_clusters(bvh, tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris)
+        cl_arrays, cl_meta = cl if cl is not None else ({}, {})
         bvh_arrays = {"bvh_nodes": bvh_nodes, "tri9": tri9, **cl_arrays}
         bvh_meta = {"bvh_n_layouts": n_layouts, **cl_meta}
 

@@ -1,0 +1,238 @@
+#!/usr/bin/env python3
+"""Where the time of one render pass of the port goes, on one NVIDIA GPU.
+
+    python3 profile_pass.py [dense|bigmesh|cbox] [--hits-only]
+
+For scenes/bunny.xml's configuration on the dense stand-in (870,480
+triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
+or for scenes/cbox.xml, at 512x512 and 16 samples per pass:
+
+1. builds the kernels, packs the scene on the card, runs one warm-up pass
+   and three timed passes of the regenerating wavefront (host clock around
+   work that ends in a synchronise), printing seconds and traced rays per
+   second of each;
+2. profiles one more pass with torch.profiler (CPU and CUDA activities):
+   the pass's wall time, the device time of its kernels, the busy share
+   (kernel time over wall time; the profiler's own overhead lengthens the
+   wall), the number of kernels, the 15 kernels of most device time, and
+   the launches of each of the port's kernels in that pass (their
+   counters);
+3. for the meshes, holds the pair pipeline's closest hits of one camera ray
+   per pixel against the port's stackless BVH walk (accel/intersect.py
+   `_bvh_traverse`, plain PyTorch): hit masks, prims and t, and the count
+   of prims that differ at unequal t (not an exact-t tie).  Each ray where
+   they differ is judged in float64: Moller-Trumbore on the pack's float32
+   triangles (tri9) promoted to float64, against every triangle for the
+   closest hit, and against each side's prim for its t and barycentrics
+   (u, v, w = 1 - u - v; a hit near an edge has one of them near 0).
+
+`--hits-only` skips 1 and 2.
+
+Nothing of JAX is imported.  Exits non-zero without a CUDA device.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+RES = 512  # film width and height
+SPP = 16  # samples per pixel of one pass
+TOP = 15  # kernels listed by device time
+
+
+def device_us(evt):
+    """Self device time of a profiler event average, in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return getattr(evt, attr)
+    return 0.0
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("scene", nargs="?", default="dense", choices=("dense", "bigmesh", "cbox"))
+    ap.add_argument("--hits-only", action="store_true")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_pass: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    sys.path.append(os.path.join(HERE, "tests"))
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import SOURCES, camera_rays, counters
+    from mitsuba_tpu_torch import native
+    from mitsuba_tpu_torch.accel import intersect, pairs
+    from mitsuba_tpu_torch.accel import pallas_bvh as pb
+    from mitsuba_tpu_torch.accel import pallas_kernels as pk
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.renderer import make_render_pass
+    from mitsuba_tpu_torch.scene.builder import pack_scene
+    from torch_meshes import bunny_scene_xml, bunny_standin, dense_standin, write_ply
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    for name in SOURCES:
+        native.build(name)
+
+    if args.scene == "cbox":
+        scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
+        scene.sensor.record.film.width = scene.sensor.record.film.height = RES
+    else:
+        mesh = dense_standin if args.scene == "dense" else bunny_standin
+        ply = os.path.join(HERE, "build", f"{args.scene}_standin.ply")
+        os.makedirs(os.path.dirname(ply), exist_ok=True)
+        write_ply(ply, *mesh(seed=0))
+        scene = mt.load_scene_string(bunny_scene_xml(ply, RES, RES))
+    t0 = time.time()
+    pack = pack_scene(scene, dev)
+    print(f"{args.scene} {RES}x{RES}, {SPP} spp per pass: packed in "
+          f"{time.time() - t0:.3f} s; meta n_clusters={pack.meta.get('n_clusters')} "
+          f"n_supers={pack.meta.get('n_supers')} cluster_vmem_ok={pack.meta.get('cluster_vmem_ok')}",
+          flush=True)
+
+    if not args.hits_only:
+        profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
+                       counters(pk, pairs, pb))
+    if args.scene != "cbox":
+        check_hits(scene, pack, dev, camera_rays, intersect, pairs)
+    return 0
+
+
+def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers):
+    """Steps 1 and 2; wrappers: the port's kernel wrappers by name."""
+    import torch
+
+    rec = scene.sensor.record
+    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, SPP, dev)
+    film = new_film(RES, RES, dev)
+
+    def one_pass(i):
+        nonlocal film
+        t0 = time.time()
+        film, n_rays = rp(film, i * SPP, 0)
+        n = int(n_rays)  # synchronises
+        torch.cuda.synchronize()
+        return time.time() - t0, n
+
+    s, n = one_pass(0)
+    print(f"warm-up pass: {s:.4f} s, {n} rays", flush=True)
+    for i in range(1, 4):
+        s, n = one_pass(i)
+        print(f"pass {i}: {s:.4f} s, {n} rays, {n / s:.6g} rays/s", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, n = one_pass(4)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(device_us(e) for e in kernels)
+    n_k = sum(e.count for e in kernels)
+    print(f"profiled pass: wall {wall:.4f} s, {n} rays; device kernel time {dev_us / 1e3:.3f} ms, "
+          f"busy share {dev_us / 1e6 / wall:.4f}; {n_k} kernels", flush=True)
+    kernels.sort(key=device_us, reverse=True)
+    for e in kernels[:TOP]:
+        print(f"  {device_us(e) / 1e3:10.3f} ms {100 * device_us(e) / max(dev_us, 1):6.2f} % "
+              f"{e.count:7d} x  {e.key[:110]}", flush=True)
+    print(f"kernel launches in the profiled pass: {launches}", flush=True)
+    ov = {k: pairs.pair_closest.__dict__.get(k) for k in ("rays", "overflow_rays")}
+    print(f"pair_closest counters over the run: {ov}", flush=True)
+
+
+def mt64(o, d, tri9):
+    """Moller-Trumbore in float64: o, d [R, 1, 3], tri9 [1 or R, N, 9]
+    -> (t, u, v, hit) [R, N]."""
+    import torch
+
+    v0, e1, e2 = tri9[..., 0:3], tri9[..., 3:6], tri9[..., 6:9]
+    p = torch.linalg.cross(d, e2, dim=-1)
+    det = (e1 * p).sum(-1)
+    ok = det.abs() > 1e-12
+    inv = torch.where(ok, 1.0 / det, 0.0)
+    tv = o - v0
+    u = (tv * p).sum(-1) * inv
+    q = torch.linalg.cross(tv, e1, dim=-1)
+    v = (d * q).sum(-1) * inv
+    t = (e2 * q).sum(-1) * inv
+    return t, u, v, ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-4)
+
+
+def closest64(pack, o, d, cols=1 << 16):
+    """(t, prim) of each ray's closest hit among all triangles, in
+    float64; o, d [R, 3] float64."""
+    import torch
+
+    tri = pack.tri9.double()
+    best_t = torch.full((o.shape[0],), float("inf"), dtype=torch.float64, device=o.device)
+    best_p = torch.full((o.shape[0],), -1, dtype=torch.int64, device=o.device)
+    for s in range(0, tri.shape[0], cols):
+        t, _, _, hit = mt64(o[:, None], d[:, None], tri[None, s:s + cols])
+        tmin, arg = torch.where(hit, t, float("inf")).min(dim=1)
+        better = tmin < best_t
+        best_t = torch.where(better, tmin, best_t)
+        best_p = torch.where(better, arg + s, best_p)
+    return best_t, best_p
+
+
+def judge(pack, o, d, prim):
+    """float64 (t, u, v, w, hit) of ray i against prim[i] (-1: none)."""
+    t, u, v, hit = mt64(o[:, None], d[:, None], pack.tri9.double()[prim.clamp(min=0).long()][:, None])
+    return [(float(a), float(b), float(c), float(1 - b - c), bool(h) and int(p) >= 0)
+            for a, b, c, h, p in zip(t[:, 0], u[:, 0], v[:, 0], hit[:, 0], prim)]
+
+
+def check_hits(scene, pack, dev, camera_rays, intersect, pairs):
+    """Step 3."""
+    import torch
+
+    o, d = camera_rays(scene, dev)
+    t_big = torch.full((o.shape[0],), pairs.BIG, device=dev)
+    t0 = time.time()
+    pt, pp, _, _ = pairs.pair_closest(pack, o, d, t_big)
+    torch.cuda.synchronize()
+    t_pair = time.time() - t0
+    t0 = time.time()
+    bt, bp, _, _ = intersect._bvh_traverse(pack, o, d, t_big)
+    torch.cuda.synchronize()
+    t_bvh = time.time() - t0
+    hit_p, hit_b = pp >= 0, bp >= 0
+    both = hit_p & hit_b
+    diff = both & (pp != bp)
+    dt = (pt - bt).abs()
+    rel = dt[both] / bt[both].abs().clamp(min=1e-30)
+    print(f"hits of {o.shape[0]} camera rays, pair pipeline ({t_pair:.3f} s) vs BVH walk "
+          f"({t_bvh:.3f} s): hit masks differ on {int((hit_p != hit_b).sum())} rays, "
+          f"{int(both.sum())} hit in both; prims differ on {int(diff.sum())} "
+          f"({int((diff & (dt > 1e-5)).sum())} at |dt| > 1e-5); max rel t diff "
+          f"{float(rel.max()) if rel.numel() else 0.0:.3g}", flush=True)
+    idx = torch.nonzero((hit_p != hit_b) | diff).squeeze(1)
+    if not idx.numel():
+        return
+    o64, d64 = o[idx].double(), d[idx].double()
+    ft, fp = closest64(pack, o64, d64)
+    side_p, side_b = judge(pack, o64, d64, pp[idx]), judge(pack, o64, d64, bp[idx])
+    for j, i in enumerate(idx.tolist()):
+        right = [name for name, prim in (("pair pipeline", pp[i]), ("BVH walk", bp[i]))
+                 if int(prim) == int(fp[j])]
+        print(f"  ray {i}: pair pipeline t={float(pt[i]):.9g} prim={int(pp[i])}; BVH walk "
+              f"t={float(bt[i]):.9g} prim={int(bp[i])}; float64 closest t={float(ft[j]):.12g} "
+              f"prim={int(fp[j])}: agrees with {' and '.join(right) or 'neither'}", flush=True)
+        for name, (t, u, v, w, hit) in (("pair pipeline", side_p[j]), ("BVH walk", side_b[j])):
+            print(f"    float64 on the {name}'s prim: hit={hit} t={t:.12g} u={u:.3e} v={v:.3e} "
+                  f"w={w:.3e} (nearest edge {min(abs(u), abs(v), abs(w)):.3e})", flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -162,6 +162,108 @@ def test_cluster_launch_counters(mesh):
     assert after[3] >= 1 and after[4] >= 1
 
 
+@pytest.fixture(scope="module", params=["small", "band"])
+def dense_mesh(request, tmp_path_factory):
+    """Stand-in meshes for the dense-mesh kernels: 16k triangles (~180
+    clusters) and 134,688 triangles (1,529 clusters: the band between the
+    reference's VMEM-resident tiles and its dense-cull bound), packed on
+    the card, with 128x128 camera rays and as many random rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import camera_rays
+
+    n_phi, n_theta = {"small": (128, 64), "band": (368, 184)}[request.param]
+    path = str(tmp_path_factory.mktemp("dense") / "m.ply")
+    write_ply(path, *bunny_standin(seed=2, n_phi=n_phi, n_theta=n_theta))
+    scene = load_scene_string(bunny_scene_xml(path, 128, 128))
+    dev = torch.device("cuda")
+    pack = pack_scene(scene, dev)
+    if request.param == "band":
+        assert 1365 < pack.meta["n_clusters"] <= pairs.DENSE_C
+    o_c, d_c = camera_rays(scene, dev)
+    r = np.random.default_rng(4)
+    n = o_c.shape[0]
+    o_r = (np.array([-0.02, 0.1, 0.0]) + r.uniform(-0.15, 0.15, (n, 3))).astype(np.float32)
+    d_r = r.normal(size=(n, 3)).astype(np.float32)
+    d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
+    o = torch.cat([o_c, torch.as_tensor(o_r, device=dev)])
+    d = torch.cat([d_c, torch.as_tensor(d_r, device=dev)])
+    t_any = torch.as_tensor(r.uniform(0.0, 0.3, 2 * n).astype(np.float32), device=dev)
+    return pack, o.contiguous(), d.contiguous(), t_any
+
+
+@pytest.mark.parametrize("k,ks", [(3, 8), (1, 1), (8, 2)])
+def test_dense_kernels_equal_plain(dense_mesh, k, ks):
+    """K5 and K6 (closest, any) against their plain versions."""
+    pack, o, d, t_any = dense_mesh
+    m = pack.meta
+    c, tc, s = m["n_clusters"], m["cluster_tc"], m["n_supers"]
+    t_big = torch.full_like(t_any, pairs.BIG)
+    for tm in (t_big, t_any):
+        args = (o, d, tm, pack.cl_sup, pack.cl_mbox, s, c, ks, k)
+        cull = pairs.two_level_cull(*args)
+        _equal(cull, pairs.two_level_cull_plain(*args))
+        assert (cull[0] < c).any()
+        queue = pairs.pair_queue(cull[0])
+        args = (o, d, tm, *queue, k, pack.cl_tri, pack.cl_pad2prim, c, tc)
+        _equal(pairs.window_hit_closest(*args), pairs.window_hit_closest_plain(*args))
+        args = (o, d, tm, *queue, k, pack.cl_tri, c, tc)
+        assert torch.equal(pairs.window_hit_any(*args), pairs.window_hit_any_plain(*args))
+    torch.cuda.synchronize()
+
+
+def test_stream_kernels_equal_plain(dense_mesh):
+    """K9/K10 against their plain versions (every 8th ray: the plain walk
+    is slow) and against K7/K8, which compute the same walk."""
+    pack, o, d, t_any = dense_mesh
+    tc = pack.meta["cluster_tc"]
+    sub = slice(0, None, 8)
+    for tm in (torch.full_like(t_any, pairs.BIG), t_any):
+        args = (o[sub].contiguous(), d[sub].contiguous(), tm[sub].contiguous(),
+                pack.cl_box, pack.cl_tri, tc)
+        k9 = pb.cluster_stream_closest(*args)
+        _equal(k9, pb.cluster_stream_closest_plain(*args))
+        _equal(k9, pb.cluster_traverse_closest(*args))
+        k10 = pb.cluster_stream_any(*args)
+        assert torch.equal(k10, pb.cluster_stream_any_plain(*args))
+        assert torch.equal(k10, pb.cluster_traverse_any(*args))
+    torch.cuda.synchronize()
+
+
+def test_dense_pipeline_on_card_equals_cpu(dense_mesh):
+    """pair_closest / pair_any past DENSE_C with the streamed fallback,
+    through the kernels, equal the plain versions on the CPU, and launch
+    K5, K6, K9 and K10 (K = KS = 1 forces the fallback)."""
+    pack, o, d, t_any = dense_mesh
+    meta = {**pack.meta, "cluster_vmem_ok": False}
+    gpu = type(pack)(pack.arrays, meta)
+    cpu = type(pack)({k: v.cpu() for k, v in pack.arrays.items()}, meta)
+    fns = (pairs.two_level_cull, pairs.window_hit_closest, pairs.window_hit_any,
+           pb.cluster_stream_closest, pb.cluster_stream_any, pairs.dense_cull,
+           pb.cluster_traverse_closest)
+    natural = pairs.DENSE_C, pairs.K, pairs.KS
+    try:
+        pairs.DENSE_C, pairs.K, pairs.KS = 0, 1, 1
+        before = [f.launches for f in fns]
+        gpu_hit = pairs.pair_closest(gpu, o, d, float("inf"))
+        gpu_occ = pairs.pair_any(gpu, o, d, t_any)
+        after = [f.launches - b for f, b in zip(fns, before)]
+        _equal([x.cpu() for x in gpu_hit], pairs.pair_closest(cpu, o.cpu(), d.cpu(), float("inf")))
+        assert torch.equal(gpu_occ.cpu(), pairs.pair_any(cpu, o.cpu(), d.cpu(), t_any.cpu()))
+    finally:
+        pairs.DENSE_C, pairs.K, pairs.KS = natural
+    assert after == [2, 1, 1, 1, 1, 0, 0]
+
+
+def test_stream_limits_raise(dense_mesh):
+    pack, o, d, t_any = dense_mesh
+    m = pack.meta
+    _, max_ks, max_k = pb.stream_limits()
+    with pytest.raises(ValueError, match="at most"):
+        pairs.two_level_cull(o, d, t_any, pack.cl_sup, pack.cl_mbox, m["n_supers"],
+                             m["n_clusters"], min(max_ks + 1, m["n_supers"]), max_k + 1)
+
+
 def test_cluster_limits_raise(mesh):
     pack, o, d, t_any = mesh
     max_c, max_k = pb.kernel_limits()

@@ -144,10 +144,11 @@ def test_unported_pack_features_raise():
 
 
 def test_large_scene_raises(monkeypatch):
-    """Above 512 triangles the pack carries a BVH and cluster tables; past
-    the cluster count the ported kernels cover (K3/K4 with K7/K8), the
-    reference runs K5/K6, and packing raises."""
-    from mitsuba_tpu_torch.accel import pairs
+    """Above 512 triangles the pack carries a BVH and cluster tables, past
+    DENSE_C clusters too (K5/K6, K9/K10).  Packing raises only where the
+    reference packs no clusters (past its cluster HBM budget) and would
+    walk the BVH with XLA."""
+    from mitsuba_tpu_torch.accel import clusters, pairs
 
     cubes = "".join(
         f'<shape type="cube"><transform name="toWorld"><translate x="{3 * i}"/></transform></shape>'
@@ -159,5 +160,8 @@ def test_large_scene_raises(monkeypatch):
     meta = pack_scene(scene, "cpu").meta
     assert meta["use_bvh"] and meta["n_clusters"] > 1
     monkeypatch.setattr(pairs, "DENSE_C", meta["n_clusters"] - 1)
-    with pytest.raises(NotImplementedError, match="K5/K6"):
+    assert pack_scene(scene, "cpu").meta["n_clusters"] == meta["n_clusters"]
+    c, tc = meta["n_clusters"], meta["cluster_tc"]
+    monkeypatch.setattr(clusters, "CLUSTER_HBM_MAX", c * tc * 256 - 1)
+    with pytest.raises(NotImplementedError, match="without cluster tables"):
         pack_scene(scene, "cpu")

@@ -7,7 +7,8 @@ until bunny.ply is in the repository: a UV sphere of the bunny's size
 (264 x 132 gives 69,168 triangles; the bunny has 69,451) whose radius is
 displaced by a seeded sum of low-frequency sinusoids, so the surface is
 non-convex, shadows and lights itself.  It is scaled into the region the
-scene's camera looks at.  `bunny_scene_xml` is scenes/bunny.xml with the
+scene's camera looks at.  `dense_standin` is the same surface at the
+Stanford dragon's triangle count.  `bunny_scene_xml` is scenes/bunny.xml with the
 mesh file replaced, so the configuration stays the scene's own.
 """
 
@@ -67,6 +68,15 @@ def bunny_standin(seed=0, n_phi=264, n_theta=132):
     pos, idx = uv_sphere(n_phi, n_theta, seed=seed, amp=0.35)
     pos = pos / np.abs(pos).max() * STANDIN_RADIUS + np.asarray(STANDIN_CENTER)
     return pos.astype(np.float32), idx
+
+
+def dense_standin(seed=0):
+    """The displaced sphere at 936 x 466: 870,480 triangles (the Stanford
+    dragon has 871,414), 9,856 clusters of <= 128.  Past the reference's
+    dense-cull bound (1,890 clusters) and its VMEM-resident tiles (1,365),
+    so it takes the two-level cull, the window pair kernel and the
+    streamed fallback traversal."""
+    return bunny_standin(seed=seed, n_phi=936, n_theta=466)
 
 
 def write_ply(path, positions, indices, normals=None, texcoords=None,
