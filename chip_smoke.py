@@ -10,9 +10,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    started together);
 2. hold each kernel against its plain PyTorch version on the card and
    time both (CUDA events, median of 20 runs):
-   * K1/K2 (brute_hit.cu) at the Cornell box's shapes (its triangles x
-     262,144 camera rays) and on 1,000,000 random rays x 300 random
-     triangles: prim and occlusion equal, t within 1 ulp;
+   * K1/K2, K11 and K12 (brute_tiled.cu: K1/K2 on the sublane pack
+     tri_s, K11 on the transposed pack tri_t, both through one kernel,
+     K12 on the bilinear mt_matrix, t_max inf for the K11/K12 closest
+     hits), at the Cornell box's shapes (its triangles x 262,144 camera
+     rays) and on 1,000,000 random rays x 300 random triangles: prim and
+     occlusion equal, t within 1 ulp;
    * K3/K4/K7/K8 (cluster_hit.cu) on the big-mesh stand-in
      (tests/torch_meshes.py: 69,168 triangles in scenes/bunny.xml's
      configuration) with 262,144 camera rays and 262,144 random
@@ -23,8 +26,11 @@ Phases, each of which raises (and exits non-zero) on failure:
      equal, K6 closest/any as K4; K9/K10 on a seeded subset of 16,384
      rays of each set (the plain walk is slow at 9,856 clusters, and the
      fallback's batches are of that order), the kernels also timed on
-     all rays; also the natural overflow share at K = 3, KS = 8, and K4
-     on the cluster lists K6 takes (equal results), timed beside K6;
+     all rays and on the batch the pair pipeline hands its fallback, with
+     the clusters each fallback ray visits and its box scans (mean,
+     max), beside the times of the full-rescan kernels they replaced;
+     also the natural overflow share at K = 3, KS = 8, and K4 on the
+     cluster lists K6 takes (equal results), timed beside K6;
    each kernel's time beside its bound (the larger of its operations
    over the card's FP32 rate and its bytes over the memory rate, from
    this run's inputs, counting only the real triangles of padded
@@ -34,6 +40,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    after, and fail unless every kernel of the path launched:
    * scenes/cbox.xml at 64x64, 16 spp, seed 0 against
      tests/golden/cbox_64_16.npy (tone-mapped RMSE < 5e-3): K1/K2;
+   * K11/K12, which no render path calls, through their own entry points
+     (closest_hit / any_hit on pack_scene's tri_t, closest_hit_mxu /
+     any_hit_mxu on build_mt_matrix's operand) on the Cornell box's
+     262,144 camera rays and shadow rays from below its light to their
+     hits: K11 equal to K1/K2, K12 the same hits but on edge rays (float32
+     forms differ there);
    * the stand-in at 64x64, 16 spp, seed 0 against
      tests/golden/torch_bigmesh_64_16.npy (the JAX package's render,
      tests/make_torch_bigmesh_golden.py; RMSE < 5e-3): K3/K4/K7/K8.  If
@@ -66,13 +78,13 @@ BIGMESH_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_bigmesh_64_16.npy"
 DENSE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_densemesh_64_16.npy")
 STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
 DENSE_PLY = os.path.join(HERE, "build", "dense_standin.ply")
-SOURCES = {"brute_hit": "mitsuba_tpu_torch/csrc/brute_hit.cu",
+SOURCES = {"brute_tiled": "mitsuba_tpu_torch/csrc/brute_tiled.cu",
            "cluster_hit": "mitsuba_tpu_torch/csrc/cluster_hit.cu",
            "cluster_stream": "mitsuba_tpu_torch/csrc/cluster_stream.cu"}
 # (wrapper, kernel source, TPU kernel replaced)
 KERNELS = (
-    ("closest_hit_v2", "brute_hit", "mitsuba_tpu/accel/pallas_kernels.py:434"),
-    ("any_hit_v2", "brute_hit", "mitsuba_tpu/accel/pallas_kernels.py:445"),
+    ("closest_hit_v2", "brute_tiled", "mitsuba_tpu/accel/pallas_kernels.py:434"),
+    ("any_hit_v2", "brute_tiled", "mitsuba_tpu/accel/pallas_kernels.py:445"),
     ("dense_cull", "cluster_hit", "mitsuba_tpu/accel/pairs.py:196"),
     ("pair_hit_closest", "cluster_hit", "mitsuba_tpu/accel/pairs.py:821"),
     ("pair_hit_any", "cluster_hit", "mitsuba_tpu/accel/pairs.py:821"),
@@ -83,7 +95,20 @@ KERNELS = (
     ("window_hit_any", "cluster_stream", "mitsuba_tpu/accel/pairs.py:666"),
     ("cluster_stream_closest", "cluster_stream", "mitsuba_tpu/accel/pallas_bvh.py:222"),
     ("cluster_stream_any", "cluster_stream", "mitsuba_tpu/accel/pallas_bvh.py:333"),
+    ("closest_hit", "brute_tiled", "mitsuba_tpu/accel/pallas_kernels.py:60"),
+    ("any_hit", "brute_tiled", "mitsuba_tpu/accel/pallas_kernels.py:91"),
+    ("closest_hit_mxu", "brute_tiled", "mitsuba_tpu/accel/pallas_kernels.py:272"),
+    ("any_hit_mxu", "brute_tiled", "mitsuba_tpu/accel/pallas_kernels.py:290"),
 )
+# each brute-force wrapper: (its plain version, closest or any)
+BRUTE = {"closest_hit_v2": ("closest_hit_plain", True), "any_hit_v2": ("any_hit_plain", False),
+         "closest_hit": ("closest_hit_v1_plain", True), "any_hit": ("any_hit_v1_plain", False),
+         "closest_hit_mxu": ("closest_hit_mxu_plain", True),
+         "any_hit_mxu": ("any_hit_mxu_plain", False)}
+# K9/K10 before their redesign (a full box rescan per visit), on the
+# 16,384-ray camera subset of the dense stand-in (NVIDIA H100 80GB HBM3,
+# 700 W; the bracketed times of PERF.md's kernel table)
+RESCAN_MS = {"cluster_stream_closest": 17.45, "cluster_stream_any": 12.99}
 THROUGHPUT_SPP_CHUNK = 16
 THROUGHPUT_PASSES = 2
 N_RAYS = 262_144
@@ -93,9 +118,14 @@ N_STREAM_SUBSET = 16_384  # rays of the K9/K10 vs plain comparison
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations of one test, counted from the kernels' expressions
-# (csrc/ray_tri.cuh): Moller-Trumbore 53, a slab test 25
+# (csrc/ray_tri.cuh, csrc/brute_tiled.cu) at the least the function needs:
+# Moller-Trumbore 53, a slab test 25, the bilinear Moller-Trumbore 46 (its
+# four dots on the nonzero rows of build_mt_matrix's operand: det 3
+# products, u and v 6 each, t 4, with their sums, 34; the epilogue 12, as
+# in Moller-Trumbore).  The K12 kernel sums all ten rows of each dot, 76.
 MT_OPS = 53
 SLAB_OPS = 25
+MXU_OPS = 46
 # padding columns of the triangle tables hold the far triangle (v0 = 1e30),
 # which no ray hits: the bounds count only the triangles below this
 FAR_V0 = 1e29
@@ -168,33 +198,100 @@ def check_hits(name, kernel_out, plain_out):
     check(ulps <= 1, f"{name}: t differs by {ulps} ulp")
     for a, b in zip(kernel_out[2:], plain_out[2:]):
         check(torch.equal(a, b), f"{name}: u/v differ")
-    return float((t1 - t2).abs().max()), float((p1 >= 0).float().mean())
+    hit = p1 >= 0  # t_max on a miss, which may be inf
+    err = float((t1[hit] - t2[hit]).abs().max()) if bool(hit.any()) else 0.0
+    return err, float(hit.float().mean())
 
 
-def compare_brute(pk, name, o, d, t_max, tri_s, stats):
-    """K1 or K2 against its plain version at one shape."""
+def compare_brute(pk, name, o, d, t_max, tri, n_tri, stats):
+    """A brute-force kernel (K1, K2, K11 or K12) against its plain version
+    at one shape; tri: its triangle operand, n_tri: the real triangles in
+    it."""
     import torch
 
-    r, tp = o.shape[0], tri_s.shape[1]
-    n_tri = int((tri_s[0] < FAR_V0).sum())  # the real triangles of the Tp columns
+    plain_name, closest = BRUTE[name]
+    kern_fn, plain_fn = getattr(pk, name), getattr(pk, plain_name)
+    r, tp = o.shape[0], tri.shape[1] // (4 if "mxu" in name else 1)
     shape = f"rays={r} Tp={tp}"
-    if name == "closest_hit_v2":
-        out = pk.closest_hit_v2(o, d, t_max, tri_s)
-        err, frac = check_hits(name, out, pk.closest_hit_plain(o, d, t_max, tri_s))
-        kern = lambda: pk.closest_hit_v2(o, d, t_max, tri_s)  # noqa: E731
-        plain = lambda: pk.closest_hit_plain(o, d, t_max, tri_s)  # noqa: E731
+    kern = lambda: kern_fn(o, d, t_max, tri)  # noqa: E731
+    plain = lambda: plain_fn(o, d, t_max, tri)  # noqa: E731
+    out = kern()
+    if closest:
+        err, frac = check_hits(name, out, plain())
         tests = r * n_tri  # every triangle, to prove none is nearer
     else:
-        out = a1 = pk.any_hit_v2(o, d, t_max, tri_s)
-        a2 = pk.any_hit_plain(o, d, t_max, tri_s)
-        check(torch.equal(a1, a2), f"{name}: occlusion differs on {int((a1 != a2).sum())} rays")
-        err, frac = 0.0, float(a1.float().mean())
-        kern = lambda: pk.any_hit_v2(o, d, t_max, tri_s)  # noqa: E731
-        plain = lambda: pk.any_hit_plain(o, d, t_max, tri_s)  # noqa: E731
-        n_occ = int(a1.sum())  # an occluded ray needs one test at least
+        ref = plain()
+        check(torch.equal(out, ref), f"{name}: occlusion differs on {int((out != ref).sum())} rays")
+        err, frac = 0.0, float(out.float().mean())
+        n_occ = int(out.sum())  # an occluded ray needs one test at least
         tests = (r - n_occ) * n_tri + n_occ
-    record(stats, name, shape, err, kern, plain, tests * MT_OPS,
-           nbytes(o, d, t_max, tri_s, *out), f"hit={frac:.3f}")
+        out = (out,)
+    ops = tests * (MXU_OPS if "mxu" in name else MT_OPS)
+    record(stats, name, shape, err, kern, plain, ops, nbytes(o, d, t_max, tri, *out),
+           f"{'hit' if closest else 'occluded'}={frac:.3f}")
+
+
+def brute_all(pk, o, d, t_any, tri_s, tri_t, mt, n_tri, stats):
+    """K1/K2, K11 and K12 against their plain versions on one ray set:
+    the closest hits with t_max 1e30 (K1, as the renderer calls it) or inf
+    (K11, K12), the occlusion kernels with t_any."""
+    import torch
+
+    r = o.shape[0]
+    t_far = torch.full((r,), 1e30, device=o.device)
+    t_inf = torch.full((r,), float("inf"), device=o.device)
+    for name, tri, tm in (("closest_hit_v2", tri_s, t_far), ("any_hit_v2", tri_s, t_any),
+                          ("closest_hit", tri_t, t_inf), ("any_hit", tri_t, t_any),
+                          ("closest_hit_mxu", mt, t_inf), ("any_hit_mxu", mt, t_any)):
+        compare_brute(pk, name, o, d, tm, tri, n_tri, stats)
+
+
+def brute_entry_points(pk, pack, o, d):
+    """K11/K12 through their entry points on pack_scene's tri_t and
+    build_mt_matrix's operand, on the camera rays o, d and on shadow rays
+    from a point one unit below the centroid of the emitting triangles to
+    the camera rays' first hits (stopping 0.1 % short): K11 equal to K1/K2,
+    K12 the same hits but on edge rays.  (A ray that starts on a surface
+    is no test of K12: its bilinear t cancels to ~1e-4 at cbox's 550-unit
+    coordinates, about RAY_EPS.)  Returns the four launch counts."""
+    import torch
+
+    names = ("closest_hit", "any_hit", "closest_hit_mxu", "any_hit_mxu")
+    n = int((pack.tri_t[0] < FAR_V0).sum())
+    tris = [pack.arrays[k][:n].cpu().numpy() for k in ("tri_v0", "tri_e1", "tri_e2")]
+    mt = torch.as_tensor(pk.build_mt_matrix(*tris, n), device=o.device)
+    emit = pack.tri_emit[:n] >= 0
+    light = (pack.tri_v0[:n][emit] + (pack.tri_e1[:n][emit] + pack.tri_e2[:n][emit]) / 3).mean(0)
+    light = light - torch.tensor([0.0, 1.0, 0.0], device=o.device)
+    inf = float("inf")
+    for k in names:
+        getattr(pk, k).launches = 0
+    t1, p1 = pk.closest_hit_v2(o, d, 1e30, pack.tri_s)
+    t11, p11 = pk.closest_hit(o, d, inf, pack.tri_t)
+    t12, p12 = pk.closest_hit_mxu(o, d, inf, mt)
+    hit = p1 >= 0
+    to_hit = (o + torch.where(hit, t1, 0.0)[:, None] * d)[hit] - light
+    dist = torch.linalg.norm(to_hit, dim=1)
+    o_s = light.expand(to_hit.shape[0], 3).contiguous()
+    d_s, t_s = (to_hit / dist[:, None]).contiguous(), dist * 0.999
+    a2 = pk.any_hit_v2(o_s, d_s, t_s, pack.tri_s)
+    a11 = pk.any_hit(o_s, d_s, t_s, pack.tri_t)
+    a12 = pk.any_hit_mxu(o_s, d_s, t_s, mt)
+    launches = {k: getattr(pk, k).launches for k in names}
+    torch.cuda.synchronize()
+    check(torch.equal(p11, p1) and torch.equal(t11[hit], t1[hit]) and bool(torch.isinf(t11[~hit]).all()),
+          "closest_hit (K11) differs from closest_hit_v2 (K1) on the camera rays")
+    check(torch.equal(a11, a2), "any_hit (K11) differs from any_hit_v2 (K2) on the shadow rays")
+    both = hit & (p12 == p1)
+    n_prim, n_occ = int((p12 != p1).sum()), int((a12 != a2).sum())
+    rel = float(((t12[both] - t1[both]).abs() / t1[both]).max()) if bool(both.any()) else 0.0
+    print(f"phase 3: K11/K12 entry points on cbox's {o.shape[0]} camera rays and "
+          f"{o_s.shape[0]} shadow rays: K11 equal to K1/K2; K12 prim differs on {n_prim} rays, "
+          f"occlusion on {n_occ}, max rel t diff where prims agree {rel:.3g}; "
+          f"launches {launches}", flush=True)
+    check(n_prim <= o.shape[0] // 1000 and n_occ <= o_s.shape[0] // 1000 and rel < 1e-4,
+          "closest_hit_mxu / any_hit_mxu (K12) disagree with K1/K2 beyond edge rays")
+    return launches
 
 
 def cluster_sizes(pack):
@@ -382,7 +479,46 @@ def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
     for name, tm in (("cluster_stream_closest", t_big), ("cluster_stream_any", t_any)):
         fn = getattr(pb, name)
         print(f"  {name:24s} {shape:28s} kernel {time_ms(lambda: fn(o, d, tm, box, tri, tc), 5):.4f} ms "
-              f"(all rays)", flush=True)
+              f"(all rays; subset {stats[-2 if 'closest' in name else -1]['ms']:.4f} ms, "
+              f"full-rescan kernel {RESCAN_MS[name]} ms on the camera subset)", flush=True)
+    for closest, tm in ((True, t_big), (False, t_any)):
+        fallback_walks(pairs, pb, label, pack, o, d, tm, closest)
+
+
+def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
+    """The batch pair_closest (closest) or pair_any hands its fallback,
+    captured at the fallback's entry: K9 or K10 timed on it, and the
+    clusters each of its rays visits (tests the triangles of) and its box
+    scans, from the kernel's stats output."""
+    import torch
+
+    name = "cluster_closest" if closest else "cluster_any"
+    entry, batch = getattr(pb, name), []
+
+    def spy(pack_, o_, d_, t_):
+        batch.append((o_, d_, t_))
+        return entry(pack_, o_, d_, t_)
+
+    setattr(pb, name, spy)
+    try:
+        (pairs.pair_closest if closest else pairs.pair_any)(pack, o, d, t_max)
+    finally:
+        setattr(pb, name, entry)
+    kern = pb.cluster_stream_closest if closest else pb.cluster_stream_any
+    if not batch:
+        print(f"  {kern.__name__}: no {label} ray took the fallback", flush=True)
+        return
+    o_f, d_f, t_f = batch[0]
+    _, t_f = pb.finite_tmax(t_f, o_f)
+    args = (o_f.contiguous(), d_f.contiguous(), t_f, pack.cl_box, pack.cl_tri,
+            pack.meta["cluster_tc"])
+    st = torch.zeros(o_f.shape[0], 2, dtype=torch.int32, device=o.device)
+    kern(*args, stats=st)
+    visits, scans = st[:, 0].float(), st[:, 1].float()
+    print(f"  {kern.__name__:24s} {label} fallback batch of {o_f.shape[0]} rays: kernel "
+          f"{time_ms(lambda: kern(*args), 5):.4f} ms; clusters visited per ray mean "
+          f"{float(visits.mean()):.3f} max {int(visits.max())}, box scans mean "
+          f"{float(scans.mean()):.3f} max {int(scans.max())}", flush=True)
 
 
 def k4_beside_k6(pairs, name, k6_out, k6_ms, shape, args):
@@ -532,25 +668,23 @@ def main():
     pack = pack_scene(scene, dev)
     o, d = camera_rays(scene, dev)
     n_cam = o.shape[0]
-    compare_brute(pk, "closest_hit_v2", o, d, torch.full((n_cam,), 1e30, device=dev),
-                  pack.tri_s, stats)
-    compare_brute(pk, "any_hit_v2", o, d, torch.full((n_cam,), 1000.0, device=dev),
-                  pack.tri_s, stats)
+    n_box = int((pack.tri_t[0] < FAR_V0).sum())
+    box_tris = [pack.arrays[k][:n_box].cpu().numpy() for k in ("tri_v0", "tri_e1", "tri_e2")]
+    brute_all(pk, o, d, torch.full((n_cam,), 1000.0, device=dev), pack.tri_s, pack.tri_t,
+              torch.as_tensor(pk.build_mt_matrix(*box_tris, n_box), device=dev), n_box, stats)
     rng = np.random.default_rng(0)
     n_tri, n_ray = 300, 1_000_000
     v0 = rng.uniform(-1, 1, (n_tri, 3)).astype(np.float32)
     e1 = rng.uniform(-0.2, 0.2, (n_tri, 3)).astype(np.float32)
     e2 = rng.uniform(-0.2, 0.2, (n_tri, 3)).astype(np.float32)
-    tri_r = torch.as_tensor(pk.pack_triangles_sublane(v0, e1, e2, n_tri), device=dev)
     o_r = torch.as_tensor(rng.uniform(-2, 2, (n_ray, 3)).astype(np.float32), device=dev)
     d_r = rng.normal(size=(n_ray, 3)).astype(np.float32)
     d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
     d_r = torch.as_tensor(d_r, device=dev)
-    compare_brute(pk, "closest_hit_v2", o_r, d_r, torch.full((n_ray,), 1e30, device=dev),
-                  tri_r, stats)
-    compare_brute(pk, "any_hit_v2", o_r, d_r,
-                  torch.as_tensor(rng.uniform(0.2, 3, n_ray).astype(np.float32), device=dev),
-                  tri_r, stats)
+    brute_all(pk, o_r, d_r, torch.as_tensor(rng.uniform(0.2, 3, n_ray).astype(np.float32), device=dev),
+              torch.as_tensor(pk.pack_triangles_sublane(v0, e1, e2, n_tri), device=dev),
+              torch.as_tensor(pk.pack_triangles_transposed(v0, e1, e2, n_tri), device=dev),
+              torch.as_tensor(pk.build_mt_matrix(v0, e1, e2, n_tri), device=dev), n_tri, stats)
 
     os.makedirs(os.path.dirname(STANDIN_PLY), exist_ok=True)
     write_ply(STANDIN_PLY, *bunny_standin(seed=0))
@@ -594,6 +728,7 @@ def main():
     launches = render_checked(
         mt, {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")},
         scene64, GOLDEN, dev, "cbox")
+    launches.update(brute_entry_points(pk, pack, *camera_rays(scene, dev)))
     big64 = mt.load_scene_string(bunny_scene_xml(STANDIN_PLY, 64, 64))
     cluster_names = [k for k, src, _ in KERNELS if src == "cluster_hit"]
     for fn in (pairs.pair_closest, pairs.pair_any):
@@ -642,8 +777,9 @@ def main():
     throughput(make_render_pass, new_film, big_pack, big, dev, "bigmesh-standin", card)
     throughput(make_render_pass, new_film, dense_pack, dense, dev, "densemesh-standin", card)
 
-    # the main shape of each kernel: cbox camera rays for K1/K2, the
-    # stand-ins' camera rays for the others (K9/K10: the seeded subset);
+    # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
+    # K12, the stand-ins' camera rays for the others (K9/K10: the seeded
+    # subset);
     # no single PyTorch call computes any of these functions, so no
     # library time
     first = {}

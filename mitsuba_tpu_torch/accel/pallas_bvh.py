@@ -14,9 +14,9 @@ sort and the cone prepass are TPU packet devices and are not ported.
 As in the reference (pallas_bvh.py:583), `cluster_closest` / `cluster_any`
 take K7/K8 when the pack's triangle tiles fit the reference's VMEM budget
 (`cluster_vmem_ok`, at most 1,365 clusters of 128) and K9/K10 past it.
-K7/K8 keep every cluster box in shared memory; K9/K10 stream the boxes
-through it in tiles and have no cluster cap.  Both compute the same walk,
-so they share one plain version.
+K7/K8 keep every cluster box in shared memory; K9/K10 read the boxes
+from L2, one warp per ray, and have no cluster cap.  Both compute the
+same walk, so they share one plain version.
 
 `cluster_traverse_*` (K7/K8, csrc/cluster_hit.cu) and `cluster_stream_*`
 (K9/K10, csrc/cluster_stream.cu) launch their CUDA kernels for tensors on
@@ -54,8 +54,8 @@ def _declare_stream(lib):
     lib.mts_window_closest.argtypes = [p, p, p, p, p, lg, i, p, p, i, i, lg,
                                        p, p, p, p, p]
     lib.mts_window_any.argtypes = [p, p, p, p, p, lg, i, p, i, i, lg, p, p]
-    lib.mts_stream_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p]
-    lib.mts_stream_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p]
+    lib.mts_stream_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p, p]
+    lib.mts_stream_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p]
     for fn in ("mts_stream_limits", "mts_two_level_cull", "mts_window_closest",
                "mts_window_any", "mts_stream_closest", "mts_stream_any"):
         getattr(lib, fn).restype = i
@@ -222,7 +222,7 @@ def cluster_traverse_any_plain(o, d, t_max, cl_box, cl_tri, tc):
     return _traverse_plain(o, d, t_max, cl_box, cl_tri, tc, closest=False)
 
 
-# K9/K10 compute K7/K8's walk with the boxes streamed: the same plain versions
+# K9/K10 compute K7/K8's walk with the boxes read from L2: the same plain versions
 cluster_stream_closest_plain = cluster_traverse_closest_plain
 cluster_stream_any_plain = cluster_traverse_any_plain
 
@@ -283,18 +283,23 @@ def cluster_traverse_any(o, d, t_max, cl_box, cl_tri, tc):
     return occ > 0
 
 
-def _stream_args(o, d, t_max, cl_box, cl_tri, tc):
-    check_aligned(("cl_box", cl_box))
-    if cl_box.shape[1] % 4:
-        raise ValueError(f"cl_box must have a multiple of 4 columns, got {cl_box.shape[1]}")
+def _stream_args(o, d, t_max, cl_box, cl_tri, tc, stats):
+    if stats is not None:
+        native.check_tensors(o, ("stats", stats, torch.int32, (o.shape[0], 2)))
+        if not stats.is_contiguous():
+            raise ValueError("stats must be contiguous")
     return (o, d, t_max, cl_box, cl_tri, o.shape[0], cl_box.shape[1], tc, cl_tri.shape[1])
 
 
-def cluster_stream_closest(o, d, t_max, cl_box, cl_tri, tc):
-    """K9: K7's walk with the boxes streamed (no cluster cap); see
-    cluster_traverse_closest_plain."""
+def cluster_stream_closest(o, d, t_max, cl_box, cl_tri, tc, stats=None):
+    """K9: K7's walk with the boxes read from L2 (no cluster cap); see
+    cluster_traverse_closest_plain.  stats: None, or (kernel only) an int32
+    [R, 2] tensor that receives each ray's clusters visited (triangles
+    tested) and box scans."""
     o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
     if o.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("stats come from the kernel only")
         return cluster_stream_closest_plain(o, d, t_max, cl_box, cl_tri, tc)
     r = o.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=o.device)
@@ -302,19 +307,23 @@ def cluster_stream_closest(o, d, t_max, cl_box, cl_tri, tc):
     u = torch.empty(r, dtype=torch.float32, device=o.device)
     v = torch.empty(r, dtype=torch.float32, device=o.device)
     launch_stream("mts_stream_closest", o.device,
-                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc), t, slot, u, v)
+                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc, stats), t, slot, u, v, stats)
     cluster_stream_closest.launches += 1
     return t, slot, u, v
 
 
-def cluster_stream_any(o, d, t_max, cl_box, cl_tri, tc):
-    """K10: K8's walk with the boxes streamed; see cluster_traverse_any_plain."""
+def cluster_stream_any(o, d, t_max, cl_box, cl_tri, tc, stats=None):
+    """K10: K8's walk with the boxes read from L2, in one pass; see
+    cluster_traverse_any_plain.  stats: as for cluster_stream_closest
+    (scans are 1)."""
     o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
     if o.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("stats come from the kernel only")
         return cluster_stream_any_plain(o, d, t_max, cl_box, cl_tri, tc)
     occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
     launch_stream("mts_stream_any", o.device,
-                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc), occ)
+                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc, stats), occ, stats)
     cluster_stream_any.launches += 1
     return occ > 0
 

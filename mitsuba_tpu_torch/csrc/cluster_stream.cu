@@ -46,18 +46,44 @@
 // operations per (pair, triangle).  Tiles of one stage start 4 floats
 // apart in bank order, so a warp spanning several runs does not conflict.
 //
-// K9/K10 (streamed cluster traversal, the overflow fallback): one thread
-// per ray walks its slab-hit clusters in (entry, cid) order, as K7/K8 do
+// K9/K10 (streamed cluster traversal, the overflow fallback; redesigned
+// for the card): each ray's walk over its slab-hit clusters (valid box,
+// tf >= max(tn, 0), tn < t_max) in (entry, cid) order, as K7/K8 do
 // (cluster_hit.cu), stopping once the next entry exceeds its best t
 // (closest) or at its first hit (any).  K7/K8 keep every box in shared
-// memory, which caps them at 1,920 clusters; here the [8, Cp] boxes stream
-// through shared memory in tiles of 512, double-buffered with cp.async, so
-// Cp has no cap.  Each "next (entry, cid)" step is one pass over all tiles,
-// all threads of a block in step (a block loops while any of its rays
-// runs); triangles come from global memory per visit.  Blocks are 64
-// threads so that the few thousand overflow rays of a batch spread over
-// the SMs.  Bound: the serial per-visit box scans, O(C) slab tests per
-// visit per ray: a simple kernel that is right, not yet a fast one.
+// memory, which caps them at 1,920 clusters; here the [8, Cp] boxes (236 KB
+// at 9,856 clusters, just past a block's 227 KB) are read from L2, so Cp has
+// no cap.  What bounds the walk is the box scan: 25 operations and 24 bytes
+// of L2 per (ray, box), over every box of the mesh, and a visit's 4.6 KB of
+// triangles.  The design:
+//   * one warp per ray, blocks of 4 warps that never wait for each other:
+//     a fallback launch of 10-30k rays puts 10-30k warps in flight, and no
+//     ray waits for another's longer walk;
+//   * the lanes split the box scan (box base + lane, neighbouring lanes on
+//     neighbouring addresses, the next 32 boxes loaded while these are
+//     tested) and a cluster's Tc triangles (triangle j by lane j % 32, again
+//     consecutive addresses);
+//   * K10 (any) needs no order: the answer is whether some slab-hit cluster
+//     holds a hit in (1e-4, t_max), or t_max <= 0, and the walk has no stop
+//     on the entry.  So one pass over the boxes tests each slab-hit
+//     cluster's triangles as soon as the warp's ballot finds its box, and
+//     stops at the first hit (__any_sync);
+//   * K9 (closest) needs the order (the stop at entry > best t, and ties in
+//     t between clusters go to the first one visited).  One scan collects a
+//     window of the 32 smallest (entry, cid) after the cursor, with entries
+//     <= best t and tn < best t (best t only falls, so a cluster that fails
+//     either would stop the walk or be skipped): each lane keeps its 8
+//     smallest in registers, and 32 rounds of warp-shuffle minima merge
+//     them into the window (lane k holds entry k), cut at the smallest key
+//     a full lane may have dropped, so the window is exact.  The warp visits
+//     the window in order under the walk's stop rule (!(entry <= best t))
+//     and skip rule (!(tn < best t)), reducing each cluster's (t, j) by
+//     lexicographic minimum, which is the serial strict '<' scan.  It
+//     rescans, strictly after the last (entry, cid) taken, only when the
+//     window was full and is used up.
+// An optional stats output counts, per ray, the clusters whose triangles
+// were tested and the box scans.  Bound: one scan of every box per ray (25
+// operations each) and each visited cluster's real triangles (53 each).
 //
 // Arithmetic: expressions follow the plain PyTorch versions (accel/pairs.py,
 // accel/pallas_bvh.py) in order, through the helpers of ray_tri.cuh, and the
@@ -80,8 +106,9 @@ constexpr int kMaxKs = 8;          // longest kept-super list
 constexpr int kMaxK = 8;           // longest per-ray cluster list
 constexpr int kWindow = 256;       // K6 pairs per window = threads per block
 constexpr int kStageTiles = 8;     // K6 cluster tiles per stage
-constexpr int kStreamThreads = 64; // K9/K10 threads per block
-constexpr int kBoxTile = 512;      // K9/K10 boxes per streamed tile (12 KB)
+constexpr int kWalkWarps = 4;      // K9/K10 rays (one warp each) per block
+constexpr int kLaneList = 8;       // K9 candidates each lane keeps per scan
+constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------- K5
 __global__ void __launch_bounds__(kThreads)
@@ -272,117 +299,234 @@ window_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }
 
 // ---------------------------------------------------------------- K9/K10
-template <bool kClosest>
-__global__ void __launch_bounds__(kStreamThreads)
-stream_kernel(const float* __restrict__ o, const float* __restrict__ d,
-              const float* __restrict__ t_max, const float* __restrict__ box,
-              const float* __restrict__ tri, int n_rays, int cp, int tc,
-              long ct, float* __restrict__ t_out, int* __restrict__ slot_out,
-              float* __restrict__ u_out, float* __restrict__ v_out,
-              int* __restrict__ occ_out) {
-  __shared__ __align__(16) float s_box[2][6 * kBoxTile];  // SoA rows lox..hiz
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  Ray r{0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
-  float tm = 0.0f;
-  if (live) {
-    r = load_ray(o, d, i);
-    tm = t_max[i];
+struct Box {
+  float lox, loy, loz, hix, hiy, hiz;
+};
+
+// box c of the [8, cp] table, or an inverted box past its end
+__device__ __forceinline__ Box load_box(const float* __restrict__ box, int cp,
+                                        int c) {
+  if (c >= cp) return Box{1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
+  return Box{__ldg(box + c), __ldg(box + cp + c), __ldg(box + 2L * cp + c),
+             __ldg(box + 3L * cp + c), __ldg(box + 4L * cp + c),
+             __ldg(box + 5L * cp + c)};
+}
+
+// the walk's slab hit: a valid box (hi x >= lo x; padding is inverted) with
+// tf >= e = max(tn, 0) and tn < tm; writes e and tn
+__device__ __forceinline__ bool walk_hit(const Box& b, const Ray& r, float ix,
+                                         float iy, float iz, float tm, float* e,
+                                         float* tn) {
+  if (!(b.hix >= b.lox)) return false;
+  float tf;
+  slab(b.lox, b.loy, b.loz, b.hix, b.hiy, b.hiz, r, ix, iy, iz, tn, &tf);
+  *e = fmaxf(*tn, 0.0f);
+  return tf >= *e && *tn < tm;
+}
+
+// (e1, c1) < (e2, c2) lexicographically
+__device__ __forceinline__ bool key_less(float e1, int c1, float e2, int c2) {
+  return e1 < e2 || (e1 == e2 && c1 < c2);
+}
+
+// the warp's lexicographic minimum of (e, c), in every lane
+__device__ __forceinline__ void warp_min(float* e, int* c) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float oe = __shfl_xor_sync(kFull, *e, off);
+    const int oc = __shfl_xor_sync(kFull, *c, off);
+    if (key_less(oe, oc, *e, *c)) {
+      *e = oe;
+      *c = oc;
+    }
   }
+}
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
+walk_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                const float* __restrict__ t_max, const float* __restrict__ box,
+                const float* __restrict__ tri, int n_rays, int cp, int tc,
+                long ct, int* __restrict__ occ_out, int* __restrict__ stats) {
+  const int lane = threadIdx.x & 31;
+  const long i = (long)blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  if (i >= n_rays) return;  // the whole warp
+  const Ray r = load_ray(o, d, i);
+  const float tm = t_max[i];
+  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+  bool occ = tm <= 0.0f;
+  int visits = 0;
+  Box next = load_box(box, cp, lane);
+  for (int base = 0; base < cp && !occ; base += 32) {
+    const Box b = next;
+    next = load_box(box, cp, base + 32 + lane);
+    float e, tn;
+    unsigned found = __ballot_sync(kFull, walk_hit(b, r, ix, iy, iz, tm, &e, &tn));
+    while (found) {  // the slab-hit clusters of these 32 boxes, any order
+      const long first = (long)(base + __ffs(found) - 1) * tc;
+      found &= found - 1;
+      ++visits;
+      bool hit = false;
+      for (int j = lane; j < tc && !hit; j += 32) {
+        float t, u, v;
+        hit = mt_hit(tri, ct, first + j, r, tm, &t, &u, &v);
+      }
+      if (__any_sync(kFull, hit)) {
+        occ = true;
+        break;
+      }
+    }
+  }
+  if (lane == 0) {
+    occ_out[i] = occ;
+    if (stats) {
+      stats[2 * i] = visits;
+      stats[2 * i + 1] = 1;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
+walk_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ t_max,
+                    const float* __restrict__ box,
+                    const float* __restrict__ tri, int n_rays, int cp, int tc,
+                    long ct, float* __restrict__ t_out,
+                    int* __restrict__ slot_out, float* __restrict__ u_out,
+                    float* __restrict__ v_out, int* __restrict__ stats) {
+  const float kInf = __int_as_float(0x7f800000);
+  constexpr int kNone = 0x7fffffff;  // cid of an empty list slot
+  const int lane = threadIdx.x & 31;
+  const long i = (long)blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  if (i >= n_rays) return;  // the whole warp
+  const Ray r = load_ray(o, d, i);
+  const float tm = t_max[i];
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
   float best_t = tm, best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1;
-  int occ = tm <= 0.0f;
-  float last_e = -1.0f;  // entries are >= 0
-  int last_c = -1;
-  bool running = live && (kClosest || !occ);
-  const int n_tiles = (cp + kBoxTile - 1) / kBoxTile;
-
-  // start the cp.async copies of box tile k into buffer k % 2
-  auto load_tile = [&](int k) {
-    const int c0 = k * kBoxTile;
-    const int n = min(kBoxTile, cp - c0);  // a multiple of 4: Cp is of 8
-    for (int q = threadIdx.x; q < 6 * (n / 4); q += blockDim.x) {
-      const int a = q / (n / 4);
-      const int j = 4 * (q - a * (n / 4));
-      cp_async16(&s_box[k & 1][a * kBoxTile + j], box + (long)a * cp + c0 + j);
+  float cur_e = -1.0f;  // the cursor: the last (entry, cid) taken; entries >= 0
+  int cur_c = -1;
+  int visits = 0, scans = 0;
+  bool more = true;
+  while (more) {
+    ++scans;
+    // 1. scan: each lane keeps its kLaneList smallest candidates after the
+    // cursor, sorted; its cids ascend, so equal entries keep cid order
+    float le[kLaneList];
+    int lc[kLaneList];
+#pragma unroll
+    for (int j = 0; j < kLaneList; ++j) {
+      le[j] = kInf;
+      lc[j] = kNone;
     }
-    cp_async_commit();
-  };
-
-  while (__syncthreads_or(running)) {
-    // one pass over the boxes: the next (entry, cid) after (last_e, last_c)
-    // among the ray's slab hits (valid box, tf >= max(tn, 0), tn < t_max)
-    int next_c = -1;
-    float next_e = 0.0f, next_tn = 0.0f;
-    load_tile(0);
-    for (int k = 0; k < n_tiles; ++k) {
-      if (k + 1 < n_tiles) {
-        load_tile(k + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+    bool dropped = false;  // this lane let a candidate go
+    Box next = load_box(box, cp, lane);
+    for (int base = 0; base < cp; base += 32) {
+      const Box b = next;
+      next = load_box(box, cp, base + 32 + lane);
+      const int c = base + lane;
+      float e, tn;
+      if (!walk_hit(b, r, ix, iy, iz, tm, &e, &tn) ||
+          !key_less(cur_e, cur_c, e, c) || !(e <= best_t) || !(tn < best_t))
+        continue;
+      if (!(e < le[kLaneList - 1])) {
+        dropped = true;
+        continue;
       }
-      __syncthreads();
-      if (running) {
-        const float* s = s_box[k & 1];
-        const int c0 = k * kBoxTile;
-        const int n = min(kBoxTile, cp - c0);
-        for (int j = 0; j < n; ++j) {
-          if (!(s[3 * kBoxTile + j] >= s[0 * kBoxTile + j])) continue;
-          float tn, tf;
-          slab(s[0 * kBoxTile + j], s[1 * kBoxTile + j], s[2 * kBoxTile + j],
-               s[3 * kBoxTile + j], s[4 * kBoxTile + j], s[5 * kBoxTile + j],
-               r, ix, iy, iz, &tn, &tf);
-          const float e = fmaxf(tn, 0.0f);
-          if (!(tf >= e && tn < tm)) continue;
-          const int cid = c0 + j;
-          if (e < last_e || (e == last_e && cid <= last_c)) continue;
-          if (next_c < 0 || e < next_e) {  // cid ascends: ties keep the first
-            next_c = cid;
-            next_e = e;
-            next_tn = tn;
+      if (lc[kLaneList - 1] != kNone) dropped = true;  // the last one goes
+      bool placed = false;
+#pragma unroll
+      for (int j = kLaneList - 1; j > 0; --j) {
+        if (!placed) {
+          if (e < le[j - 1]) {
+            le[j] = le[j - 1];
+            lc[j] = lc[j - 1];
+          } else {
+            le[j] = e;
+            lc[j] = c;
+            placed = true;
           }
         }
       }
-      __syncthreads();  // the buffer is refilled by tile k + 2
+      if (!placed) {
+        le[0] = e;
+        lc[0] = c;
+      }
     }
-    if (!running) continue;
-    if (next_c < 0 || (kClosest && !(next_e <= best_t))) {
-      running = false;  // none left, or (closest) none can be nearer
-      continue;
+    // 2. merge: the window, lane k holding its k-th entry, exact up to the
+    // smallest last key of a lane that dropped candidates
+    float cut_e = dropped ? le[kLaneList - 1] : kInf;
+    int cut_c = dropped ? lc[kLaneList - 1] : kNone;
+    warp_min(&cut_e, &cut_c);
+    float win_e = kInf;
+    int win_c = kNone;
+    int n_win = 0;
+    for (; n_win < 32; ++n_win) {
+      float me = le[0];
+      int mc = lc[0];
+      warp_min(&me, &mc);
+      if (mc == kNone || key_less(cut_e, cut_c, me, mc)) break;
+      if (lane == n_win) {
+        win_e = me;
+        win_c = mc;
+      }
+      if (lc[0] == mc) {  // the one lane that held it pops its head
+#pragma unroll
+        for (int j = 0; j < kLaneList - 1; ++j) {
+          le[j] = le[j + 1];
+          lc[j] = lc[j + 1];
+        }
+        le[kLaneList - 1] = kInf;
+        lc[kLaneList - 1] = kNone;
+      }
     }
-    last_e = next_e;
-    last_c = next_c;
-    const long base = (long)next_c * tc;
-    if (kClosest) {
-      if (!(next_tn < best_t)) continue;
-      for (int j = 0; j < tc; ++j) {
+    more = __any_sync(kFull, dropped || lc[0] != kNone);
+    // 3. visit the window in order
+    for (int k = 0; k < n_win; ++k) {
+      const float e = __shfl_sync(kFull, win_e, k);
+      const int c = __shfl_sync(kFull, win_c, k);
+      if (!(e <= best_t)) {  // none left can be nearer
+        more = false;
+        break;
+      }
+      cur_e = e;
+      cur_c = c;
+      const Box b = load_box(box, cp, c);
+      float tn, tf;
+      slab(b.lox, b.loy, b.loz, b.hix, b.hiy, b.hiz, r, ix, iy, iz, &tn, &tf);
+      if (!(tn < best_t)) continue;
+      ++visits;
+      const long first = (long)c * tc;
+      float lt = kInf, lu = 0.0f, lv = 0.0f;
+      int lj = kNone;
+      for (int j = lane; j < tc; j += 32) {
         float t, u, v;
-        if (mt_hit(tri, ct, base + j, r, best_t, &t, &u, &v)) {
-          best_t = t;
-          best_slot = (int)(base + j);
-          best_u = u;
-          best_v = v;
+        if (mt_hit(tri, ct, first + j, r, best_t, &t, &u, &v) && t < lt) {
+          lt = t;
+          lj = j;
+          lu = u;
+          lv = v;
         }
       }
-    } else {
-      for (int j = 0; j < tc && !occ; ++j) {
-        float t, u, v;
-        occ = mt_hit(tri, ct, base + j, r, tm, &t, &u, &v);
+      float min_t = lt;
+      int mj = lj;
+      warp_min(&min_t, &mj);
+      if (mj != kNone) {  // every hit lies before best_t
+        best_u = __shfl_sync(kFull, lu, mj & 31);
+        best_v = __shfl_sync(kFull, lv, mj & 31);
+        best_t = min_t;
+        best_slot = (int)(first + mj);
       }
-      running = !occ;
     }
   }
-
-  if (!live) return;
-  if (kClosest) {
+  if (lane == 0) {
     t_out[i] = best_t;
     slot_out[i] = best_slot;
     u_out[i] = best_u;
     v_out[i] = best_v;
-  } else {
-    occ_out[i] = occ;
+    if (stats) {
+      stats[2 * i] = visits;
+      stats[2 * i + 1] = scans;
+    }
   }
 }
 
@@ -409,22 +553,6 @@ int launch_window(const float* o, const float* d, const float* t_max,
                               static_cast<cudaStream_t>(stream)>>>(
         o, d, t_max, cid_q, pair_q, n_pairs, kk, tri, pad2prim, c, tc, ct,
         t_out, prim_out, u_out, v_out, occ_out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kClosest>
-int launch_stream(const float* o, const float* d, const float* t_max,
-                  const float* box, const float* tri, int n_rays, int cp,
-                  int tc, long ct, float* t_out, int* slot_out, float* u_out,
-                  float* v_out, int* occ_out, void* stream) {
-  if (cp % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rays > 0) {
-    stream_kernel<kClosest><<<blocks_for(n_rays, kStreamThreads),
-                              kStreamThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        o, d, t_max, box, tri, n_rays, cp, tc, ct, t_out, slot_out, u_out,
-        v_out, occ_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -478,17 +606,25 @@ int mts_window_any(const float* o, const float* d, const float* t_max,
 int mts_stream_closest(const float* o, const float* d, const float* t_max,
                        const float* box, const float* tri, int n_rays, int cp,
                        int tc, long ct, float* t_out, int* slot_out,
-                       float* u_out, float* v_out, void* stream) {
-  return launch_stream<true>(o, d, t_max, box, tri, n_rays, cp, tc, ct, t_out,
-                             slot_out, u_out, v_out, nullptr, stream);
+                       float* u_out, float* v_out, int* stats, void* stream) {
+  if (n_rays > 0) {
+    walk_closest_kernel<<<blocks_for(n_rays, kWalkWarps), 32 * kWalkWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        o, d, t_max, box, tri, n_rays, cp, tc, ct, t_out, slot_out, u_out,
+        v_out, stats);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 int mts_stream_any(const float* o, const float* d, const float* t_max,
                    const float* box, const float* tri, int n_rays, int cp,
-                   int tc, long ct, int* occ_out, void* stream) {
-  return launch_stream<false>(o, d, t_max, box, tri, n_rays, cp, tc, ct,
-                              nullptr, nullptr, nullptr, nullptr, occ_out,
-                              stream);
+                   int tc, long ct, int* occ_out, int* stats, void* stream) {
+  if (n_rays > 0) {
+    walk_any_kernel<<<blocks_for(n_rays, kWalkWarps), 32 * kWalkWarps, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        o, d, t_max, box, tri, n_rays, cp, tc, ct, occ_out, stats);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

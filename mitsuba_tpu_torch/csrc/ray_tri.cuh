@@ -1,5 +1,6 @@
 // Ray and triangle primitives shared by the cluster kernels
-// (cluster_hit.cu, cluster_stream.cu).  Every expression follows the plain
+// (cluster_hit.cu, cluster_stream.cu) and the tiled brute force
+// (brute_tiled.cu).  Every expression follows the plain
 // PyTorch versions in order (accel/pallas_kernels.py mt_test,
 // accel/pallas_bvh.py safe_inv), and the sources are built with
 // -fmad=false, so kernels and plain versions round identically.
@@ -30,7 +31,7 @@ __device__ __forceinline__ float safe_inv(float c) {
 
 // Moller-Trumbore against column col of a [9, ct] triangle table (rows
 // v0xyz, e1xyz, e2xyz; global or shared memory); same expression order as
-// K1 (brute_hit.cu) and the plain versions.
+// the plain versions.
 __device__ __forceinline__ bool mt_hit(const float* __restrict__ tri, long ct,
                                        long col, const Ray& r, float t_lim,
                                        float* t_hit, float* u_hit,

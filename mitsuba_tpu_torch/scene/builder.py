@@ -18,7 +18,10 @@ import torch
 
 from mitsuba_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh, octant_node_rows
 from mitsuba_tpu_torch.accel.clusters import pack_clusters
-from mitsuba_tpu_torch.accel.pallas_kernels import pack_triangles_sublane
+from mitsuba_tpu_torch.accel.pallas_kernels import (
+    pack_triangles_sublane,
+    pack_triangles_transposed,
+)
 from mitsuba_tpu_torch.bsdf.plugins import DIFFUSE, BSDFRecord
 from mitsuba_tpu_torch.emitter.eval import PORTED_KINDS
 from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT
@@ -29,7 +32,7 @@ BRUTE_FORCE_MAX_TRIS = 512
 # the arrays and meta keys the ported slice reads
 SLICE_ARRAYS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
-    "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat", "tri_emit", "tri_s",
+    "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat", "tri_emit", "tri_s", "tri_t",
     "mat_type", "mat_cA", "mat_twosided",
     "em_kind", "em_rgb", "em_area", "em_tri_lo", "em_tri_hi",
     "area_tri_idx", "area_tri_cdf", "emitter_pmf", "emitter_cdf",
@@ -205,6 +208,9 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     tri_s = pack_triangles_sublane(
         tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris
     )
+    tri_t = pack_triangles_transposed(
+        tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris
+    )
     tri_area = 0.5 * np.linalg.norm(
         np.cross(tri["tri_e1"], tri["tri_e2"]), axis=-1
     )
@@ -279,6 +285,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     arrays = {
         **tri,
         "tri_s": tri_s,
+        "tri_t": tri_t,
         **bvh_arrays,
         **mt,
         **em,

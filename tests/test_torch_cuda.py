@@ -6,7 +6,8 @@ repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Tolerance: the kernels are built without FMA contraction and evaluate
-the plain versions' expressions in the same order, so cluster lists,
+the plain versions' expressions in the same order (K12 sums each dot of
+its bilinear form in the plain version's row order), so cluster lists,
 prim, occlusion, t, u and v must be equal.
 """
 
@@ -44,8 +45,9 @@ def _random_scene(dev, n_tris, n_rays, seed):
     return o, torch.as_tensor(d, device=dev), t_max, tri_s
 
 
-@pytest.mark.parametrize("n_tris", [1, 36, 300, 512])
+@pytest.mark.parametrize("n_tris", [1, 36, 300, 512, 1000])
 def test_kernels_equal_plain(dev, n_tris):
+    """K1/K2 on tri_s, within one staged tile and past it (no cap)."""
     o, d, t_max, tri_s = _random_scene(dev, n_tris, 70_001, n_tris)
     for tm in (t_max, torch.full_like(t_max, 1e30)):
         t1, p1 = pk.closest_hit_v2(o, d, tm, tri_s)
@@ -66,16 +68,57 @@ def test_launch_counters(dev):
     assert (pk.closest_hit_v2.launches - c0, pk.any_hit_v2.launches - a0) == (1, 2)
 
 
-def test_too_many_triangles_raise(dev):
-    o, d, t_max, _ = _random_scene(dev, 8, 100, 0)
-    with pytest.raises(ValueError, match="at most"):
-        pk.closest_hit_v2(o, d, t_max, torch.zeros(9, 520, device=dev))
-
-
 def test_empty_ray_batch(dev):
     o, d, t_max, tri_s = _random_scene(dev, 8, 0, 0)
     t, p = pk.closest_hit_v2(o, d, t_max, tri_s)
     assert t.shape == (0,) and p.shape == (0,)
+
+
+def _tiled_operands(dev, n_tris, seed):
+    """tri_t and mt_matrix of the random set _random_scene(dev, n_tris, ..,
+    seed) draws."""
+    r = np.random.default_rng(seed)
+    v0 = r.uniform(-1, 1, (n_tris, 3)).astype(np.float32)
+    e1 = r.uniform(-0.2, 0.2, (n_tris, 3)).astype(np.float32)
+    e2 = r.uniform(-0.2, 0.2, (n_tris, 3)).astype(np.float32)
+    return (torch.as_tensor(pk.pack_triangles_transposed(v0, e1, e2, n_tris), device=dev),
+            torch.as_tensor(pk.build_mt_matrix(v0, e1, e2, n_tris), device=dev))
+
+
+@pytest.mark.parametrize("n_tris", [1, 100, 300, 1000])
+def test_tiled_kernels_equal_plain(dev, n_tris):
+    """K11 and K12 at a ragged ray count, at Tp = 128 and past 512 (no
+    triangle cap), with t_max finite, inf and a scalar."""
+    o, d, t_max, _ = _random_scene(dev, n_tris, 70_001, n_tris)
+    tri_t, mt = _tiled_operands(dev, n_tris, n_tris)
+    inf = torch.full_like(t_max, float("inf"))
+    for tm in (t_max, inf, 1.5):
+        tm_r = torch.as_tensor(tm, dtype=torch.float32, device=dev).expand(o.shape[0]).contiguous()
+        for kern, plain, tri in ((pk.closest_hit, pk.closest_hit_v1_plain, tri_t),
+                                 (pk.closest_hit_mxu, pk.closest_hit_mxu_plain, mt)):
+            _equal(kern(o, d, tm, tri), plain(o, d, tm_r, tri))
+        assert torch.equal(pk.any_hit(o, d, tm, tri_t), pk.any_hit_v1_plain(o, d, tm_r, tri_t))
+        assert torch.equal(pk.any_hit_mxu(o, d, tm, mt), pk.any_hit_mxu_plain(o, d, tm_r, mt))
+    # K11 computes K1's function on another padding of the same triangles
+    tri_s = torch.as_tensor(pk.pack_triangles_sublane(
+        *(tri_t[k * 3:k * 3 + 3, :n_tris].T.cpu().numpy() for k in range(3)), n_tris), device=dev)
+    _equal(pk.closest_hit(o, d, t_max, tri_t), pk.closest_hit_v2(o, d, t_max, tri_s))
+    torch.cuda.synchronize()
+
+
+def test_tiled_launch_counters(dev):
+    o, d, t_max, _ = _random_scene(dev, 8, 100, 0)
+    tri_t, mt = _tiled_operands(dev, 8, 0)
+    fns = (pk.closest_hit, pk.any_hit, pk.closest_hit_mxu, pk.any_hit_mxu)
+    before = [f.launches for f in fns]
+    pk.closest_hit(o, d, t_max, tri_t)
+    pk.any_hit(o, d, t_max, tri_t)
+    pk.any_hit(o, d, t_max, tri_t)
+    pk.closest_hit_mxu(o, d, t_max, mt)
+    pk.any_hit_mxu(o, d, t_max, mt)
+    pk.closest_hit_v1_plain(o, d, t_max, tri_t)
+    pk.any_hit_mxu_plain(o, d, t_max, mt)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 2, 1, 1]
 
 
 @pytest.fixture(scope="module")
@@ -224,6 +267,66 @@ def test_stream_kernels_equal_plain(dense_mesh):
         k9 = pb.cluster_stream_closest(*args)
         _equal(k9, pb.cluster_stream_closest_plain(*args))
         _equal(k9, pb.cluster_traverse_closest(*args))
+        k10 = pb.cluster_stream_any(*args)
+        assert torch.equal(k10, pb.cluster_stream_any_plain(*args))
+        assert torch.equal(k10, pb.cluster_traverse_any(*args))
+    torch.cuda.synchronize()
+
+
+def _window_trap(dev, seed):
+    """Cluster tables that trap the K9 window (32 entries, lane lists of
+    8): 80 clusters share one box, so every ray meets 80 equal entries,
+    ordered by cid, across more than two windows; 50 of them lie 32 cids
+    apart (all in one lane's list, which overflows) and 30 more likewise;
+    clusters 5 and 37 (both shared) hold the same large triangle, a tie
+    in t that the first visited wins.  The other 1,520 clusters have scattered
+    boxes.  Rays: 4,096 from a sphere of radius 4 toward the shared box,
+    and 4,096 starting inside it (entry 0 for all of them)."""
+    r = np.random.default_rng(seed)
+    c, tc = 1600, 128
+    shared = np.r_[32 * np.arange(50) + 5, 32 * np.arange(30) + 17]
+    lo = r.uniform(-3, 2.5, (c, 3))
+    hi = lo + r.uniform(0.2, 1.0, (c, 3))
+    lo[shared], hi[shared] = -1.0, 1.0
+    n_tri = np.where(np.isin(np.arange(c), shared), 4, r.integers(0, 6, c))
+    tri = np.zeros((9, c * tc), np.float32)
+    tri[0:3] = 1e30
+    for k in range(c):
+        for j in range(n_tri[k]):
+            tri[:, k * tc + j] = np.r_[r.uniform(lo[k], hi[k]), r.uniform(-0.4, 0.4, 6)]
+    tri[:, 5 * tc] = [-1, -1, 0, 2, 0, 0, 0, 2, 0]  # large, so that it wins often
+    tri[:, 37 * tc] = tri[:, 5 * tc]
+    box = np.zeros((8, c), np.float32)
+    box[0:3], box[3:6] = lo.T, hi.T
+    n = 4096
+    u = r.normal(size=(n, 3))
+    o_out = 4 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    d_out = r.uniform(-0.8, 0.8, (n, 3)) - o_out
+    o_in = r.uniform(-0.9, 0.9, (n, 3))
+    d_in = r.normal(size=(n, 3))
+    o = np.concatenate([o_out, o_in]).astype(np.float32)
+    d = np.concatenate([d_out, d_in])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t_any = r.uniform(0.0, 3.0, 2 * n).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (o, d, t_any, box, tri)] + [tc]
+
+
+def test_stream_window_trap(dev):
+    """K9/K10 against their plain versions and K7/K8 on _window_trap: rays
+    that visit more than two windows of clusters and meet equal entries at
+    every window boundary."""
+    o, d, t_any, box, tri, tc = _window_trap(dev, 7)
+    t_big = torch.full_like(t_any, pairs.BIG)
+    st = torch.zeros(o.shape[0], 2, dtype=torch.int32, device=dev)
+    for tm in (t_big, t_any):
+        args = (o, d, tm, box, tri, tc)
+        k9 = pb.cluster_stream_closest(*args, stats=st)
+        _equal(k9, pb.cluster_stream_closest_plain(*args))
+        _equal(k9, pb.cluster_traverse_closest(*args))
+        if tm is t_big:
+            assert int(st[:, 0].max()) > 64 and int(st[:, 1].max()) > 2
+            # the tied triangle goes to the first cluster visited
+            assert bool((k9[1] == 5 * tc).any()) and not bool((k9[1] == 37 * tc).any())
         k10 = pb.cluster_stream_any(*args)
         assert torch.equal(k10, pb.cluster_stream_any_plain(*args))
         assert torch.equal(k10, pb.cluster_traverse_any(*args))
