@@ -20,15 +20,20 @@ Phases, each of which raises (and exits non-zero) on failure:
      (tests/torch_meshes.py: 69,168 triangles in scenes/bunny.xml's
      configuration) with 262,144 camera rays and 262,144 random
      incoherent rays: K3 exactly equal, K4/K7 prim equal and t within
-     1 ulp, K4/K8 occlusion equal; also the natural overflow share;
+     1 ulp, K4/K8 occlusion equal; also the natural overflow share, and
+     K7/K8 equal to plain on the batch the pair pipeline hands its
+     fallback and timed there, with the clusters each fallback ray visits
+     and its box scans (mean, max), K9/K10 on the same batch (equal
+     stats) and the full-rescan kernels' times beside;
    * K5/K6/K9/K10 (cluster_stream.cu) on the dense stand-in (870,480
      triangles, 9,856 clusters) with the same two ray sets: K5 exactly
      equal, K6 closest/any as K4; K9/K10 on a seeded subset of 16,384
      rays of each set (the plain walk is slow at 9,856 clusters, and the
      fallback's batches are of that order), the kernels also timed on
-     all rays and on the batch the pair pipeline hands its fallback, with
-     the clusters each fallback ray visits and its box scans (mean,
-     max), beside the times of the full-rescan kernels they replaced;
+     all rays and on the batch the pair pipeline hands its fallback
+     (equal to plain there), with the clusters each fallback ray visits
+     and its box scans (mean, max), beside the times of the full-rescan
+     kernels they replaced;
      also the natural overflow share at K = 3, KS = 8, and K4 on the
      cluster lists K6 takes (equal results), timed beside K6;
    each kernel's time beside its bound (the larger of its operations
@@ -105,10 +110,16 @@ BRUTE = {"closest_hit_v2": ("closest_hit_plain", True), "any_hit_v2": ("any_hit_
          "closest_hit": ("closest_hit_v1_plain", True), "any_hit": ("any_hit_v1_plain", False),
          "closest_hit_mxu": ("closest_hit_mxu_plain", True),
          "any_hit_mxu": ("any_hit_mxu_plain", False)}
-# K9/K10 before their redesign (a full box rescan per visit), on the
-# 16,384-ray camera subset of the dense stand-in (NVIDIA H100 80GB HBM3,
-# 700 W; the bracketed times of PERF.md's kernel table)
-RESCAN_MS = {"cluster_stream_closest": 17.45, "cluster_stream_any": 12.99}
+# The fallback kernels before the warp-per-ray walk (one thread per ray, a
+# full box rescan per visit; NVIDIA H100 80GB HBM3, 700 W; the bracketed
+# times of PERF.md's kernel table): K9/K10 on the 16,384-ray camera subset
+# of the dense stand-in, K7/K8 on the 69k stand-in's 262,144 camera rays
+RESCAN_MS = {"cluster_stream_closest": 17.45, "cluster_stream_any": 12.99,
+             "cluster_traverse_closest": 2.405, "cluster_traverse_any": 1.865}
+# K7/K8's full-rescan kernels per launch in a profiled 512x512, 16-spp pass
+# of the 69k stand-in (profile_pass.py bigmesh: 51.5 ms over 40 launches,
+# 53.2 ms over 32; same card)
+RESCAN_PASS_MS = {"cluster_traverse_closest": 1.29, "cluster_traverse_any": 1.66}
 THROUGHPUT_SPP_CHUNK = 16
 THROUGHPUT_PASSES = 2
 N_RAYS = 262_144
@@ -329,7 +340,8 @@ def walk_ops(r, sizes, tc, slot=None, occ=None):
 
 def compare_walks(pb, label, closest, stream, args, sizes, stats, plain_reps=20):
     """K7/K8 (stream False) or K9/K10 against the plain walk on args =
-    (o, d, t_max, cl_box, cl_tri, tc); sizes: cluster_sizes."""
+    (o, d, t_max, cl_box, cl_tri, tc); sizes: cluster_sizes.  On camera
+    rays, K7/K8's full-rescan times are printed beside."""
     import torch
 
     c, tc = sizes.numel(), args[5]
@@ -349,9 +361,11 @@ def compare_walks(pb, label, closest, stream, args, sizes, stats, plain_reps=20)
         err, frac = 0.0, float(out.float().mean())
         ops = walk_ops(r, sizes, tc, occ=out)
     outs = out if closest else (out,)
+    extra = f"{'hit' if closest else 'occluded'}={frac:.3f}"
+    if not stream and label == "camera":
+        extra += f" (full-rescan kernel {RESCAN_MS[name]} ms)"
     record(stats, name, shape, err, lambda: kern(*args), lambda: plain(*args), ops,
-           nbytes(*args[:5], *outs), f"{'hit' if closest else 'occluded'}={frac:.3f}",
-           plain_reps=plain_reps)
+           nbytes(*args[:5], *outs), extra, plain_reps=plain_reps)
 
 
 def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
@@ -403,6 +417,8 @@ def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
 
     compare_walks(pb, label, True, False, (o, d, t_big, box, tri, tc), sizes, stats)
     compare_walks(pb, label, False, False, (o, d, t_any, box, tri, tc), sizes, stats)
+    for closest, tm in ((True, t_big), (False, t_any)):
+        fallback_walks(pairs, pb, label, pack, o, d, tm, closest)
 
 
 def overflow_share(pairs, pack, o, d, t_big, label):
@@ -487,9 +503,13 @@ def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
 
 def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
     """The batch pair_closest (closest) or pair_any hands its fallback,
-    captured at the fallback's entry: K9 or K10 timed on it, and the
-    clusters each of its rays visits (tests the triangles of) and its box
-    scans, from the kernel's stats output."""
+    captured at the fallback's entry: the kernel the pack dispatches to
+    (K7/K8 when cluster_vmem_ok holds, else K9/K10) against its plain
+    version on it (equal results) and timed, with the clusters each of its
+    rays visits (tests the triangles of) and its box scans, from the
+    kernel's stats output.  For K7/K8 also: K9/K10 on the same batch (the
+    same walk over boxes read from L2: equal results and stats), timed
+    beside, and the full-rescan kernels' times."""
     import torch
 
     name = "cluster_closest" if closest else "cluster_any"
@@ -504,7 +524,9 @@ def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
         (pairs.pair_closest if closest else pairs.pair_any)(pack, o, d, t_max)
     finally:
         setattr(pb, name, entry)
-    kern = pb.cluster_stream_closest if closest else pb.cluster_stream_any
+    kind = "closest" if closest else "any"
+    resident = pack.meta.get("cluster_vmem_ok", True)
+    kern = getattr(pb, f"cluster_{'traverse' if resident else 'stream'}_{kind}")
     if not batch:
         print(f"  {kern.__name__}: no {label} ray took the fallback", flush=True)
         return
@@ -512,13 +534,34 @@ def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
     _, t_f = pb.finite_tmax(t_f, o_f)
     args = (o_f.contiguous(), d_f.contiguous(), t_f, pack.cl_box, pack.cl_tri,
             pack.meta["cluster_tc"])
-    st = torch.zeros(o_f.shape[0], 2, dtype=torch.int32, device=o.device)
-    kern(*args, stats=st)
+
+    def run(fn):
+        """fn's results and stats on the batch, checked equal to plain."""
+        st = torch.zeros(o_f.shape[0], 2, dtype=torch.int32, device=o.device)
+        out = fn(*args, stats=st)
+        out = out if closest else (out,)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            check(torch.equal(a, b), f"{fn.__name__}: differs from the plain walk on the "
+                                     f"{label} fallback batch")
+        return out, st
+
+    ref = getattr(pb, f"{kern.__name__}_plain")(*args)
+    ref = ref if closest else (ref,)
+    _, st = run(kern)
     visits, scans = st[:, 0].float(), st[:, 1].float()
-    print(f"  {kern.__name__:24s} {label} fallback batch of {o_f.shape[0]} rays: kernel "
-          f"{time_ms(lambda: kern(*args), 5):.4f} ms; clusters visited per ray mean "
-          f"{float(visits.mean()):.3f} max {int(visits.max())}, box scans mean "
-          f"{float(scans.mean()):.3f} max {int(scans.max())}", flush=True)
+    line = (f"  {kern.__name__:24s} {label} fallback batch of {o_f.shape[0]} rays: kernel "
+            f"{time_ms(lambda: kern(*args)):.4f} ms (equal to plain); clusters visited per ray mean "
+            f"{float(visits.mean()):.3f} max {int(visits.max())}, box scans mean "
+            f"{float(scans.mean()):.3f} max {int(scans.max())}")
+    if resident:
+        stream = getattr(pb, f"cluster_stream_{kind}")
+        _, st_l2 = run(stream)
+        check(torch.equal(st_l2, st), f"{kern.__name__}: stats differ from {stream.__name__}'s")
+        line += (f"; {stream.__name__} (boxes from L2, same stats) "
+                 f"{time_ms(lambda: stream(*args)):.4f} ms; full-rescan kernel "
+                 f"{RESCAN_PASS_MS[kern.__name__]} ms per launch in a profiled pass")
+    print(line, flush=True)
 
 
 def k4_beside_k6(pairs, name, k6_out, k6_ms, shape, args):

@@ -14,15 +14,19 @@ sort and the cone prepass are TPU packet devices and are not ported.
 As in the reference (pallas_bvh.py:583), `cluster_closest` / `cluster_any`
 take K7/K8 when the pack's triangle tiles fit the reference's VMEM budget
 (`cluster_vmem_ok`, at most 1,365 clusters of 128) and K9/K10 past it.
-K7/K8 keep every cluster box in shared memory; K9/K10 read the boxes
-from L2, one warp per ray, and have no cluster cap.  Both compute the
-same walk, so they share one plain version.
+Both pairs run one walk (csrc/cluster_walk.cuh): one warp per ray, the
+lanes splitting each box scan and each visited cluster's triangles, the
+closest hit over exact 32-entry windows of the ray's (entry, cluster id)
+order.  K7/K8 read the boxes from shared memory, staged once per resident
+block (at most 1,920 clusters); K9/K10 read them from L2 and have no
+cluster cap.  Both compute the same walk, so they share one plain version.
 
 `cluster_traverse_*` (K7/K8, csrc/cluster_hit.cu) and `cluster_stream_*`
 (K9/K10, csrc/cluster_stream.cu) launch their CUDA kernels for tensors on
 a GPU and run their plain PyTorch versions for tensors on the CPU; there
 is no fallback from one to the other.  Each counts its kernel launches in
-`.launches`.
+`.launches`, and each takes an optional `stats` output (kernel only):
+each ray's clusters visited and box scans.
 """
 
 from __future__ import annotations
@@ -92,8 +96,8 @@ def _declare(lib):
     lib.mts_dense_cull.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
     lib.mts_pair_closest.argtypes = [p, p, p, p, p, p, i, i, i, i, lg, p, p, p, p, p]
     lib.mts_pair_any.argtypes = [p, p, p, p, p, i, i, i, i, lg, p, p]
-    lib.mts_cluster_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p]
-    lib.mts_cluster_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p]
+    lib.mts_cluster_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p, p]
+    lib.mts_cluster_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p]
     for fn in ("mts_dense_cull", "mts_pair_closest", "mts_pair_any",
                "mts_cluster_closest", "mts_cluster_any"):
         getattr(lib, fn).restype = i
@@ -247,43 +251,8 @@ def _prepare(o, d, t_max, cl_box, cl_tri, tc):
             cl_box.contiguous(), cl_tri.contiguous())
 
 
-def _kernel_args(o, d, t_max, cl_box, cl_tri, tc):
-    cp = cl_box.shape[1]
-    max_c, _ = kernel_limits()
-    if cp > max_c:
-        raise ValueError(f"the traversal kernels take at most {max_c} clusters, got {cp}")
-    return (o, d, t_max, cl_box, cl_tri, o.shape[0], cp, tc, cl_tri.shape[1])
-
-
-def cluster_traverse_closest(o, d, t_max, cl_box, cl_tri, tc):
-    """K7: see cluster_traverse_closest_plain."""
-    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
-    if o.device.type == "cpu":
-        return cluster_traverse_closest_plain(o, d, t_max, cl_box, cl_tri, tc)
-    r = o.shape[0]
-    t = torch.empty(r, dtype=torch.float32, device=o.device)
-    slot = torch.empty(r, dtype=torch.int32, device=o.device)
-    u = torch.empty(r, dtype=torch.float32, device=o.device)
-    v = torch.empty(r, dtype=torch.float32, device=o.device)
-    launch("mts_cluster_closest", o.device,
-           *_kernel_args(o, d, t_max, cl_box, cl_tri, tc), t, slot, u, v)
-    cluster_traverse_closest.launches += 1
-    return t, slot, u, v
-
-
-def cluster_traverse_any(o, d, t_max, cl_box, cl_tri, tc):
-    """K8: see cluster_traverse_any_plain."""
-    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
-    if o.device.type == "cpu":
-        return cluster_traverse_any_plain(o, d, t_max, cl_box, cl_tri, tc)
-    occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
-    launch("mts_cluster_any", o.device,
-           *_kernel_args(o, d, t_max, cl_box, cl_tri, tc), occ)
-    cluster_traverse_any.launches += 1
-    return occ > 0
-
-
-def _stream_args(o, d, t_max, cl_box, cl_tri, tc, stats):
+def _walk_args(o, d, t_max, cl_box, cl_tri, tc, stats):
+    """The walk kernels' leading arguments; stats: None or int32 [R, 2]."""
     if stats is not None:
         native.check_tensors(o, ("stats", stats, torch.int32, (o.shape[0], 2)))
         if not stats.is_contiguous():
@@ -291,15 +260,59 @@ def _stream_args(o, d, t_max, cl_box, cl_tri, tc, stats):
     return (o, d, t_max, cl_box, cl_tri, o.shape[0], cl_box.shape[1], tc, cl_tri.shape[1])
 
 
-def cluster_stream_closest(o, d, t_max, cl_box, cl_tri, tc, stats=None):
-    """K9: K7's walk with the boxes read from L2 (no cluster cap); see
-    cluster_traverse_closest_plain.  stats: None, or (kernel only) an int32
-    [R, 2] tensor that receives each ray's clusters visited (triangles
-    tested) and box scans."""
+def _resident_args(o, d, t_max, cl_box, cl_tri, tc, stats):
+    """K7/K8's leading arguments (_walk_args), past their cluster cap checked."""
+    max_c, _ = kernel_limits()
+    if cl_box.shape[1] > max_c:
+        raise ValueError(f"the traversal kernels take at most {max_c} clusters, "
+                         f"got {cl_box.shape[1]}")
+    return _walk_args(o, d, t_max, cl_box, cl_tri, tc, stats)
+
+
+def _no_stats_on_cpu(stats):
+    if stats is not None:
+        raise ValueError("stats come from the kernel only")
+
+
+def cluster_traverse_closest(o, d, t_max, cl_box, cl_tri, tc, stats=None):
+    """K7: see cluster_traverse_closest_plain.  stats: None, or (kernel
+    only) an int32 [R, 2] tensor that receives each ray's clusters visited
+    (triangles tested) and box scans."""
     o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
     if o.device.type == "cpu":
-        if stats is not None:
-            raise ValueError("stats come from the kernel only")
+        _no_stats_on_cpu(stats)
+        return cluster_traverse_closest_plain(o, d, t_max, cl_box, cl_tri, tc)
+    r = o.shape[0]
+    t = torch.empty(r, dtype=torch.float32, device=o.device)
+    slot = torch.empty(r, dtype=torch.int32, device=o.device)
+    u = torch.empty(r, dtype=torch.float32, device=o.device)
+    v = torch.empty(r, dtype=torch.float32, device=o.device)
+    launch("mts_cluster_closest", o.device,
+           *_resident_args(o, d, t_max, cl_box, cl_tri, tc, stats), t, slot, u, v, stats)
+    cluster_traverse_closest.launches += 1
+    return t, slot, u, v
+
+
+def cluster_traverse_any(o, d, t_max, cl_box, cl_tri, tc, stats=None):
+    """K8: see cluster_traverse_any_plain; stats as for
+    cluster_traverse_closest (scans are 1)."""
+    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
+    if o.device.type == "cpu":
+        _no_stats_on_cpu(stats)
+        return cluster_traverse_any_plain(o, d, t_max, cl_box, cl_tri, tc)
+    occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
+    launch("mts_cluster_any", o.device,
+           *_resident_args(o, d, t_max, cl_box, cl_tri, tc, stats), occ, stats)
+    cluster_traverse_any.launches += 1
+    return occ > 0
+
+
+def cluster_stream_closest(o, d, t_max, cl_box, cl_tri, tc, stats=None):
+    """K9: K7's walk with the boxes read from L2 (no cluster cap); see
+    cluster_traverse_closest_plain; stats as for cluster_traverse_closest."""
+    o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
+    if o.device.type == "cpu":
+        _no_stats_on_cpu(stats)
         return cluster_stream_closest_plain(o, d, t_max, cl_box, cl_tri, tc)
     r = o.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=o.device)
@@ -307,23 +320,21 @@ def cluster_stream_closest(o, d, t_max, cl_box, cl_tri, tc, stats=None):
     u = torch.empty(r, dtype=torch.float32, device=o.device)
     v = torch.empty(r, dtype=torch.float32, device=o.device)
     launch_stream("mts_stream_closest", o.device,
-                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc, stats), t, slot, u, v, stats)
+                  *_walk_args(o, d, t_max, cl_box, cl_tri, tc, stats), t, slot, u, v, stats)
     cluster_stream_closest.launches += 1
     return t, slot, u, v
 
 
 def cluster_stream_any(o, d, t_max, cl_box, cl_tri, tc, stats=None):
-    """K10: K8's walk with the boxes read from L2, in one pass; see
-    cluster_traverse_any_plain.  stats: as for cluster_stream_closest
-    (scans are 1)."""
+    """K10: K8's walk with the boxes read from L2; see
+    cluster_traverse_any_plain; stats as for cluster_traverse_any."""
     o, d, t_max, cl_box, cl_tri = _prepare(o, d, t_max, cl_box, cl_tri, tc)
     if o.device.type == "cpu":
-        if stats is not None:
-            raise ValueError("stats come from the kernel only")
+        _no_stats_on_cpu(stats)
         return cluster_stream_any_plain(o, d, t_max, cl_box, cl_tri, tc)
     occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
     launch_stream("mts_stream_any", o.device,
-                  *_stream_args(o, d, t_max, cl_box, cl_tri, tc, stats), occ, stats)
+                  *_walk_args(o, d, t_max, cl_box, cl_tri, tc, stats), occ, stats)
     cluster_stream_any.launches += 1
     return occ > 0
 

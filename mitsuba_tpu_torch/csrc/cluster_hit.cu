@@ -34,18 +34,33 @@
 // takes the min over the slots.  Bound: L2 bandwidth, 4.6 KB of triangles
 // per (ray, slot).
 //
-// K7/K8 (cluster traversal, the overflow fallback): one thread per ray.  The
-// reference's chunk kernel visits, per 1024-ray chunk, the union of the
-// clusters its lanes hit in order of the chunk's nearest entry; each lane's
-// own result is that of visiting its slab-hit clusters in order of its own
-// entry (ties by cid, as a stable sort orders them), stopping once the next
-// entry exceeds its best t (closest) or at its first hit (any).  This kernel
-// computes exactly that per ray: each step scans the shared-memory boxes for
-// the next (entry, cid) after the last one visited.  Bound: the latency of
-// those serial per-thread scans (O(C) per visit); at its main-path shape (the
-// ~15k rays of a 262k-ray batch that overflow) a launch is a third of a wave,
-// and K7 + K8 took more device time than K3 + K4 in a profiled 512x512 pass.
-// A simple kernel that is right; making it fast is later work.
+// K7/K8 (cluster traversal, the overflow fallback): the reference's chunk
+// kernel visits, per 1024-ray chunk, the union of the clusters its lanes hit
+// in order of the chunk's nearest entry; each lane's own result is that of
+// visiting its slab-hit clusters in order of its own entry (ties by cid, as
+// a stable sort orders them), stopping once the next entry exceeds its best
+// t (closest) or at its first hit (any).  These kernels compute exactly that
+// walk per ray with the warp-per-ray walk of cluster_walk.cuh, which K9/K10
+// (cluster_stream.cu) share; here the boxes come from shared memory, as the
+// reference keeps them in SMEM and the tiles in VMEM:
+//   * blocks of 8 warps, one ray per warp at a time, and as many blocks as
+//     the card holds at once: a fallback batch of ~23k rays keeps every SM
+//     busy, and a warp never waits for another's longer walk;
+//   * each block stages the first six rows of cl_box ([6][Cp] SoA, 24 bytes
+//     per cluster: 18.5 KB at 773 clusters, at most 46 KB) once with
+//     cp.async, behind the block's only barrier;
+//   * the warps take rays grid-stride, so the boxes are staged once per
+//     resident block rather than once per few rays (a ray counter taken by
+//     atomicAdd measured no faster on the H100: its zeroing costs a launch
+//     and the fallback's walks are short);
+//   * triangles stay in cl_tri (2.5 MB at 773 clusters), read from L2.
+// Bound: the box scan, 25 FP32 operations and 24 bytes of shared memory per
+// (ray, box) (six conflict-free word loads per 32 boxes), and 53 operations
+// per real triangle of the clusters visited.  On the H100 the walk runs
+// ~12x above that bound, and not for want of box bandwidth: at 773 clusters
+// the boxes are as quick to read from L1 (K9/K10) as from shared memory.
+// The compares, selects, list moves and shuffles around the arithmetic are
+// the likely cost.
 //
 // Arithmetic: expressions follow the plain PyTorch versions (accel/pairs.py,
 // accel/pallas_bvh.py) in order, and the file is built with -fmad=false, so
@@ -54,26 +69,30 @@
 // clamped to |d| >= 1e-20.
 //
 // Each entry point launches on the caller's stream, allocates nothing, does
-// not synchronise, and returns cudaGetLastError() of the launch.
+// not synchronise, and returns cudaGetLastError() of the launch (or
+// cudaErrorInvalidValue for arguments it cannot take).
 
+#include <mutex>
+
+#include "cluster_walk.cuh"
 #include "ray_tri.cuh"
 
 namespace {
 
 using namespace mts;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // K3, K4
 constexpr int kMaxClusters = 1920;  // shared-memory box capacity (46 KB)
 constexpr int kMaxK = 8;            // longest per-ray cluster list
+constexpr int kResidentWarps = 8;   // K7/K8 warps (one ray each) per block
 
-// Stage n boxes as SoA rows s[a * kMaxClusters + cid], a = lox..hiz, from
-// a box table with element (cid, a) at box[cid * cid_stride + a * a_stride].
-__device__ __forceinline__ void stage_boxes(float* s, const float* box, int n,
-                                            long cid_stride, long a_stride) {
+// Stage the first n boxes of a [rows, 6] table as SoA rows
+// s[a * kMaxClusters + cid], a = lox..hiz.
+__device__ __forceinline__ void stage_boxes(float* s, const float* box, int n) {
   for (int k = threadIdx.x; k < 6 * n; k += blockDim.x) {
     const int a = k / n;
     const int cid = k - a * n;
-    s[a * kMaxClusters + cid] = box[cid * cid_stride + a * a_stride];
+    s[a * kMaxClusters + cid] = box[cid * 6 + a];
   }
   __syncthreads();
 }
@@ -86,7 +105,7 @@ dense_cull_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   int* __restrict__ cid_out, float* __restrict__ ent_out,
                   int* __restrict__ n_cl_out, float* __restrict__ kept_out) {
   __shared__ float s_box[6 * kMaxClusters];
-  stage_boxes(s_box, mbox, c, 6, 1);
+  stage_boxes(s_box, mbox, c);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(o, d, i);
@@ -174,99 +193,85 @@ pair_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }
 
 // ---------------------------------------------------------------- K7/K8
-// Slab test of shared-memory box cid (SoA rows of stride kMaxClusters).
-__device__ __forceinline__ void box_slab(const float* s, int cid, const Ray& r,
-                                         float ix, float iy, float iz,
-                                         float* tn, float* tf) {
-  slab(s[0 * kMaxClusters + cid], s[1 * kMaxClusters + cid],
-       s[2 * kMaxClusters + cid], s[3 * kMaxClusters + cid],
-       s[4 * kMaxClusters + cid], s[5 * kMaxClusters + cid], r, ix, iy, iz,
-       tn, tf);
-}
-
-// The next cluster after (last_e, last_c) in (entry, cid) order among the
-// ray's prepass hits: valid (hi >= lo on x), (tf >= max(tn, 0)) and
-// tn < t_max.  Returns its cid (-1 when none is left), entry and tn.
-__device__ __forceinline__ int next_cluster(const float* s, int cp,
-                                            const Ray& r, float ix, float iy,
-                                            float iz, float tm, float last_e,
-                                            int last_c, float* e_out,
-                                            float* tn_out) {
-  int best_c = -1;
-  float best_e = 0.0f, best_tn = 0.0f;
-  for (int cid = 0; cid < cp; ++cid) {
-    if (!(s[3 * kMaxClusters + cid] >= s[0 * kMaxClusters + cid])) continue;
-    float tn, tf;
-    box_slab(s, cid, r, ix, iy, iz, &tn, &tf);
-    const float e = fmaxf(tn, 0.0f);
-    if (!(tf >= e && tn < tm)) continue;
-    if (e < last_e || (e == last_e && cid <= last_c)) continue;
-    if (best_c < 0 || e < best_e) {  // cid ascends: ties keep the first
-      best_c = cid;
-      best_e = e;
-      best_tn = tn;
-    }
-  }
-  *e_out = best_e;
-  *tn_out = best_tn;
-  return best_c;
-}
-
+// Ray i's walk (cluster_walk.cuh) over the boxes staged in shared memory,
+// one ray per warp, grid-stride.
 template <bool kClosest>
-__global__ void __launch_bounds__(kThreads)
-traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                const float* __restrict__ t_max, const float* __restrict__ box,
-                const float* __restrict__ tri, int n_rays, int cp, int tc,
-                long ct, float* __restrict__ t_out, int* __restrict__ slot_out,
-                float* __restrict__ u_out, float* __restrict__ v_out,
-                int* __restrict__ occ_out) {
-  __shared__ float s_box[6 * kMaxClusters];
-  stage_boxes(s_box, box, cp, 1, cp);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(o, d, i);
-  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
-  const float tm = t_max[i];
-  float best_t = tm, best_u = 0.0f, best_v = 0.0f;
-  int best_slot = -1;
-  int occ = tm <= 0.0f;
-  float last_e = -1.0f;  // entries are >= 0
-  int last_c = -1;
-  while (kClosest || !occ) {
-    float e, tn;
-    const int cid =
-        next_cluster(s_box, cp, r, ix, iy, iz, tm, last_e, last_c, &e, &tn);
-    if (cid < 0) break;
-    if (kClosest && !(e <= best_t)) break;  // front to back: nothing closer
-    last_e = e;
-    last_c = cid;
-    const long base = (long)cid * tc;
-    if (kClosest) {
-      if (!(tn < best_t)) continue;
-      for (int j = 0; j < tc; ++j) {
-        float t, u, v;
-        if (mt_hit(tri, ct, base + j, r, best_t, &t, &u, &v)) {
-          best_t = t;
-          best_slot = (int)(base + j);
-          best_u = u;
-          best_v = v;
-        }
-      }
+__global__ void __launch_bounds__(32 * kResidentWarps)
+resident_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                     const float* __restrict__ t_max,
+                     const float* __restrict__ box,
+                     const float* __restrict__ tri, int n_rays, int cp, int tc,
+                     long ct, float* __restrict__ t_out,
+                     int* __restrict__ slot_out, float* __restrict__ u_out,
+                     float* __restrict__ v_out, int* __restrict__ occ_out,
+                     int* __restrict__ stats) {
+  extern __shared__ float s_box[];  // rows lo xyz, hi xyz of cl_box: [6][cp]
+  for (int k = threadIdx.x; k < 6 * cp; k += blockDim.x)
+    cp_async4(s_box + k, box + k);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // the only barrier: from here each warp runs on its own
+  const SharedBoxes boxes{s_box, cp};
+  const long stride = (long)gridDim.x * kResidentWarps;
+  for (long i = (long)blockIdx.x * kResidentWarps + (threadIdx.x >> 5);
+       i < n_rays; i += stride) {
+    if constexpr (kClosest) {
+      walk_closest(boxes, o, d, t_max, tri, tc, ct, i, t_out, slot_out, u_out,
+                   v_out, stats);
     } else {
-      for (int j = 0; j < tc && !occ; ++j) {
-        float t, u, v;
-        occ = mt_hit(tri, ct, base + j, r, tm, &t, &u, &v);
-      }
+      walk_any(boxes, o, d, t_max, tri, tc, ct, i, occ_out, stats);
     }
   }
-  if (kClosest) {
-    t_out[i] = best_t;
-    slot_out[i] = best_slot;
-    u_out[i] = best_u;
-    v_out[i] = best_v;
-  } else {
-    occ_out[i] = occ;
+}
+
+// Blocks of K7 or K8 the current device holds at once with smem bytes of
+// boxes each.  The runtime is asked once per (device, smem) and the answer
+// kept: a pass launches the kernel ~70 times on one pack.
+template <bool kClosest>
+cudaError_t resident_blocks(size_t smem, int* blocks) {
+  static std::mutex mu;
+  static int last_dev = -1, last_blocks = 0;
+  static size_t last_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev != last_dev || smem != last_smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, resident_walk_kernel<kClosest>, 32 * kResidentWarps, smem);
+    if (err != cudaSuccess) return err;
+    last_dev = dev;
+    last_smem = smem;
+    last_blocks = sms * per_sm;
   }
+  *blocks = last_blocks;
+  return cudaSuccess;
+}
+
+// Launch K7 or K8 with as many blocks as the card holds at once (no more
+// than the rays need), each staging the 24 * cp bytes of boxes once.
+template <bool kClosest>
+int launch_resident(const float* o, const float* d, const float* t_max,
+                    const float* box, const float* tri, int n_rays, int cp,
+                    int tc, long ct, float* t_out, int* slot_out, float* u_out,
+                    float* v_out, int* occ_out, int* stats, void* stream) {
+  if (cp > kMaxClusters) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays > 0) {
+    const size_t smem = 6 * sizeof(float) * (size_t)cp;
+    int resident = 0;
+    const cudaError_t err = resident_blocks<kClosest>(smem, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long need = (n_rays + kResidentWarps - 1) / kResidentWarps;
+    const int grid = (int)(need < (long)resident ? need : (long)resident);
+    resident_walk_kernel<kClosest><<<grid > 0 ? grid : 1, 32 * kResidentWarps,
+                                     smem, static_cast<cudaStream_t>(stream)>>>(
+        o, d, t_max, box, tri, n_rays, cp, tc, ct, t_out, slot_out, u_out,
+        v_out, occ_out, stats);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 int blocks_for(long n) { return (int)((n + kThreads - 1) / kThreads); }
@@ -322,26 +327,18 @@ int mts_pair_any(const float* o, const float* d, const float* t_max,
 int mts_cluster_closest(const float* o, const float* d, const float* t_max,
                         const float* box, const float* tri, int n_rays, int cp,
                         int tc, long ct, float* t_out, int* slot_out,
-                        float* u_out, float* v_out, void* stream) {
-  if (n_rays > 0) {
-    traverse_kernel<true><<<blocks_for(n_rays), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        o, d, t_max, box, tri, n_rays, cp, tc, ct, t_out, slot_out, u_out,
-        v_out, nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
+                        float* u_out, float* v_out, int* stats, void* stream) {
+  return launch_resident<true>(o, d, t_max, box, tri, n_rays, cp, tc, ct,
+                               t_out, slot_out, u_out, v_out, nullptr, stats,
+                               stream);
 }
 
 int mts_cluster_any(const float* o, const float* d, const float* t_max,
                     const float* box, const float* tri, int n_rays, int cp,
-                    int tc, long ct, int* occ_out, void* stream) {
-  if (n_rays > 0) {
-    traverse_kernel<false><<<blocks_for(n_rays), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        o, d, t_max, box, tri, n_rays, cp, tc, ct, nullptr, nullptr, nullptr,
-        nullptr, occ_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+                    int tc, long ct, int* occ_out, int* stats, void* stream) {
+  return launch_resident<false>(o, d, t_max, box, tri, n_rays, cp, tc, ct,
+                                nullptr, nullptr, nullptr, nullptr, occ_out,
+                                stats, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Ray and triangle primitives shared by the cluster kernels
-// (cluster_hit.cu, cluster_stream.cu) and the tiled brute force
-// (brute_tiled.cu).  Every expression follows the plain
+// (cluster_hit.cu, cluster_stream.cu, cluster_walk.cuh) and the tiled brute
+// force (brute_tiled.cu).  Every expression follows the plain
 // PyTorch versions in order (accel/pallas_kernels.py mt_test,
 // accel/pallas_bvh.py safe_inv), and the sources are built with
 // -fmad=false, so kernels and plain versions round identically.
@@ -130,11 +130,17 @@ __device__ __forceinline__ void keep_smallest(float* keys, int* idx, int n,
   idx[j] = id;
 }
 
-// cp.async of 16 bytes from global to shared memory, and its group
+// cp.async of 16 (or 4) bytes from global to shared memory, and its group
 // bookkeeping (sm_80+).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 

@@ -14,9 +14,9 @@ or for scenes/cbox.xml, at 512x512 and 16 samples per pass:
 2. profiles one more pass with torch.profiler (CPU and CUDA activities):
    the pass's wall time, the device time of its kernels, the busy share
    (kernel time over wall time; the profiler's own overhead lengthens the
-   wall), the number of kernels, the 15 kernels of most device time, and
-   the launches of each of the port's kernels in that pass (their
-   counters);
+   wall), the number of kernels, the 15 kernels of most device time, the
+   device time of each of the port's own kernels, and the launches of each
+   of its kernel wrappers in that pass (their counters);
 3. for the meshes, holds the pair pipeline's closest hits of one camera ray
    per pixel against the port's stackless BVH walk (accel/intersect.py
    `_bvh_traverse`, plain PyTorch): hit masks, prims and t, and the count
@@ -143,9 +143,16 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
     print(f"profiled pass: wall {wall:.4f} s, {n} rays; device kernel time {dev_us / 1e3:.3f} ms, "
           f"busy share {dev_us / 1e6 / wall:.4f}; {n_k} kernels", flush=True)
     kernels.sort(key=device_us, reverse=True)
-    for e in kernels[:TOP]:
-        print(f"  {device_us(e) / 1e3:10.3f} ms {100 * device_us(e) / max(dev_us, 1):6.2f} % "
-              f"{e.count:7d} x  {e.key[:110]}", flush=True)
+
+    def show(evts):
+        for e in evts:
+            print(f"  {device_us(e) / 1e3:10.3f} ms {100 * device_us(e) / max(dev_us, 1):6.2f} % "
+                  f"{e.count:7d} x  {e.key[:110]}", flush=True)
+
+    show(kernels[:TOP])
+    # the port's kernels live in the anonymous namespaces of csrc/*.cu
+    print("the port's own kernels:", flush=True)
+    show([e for e in kernels if e.key.startswith(("(anonymous namespace)::", "void (anonymous"))])
     print(f"kernel launches in the profiled pass: {launches}", flush=True)
     ov = {k: pairs.pair_closest.__dict__.get(k) for k in ("rays", "overflow_rays")}
     print(f"pair_closest counters over the run: {ov}", flush=True)

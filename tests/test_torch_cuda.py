@@ -172,6 +172,43 @@ def test_cluster_kernels_equal_plain(mesh, k):
     torch.cuda.synchronize()
 
 
+def test_traverse_stats_equal_stream(mesh):
+    """K7/K8 (boxes in shared memory) equal the plain walk, and their
+    stats equal K9/K10's (boxes from L2) on the same inputs: one walk, the
+    same windows."""
+    pack, o, d, t_any = mesh
+    sub = slice(0, None, 8)
+    for tm in (torch.full_like(t_any, pairs.BIG), t_any):
+        args = (o[sub].contiguous(), d[sub].contiguous(), tm[sub].contiguous(),
+                pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"])
+        st7, st9 = (torch.zeros(args[0].shape[0], 2, dtype=torch.int32, device=o.device)
+                    for _ in range(2))
+        k7 = pb.cluster_traverse_closest(*args, stats=st7)
+        _equal(k7, pb.cluster_traverse_closest_plain(*args))
+        _equal(k7, pb.cluster_stream_closest(*args, stats=st9))
+        assert torch.equal(st7, st9) and int(st7[:, 0].max()) > 0
+        k8 = pb.cluster_traverse_any(*args, stats=st7)
+        assert torch.equal(k8, pb.cluster_traverse_any_plain(*args))
+        assert torch.equal(k8, pb.cluster_stream_any(*args, stats=st9))
+        assert torch.equal(st7, st9)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [0, 1, 9, 31, 33])
+def test_traverse_small_batches(mesh, n):
+    """K7/K8 on batches of fewer rays than a block has warps, one more
+    (two blocks), fewer and more than a warp has lanes, and none."""
+    pack, o, d, t_any = mesh
+    for tm in (torch.full_like(t_any, pairs.BIG), t_any):
+        args = (o[-n:][:n].contiguous(), d[-n:][:n].contiguous(), tm[-n:][:n].contiguous(),
+                pack.cl_box, pack.cl_tri, pack.meta["cluster_tc"])
+        out = pb.cluster_traverse_closest(*args)
+        assert out[0].shape == (n,)
+        _equal(out, pb.cluster_traverse_closest_plain(*args))
+        assert torch.equal(pb.cluster_traverse_any(*args), pb.cluster_traverse_any_plain(*args))
+    torch.cuda.synchronize()
+
+
 def test_pair_pipeline_on_card_equals_cpu(mesh):
     """pair_closest / pair_any through the kernels equal the plain
     versions on the CPU, overflow fallback included."""
@@ -312,21 +349,25 @@ def _window_trap(dev, seed):
 
 
 def test_stream_window_trap(dev):
-    """K9/K10 against their plain versions and K7/K8 on _window_trap: rays
-    that visit more than two windows of clusters and meet equal entries at
-    every window boundary."""
+    """K9/K10 and K7/K8 against their plain versions on _window_trap (1,600
+    clusters, under K7/K8's cap): rays that visit more than two windows of
+    clusters and meet equal entries at every window boundary."""
     o, d, t_any, box, tri, tc = _window_trap(dev, 7)
     t_big = torch.full_like(t_any, pairs.BIG)
     st = torch.zeros(o.shape[0], 2, dtype=torch.int32, device=dev)
+    st7 = torch.zeros_like(st)
     for tm in (t_big, t_any):
         args = (o, d, tm, box, tri, tc)
         k9 = pb.cluster_stream_closest(*args, stats=st)
         _equal(k9, pb.cluster_stream_closest_plain(*args))
-        _equal(k9, pb.cluster_traverse_closest(*args))
+        k7 = pb.cluster_traverse_closest(*args, stats=st7)
+        _equal(k9, k7)
+        assert torch.equal(st7, st)
         if tm is t_big:
-            assert int(st[:, 0].max()) > 64 and int(st[:, 1].max()) > 2
-            # the tied triangle goes to the first cluster visited
-            assert bool((k9[1] == 5 * tc).any()) and not bool((k9[1] == 37 * tc).any())
+            for s, k in ((st, k9), (st7, k7)):
+                assert int(s[:, 0].max()) > 64 and int(s[:, 1].max()) > 2
+                # the tied triangle goes to the first cluster visited
+                assert bool((k[1] == 5 * tc).any()) and not bool((k[1] == 37 * tc).any())
         k10 = pb.cluster_stream_any(*args)
         assert torch.equal(k10, pb.cluster_stream_any_plain(*args))
         assert torch.equal(k10, pb.cluster_traverse_any(*args))
