@@ -7,9 +7,13 @@ Phases, each of which raises (and exits non-zero) on failure:
 
 1. require a CUDA device, print the card's name and power limit, and
    build the port's kernels from csrc/ with nvcc (one nvcc per source,
-   started together);
+   started together); beside them, ptxas's registers, stack and spills of
+   cluster_stream.cu's kernels (K5 and K6 may neither spill nor use a
+   stack);
 2. hold each kernel against its plain PyTorch version on the card and
-   time both (CUDA events, median of 20 runs):
+   time both (CUDA events, median of 20 runs, the host's launch work
+   between the events), and print each kernel's time on the card alone
+   beside (the host's work hidden behind a sleep kernel):
    * K1/K2, K11 and K12 (brute_tiled.cu: K1/K2 on the sublane pack
      tri_s, K11 on the transposed pack tri_t, both through one kernel,
      K12 on the bilinear mt_matrix, t_max inf for the K11/K12 closest
@@ -27,7 +31,9 @@ Phases, each of which raises (and exits non-zero) on failure:
      stats) and the full-rescan kernels' times beside;
    * K5/K6/K9/K10 (cluster_stream.cu) on the dense stand-in (870,480
      triangles, 9,856 clusters) with the same two ray sets: K5 exactly
-     equal, K6 closest/any as K4; K9/K10 on a seeded subset of 16,384
+     equal, with its group, super and member slab tests per ray; K6
+     closest/any as K4, with the columns it tests per pair; the former
+     design's times beside (FORMER_MS); K9/K10 on a seeded subset of 16,384
      rays of each set (the plain walk is slow at 9,856 clusters, and the
      fallback's batches are of that order), the kernels also timed on
      all rays and on the batch the pair pipeline hands its fallback
@@ -120,6 +126,12 @@ RESCAN_MS = {"cluster_stream_closest": 17.45, "cluster_stream_any": 12.99,
 # of the 69k stand-in (profile_pass.py bigmesh: 51.5 ms over 40 launches,
 # 53.2 ms over 32; same card)
 RESCAN_PASS_MS = {"cluster_traverse_closest": 1.29, "cluster_traverse_any": 1.66}
+# K5/K6 before their redesign (a full super scan; 8-tile stages of whole
+# Tc-column tiles, one block per 256-pair window) on the dense stand-in's
+# 262,144 camera rays (same card and timing; PERF.md's kernel table)
+FORMER_MS = {"two_level_cull": 0.4622, "window_hit_closest": 0.4286, "window_hit_any": 0.4224}
+# a sleep of ~1 ms on an H100: longer than any wrapper's host work
+HIDE_HOST_CYCLES = 2_000_000
 THROUGHPUT_SPP_CHUNK = 16
 THROUGHPUT_PASSES = 2
 N_RAYS = 262_144
@@ -147,8 +159,12 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def time_ms(fn, reps=20):
-    """Median device time of fn() in ms (CUDA events, after a warm-up)."""
+def time_ms(fn, reps=20, card_only=False):
+    """Median time of fn() in ms between CUDA events, after a warm-up: the
+    host's launch work (the wrapper's checks, allocations and ctypes call)
+    lies between the events.  With card_only a sleep kernel is queued ahead
+    of the start event, so that the host's work happens while the card is
+    busy and the events time the card's work alone."""
     import torch
 
     fn()
@@ -157,6 +173,8 @@ def time_ms(fn, reps=20):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if card_only:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         start.record()
         fn()
         end.record()
@@ -190,11 +208,13 @@ def bound(ops, n_bytes):
 
 def record(stats, name, shape, err, kern, plain, ops, n_bytes, extra="", plain_reps=20):
     ms, plain_ms = time_ms(kern), time_ms(plain, plain_reps)
+    card_ms = time_ms(kern, card_only=True)
     bound_ms, bound_by = bound(ops, n_bytes)
     stats.append({"name": name, "shape": shape, "max_abs_err": err, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-    print(f"  {name:24s} {shape:28s} max|err|={err:g} kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) {extra}", flush=True)
+    print(f"  {name:24s} {shape:28s} max|err|={err:g} kernel {ms:.4f} ms (card alone "
+          f"{card_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) {extra}",
+          flush=True)
 
 
 def check_hits(name, kernel_out, plain_out):
@@ -445,7 +465,10 @@ def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
     t_big = torch.full((r,), pairs.BIG, device=o.device)
     tri, box, sup, mbox, p2p = pack.cl_tri, pack.cl_box, pack.cl_sup, pack.cl_mbox, pack.cl_pad2prim
     sizes = cluster_sizes(pack)
+    cnt = pack.cl_cnt
+    k6_tabs = (cnt, pairs._tri_rows(pack))  # K6's own inputs beside the plain version's
     shape = f"{label} rays={r} C={c}"
+    camera = label == "camera"
 
     cull_args = (o, d, t_big, sup, mbox, s, c, ks, kk)
     k5 = pairs.two_level_cull(*cull_args)
@@ -454,37 +477,49 @@ def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
     for a, b, what in zip(k5, p5, ("cid", "entry", "n_sup", "kept_max_sup", "n_cl", "kept_max_cl")):
         check(torch.equal(a, b), f"two_level_cull: {what} differs on {int((a != b).sum())} values")
     cids, n_sup = k5[0], k5[2]
-    slabs = r * s + int(torch.clamp(n_sup, max=ks).sum()) * g
+    members = int(torch.clamp(n_sup, max=ks).sum()) * g
+    n_grp, n_sup_tests = cull_group_tests(pairs, o, d, t_big, sup, s, pb.stream_limits()[3])
+    design_ms, _ = bound((r * n_grp + n_sup_tests + members) * SLAB_OPS, 0)
     record(stats, "two_level_cull", shape, 0.0,
            lambda: pairs.two_level_cull(*cull_args), lambda: pairs.two_level_cull_plain(*cull_args),
-           slabs * SLAB_OPS, nbytes(o, d, t_big, sup, mbox, *k5),
+           (r * s + members) * SLAB_OPS, nbytes(o, d, t_big, sup, mbox, *k5),
            f"supers hit/ray={float(n_sup.float().mean()):.3f} "
-           f"clusters hit/ray={float(k5[4].float().mean()):.3f}")
+           f"clusters hit/ray={float(k5[4].float().mean()):.3f}; slab tests/ray: groups {n_grp}, "
+           f"supers {n_sup_tests / r:.3f} (of {s}), members {members / r:.3f}; bound of this work "
+           f"{design_ms:.4f} ms{former('two_level_cull', camera)}")
 
     queue = pairs.pair_queue(cids)
+    valid = queue[0] < c
+    cols = cnt[queue[0][valid].long()]
+    print(f"  pair queue {shape}: {int(valid.sum())} of {queue[0].numel()} slots hold a cluster; "
+          f"columns tested per pair {float(cols.float().mean()):.3f} (cl_cnt), real triangles "
+          f"{float(sizes[queue[0][valid].long()].float().mean()):.3f}, Tc {tc}", flush=True)
     args = (o, d, t_big, *queue, kk, tri, p2p, c, tc)
-    out = pairs.window_hit_closest(*args)
+    out = pairs.window_hit_closest(*args, *k6_tabs)
     err, frac = check_hits("window_hit_closest", out, pairs.window_hit_closest_plain(*args))
+    design_ms, _ = bound(int(cols.sum()) * MT_OPS, 0)
     record(stats, "window_hit_closest", shape, err,
-           lambda: pairs.window_hit_closest(*args), lambda: pairs.window_hit_closest_plain(*args),
+           lambda: pairs.window_hit_closest(*args, *k6_tabs), lambda: pairs.window_hit_closest_plain(*args),
            pair_tests(cids, sizes) * MT_OPS, nbytes(o, d, t_big, *queue, tri, p2p, *out),
-           f"slot hit={frac:.3f} queue sort {time_ms(lambda: pairs.pair_queue(cids)):.4f} ms")
+           f"slot hit={frac:.3f} queue sort {time_ms(lambda: pairs.pair_queue(cids)):.4f} ms; "
+           f"bound of the cl_cnt columns {design_ms:.4f} ms"
+           f"{former('window_hit_closest', camera)}")
     k4_beside_k6(pairs, "pair_hit_closest", out, stats[-1]["ms"], shape,
                  (o, d, t_big, cids, tri, p2p, c, tc))
     overflow_share(pairs, pack, o, d, t_big, label)
 
-    args = (o, d, t_any, *queue, kk, tri, c, tc)
-    k6a = pairs.window_hit_any(*args)
-    p6a = pairs.window_hit_any_plain(*args)
+    args_any = (o, d, t_any, *queue, kk, tri, c, tc)
+    k6a = pairs.window_hit_any(*args_any, *k6_tabs)
+    p6a = pairs.window_hit_any_plain(*args_any)
     torch.cuda.synchronize()
     check(torch.equal(k6a, p6a), "window_hit_any: occlusion differs")
     record(stats, "window_hit_any", shape, 0.0,
-           lambda: pairs.window_hit_any(*args), lambda: pairs.window_hit_any_plain(*args),
+           lambda: pairs.window_hit_any(*args_any, *k6_tabs), lambda: pairs.window_hit_any_plain(*args_any),
            pair_tests(cids, sizes, k6a) * MT_OPS, nbytes(o, d, t_any, *queue, tri, k6a),
-           f"occluded={float(k6a.float().mean()):.3f}")
+           f"occluded={float(k6a.float().mean()):.3f}"
+           f"{former('window_hit_any', camera)}")
     k4_beside_k6(pairs, "pair_hit_any", (k6a,), stats[-1]["ms"], shape,
                  (o, d, t_any, cids, tri, c, tc))
-
     sub = torch.as_tensor(np.sort(rng.choice(r, N_STREAM_SUBSET, replace=False)), device=o.device)
     o_s, d_s = o[sub].contiguous(), d[sub].contiguous()
     sub_label = f"{label} subset"
@@ -499,6 +534,29 @@ def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
               f"full-rescan kernel {RESCAN_MS[name]} ms on the camera subset)", flush=True)
     for closest, tm in ((True, t_big), (False, t_any)):
         fallback_walks(pairs, pb, label, pack, o, d, tm, closest)
+
+
+def former(name, camera):
+    """On camera rays: the former design's time (FORMER_MS)."""
+    return f" (former design: {FORMER_MS[name]} ms)" if camera else ""
+
+
+def cull_group_tests(pairs, o, d, t_max, sup, s, gs):
+    """K5's level-1 work at groups of gs supers: (groups per ray, super
+    slab tests over all rays: the supers of the groups each ray hits)."""
+    import torch
+
+    n_grp = -(-s // gs)
+    real = sup[:, :s]
+    lo = torch.stack([real[0:3, k * gs:(k + 1) * gs].amin(dim=1) for k in range(n_grp)])
+    hi = torch.stack([real[3:6, k * gs:(k + 1) * gs].amax(dim=1) for k in range(n_grp)])
+    size = torch.tensor([min(gs, s - k * gs) for k in range(n_grp)], device=o.device)
+    tests = 0
+    for a in range(0, o.shape[0], 1 << 16):
+        _, hit = pairs._cull_slab(lo[None], hi[None], o[a:a + (1 << 16)],
+                                  pairs.pb.safe_inv(d[a:a + (1 << 16)]), t_max[a:a + (1 << 16)])
+        tests += int((hit * size).sum())
+    return n_grp, tests
 
 
 def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
@@ -698,10 +756,17 @@ def main():
 
     # ---- phase 1: build (one nvcc per source, in parallel) ----
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as ex:
+        usage = ex.submit(native.resource_usage, "cluster_stream")
         libs = dict(zip(SOURCES, ex.map(native.build, SOURCES)))
+        usage = usage.result()
     print(f"phase 1: built {sorted(os.path.relpath(p, HERE) for p in libs.values())} "
           f"in {time.time() - t0:.2f} s", flush=True)
+    for fn, u in sorted(usage.items()):
+        print(f"  ptxas {fn}: {u}", flush=True)
+        if "two_level_cull" in fn or "window_kernel" in fn:  # K5, K6
+            check(u.get("stack", 1) == u.get("spill_stores", 1) == u.get("spill_loads", 1) == 0,
+                  f"{fn} uses a stack or spills: {u}")
 
     # ---- phase 2: kernels vs plain on the card ----
     print("phase 2: kernels vs plain versions", flush=True)

@@ -10,9 +10,10 @@
      the cluster's Tc triangles; the min over the K slots, ties to the
      nearest slot, is the ray's hit.  Up to DENSE_C clusters one thread
      per (ray, slot) reads its cluster from L2 (K4, `_runs_kernel`); past
-     it the lists are flattened into a cluster-sorted pair queue and each
-     256-pair window stages its clusters' triangles in shared memory once
-     (K6, `_pair_kernel`);
+     it the lists are flattened into a cluster-sorted pair queue; each
+     warp walks its share of the queue run by run, copying each run's
+     triangles (the first `cl_cnt` of its cluster, from the triangle-major
+     `cl_tri_rows`) into shared memory once (K6, `_pair_kernel`);
   3. rays whose lists overflowed (more than KS supers or K clusters hit,
      and no hit before the kept horizon) re-run through the per-ray
      cluster traversal (K7/K8 or K9/K10, accel/pallas_bvh.py).
@@ -205,7 +206,8 @@ def two_level_cull(o, d, t_max, cl_sup, cl_mbox, s, c, ks, kk):
     o, d, t_max, cl_sup, cl_mbox = (x.contiguous() for x in (o, d, t_max, cl_sup, cl_mbox))
     if o.device.type == "cpu":
         return two_level_cull_plain(o, d, t_max, cl_sup, cl_mbox, s, c, ks, kk)
-    max_s, max_ks, max_k = pb.stream_limits()
+    pb.check_aligned(("cl_mbox", cl_mbox), align=8)
+    max_s, max_ks, max_k, _ = pb.stream_limits()
     if s > max_s or ks > max_ks or kk > max_k:
         raise ValueError(f"the two-level cull takes at most {max_s} supers, KS <= {max_ks} "
                          f"and K <= {max_k}, got {s}, {ks} and {kk}")
@@ -405,51 +407,71 @@ def window_hit_any_plain(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc):
     return occ.reshape(r, kk)
 
 
-def _window_prepare(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc):
+def _window_prepare(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tri_rows):
     r = o.shape[0]
     native.check_tensors(
         o, ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
         ("t_max", t_max, torch.float32, (r,)),
         ("cid_q", cid_q, torch.int32, (r * kk,)), ("pair_q", pair_q, torch.int32, (r * kk,)),
-        ("cl_tri", cl_tri, torch.float32, (9, c * tc)),
+        ("cl_tri", cl_tri, torch.float32, (9, c * tc)), ("cl_cnt", cl_cnt, torch.int32, (c,)),
+        ("cl_tri_rows", cl_tri_rows, torch.float32, (c * tc, 9)),
     )
-    return tuple(x.contiguous() for x in (o, d, t_max, cid_q, pair_q, cl_tri))
+    return tuple(x.contiguous() for x in (o, d, t_max, cid_q, pair_q, cl_tri, cl_cnt, cl_tri_rows))
 
 
-def _window_check(cl_tri, tc):
-    pb.check_aligned(("cl_tri", cl_tri))
+def _window_check(cl_tri_rows, tc):
+    pb.check_aligned(("cl_tri_rows", cl_tri_rows))
     if tc % 4:
         raise ValueError(f"the window kernel takes Tc a multiple of 4, got {tc}")
 
 
-def window_hit_closest(o, d, t_max, cid_q, pair_q, kk, cl_tri, pad2prim, c, tc):
-    """K6, closest: see window_hit_closest_plain."""
-    o, d, t_max, cid_q, pair_q, cl_tri = _window_prepare(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc)
+def window_hit_closest(o, d, t_max, cid_q, pair_q, kk, cl_tri, pad2prim, c, tc, cl_cnt,
+                       cl_tri_rows):
+    """K6, closest: see window_hit_closest_plain.  cl_cnt [C] i32: the
+    columns of each cluster that can hold a hit (scene/builder.py
+    cluster_columns); the kernel tests only those, the plain version all.
+    cl_tri_rows [C*Tc, 9]: cl_tri transposed (_tri_rows), which the
+    kernel reads."""
+    o, d, t_max, cid_q, pair_q, cl_tri, cl_cnt, cl_tri_rows = _window_prepare(
+        o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tri_rows)
     native.check_tensors(o, ("pad2prim", pad2prim, torch.int32, (c * tc,)))
     if o.device.type == "cpu":
         return window_hit_closest_plain(o, d, t_max, cid_q, pair_q, kk, cl_tri, pad2prim, c, tc)
-    _window_check(cl_tri, tc)
+    _window_check(cl_tri_rows, tc)
     r = o.shape[0]
     outs = [torch.empty(r, kk, dtype=dt, device=o.device)
             for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
     pb.launch_stream("mts_window_closest", o.device, o, d, t_max, cid_q, pair_q, r * kk, kk,
-                     cl_tri, pad2prim.contiguous(), c, tc, cl_tri.shape[1], *outs)
+                     cl_tri_rows, cl_cnt, pad2prim.contiguous(), c, tc, *outs)
     window_hit_closest.launches += 1
     return tuple(outs)
 
 
-def window_hit_any(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc):
-    """K6, any hit: see window_hit_any_plain."""
-    o, d, t_max, cid_q, pair_q, cl_tri = _window_prepare(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc)
+def window_hit_any(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tri_rows):
+    """K6, any hit: see window_hit_any_plain (cl_cnt, cl_tri_rows as
+    window_hit_closest)."""
+    o, d, t_max, cid_q, pair_q, cl_tri, cl_cnt, cl_tri_rows = _window_prepare(
+        o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tri_rows)
     if o.device.type == "cpu":
         return window_hit_any_plain(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc)
-    _window_check(cl_tri, tc)
+    _window_check(cl_tri_rows, tc)
     r = o.shape[0]
     occ = torch.empty(r, kk, dtype=torch.int32, device=o.device)
     pb.launch_stream("mts_window_any", o.device, o, d, t_max, cid_q, pair_q, r * kk, kk,
-                     cl_tri, c, tc, cl_tri.shape[1], occ)
+                     cl_tri_rows, cl_cnt, c, tc, occ)
     window_hit_any.launches += 1
     return occ > 0
+
+
+def _tri_rows(pack):
+    """K6's copy of the pack's cl_tri with each triangle's nine floats
+    together, [C*Tc, 9] (45 MB at 9,856 clusters): a run's first cl_cnt
+    triangles are one block, one bulk copy (nine per-row copies of cl_tri
+    were 3-16 % slower on an H100, PERF.md).  Made on the pack's first K6
+    call and kept in it, so that only packs past DENSE_C hold it."""
+    if "cl_tri_rows" not in pack.arrays:
+        pack.arrays["cl_tri_rows"] = pack.cl_tri.T.contiguous()
+    return pack.arrays["cl_tri_rows"]
 
 
 window_hit_closest.launches = 0
@@ -475,7 +497,7 @@ def pair_closest(pack, o, d, t_max):
     else:
         t_rk, p_rk, u_rk, v_rk = window_hit_closest(
             o, d, t_max, *pair_queue(cids), cids.shape[1], pack.cl_tri,
-            pack.cl_pad2prim, c, tc
+            pack.cl_pad2prim, c, tc, pack.cl_cnt, _tri_rows(pack)
         )
     # min over the slots; ties go to the nearest slot (pairs.py:1042)
     kk = t_rk.shape[1]
@@ -511,7 +533,8 @@ def pair_any(pack, o, d, t_max):
     if c <= DENSE_C:
         occ = pair_hit_any(o, d, t_max, cids, pack.cl_tri, c, tc)
     else:
-        occ = window_hit_any(o, d, t_max, *pair_queue(cids), cids.shape[1], pack.cl_tri, c, tc)
+        occ = window_hit_any(o, d, t_max, *pair_queue(cids), cids.shape[1], pack.cl_tri, c, tc,
+                             pack.cl_cnt, _tri_rows(pack))
     occ = occ.any(dim=1)
     # an occluded ray is final; otherwise dropped clusters matter
     overflow = torch.nonzero(_overflow(ov, t_max) & ~occ).squeeze(1)

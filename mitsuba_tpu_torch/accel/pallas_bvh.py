@@ -52,12 +52,12 @@ PLAIN_CHUNK_BYTES = 1 << 29
 
 def _declare_stream(lib):
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.mts_stream_limits.argtypes = [p, p, p]
+    lib.mts_stream_limits.argtypes = [p, p, p, p]
     lib.mts_two_level_cull.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                        p, p, p, p, p, p, p]
-    lib.mts_window_closest.argtypes = [p, p, p, p, p, lg, i, p, p, i, i, lg,
+    lib.mts_window_closest.argtypes = [p, p, p, p, p, lg, i, p, p, p, i, i,
                                        p, p, p, p, p]
-    lib.mts_window_any.argtypes = [p, p, p, p, p, lg, i, p, i, i, lg, p, p]
+    lib.mts_window_any.argtypes = [p, p, p, p, p, lg, i, p, p, i, i, p, p]
     lib.mts_stream_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p, p]
     lib.mts_stream_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p]
     for fn in ("mts_stream_limits", "mts_two_level_cull", "mts_window_closest",
@@ -70,10 +70,11 @@ def stream_lib():
 
 
 def stream_limits():
-    """(max supers, max kept supers KS, max list length K) of K5."""
-    ms, mks, mk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    stream_lib().mts_stream_limits(ctypes.byref(ms), ctypes.byref(mks), ctypes.byref(mk))
-    return ms.value, mks.value, mk.value
+    """(max supers, max kept supers KS, max list length K, supers per
+    group box) of K5."""
+    out = [ctypes.c_int() for _ in range(4)]
+    stream_lib().mts_stream_limits(*(ctypes.byref(x) for x in out))
+    return tuple(x.value for x in out)
 
 
 def launch_stream(entry, device, *args):
@@ -81,12 +82,12 @@ def launch_stream(entry, device, *args):
     native.launch(stream_lib, entry, device, *args)
 
 
-def check_aligned(*named):
-    """Raise unless each (name, tensor) starts on a 16-byte boundary (the
-    cp.async copies of csrc/cluster_stream.cu)."""
+def check_aligned(*named, align=16):
+    """Raise unless each (name, tensor) starts on an `align`-byte boundary
+    (the bulk copies and vector loads of csrc/cluster_stream.cu)."""
     for name, x in named:
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+        if x.data_ptr() % align:
+            raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
 def _declare(lib):

@@ -130,14 +130,8 @@ __device__ __forceinline__ void keep_smallest(float* keys, int* idx, int n,
   idx[j] = id;
 }
 
-// cp.async of 16 (or 4) bytes from global to shared memory, and its group
+// cp.async of 4 bytes from global to shared memory, and its group
 // bookkeeping (sm_80+).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),

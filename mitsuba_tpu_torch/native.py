@@ -22,6 +22,7 @@ import glob
 import hashlib
 import os
 import platform
+import re
 import shutil
 import subprocess
 import threading
@@ -120,6 +121,45 @@ def build(name: str) -> str:
         return out
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     return _compile([find_nvcc(), *NVCC_FLAGS], src, out, "nvcc")
+
+
+def resource_usage(name: str) -> dict:
+    """Compile csrc/<name>.cu once more with `-Xptxas -v` (into a
+    temporary library that is deleted) and return ptxas's report per
+    kernel: {mangled name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} in bytes, registers as a count."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"{name}-usage.{os.getpid()}.so")
+    try:
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", out, src],
+                              capture_output=True, text=True)
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed for {src}:\n{proc.stderr}")
+    report, fn = {}, None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn is not None:
+            report[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            report[fn]["registers"] = int(m.group(1))
+    return report
 
 
 def load(name: str, declare) -> ctypes.CDLL:

@@ -112,15 +112,39 @@ def _check_clusters(meta: dict):
 
 
 def _to_device(arrays: dict, device) -> dict:
-    return {k: torch.tensor(np.asarray(v), device=device) for k, v in arrays.items()}
+    """Each array as a C-contiguous tensor on `device`.  torch.tensor keeps
+    a numpy array's strides, and cl_tri and tri_t are built as transposes:
+    left so, every kernel wrapper's .contiguous() copied them per call."""
+    return {k: torch.tensor(np.ascontiguousarray(v), device=device) for k, v in arrays.items()}
+
+
+def cluster_columns(cl_tri, tc: int):
+    """cl_cnt [C] i32: 1 + the last column of each cluster's [9, Tc] tile
+    whose e2 rows are not all zero, rounded up to a multiple of 4 and
+    capped at Tc (0 for a tile without one).  Past it every column has
+    e2 = 0, so det = 0 and Moller-Trumbore accepts no hit there: K6 tests
+    only these columns, whoever built the pack."""
+    e2 = np.asarray(cl_tri)[6:9].reshape(3, -1, tc)
+    nonzero = (e2 != 0).any(axis=0)  # [C, Tc]
+    last = np.where(nonzero.any(axis=1), tc - np.argmax(nonzero[:, ::-1], axis=1), 0)
+    return np.minimum((last + 3) // 4 * 4, tc).astype(np.int32)
+
+
+def _with_cl_cnt(arrays: dict, meta: dict) -> dict:
+    """arrays, plus cl_cnt (cluster_columns; not in the reference's pack)
+    where the pack has cluster tables."""
+    if "cl_tri" not in arrays:
+        return arrays
+    return {**arrays, "cl_cnt": cluster_columns(arrays["cl_tri"], meta["cluster_tc"])}
 
 
 def pack_from_numpy(arrays: dict, meta: dict, device) -> ScenePack:
     """Turn a reference pack ({name: numpy array} plus its meta) into the
-    port's pack on `device`.  Raises NotImplementedError when the scene
-    needs features the port does not render yet."""
+    port's pack on `device`, with the port's cl_cnt.  Raises
+    NotImplementedError when the scene needs features the port does not
+    render yet."""
     check_slice(meta)
-    return ScenePack(_to_device(arrays, device), dict(meta))
+    return ScenePack(_to_device(_with_cl_cnt(arrays, meta), device), dict(meta))
 
 
 def pack_scene(scene, device="cuda") -> ScenePack:
@@ -313,4 +337,4 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "has_envmap": False,
     }
     check_slice(meta)
-    return ScenePack(_to_device(arrays, device), meta)
+    return ScenePack(_to_device(_with_cl_cnt(arrays, meta), device), meta)

@@ -286,9 +286,120 @@ def test_dense_kernels_equal_plain(dense_mesh, k, ks):
         assert (cull[0] < c).any()
         queue = pairs.pair_queue(cull[0])
         args = (o, d, tm, *queue, k, pack.cl_tri, pack.cl_pad2prim, c, tc)
-        _equal(pairs.window_hit_closest(*args), pairs.window_hit_closest_plain(*args))
+        _equal(pairs.window_hit_closest(*args, pack.cl_cnt, pairs._tri_rows(pack)),
+               pairs.window_hit_closest_plain(*args))
         args = (o, d, tm, *queue, k, pack.cl_tri, c, tc)
-        assert torch.equal(pairs.window_hit_any(*args), pairs.window_hit_any_plain(*args))
+        assert torch.equal(pairs.window_hit_any(*args, pack.cl_cnt, pairs._tri_rows(pack)),
+                           pairs.window_hit_any_plain(*args))
+    torch.cuda.synchronize()
+
+
+def _synthetic_dense(dev, seed, n_rays):
+    """Hand-made dense-mesh tables (Tc = 128, 768 clusters, 48 supers of
+    G = 16) that trap K5 and K6: cluster 0 holds one triangle, cluster 1
+    exactly Tc, cluster 2 none (cl_cnt 0), the rest 1..Tc with some zero
+    e2 columns inside; super 5 repeats super 4's boxes (equal entries at
+    both levels: the tie order); supers 32..47 (the third group of 16) lie
+    100 units behind the others, except super 40, so that rays aimed at
+    super 40 hit one super of an otherwise far group.  Rays: a third from a
+    camera toward the grid, a third random (an incoherent queue: many runs
+    per window), a third aimed at super 40; n_rays need not fill windows
+    of 256 pairs, and rays that miss leave empty slots in the queue."""
+    from mitsuba_tpu_torch.scene.builder import cluster_columns
+
+    r = np.random.default_rng(seed)
+    tc, g, s = 128, 16, 48
+    c = s * g
+    sup_xyz = np.stack([np.arange(s) % 8 * 2.0, np.arange(s) // 8 * 2.0, np.zeros(s)], 1)
+    far = (np.arange(s) >= 32) & (np.arange(s) != 40)
+    sup_xyz[far, 2] += 100.0
+    sub = np.stack([np.arange(g) % 4 * 0.4, np.arange(g) // 4 * 0.4, np.zeros(g)], 1)
+    n_tri = r.integers(1, tc + 1, c)
+    n_tri[:3] = (1, tc, 0)
+    tri = np.zeros((9, c * tc), np.float32)
+    tri[0:3] = 1e30
+    lo, hi = np.zeros((c, 3), np.float32), np.zeros((c, 3), np.float32)
+    for k in range(c):
+        sk = 4 if k // g == 5 else k // g  # super 5 copies super 4
+        kr = np.random.default_rng((seed, sk, k % g))
+        n = n_tri[k] if k // g != 5 else n_tri[4 * g + k % g]
+        cen = sup_xyz[sk] + sub[k % g]
+        v0 = cen + kr.uniform(-0.15, 0.15, (n, 3))
+        e1, e2 = kr.uniform(-0.1, 0.1, (n, 3)), kr.uniform(-0.1, 0.1, (n, 3))
+        e2[3::5] = 0.0  # zero e2 columns inside the tile
+        tri[:, k * tc:k * tc + n] = np.concatenate([v0, e1, e2], 1).T
+        pts = np.concatenate([v0, v0 + e1, v0 + e2]) if n else cen[None]
+        lo[k], hi[k] = pts.min(0), pts.max(0)
+    mbox = np.concatenate([lo, hi], 1).astype(np.float32).reshape(s, g * 6)
+    sup = np.zeros((8, s), np.float32)
+    sup[0:3] = lo.reshape(s, g, 3).min(1).T
+    sup[3:6] = hi.reshape(s, g, 3).max(1).T
+    m = n_rays // 3
+    cam = np.tile([7.0, 5.0, -20.0], (m, 1))
+    d_cam = np.stack([r.uniform(-1, 15, m), r.uniform(-1, 11, m), np.zeros(m)], 1) - cam
+    o_rnd = r.uniform([-1, -1, -1], [15, 11, 1], (m, 3))
+    d_rnd = r.normal(size=(m, 3))
+    n40 = n_rays - 2 * m
+    o40 = np.tile([8.6, 10.6, -20.0], (n40, 1))
+    d40 = sup_xyz[40] + r.uniform(0.0, 1.4, (n40, 3)) * [1, 1, 0] - o40
+    o = np.concatenate([cam, o_rnd, o40]).astype(np.float32)
+    d = np.concatenate([d_cam, d_rnd, d40])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t_any = r.uniform(0.0, 25.0, n_rays).astype(np.float32)
+    pad2prim = np.arange(c * tc, dtype=np.int32)
+    tabs = dict(cl_sup=sup, cl_mbox=mbox, cl_tri=tri, cl_pad2prim=pad2prim,
+                cl_cnt=cluster_columns(tri, tc), cl_tri_rows=np.ascontiguousarray(tri.T))
+    tabs = {k: torch.as_tensor(v, device=dev) for k, v in tabs.items()}
+    return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+            torch.as_tensor(t_any, device=dev), tabs, s, c, tc)
+
+
+@pytest.mark.parametrize("n_rays", [3001, 517, 40])
+@pytest.mark.parametrize("k,ks", [(3, 8), (1, 1), (8, 2)])
+def test_dense_kernels_synthetic(dev, n_rays, k, ks):
+    """K5 and K6 equal their plain versions on _synthetic_dense.  At 3,001
+    rays K6 meets runs of at least 16 entries (each lane takes a pair) and
+    shorter ones (the lanes split each pair's columns); at 40 rays nearly
+    every run is short."""
+    o, d, t_any, tabs, s, c, tc = _synthetic_dense(dev, 1, n_rays)
+    assert tabs["cl_cnt"][:3].tolist() == [4, tc, 0]
+    t_big = torch.full_like(t_any, pairs.BIG)
+    for tm in (t_big, t_any):
+        args = (o, d, tm, tabs["cl_sup"], tabs["cl_mbox"], s, c, ks, k)
+        cull = pairs.two_level_cull(*args)
+        _equal(cull, pairs.two_level_cull_plain(*args))
+        cid_q, pair_q = pairs.pair_queue(cull[0])
+        valid = cid_q < c
+        assert valid.any() and not valid.all() and cid_q.numel() % 256
+        if n_rays == 3001 and tm is t_big:
+            runs = torch.unique_consecutive(cid_q[valid], return_counts=True)[1]
+            assert runs.max() >= 16 and runs.min() < 16
+        args = (o, d, tm, cid_q, pair_q, k, tabs["cl_tri"], tabs["cl_pad2prim"], c, tc)
+        closest = pairs.window_hit_closest(*args, tabs["cl_cnt"], tabs["cl_tri_rows"])
+        _equal(closest, pairs.window_hit_closest_plain(*args))
+        args = (o, d, tm, cid_q, pair_q, k, tabs["cl_tri"], c, tc)
+        assert torch.equal(pairs.window_hit_any(*args, tabs["cl_cnt"], tabs["cl_tri_rows"]),
+                           pairs.window_hit_any_plain(*args))
+        if tm is t_big:
+            assert (closest[1] >= 0).any()
+            # super 40 kept for the rays aimed at it, from the far group
+            assert ((cull[0][2 * (n_rays // 3):] // 16) == 40).any()
+    torch.cuda.synchronize()
+
+
+def test_dense_kernels_no_rays(dev):
+    """K5 and K6 on R = 0 launch nothing and return empty outputs."""
+    o, d, t_any, tabs, s, c, tc = _synthetic_dense(dev, 2, 3)
+    o, d, t_any = o[:0], d[:0], t_any[:0]
+    cull = pairs.two_level_cull(o, d, t_any, tabs["cl_sup"], tabs["cl_mbox"], s, c, 8, 3)
+    assert [x.shape[0] for x in cull] == [0] * 6
+    cid_q, pair_q = pairs.pair_queue(cull[0])
+    out = pairs.window_hit_closest(o, d, t_any, cid_q, pair_q, 3, tabs["cl_tri"],
+                                   tabs["cl_pad2prim"], c, tc, tabs["cl_cnt"], tabs["cl_tri_rows"])
+    assert out[0].shape == (0, 3)
+    occ = pairs.window_hit_any(o, d, t_any, cid_q, pair_q, 3, tabs["cl_tri"], c, tc, tabs["cl_cnt"],
+                               tabs["cl_tri_rows"])
+    assert occ.shape == (0, 3)
     torch.cuda.synchronize()
 
 
@@ -402,7 +513,7 @@ def test_dense_pipeline_on_card_equals_cpu(dense_mesh):
 def test_stream_limits_raise(dense_mesh):
     pack, o, d, t_any = dense_mesh
     m = pack.meta
-    _, max_ks, max_k = pb.stream_limits()
+    _, max_ks, max_k, _ = pb.stream_limits()
     with pytest.raises(ValueError, match="at most"):
         pairs.two_level_cull(o, d, t_any, pack.cl_sup, pack.cl_mbox, m["n_supers"],
                              m["n_clusters"], min(max_ks + 1, m["n_supers"]), max_k + 1)

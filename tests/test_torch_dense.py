@@ -183,12 +183,15 @@ def test_window_hits_equal_slot_hits(packs, monkeypatch):
     cids, _, _ = pairs._cluster_lists(tp, o, d, t_max)
     cid_q, pair_q = pairs.pair_queue(cids)
     kk = cids.shape[1]
-    win = pairs.window_hit_closest(o, d, t_max, cid_q, pair_q, kk, tp.cl_tri, tp.cl_pad2prim, c, tc)
+    rows = pairs._tri_rows(tp)
+    win = pairs.window_hit_closest(o, d, t_max, cid_q, pair_q, kk, tp.cl_tri, tp.cl_pad2prim, c, tc,
+                                   tp.cl_cnt, rows)
     slot = pairs.pair_hit_closest(o, d, t_max, cids, tp.cl_tri, tp.cl_pad2prim, c, tc)
     for a, b in zip(win, slot):
         assert torch.equal(a, b)
     assert (slot[1] >= 0).any()
-    assert torch.equal(pairs.window_hit_any(o, d, t_max, cid_q, pair_q, kk, tp.cl_tri, c, tc),
+    assert torch.equal(pairs.window_hit_any(o, d, t_max, cid_q, pair_q, kk, tp.cl_tri, c, tc, tp.cl_cnt,
+                                            rows),
                        pairs.pair_hit_any(o, d, t_max, cids, tp.cl_tri, c, tc))
 
 
