@@ -8,8 +8,8 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. require a CUDA device, print the card's name and power limit, and
    build the port's kernels from csrc/ with nvcc (one nvcc per source,
    started together); beside them, ptxas's registers, stack and spills of
-   cluster_stream.cu's kernels (K5 and K6 may neither spill nor use a
-   stack);
+   cluster_hit.cu's and cluster_stream.cu's kernels (K3, K4, K5 and K6 may
+   neither spill nor use a stack);
 2. hold each kernel against its plain PyTorch version on the card and
    time both (CUDA events, median of 20 runs, the host's launch work
    between the events), and print each kernel's time on the card alone
@@ -23,8 +23,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    * K3/K4/K7/K8 (cluster_hit.cu) on the big-mesh stand-in
      (tests/torch_meshes.py: 69,168 triangles in scenes/bunny.xml's
      configuration) with 262,144 camera rays and 262,144 random
-     incoherent rays: K3 exactly equal, K4/K7 prim equal and t within
-     1 ulp, K4/K8 occlusion equal; also the natural overflow share, and
+     incoherent rays: K3 exactly equal, with its group and cluster slab
+     tests per ray; K4/K7 prim equal and t within 1 ulp, K4/K8 occlusion
+     equal, with the columns K4 tests per pair and K6 on K4's lists (the
+     pair queue's sort included) timed beside; the former K3/K4's times
+     beside (FORMER_MS); also the natural overflow share, and
      K7/K8 equal to plain on the batch the pair pipeline hands its
      fallback and timed there, with the clusters each fallback ray visits
      and its box scans (mean, max), K9/K10 on the same batch (equal
@@ -126,10 +129,13 @@ RESCAN_MS = {"cluster_stream_closest": 17.45, "cluster_stream_any": 12.99,
 # of the 69k stand-in (profile_pass.py bigmesh: 51.5 ms over 40 launches,
 # 53.2 ms over 32; same card)
 RESCAN_PASS_MS = {"cluster_traverse_closest": 1.29, "cluster_traverse_any": 1.66}
-# K5/K6 before their redesign (a full super scan; 8-tile stages of whole
-# Tc-column tiles, one block per 256-pair window) on the dense stand-in's
-# 262,144 camera rays (same card and timing; PERF.md's kernel table)
-FORMER_MS = {"two_level_cull": 0.4622, "window_hit_closest": 0.4286, "window_hit_any": 0.4224}
+# The kernels before their redesign on their stand-in's 262,144 camera rays
+# (same card and timing; PERF.md's kernel table): K5/K6 (a full super scan;
+# 8-tile stages of whole Tc-column tiles, one block per 256-pair window) on
+# the dense stand-in, K3/K4 (every cluster box slab-tested; one thread per
+# (ray, slot) over all Tc columns of cl_tri) on the 69k stand-in
+FORMER_MS = {"two_level_cull": 0.4622, "window_hit_closest": 0.4286, "window_hit_any": 0.4224,
+             "dense_cull": 0.3875, "pair_hit_closest": 0.2915, "pair_hit_any": 0.2716}
 # a sleep of ~1 ms on an H100: longer than any wrapper's host work
 HIDE_HOST_CYCLES = 2_000_000
 THROUGHPUT_SPP_CHUNK = 16
@@ -391,7 +397,9 @@ def compare_walks(pb, label, closest, stream, args, sizes, stats, plain_reps=20)
 def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
     """K3, K4 (closest, any), K7 and K8 against their plain versions on
     one ray set: t_max = BIG for the closest-hit kernels, t_any for the
-    occlusion kernels."""
+    occlusion kernels.  Beside K3 its group and member slab tests per ray;
+    beside K4 the columns it tests per pair and K6 on the same lists (the
+    pair queue's sort included)."""
     import torch
 
     c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
@@ -400,6 +408,7 @@ def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
     r = o.shape[0]
     t_big = torch.full((r,), pairs.BIG, device=o.device)
     tri, box, mbox, p2p = pack.cl_tri, pack.cl_box, pack.cl_mbox, pack.cl_pad2prim
+    tabs = (pack.cl_cnt, pairs._tri_rows(pack))  # K4's own inputs beside the plain version's
     shape = f"{label} rays={r} C={c}"
 
     k3 = pairs.dense_cull(o, d, t_big, mbox, c, kk)
@@ -409,36 +418,73 @@ def compare_cluster(pairs, pb, label, pack, o, d, t_any, stats):
         check(torch.equal(a, b), f"dense_cull: {what} differs on {int((a != b).sum())} values")
     cids = k3[0]
     n_cl = k3[2].float()
+    boxes = mbox.reshape(-1, 6)[:c].T  # [6, c]
+    n_grp, n_mem = cull_group_tests(pairs, o, d, t_big, boxes, c, pb.kernel_limits()[2])
+    design_ms, _ = bound((r * n_grp + n_mem) * SLAB_OPS, 0)
     record(stats, "dense_cull", shape, 0.0,
            lambda: pairs.dense_cull(o, d, t_big, mbox, c, kk),
            lambda: pairs.dense_cull_plain(o, d, t_big, mbox, c, kk),
            r * c * SLAB_OPS, nbytes(o, d, t_big, mbox.reshape(-1, 6)[:c], *k3),
-           f"clusters hit/ray={float(n_cl.mean()):.3f}")
+           f"clusters hit/ray={float(n_cl.mean()):.3f}; slab tests/ray: groups {n_grp}, "
+           f"members {n_mem / r:.3f} (of {c}); bound of this work {design_ms:.4f} ms"
+           f"{former('dense_cull', label == 'camera')}")
 
+    valid = cids < c
+    cols = pack.cl_cnt[cids[valid].long()]
+    print(f"  K4 lists {shape}: {int(valid.sum())} of {cids.numel()} slots hold a cluster; "
+          f"columns tested per pair {float(cols.float().mean()):.3f} (cl_cnt), real triangles "
+          f"{float(sizes[cids[valid].long()].float().mean()):.3f}, Tc {tc}", flush=True)
+    design_ms, _ = bound(int(cols.sum()) * MT_OPS, 0)
     args = (o, d, t_big, cids, tri, p2p, c, tc)
-    out = pairs.pair_hit_closest(*args)
+    out = pairs.pair_hit_closest(*args, *tabs)
     err, frac = check_hits("pair_hit_closest", out, pairs.pair_hit_closest_plain(*args))
     record(stats, "pair_hit_closest", shape, err,
-           lambda: pairs.pair_hit_closest(*args),
+           lambda: pairs.pair_hit_closest(*args, *tabs),
            lambda: pairs.pair_hit_closest_plain(*args),
            pair_tests(cids, sizes) * MT_OPS, nbytes(o, d, t_big, cids, tri, p2p, *out),
-           f"slot hit={frac:.3f}")
+           f"slot hit={frac:.3f}; bound of the cl_cnt columns {design_ms:.4f} ms"
+           f"{former('pair_hit_closest', label == 'camera')}")
+    k6_beside_k4(pairs, "window_hit_closest", out, (o, d, t_big), cids,
+                 (tri, p2p, c, tc, *tabs), shape)
     overflow_share(pairs, pack, o, d, t_big, label)
 
-    k4a = pairs.pair_hit_any(o, d, t_any, cids, tri, c, tc)
-    p4a = pairs.pair_hit_any_plain(o, d, t_any, cids, tri, c, tc)
+    args_any = (o, d, t_any, cids, tri, c, tc)
+    k4a = pairs.pair_hit_any(*args_any, *tabs)
+    p4a = pairs.pair_hit_any_plain(*args_any)
     torch.cuda.synchronize()
     check(torch.equal(k4a, p4a), "pair_hit_any: occlusion differs")
     record(stats, "pair_hit_any", shape, 0.0,
-           lambda: pairs.pair_hit_any(o, d, t_any, cids, tri, c, tc),
-           lambda: pairs.pair_hit_any_plain(o, d, t_any, cids, tri, c, tc),
+           lambda: pairs.pair_hit_any(*args_any, *tabs),
+           lambda: pairs.pair_hit_any_plain(*args_any),
            pair_tests(cids, sizes, k4a) * MT_OPS, nbytes(o, d, t_any, cids, tri, k4a),
-           f"occluded={float(k4a.float().mean()):.3f}")
+           f"occluded={float(k4a.float().mean()):.3f}{former('pair_hit_any', label == 'camera')}")
+    k6_beside_k4(pairs, "window_hit_any", (k4a,), (o, d, t_any), cids, (tri, c, tc, *tabs), shape)
 
     compare_walks(pb, label, True, False, (o, d, t_big, box, tri, tc), sizes, stats)
     compare_walks(pb, label, False, False, (o, d, t_any, box, tri, tc), sizes, stats)
     for closest, tm in ((True, t_big), (False, t_any)):
         fallback_walks(pairs, pb, label, pack, o, d, tm, closest)
+
+
+def k6_beside_k4(pairs, name, k4_out, rays, cids, tabs, shape):
+    """K6 (the window kernel over the cluster-sorted pair queue) on K4's
+    lists: the same per-slot results, timed with the queue's sort
+    (pair_queue) inside, to weigh the K4/K6 dispatch on this mesh."""
+    import torch
+
+    fn = getattr(pairs, name)
+    kk = cids.shape[1]
+
+    def run():
+        return fn(*rays, *pairs.pair_queue(cids), kk, *tabs)
+
+    out = run()
+    out = out if isinstance(out, tuple) else (out,)
+    torch.cuda.synchronize()
+    for a, b in zip(out, k4_out):
+        check(torch.equal(a, b), f"{name} differs from K4 on the same lists")
+    print(f"  {name + ' (K6)':24s} {shape:28s} on K4's lists, sort included: kernel "
+          f"{time_ms(run):.4f} ms (card alone {time_ms(run, card_only=True):.4f})", flush=True)
 
 
 def overflow_share(pairs, pack, o, d, t_big, label):
@@ -505,7 +551,7 @@ def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
            f"bound of the cl_cnt columns {design_ms:.4f} ms"
            f"{former('window_hit_closest', camera)}")
     k4_beside_k6(pairs, "pair_hit_closest", out, stats[-1]["ms"], shape,
-                 (o, d, t_big, cids, tri, p2p, c, tc))
+                 (o, d, t_big, cids, tri, p2p, c, tc, *k6_tabs))
     overflow_share(pairs, pack, o, d, t_big, label)
 
     args_any = (o, d, t_any, *queue, kk, tri, c, tc)
@@ -519,7 +565,7 @@ def compare_dense(pairs, pb, label, pack, o, d, t_any, stats, rng):
            f"occluded={float(k6a.float().mean()):.3f}"
            f"{former('window_hit_any', camera)}")
     k4_beside_k6(pairs, "pair_hit_any", (k6a,), stats[-1]["ms"], shape,
-                 (o, d, t_any, cids, tri, c, tc))
+                 (o, d, t_any, cids, tri, c, tc, *k6_tabs))
     sub = torch.as_tensor(np.sort(rng.choice(r, N_STREAM_SUBSET, replace=False)), device=o.device)
     o_s, d_s = o[sub].contiguous(), d[sub].contiguous()
     sub_label = f"{label} subset"
@@ -542,8 +588,9 @@ def former(name, camera):
 
 
 def cull_group_tests(pairs, o, d, t_max, sup, s, gs):
-    """K5's level-1 work at groups of gs supers: (groups per ray, super
-    slab tests over all rays: the supers of the groups each ray hits)."""
+    """The group level's work at groups of gs boxes (K5: supers, sup the
+    [8, Sp] cl_sup; K3: clusters, sup their [6, C] rows): (groups per ray,
+    box slab tests over all rays: the boxes of the groups each ray hits)."""
     import torch
 
     n_grp = -(-s // gs)
@@ -756,15 +803,16 @@ def main():
 
     # ---- phase 1: build (one nvcc per source, in parallel) ----
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as ex:
-        usage = ex.submit(native.resource_usage, "cluster_stream")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 2) as ex:
+        usage = [ex.submit(native.resource_usage, n) for n in ("cluster_hit", "cluster_stream")]
         libs = dict(zip(SOURCES, ex.map(native.build, SOURCES)))
-        usage = usage.result()
+        usage = {fn: u for f in usage for fn, u in f.result().items()}
     print(f"phase 1: built {sorted(os.path.relpath(p, HERE) for p in libs.values())} "
           f"in {time.time() - t0:.2f} s", flush=True)
     for fn, u in sorted(usage.items()):
         print(f"  ptxas {fn}: {u}", flush=True)
-        if "two_level_cull" in fn or "window_kernel" in fn:  # K5, K6
+        if any(k in fn for k in ("dense_cull", "pair_kernel", "two_level_cull",
+                                 "window_kernel")):  # K3, K4, K5, K6
             check(u.get("stack", 1) == u.get("spill_stores", 1) == u.get("spill_loads", 1) == 0,
                   f"{fn} uses a stack or spills: {u}")
 

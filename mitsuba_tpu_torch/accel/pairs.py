@@ -8,12 +8,14 @@
      members;
   2. pair hits: each (ray, kept cluster) pair runs Moller-Trumbore over
      the cluster's Tc triangles; the min over the K slots, ties to the
-     nearest slot, is the ray's hit.  Up to DENSE_C clusters one thread
-     per (ray, slot) reads its cluster from L2 (K4, `_runs_kernel`); past
-     it the lists are flattened into a cluster-sorted pair queue; each
-     warp walks its share of the queue run by run, copying each run's
-     triangles (the first `cl_cnt` of its cluster, from the triangle-major
-     `cl_tri_rows`) into shared memory once (K6, `_pair_kernel`);
+     nearest slot, is the ray's hit.  The kernels test only the first
+     `cl_cnt` triangles of a cluster (past them e2 = 0), copied from the
+     triangle-major `cl_tri_rows` into shared memory.  Up to DENSE_C
+     clusters one warp per ray takes its slots one by one, the lanes
+     splitting each slot's triangles (K4, `_runs_kernel`); past it the
+     lists are flattened into a cluster-sorted pair queue, and each warp
+     walks its share of the queue run by run, copying each run's
+     triangles once (K6, `_pair_kernel`);
   3. rays whose lists overflowed (more than KS supers or K clusters hit,
      and no hit before the kept horizon) re-run through the per-ray
      cluster traversal (K7/K8 or K9/K10, accel/pallas_bvh.py).
@@ -112,7 +114,8 @@ def dense_cull(o, d, t_max, cl_mbox, c, kk):
     o, d, t_max, cl_mbox = (x.contiguous() for x in (o, d, t_max, cl_mbox))
     if o.device.type == "cpu":
         return dense_cull_plain(o, d, t_max, cl_mbox, c, kk)
-    max_c, max_k = pb.kernel_limits()
+    pb.check_aligned(("cl_mbox", cl_mbox), align=8)
+    max_c, max_k, _ = pb.kernel_limits()
     if c > max_c or kk > max_k:
         raise ValueError(f"the cull kernel takes at most {max_c} clusters and "
                          f"K <= {max_k}, got {c} and {kk}")
@@ -320,42 +323,58 @@ def pair_hit_any_plain(o, d, t_max, cids, cl_tri, c, tc):
     return occ
 
 
-def _pair_prepare(o, d, t_max, cids, cl_tri, c, tc):
+def _pair_prepare(o, d, t_max, cids, cl_tri, c, tc, cl_cnt, cl_tri_rows):
     r = o.shape[0]
     native.check_tensors(
         o, ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
         ("t_max", t_max, torch.float32, (r,)), ("cids", cids, torch.int32, None),
-        ("cl_tri", cl_tri, torch.float32, (9, c * tc)),
+        ("cl_tri", cl_tri, torch.float32, (9, c * tc)), ("cl_cnt", cl_cnt, torch.int32, (c,)),
+        ("cl_tri_rows", cl_tri_rows, torch.float32, (c * tc, 9)),
     )
     if cids.ndim != 2 or cids.shape[0] != r:
         raise ValueError(f"cids must be [{r}, K], got {tuple(cids.shape)}")
-    return tuple(x.contiguous() for x in (o, d, t_max, cids, cl_tri))
+    return tuple(x.contiguous() for x in (o, d, t_max, cids, cl_tri, cl_cnt, cl_tri_rows))
 
 
-def pair_hit_closest(o, d, t_max, cids, cl_tri, pad2prim, c, tc):
-    """K4, closest: see pair_hit_closest_plain."""
-    o, d, t_max, cids, cl_tri = _pair_prepare(o, d, t_max, cids, cl_tri, c, tc)
+def _pair_check(cids, cl_tri_rows, tc):
+    _rows_check(cl_tri_rows, tc)
+    _, max_k, _ = pb.kernel_limits()
+    if not 1 <= cids.shape[1] <= max_k:
+        raise ValueError(f"the pair kernel takes 1 <= K <= {max_k}, got {cids.shape[1]}")
+
+
+def pair_hit_closest(o, d, t_max, cids, cl_tri, pad2prim, c, tc, cl_cnt, cl_tri_rows):
+    """K4, closest: see pair_hit_closest_plain.  cl_cnt [C] i32 and
+    cl_tri_rows [C*Tc, 9] as window_hit_closest takes them: the kernel
+    tests only each cluster's first cl_cnt columns, read from
+    cl_tri_rows; the plain version tests all of cl_tri."""
+    o, d, t_max, cids, cl_tri, cl_cnt, cl_tri_rows = _pair_prepare(
+        o, d, t_max, cids, cl_tri, c, tc, cl_cnt, cl_tri_rows)
     native.check_tensors(o, ("pad2prim", pad2prim, torch.int32, (c * tc,)))
     if o.device.type == "cpu":
         return pair_hit_closest_plain(o, d, t_max, cids, cl_tri, pad2prim, c, tc)
+    _pair_check(cids, cl_tri_rows, tc)
     r, kk = cids.shape
     outs = [torch.empty(r, kk, dtype=dt, device=o.device)
             for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
-    pb.launch("mts_pair_closest", o.device, o, d, t_max, cids, cl_tri,
-              pad2prim.contiguous(), r, kk, c, tc, cl_tri.shape[1], *outs)
+    pb.launch("mts_pair_closest", o.device, o, d, t_max, cids, cl_tri_rows, cl_cnt,
+              pad2prim.contiguous(), r, kk, c, tc, *outs)
     pair_hit_closest.launches += 1
     return tuple(outs)
 
 
-def pair_hit_any(o, d, t_max, cids, cl_tri, c, tc):
-    """K4, any hit: see pair_hit_any_plain."""
-    o, d, t_max, cids, cl_tri = _pair_prepare(o, d, t_max, cids, cl_tri, c, tc)
+def pair_hit_any(o, d, t_max, cids, cl_tri, c, tc, cl_cnt, cl_tri_rows):
+    """K4, any hit: see pair_hit_any_plain (cl_cnt, cl_tri_rows as
+    pair_hit_closest)."""
+    o, d, t_max, cids, cl_tri, cl_cnt, cl_tri_rows = _pair_prepare(
+        o, d, t_max, cids, cl_tri, c, tc, cl_cnt, cl_tri_rows)
     if o.device.type == "cpu":
         return pair_hit_any_plain(o, d, t_max, cids, cl_tri, c, tc)
+    _pair_check(cids, cl_tri_rows, tc)
     r, kk = cids.shape
     occ = torch.empty(r, kk, dtype=torch.int32, device=o.device)
-    pb.launch("mts_pair_any", o.device, o, d, t_max, cids, cl_tri,
-              r, kk, c, tc, cl_tri.shape[1], occ)
+    pb.launch("mts_pair_any", o.device, o, d, t_max, cids, cl_tri_rows, cl_cnt,
+              r, kk, c, tc, occ)
     pair_hit_any.launches += 1
     return occ > 0
 
@@ -419,10 +438,10 @@ def _window_prepare(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tr
     return tuple(x.contiguous() for x in (o, d, t_max, cid_q, pair_q, cl_tri, cl_cnt, cl_tri_rows))
 
 
-def _window_check(cl_tri_rows, tc):
+def _rows_check(cl_tri_rows, tc):
     pb.check_aligned(("cl_tri_rows", cl_tri_rows))
     if tc % 4:
-        raise ValueError(f"the window kernel takes Tc a multiple of 4, got {tc}")
+        raise ValueError(f"the pair kernels take Tc a multiple of 4, got {tc}")
 
 
 def window_hit_closest(o, d, t_max, cid_q, pair_q, kk, cl_tri, pad2prim, c, tc, cl_cnt,
@@ -437,7 +456,7 @@ def window_hit_closest(o, d, t_max, cid_q, pair_q, kk, cl_tri, pad2prim, c, tc, 
     native.check_tensors(o, ("pad2prim", pad2prim, torch.int32, (c * tc,)))
     if o.device.type == "cpu":
         return window_hit_closest_plain(o, d, t_max, cid_q, pair_q, kk, cl_tri, pad2prim, c, tc)
-    _window_check(cl_tri_rows, tc)
+    _rows_check(cl_tri_rows, tc)
     r = o.shape[0]
     outs = [torch.empty(r, kk, dtype=dt, device=o.device)
             for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
@@ -454,7 +473,7 @@ def window_hit_any(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tri
         o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tri_rows)
     if o.device.type == "cpu":
         return window_hit_any_plain(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc)
-    _window_check(cl_tri_rows, tc)
+    _rows_check(cl_tri_rows, tc)
     r = o.shape[0]
     occ = torch.empty(r, kk, dtype=torch.int32, device=o.device)
     pb.launch_stream("mts_window_any", o.device, o, d, t_max, cid_q, pair_q, r * kk, kk,
@@ -464,11 +483,13 @@ def window_hit_any(o, d, t_max, cid_q, pair_q, kk, cl_tri, c, tc, cl_cnt, cl_tri
 
 
 def _tri_rows(pack):
-    """K6's copy of the pack's cl_tri with each triangle's nine floats
-    together, [C*Tc, 9] (45 MB at 9,856 clusters): a run's first cl_cnt
-    triangles are one block, one bulk copy (nine per-row copies of cl_tri
-    were 3-16 % slower on an H100, PERF.md).  Made on the pack's first K6
-    call and kept in it, so that only packs past DENSE_C hold it."""
+    """The pair kernels' copy of the pack's cl_tri with each triangle's
+    nine floats together, [C*Tc, 9] (2.5 MB at 773 clusters, 45 MB at
+    9,856): a cluster's first cl_cnt triangles are one block, one bulk
+    copy (K4 per (ray, slot), K6 per run; nine per-row copies of cl_tri
+    were 3-16 % slower in K6 on an H100, PERF.md).  Made on the pack's
+    first pair_closest or pair_any call (K4 or K6) and kept in it, so
+    that only packs the pair pipeline runs on hold it."""
     if "cl_tri_rows" not in pack.arrays:
         pack.arrays["cl_tri_rows"] = pack.cl_tri.T.contiguous()
     return pack.arrays["cl_tri_rows"]
@@ -492,7 +513,7 @@ def pair_closest(pack, o, d, t_max):
     cids, _, ov = _cluster_lists(pack, o, d, t_max)
     if c <= DENSE_C:
         t_rk, p_rk, u_rk, v_rk = pair_hit_closest(
-            o, d, t_max, cids, pack.cl_tri, pack.cl_pad2prim, c, tc
+            o, d, t_max, cids, pack.cl_tri, pack.cl_pad2prim, c, tc, pack.cl_cnt, _tri_rows(pack)
         )
     else:
         t_rk, p_rk, u_rk, v_rk = window_hit_closest(
@@ -531,7 +552,7 @@ def pair_any(pack, o, d, t_max):
     c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
     cids, _, ov = _cluster_lists(pack, o, d, t_max)
     if c <= DENSE_C:
-        occ = pair_hit_any(o, d, t_max, cids, pack.cl_tri, c, tc)
+        occ = pair_hit_any(o, d, t_max, cids, pack.cl_tri, c, tc, pack.cl_cnt, _tri_rows(pack))
     else:
         occ = window_hit_any(o, d, t_max, *pair_queue(cids), cids.shape[1], pack.cl_tri, c, tc,
                              pack.cl_cnt, _tri_rows(pack))

@@ -32,6 +32,7 @@ each ray's clusters visited and box scans.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -69,9 +70,10 @@ def stream_lib():
     return native.load("cluster_stream", _declare_stream)
 
 
+@functools.cache
 def stream_limits():
     """(max supers, max kept supers KS, max list length K, supers per
-    group box) of K5."""
+    group box) of K5 (constants of the library, read once)."""
     out = [ctypes.c_int() for _ in range(4)]
     stream_lib().mts_stream_limits(*(ctypes.byref(x) for x in out))
     return tuple(x.value for x in out)
@@ -92,11 +94,11 @@ def check_aligned(*named, align=16):
 
 def _declare(lib):
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.mts_cluster_limits.argtypes = [p, p]
+    lib.mts_cluster_limits.argtypes = [p, p, p]
     lib.mts_cluster_limits.restype = i
     lib.mts_dense_cull.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
-    lib.mts_pair_closest.argtypes = [p, p, p, p, p, p, i, i, i, i, lg, p, p, p, p, p]
-    lib.mts_pair_any.argtypes = [p, p, p, p, p, i, i, i, i, lg, p, p]
+    lib.mts_pair_closest.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, p, p, p, p]
+    lib.mts_pair_any.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
     lib.mts_cluster_closest.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p, p, p, p]
     lib.mts_cluster_any.argtypes = [p, p, p, p, p, i, i, i, lg, p, p, p]
     for fn in ("mts_dense_cull", "mts_pair_closest", "mts_pair_any",
@@ -108,11 +110,13 @@ def cluster_lib():
     return native.load("cluster_hit", _declare)
 
 
+@functools.cache
 def kernel_limits():
-    """(max clusters, max list length K) of the compiled kernels."""
-    mc, mk = ctypes.c_int(), ctypes.c_int()
-    cluster_lib().mts_cluster_limits(ctypes.byref(mc), ctypes.byref(mk))
-    return mc.value, mk.value
+    """(max clusters, max list length K, clusters per group box of K3)
+    of the compiled kernels (constants of the library, read once)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    cluster_lib().mts_cluster_limits(*(ctypes.byref(x) for x in out))
+    return tuple(x.value for x in out)
 
 
 def launch(entry, device, *args):
@@ -263,7 +267,7 @@ def _walk_args(o, d, t_max, cl_box, cl_tri, tc, stats):
 
 def _resident_args(o, d, t_max, cl_box, cl_tri, tc, stats):
     """K7/K8's leading arguments (_walk_args), past their cluster cap checked."""
-    max_c, _ = kernel_limits()
+    max_c, _, _ = kernel_limits()
     if cl_box.shape[1] > max_c:
         raise ValueError(f"the traversal kernels take at most {max_c} clusters, "
                          f"got {cl_box.shape[1]}")

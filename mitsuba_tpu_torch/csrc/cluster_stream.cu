@@ -114,7 +114,6 @@
 // cudaErrorInvalidValue for arguments it cannot take).
 
 #include <climits>
-#include <mutex>
 
 #include "cluster_walk.cuh"
 #include "ray_tri.cuh"
@@ -123,7 +122,6 @@ namespace {
 
 using namespace mts;
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;      // K5
 constexpr int kMaxSupers = 1536;   // K5 super capacity (36 KB of shared memory)
 constexpr int kGroup = 16;         // K5 consecutive supers per group box
@@ -135,37 +133,6 @@ constexpr int kMemberStep = 2;     // K5 member boxes loaded together
 constexpr int kWinWarps = 4;       // K6 warps per block
 constexpr int kSplit = 16;         // K6 batch entries from which each lane takes a pair
 constexpr int kWalkWarps = 4;      // K9/K10 rays (one warp each) per block
-
-// Insert (key, id) into the ascending list keys[0, N) if key < keys[N-1],
-// after every kept key <= key (keep_smallest of ray_tri.cuh over the
-// compile-time length, unrolled and select-based: the list stays in
-// registers).
-template <int N>
-__device__ __forceinline__ void keep_smallest_reg(float (&keys)[N],
-                                                  int (&idx)[N], float key,
-                                                  int id) {
-  if (!(key < keys[N - 1])) return;
-#pragma unroll
-  for (int j = N - 1; j > 0; --j) {
-    const bool shift = key < keys[j - 1];
-    const bool here = !shift && key < keys[j];
-    keys[j] = shift ? keys[j - 1] : (here ? key : keys[j]);
-    idx[j] = shift ? idx[j - 1] : (here ? id : idx[j]);
-  }
-  if (key < keys[0]) {
-    keys[0] = key;
-    idx[0] = id;
-  }
-}
-
-// entry n of a register list, for a run-time n < N
-template <int N, typename T>
-__device__ __forceinline__ T pick(const T (&v)[N], int n) {
-  T out = v[0];
-#pragma unroll
-  for (int j = 1; j < N; ++j) out = j == n ? v[j] : out;
-  return out;
-}
 
 // ---------------------------------------------------------------- K5
 // Shared memory: [6][stride] super rows, super j at j + j / gs (one word
@@ -330,60 +297,6 @@ size_t cull_smem(int s) {
 }
 
 // ---------------------------------------------------------------- K6
-// mt_hit against row j of a [n, 9] triangle table (each triangle's nine
-// floats together)
-__device__ __forceinline__ bool mt_hit_row(const float* __restrict__ tri,
-                                           int j, const Ray& r, float t_lim,
-                                           float* t_hit, float* u_hit,
-                                           float* v_hit) {
-  return mt_hit(tri + 9 * j, 1, 0, r, t_lim, t_hit, u_hit, v_hit);
-}
-
-// mbarrier and bulk copy (sm_90)
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar,
-                                                      unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// bytes (a multiple of 16, both ends 16-byte aligned) from global to shared
-// memory, completing on the mbarrier bar
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // a batch entry's ray and t_max, staged in shared memory as two float4
 __device__ __forceinline__ Ray staged_ray(const float4 (&s)[2], float* tm) {
   const float4 a = s[0], b = s[1];
@@ -540,15 +453,7 @@ window_kernel(const float* __restrict__ o, const float* __restrict__ d,
             // holds (t_max, INT_MAX), and every hit has t < t_max
             float mt = lt;
             int mj = lj;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-              const float ot = __shfl_xor_sync(kFull, mt, off);
-              const int oj = __shfl_xor_sync(kFull, mj, off);
-              if (ot < mt || (ot == mt && oj < mj)) {
-                mt = ot;
-                mj = oj;
-              }
-            }
+            warp_min(&mt, &mj);
             // the winning column's lane holds its u, v as its own best
             const int src = mj == INT_MAX ? 0 : (mj & 31);
             const float wu = __shfl_sync(kFull, lu, src);
@@ -629,39 +534,6 @@ walk_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 int blocks_for(long n, int threads) { return (int)((n + threads - 1) / threads); }
 
-// Blocks of K6 per SM with `smem` bytes of tile buffers per block; the
-// runtime is asked once per (device, smem) and the answer kept (a pass
-// launches K6 ~80 times).
-template <bool kClosest>
-cudaError_t window_occupancy(size_t smem, int* per_sm, int* sms) {
-  static std::mutex mu;
-  static int last_dev = -1, last_per_sm = 0, last_sms = 0;
-  static size_t last_smem = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  if (dev != last_dev || smem != last_smem) {
-    int n_sm = 0, n = 0;
-    err = cudaFuncSetAttribute(window_kernel<kClosest>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, window_kernel<kClosest>, 32 * kWinWarps, smem);
-    if (err != cudaSuccess) return err;
-    last_dev = dev;
-    last_smem = smem;
-    last_per_sm = n;
-    last_sms = n_sm;
-  }
-  *per_sm = last_per_sm;
-  *sms = last_sms;
-  return cudaSuccess;
-}
-
 // K6's tile buffers per block: one [tc, 9] tile per warp
 size_t window_smem(int tc) { return sizeof(float) * kWinWarps * 9 * (size_t)tc; }
 
@@ -677,12 +549,13 @@ int launch_window(const float* o, const float* d, const float* t_max,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pairs > 0) {
     const size_t smem = window_smem(tc);
-    int per_sm = 0, sms = 0;
-    const cudaError_t err = window_occupancy<kClosest>(smem, &per_sm, &sms);
+    int resident = 0;
+    const cudaError_t err = resident_blocks(
+        reinterpret_cast<const void*>(window_kernel<kClosest>), 32 * kWinWarps,
+        smem, &resident);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long need = blocks_for(n_pairs, 32 * kWinWarps);
-    const long resident = (long)per_sm * sms;
-    const int grid = (int)(need < resident ? need : resident);
+    const int grid = (int)(need < (long)resident ? need : (long)resident);
     window_kernel<kClosest><<<grid > 0 ? grid : 1, 32 * kWinWarps, smem,
                               static_cast<cudaStream_t>(stream)>>>(
         o, d, t_max, cid_q, pair_q, n_pairs, kk, rows, cl_cnt, pad2prim, c,

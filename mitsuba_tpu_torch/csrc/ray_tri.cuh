@@ -1,13 +1,16 @@
 // Ray and triangle primitives shared by the cluster kernels
 // (cluster_hit.cu, cluster_stream.cu, cluster_walk.cuh) and the tiled brute
-// force (brute_tiled.cu).  Every expression follows the plain
-// PyTorch versions in order (accel/pallas_kernels.py mt_test,
+// force (brute_tiled.cu), with the register lists, the Hopper bulk copy and
+// the occupancy query the cluster kernels share.  Every expression follows
+// the plain PyTorch versions in order (accel/pallas_kernels.py mt_test,
 // accel/pallas_bvh.py safe_inv), and the sources are built with
 // -fmad=false, so kernels and plain versions round identically.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace mts {
 
@@ -65,6 +68,15 @@ __device__ __forceinline__ bool mt_hit(const float* __restrict__ tri, long ct,
          t < t_lim;
 }
 
+// mt_hit against row j of a [n, 9] triangle table (each triangle's nine
+// floats together: accel/pairs.py _tri_rows)
+__device__ __forceinline__ bool mt_hit_row(const float* __restrict__ tri,
+                                           int j, const Ray& r, float t_lim,
+                                           float* t_hit, float* u_hit,
+                                           float* v_hit) {
+  return mt_hit(tri + 9 * j, 1, 0, r, t_lim, t_hit, u_hit, v_hit);
+}
+
 // The pallas_bvh slab (reference _slab) against box (lo xyz, hi xyz): per
 // axis (box - o) * inv, tn = max of the per-axis mins, tf = min of the
 // per-axis maxes.
@@ -114,20 +126,38 @@ __device__ __forceinline__ bool cull_slab(float lox, float loy, float loz,
   return tf >= e && tn < tm;
 }
 
-// Insert (key, idx) into the ascending list keys[0, n) if key < keys[n-1],
+// Insert (key, id) into the ascending list keys[0, N) if key < keys[N-1],
 // after every kept key <= key: equal keys keep their arrival order, the
-// first-index tie-break of the reference's k-pass argmin.
-__device__ __forceinline__ void keep_smallest(float* keys, int* idx, int n,
-                                              float key, int id) {
-  if (!(key < keys[n - 1])) return;
-  int j = n - 1;
-  while (j > 0 && key < keys[j - 1]) {
-    keys[j] = keys[j - 1];
-    idx[j] = idx[j - 1];
-    --j;
+// first-index tie-break of the reference's k-pass argmin.  Unrolled over the
+// compile-time length and select-based, so that the list stays in
+// registers.  A caller keeping n < N entries takes the first n: with ties
+// ordered by arrival, the n smallest of a stream are the first n of its N
+// smallest.
+template <int N>
+__device__ __forceinline__ void keep_smallest_reg(float (&keys)[N],
+                                                  int (&idx)[N], float key,
+                                                  int id) {
+  if (!(key < keys[N - 1])) return;
+#pragma unroll
+  for (int j = N - 1; j > 0; --j) {
+    const bool shift = key < keys[j - 1];
+    const bool here = !shift && key < keys[j];
+    keys[j] = shift ? keys[j - 1] : (here ? key : keys[j]);
+    idx[j] = shift ? idx[j - 1] : (here ? id : idx[j]);
   }
-  keys[j] = key;
-  idx[j] = id;
+  if (key < keys[0]) {
+    keys[0] = key;
+    idx[0] = id;
+  }
+}
+
+// entry n of a register list, for a run-time n < N
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&v)[N], int n) {
+  T out = v[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) out = j == n ? v[j] : out;
+  return out;
 }
 
 // cp.async of 4 bytes from global to shared memory, and its group
@@ -145,6 +175,93 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// mbarrier and bulk copy (sm_90)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) from global to shared
+// memory, completing on the mbarrier bar
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Host: blocks of kernel fn the current device holds at once with `threads`
+// threads and `smem` bytes of dynamic shared memory each (the attribute for
+// more than 48 KB set first).  The runtime is asked once per (kernel,
+// device, smem) and the answer kept: a pass launches each kernel ~40-80
+// times on one pack.
+inline cudaError_t resident_blocks(const void* fn, int threads, size_t smem,
+                                   int* blocks) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  constexpr int kEntries = 16;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int n_cached = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int k = 0; k < n_cached && k < kEntries; ++k) {
+    if (cache[k].fn == fn && cache[k].dev == dev && cache[k].smem == smem) {
+      *blocks = cache[k].blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  cache[n_cached++ % kEntries] = Entry{fn, dev, smem, sms * per_sm};
+  *blocks = sms * per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace mts

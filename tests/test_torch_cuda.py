@@ -156,13 +156,14 @@ def test_cluster_kernels_equal_plain(mesh, k):
     pack, o, d, t_any = mesh
     c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
     t_big = torch.full_like(t_any, pairs.BIG)
+    tabs = (pack.cl_cnt, pairs._tri_rows(pack))
     for tm in (t_big, t_any):
         cull = pairs.dense_cull(o, d, tm, pack.cl_mbox, c, k)
         _equal(cull, pairs.dense_cull_plain(o, d, tm, pack.cl_mbox, c, k))
         args = (o, d, tm, cull[0], pack.cl_tri, pack.cl_pad2prim, c, tc)
-        _equal(pairs.pair_hit_closest(*args), pairs.pair_hit_closest_plain(*args))
+        _equal(pairs.pair_hit_closest(*args, *tabs), pairs.pair_hit_closest_plain(*args))
         args = (o, d, tm, cull[0], pack.cl_tri, c, tc)
-        assert torch.equal(pairs.pair_hit_any(*args), pairs.pair_hit_any_plain(*args))
+        assert torch.equal(pairs.pair_hit_any(*args, *tabs), pairs.pair_hit_any_plain(*args))
     sub = slice(0, None, 8)  # the plain traversal is slow; every 8th ray
     for tm in (t_big, t_any):
         args = (o[sub].contiguous(), d[sub].contiguous(), tm[sub].contiguous(),
@@ -170,6 +171,91 @@ def test_cluster_kernels_equal_plain(mesh, k):
         _equal(pb.cluster_traverse_closest(*args), pb.cluster_traverse_closest_plain(*args))
         assert torch.equal(pb.cluster_traverse_any(*args), pb.cluster_traverse_any_plain(*args))
     torch.cuda.synchronize()
+
+
+def _cull_boxes(dev, c, seed):
+    """c cluster boxes as cl_mbox rows (lo xyz, hi xyz) along a random
+    walk, so that neighbouring ids lie close as the BVH's treelet order
+    puts them, with flat boxes (one extent 0) and a point box; and 4,096
+    rays: from outside toward the boxes, random, axis-parallel (one or two
+    zero direction components) and from inside boxes."""
+    r = np.random.default_rng(seed)
+    cen = np.cumsum(r.normal(scale=0.3, size=(c, 3)), axis=0)
+    half = r.uniform(0.02, 0.4, (c, 3))
+    half[1::5, r.integers(0, 3)] = 0.0
+    half[c // 2 if c > 2 else 0:c > 2] = 0.0
+    mbox = np.concatenate([cen - half, cen + half], 1).astype(np.float32)
+    n = 1024
+    o_out = cen.mean(0) + 20 * r.normal(size=(n, 3))
+    d_out = cen[r.integers(0, c, n)] - o_out
+    o_rnd = r.uniform(cen.min(0) - 1, cen.max(0) + 1, (n, 3))
+    d_rnd = r.normal(size=(n, 3))
+    o_ax = r.uniform(cen.min(0) - 1, cen.max(0) + 1, (n, 3))
+    d_ax = r.normal(size=(n, 3))
+    d_ax[: n // 2, r.integers(0, 3)] = 0.0
+    d_ax[n // 2:, :2] = 0.0
+    o_in = cen[r.integers(0, c, n)] + r.uniform(-0.01, 0.01, (n, 3))
+    d_in = r.normal(size=(n, 3))
+    o = np.concatenate([o_out, o_rnd, o_ax, o_in]).astype(np.float32)
+    d = np.concatenate([d_out, d_rnd, d_ax, d_in])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t_max = r.uniform(0.0, 10.0, 4 * n).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (mbox, o, d, t_max)]
+
+
+@pytest.mark.parametrize("c", [1, 15, 16, 17, 773, 1890])
+def test_dense_cull_groups_equal_plain(dev, c):
+    """K3 (groups of 16 clusters first) at one cluster, partial and whole
+    last groups, the 69k stand-in's 773 and the dense-cull bound's 1,890
+    (past 48 KB of shared memory), every K up to 8, t_max random, tiny and
+    BIG."""
+    mbox, o, d, t_max = _cull_boxes(dev, c, c)
+    for tm in (t_max, torch.full_like(t_max, 1e-6), torch.full_like(t_max, pairs.BIG)):
+        for k in range(1, min(8, c) + 1):
+            _equal(pairs.dense_cull(o, d, tm, mbox, c, k), pairs.dense_cull_plain(o, d, tm, mbox, c, k))
+    cull = pairs.dense_cull(o, d, t_max, mbox, c, 1)
+    assert (cull[0] < c).any() and (c == 1 or (cull[2] > 1).any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 262_144])
+def test_pair_kernels_edges(mesh, n):
+    """K4 on batches of none, one, fewer and more rays than a warp has
+    lanes, and 262,144 (the mesh's rays repeated): on the cull's lists, on
+    all-empty lists, with t_max BIG, random and <= 0; clusters with
+    cl_cnt < Tc."""
+    pack, o, d, t_any = mesh
+    c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    assert bool((pack.cl_cnt < tc).any())
+    idx = torch.arange(n, device=o.device) % o.shape[0]
+    o_n, d_n, t_n = o[idx].contiguous(), d[idx].contiguous(), t_any[idx].contiguous()
+    t_big = torch.full_like(t_n, pairs.BIG)
+    t_le0 = torch.where(idx % 3 == 0, 0.0, -t_n)
+    tabs = (pack.cl_cnt, pairs._tri_rows(pack))
+    cids = pairs.dense_cull(o_n, d_n, t_big, pack.cl_mbox, c, 3)[0]
+    for lists in (cids, torch.full_like(cids, c)):
+        for tm in (t_big, t_n, t_le0):
+            args = (o_n, d_n, tm, lists, pack.cl_tri, pack.cl_pad2prim, c, tc)
+            out = pairs.pair_hit_closest(*args, *tabs)
+            assert out[0].shape == (n, 3)
+            _equal(out, pairs.pair_hit_closest_plain(*args))
+            args = (o_n, d_n, tm, lists, pack.cl_tri, c, tc)
+            assert torch.equal(pairs.pair_hit_any(*args, *tabs), pairs.pair_hit_any_plain(*args))
+    torch.cuda.synchronize()
+
+
+def test_tri_rows_on_the_bigmesh_path(mesh):
+    """A pack without cl_tri_rows gets it on its first K4 call through
+    pair_closest (below DENSE_C), and keeps it."""
+    pack, o, d, t_any = mesh
+    fresh = type(pack)({k: v for k, v in pack.arrays.items() if k != "cl_tri_rows"}, pack.meta)
+    before = pairs.pair_hit_closest.launches
+    pairs.pair_closest(fresh, o, d, float("inf"))
+    assert pairs.pair_hit_closest.launches == before + 1
+    rows = fresh.arrays["cl_tri_rows"]
+    assert rows.is_contiguous() and torch.equal(rows, fresh.cl_tri.T)
+    pairs.pair_any(fresh, o, d, t_any)
+    assert fresh.arrays["cl_tri_rows"] is rows
 
 
 def test_traverse_stats_equal_stream(mesh):
@@ -521,7 +607,7 @@ def test_stream_limits_raise(dense_mesh):
 
 def test_cluster_limits_raise(mesh):
     pack, o, d, t_any = mesh
-    max_c, max_k = pb.kernel_limits()
+    max_c, max_k, _ = pb.kernel_limits()
     with pytest.raises(ValueError, match="at most"):
         pairs.dense_cull(o, d, t_any, torch.zeros(max_c + 8, 6, device=o.device), max_c + 1, 3)
     with pytest.raises(ValueError, match="at most"):

@@ -1,16 +1,21 @@
-"""What the redesigned dense-mesh kernels (K5 two-level cull, K6 window
-pair kernel, csrc/cluster_stream.cu) rely on, held on the CPU against the
-port's plain versions and the JAX package's packs:
+"""What the redesigned pair-pipeline kernels (K3 dense cull and K4 pair
+hits, csrc/cluster_hit.cu; K5 two-level cull and K6 window pair kernel,
+csrc/cluster_stream.cu) rely on, held on the CPU against the port's plain
+versions and the JAX package's packs:
 
-* the group level of K5: a member box hit by the cull's slab implies a hit
-  on the union box (a property test over zero direction components,
-  origins inside boxes, tiny or BIG t_max and flat or point boxes), and a
-  test-local plain model of the group-pruned cull (with the kernel's
-  longer register lists) equals `two_level_cull_plain` exactly;
-* K6's `cl_cnt`: the same from `pack_scene` and from `pack_from_numpy` of
-  the reference's pack, and `window_hit_*_plain` restricted to the first
-  `cl_cnt` columns of each cluster equals the full version exactly;
-* K6's triangle-major `cl_tri_rows`: made on a pack's first K6 call only.
+* the group level of K5 and K3: a box hit by the cull's slab implies a hit
+  on its group's union box (property tests over zero direction
+  components, origins inside boxes, tiny or BIG t_max and flat or point
+  boxes, on drawn boxes and on a pack's cluster boxes), and test-local
+  plain models of the group-pruned culls (with the kernels' longer
+  register lists) equal `two_level_cull_plain` and `dense_cull_plain`
+  exactly;
+* the `cl_cnt` columns K4 and K6 test: the same from `pack_scene` and from
+  `pack_from_numpy` of the reference's pack, and `pair_hit_*_plain` and
+  `window_hit_*_plain` restricted to the first `cl_cnt` columns of each
+  cluster equal the full versions exactly;
+* the triangle-major `cl_tri_rows`: made on a pack's first pair-pipeline
+  call only.
 
 Tolerances: none; every comparison is exact.
 """
@@ -25,7 +30,10 @@ from mitsuba_tpu.scene.builder import pack_scene as jpack_scene
 from mitsuba_tpu.scene.xml_loader import load_scene_string as jload_string
 from mitsuba_tpu_torch.accel import pairs
 from mitsuba_tpu_torch.accel import pallas_bvh as pb
-from mitsuba_tpu_torch.scene.builder import cluster_columns, pack_from_numpy, pack_scene
+from mitsuba_tpu_torch.accel.bvh import build_bvh
+from mitsuba_tpu_torch.accel.clusters import pack_clusters
+from mitsuba_tpu_torch.scene.builder import (ScenePack, cluster_columns, pack_from_numpy,
+                                             pack_scene)
 from mitsuba_tpu_torch.scene.xml_loader import load_scene_string
 from tests.test_cluster import cluster_pack
 from torch_meshes import bunny_scene_xml, bunny_standin, write_ply
@@ -42,6 +50,28 @@ def tp():
     at most 64, 5 supers."""
     jp = cluster_pack(n_tris=3000, tc=64)
     return pack_from_numpy({k: np.asarray(v) for k, v in jp.arrays.items()}, jp.meta, "cpu")
+
+
+@pytest.fixture(scope="module")
+def own_tp(tp):
+    """The port's own cluster pack (its BVH builder and pack_clusters) of
+    the 3,000 random triangles tests/test_cluster.py cluster_pack draws."""
+    rng = np.random.default_rng(0)
+    n = 3000
+    v0 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.15, 0.15, (n, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.15, 0.15, (n, 3)).astype(np.float32)
+    lo = np.minimum(v0, np.minimum(v0 + e1, v0 + e2))
+    hi = np.maximum(v0, np.maximum(v0 + e1, v0 + e2))
+    bvh = build_bvh(v0 + (e1 + e2) / 3, lo, hi)
+    tabs = [np.concatenate([a[bvh.order], np.full((4, 3), f, np.float32)])
+            for a, f in ((v0, 1e30), (e1, 0.0), (e2, 0.0))]
+    arrays, meta = pack_clusters(bvh, *tabs, n, tc=64)
+    arrays["cl_cnt"] = cluster_columns(arrays["cl_tri"], 64)
+    own = ScenePack({k: torch.as_tensor(v) for k, v in arrays.items()}, meta)
+    for k in ("cl_mbox", "cl_tri", "cl_pad2prim", "cl_cnt"):  # the reference's tables
+        assert torch.equal(own.arrays[k], tp.arrays[k]), k
+    return own
 
 
 def _rays(n, seed):
@@ -141,6 +171,77 @@ def test_group_pruned_cull_equals_plain(tp, k, ks, gs):
 
 
 # ---------------------------------------------------------------------------
+# the group level of K3
+# ---------------------------------------------------------------------------
+
+@settings(max_examples=200, deadline=None)
+@given(o=st.lists(_coord, min_size=3, max_size=3), inside=st.integers(-1, 68),
+       d=st.lists(_dir, min_size=3, max_size=3), t_max=st.sampled_from([1e-6, 0.5, 7.0, BIG]),
+       gs=st.sampled_from([1, 2, 16]))
+def test_cluster_hit_implies_group_hit(tp, o, inside, d, t_max, gs):
+    """On the reference pack's cluster boxes: every cluster the cull's slab
+    hits lies in a hit group of gs consecutive ids, whose entry is no
+    later (inside >= 0: the origin at that cluster's centre)."""
+    c = tp.meta["n_clusters"]
+    boxes = tp.cl_mbox.reshape(-1, 6)[:c]
+    o = torch.tensor([o], dtype=torch.float32) * 0.05
+    if inside >= 0:
+        o = ((boxes[inside, 0:3] + boxes[inside, 3:6]) / 2)[None]
+    inv = pb.safe_inv(torch.tensor([d], dtype=torch.float32))
+    tm = torch.tensor([t_max], dtype=torch.float32)
+    g_lo, g_hi = _group_boxes(boxes.T, c, gs)
+    en_m, hit_m = pairs._cull_slab(boxes[None, :, 0:3], boxes[None, :, 3:6], o, inv, tm)
+    en_g, hit_g = pairs._cull_slab(g_lo, g_hi, o, inv, tm)
+    grp = torch.arange(c) // gs
+    assert bool((hit_g[0, grp] | ~hit_m[0]).all())
+    assert bool((en_g[0, grp] <= en_m[0])[hit_m[0]].all())
+
+
+def _group_pruned_dense_cull(o, d, t_max, cl_mbox, c, kk, gs):
+    """The kernel's K3 as a plain model: clusters slab-tested only inside
+    the groups of gs consecutive ids the ray hits, in cid order; the list
+    kept at MAX_LIST and cut to kk."""
+    boxes = cl_mbox.reshape(-1, 6)[:c]
+    inv = pb.safe_inv(d)
+    g_lo, g_hi = _group_boxes(boxes.T, c, gs)
+    _, g_hit = pairs._cull_slab(g_lo, g_hi, o, inv, t_max)  # [R, groups]
+    tested = g_hit[:, torch.arange(c) // gs]
+    en, hit = pairs._cull_slab(boxes[None, :, 0:3], boxes[None, :, 3:6], o, inv, t_max)
+    hit = hit & tested
+    val, idx = pairs._k_smallest(torch.where(hit, en, BIG), min(MAX_LIST, c))
+    val, idx = val[:, :kk], idx[:, :kk]
+    return (torch.where(val < BIG, idx, c).to(torch.int32), val,
+            hit.sum(dim=1, dtype=torch.int32), val[:, kk - 1])
+
+
+@pytest.mark.parametrize("gs", [1, 2, 16])
+@pytest.mark.parametrize("kk", [1, 3, 8])
+@pytest.mark.parametrize("pack_kind", ["reference", "own"])
+def test_group_pruned_dense_cull_equals_plain(tp, own_tp, pack_kind, kk, gs):
+    """At the pack's 69 clusters and at 33 and 17 (partial last groups),
+    random rays with axis-parallel components and rays from cluster
+    centres, t_max random, tiny and BIG."""
+    pack = tp if pack_kind == "reference" else own_tp
+    c_all = pack.meta["n_clusters"]
+    assert c_all % 16
+    boxes = pack.cl_mbox.reshape(-1, 6)[:c_all]
+    o, d, t_max = _rays(512, 17)
+    o = torch.cat([o, (boxes[:, 0:3] + boxes[:, 3:6]) / 2])
+    d = torch.cat([d, d[:c_all]])
+    t_max = torch.cat([t_max, t_max[:c_all]])
+    for c in (c_all, 33, 17):
+        for tm in (t_max, torch.full_like(t_max, 1e-6), torch.full_like(t_max, BIG)):
+            args = (o, d, tm, pack.cl_mbox, c, kk)
+            ref = pairs.dense_cull_plain(*args)
+            out = _group_pruned_dense_cull(*args, gs)
+            for a, b, what in zip(out, ref, ("cid", "entry", "n_cl", "kept_max")):
+                assert torch.equal(a, b), (c, what)
+            if tm is not t_max or c < c_all:
+                continue
+            assert (ref[0] < c).any() and (ref[2] > kk).any()
+
+
+# ---------------------------------------------------------------------------
 # cl_cnt: the columns K6 tests
 # ---------------------------------------------------------------------------
 
@@ -231,15 +332,42 @@ def test_window_plain_restricted_to_columns(tp, mesh_xml, pack_kind):
                                                        pack.cl_tri, c, tc))
 
 
-def test_tri_rows_made_once_on_the_dense_path(mesh_xml, monkeypatch):
-    """A pack holds no cl_tri_rows until pair_closest takes the K6 path;
-    then it holds cl_tri transposed, contiguous, made once."""
+@pytest.mark.parametrize("kk", [1, 3, 8])
+@pytest.mark.parametrize("pack_kind", ["reference", "own"])
+def test_pair_plain_restricted_to_columns(tp, own_tp, pack_kind, kk):
+    """pair_hit_*_plain on K4's [R, kk] lists from dense_cull_plain,
+    restricted to the first cl_cnt columns of each cluster, equal the full
+    versions (t_max random, BIG and <= 0)."""
+    pack = tp if pack_kind == "reference" else own_tp
+    c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    assert (pack.cl_cnt < tc).any()
+    o, d, t_max = _rays(512, 23)
+    cids = pairs.dense_cull_plain(o, d, torch.full_like(t_max, BIG), pack.cl_mbox, c, kk)[0]
+    assert (cids < c).any() and (cids == c).any()
+    t_le0 = torch.where(torch.arange(512) % 3 == 0, 0.0, -t_max)
+    for tm in (t_max, torch.full_like(t_max, BIG), t_le0):
+        args = (o, d, tm, cids.reshape(-1), torch.arange(cids.numel(), dtype=torch.int32), kk,
+                pack.cl_tri, pack.cl_pad2prim, c, tc)
+        restricted, occ = _closest_restricted(*args, pack.cl_cnt)
+        full = pairs.pair_hit_closest_plain(o, d, tm, cids, pack.cl_tri, pack.cl_pad2prim, c, tc)
+        for a, b in zip(restricted, full):
+            assert torch.equal(a, b)
+        assert torch.equal(occ, pairs.pair_hit_any_plain(o, d, tm, cids, pack.cl_tri, c, tc))
+        if tm is t_max:
+            assert (full[1] >= 0).any() and occ.any() and not occ.all()
+
+
+@pytest.mark.parametrize("path", ["bigmesh", "dense"])
+def test_tri_rows_made_once_on_the_dense_path(mesh_xml, monkeypatch, path):
+    """A pack holds no cl_tri_rows until pair_closest runs on it, on the
+    K3/K4 path (up to DENSE_C clusters) or the K5/K6 path; then it holds
+    cl_tri transposed, contiguous, made once."""
     pack = pack_scene(load_scene_string(mesh_xml), "cpu")
     o, d, t_max = _rays(64, 3)
     o = o * 0.1 + torch.tensor([-0.02, 0.1, 0.0])
-    pairs.pair_closest(pack, o, d, t_max)  # K3/K4: below DENSE_C
     assert "cl_tri_rows" not in pack.arrays
-    monkeypatch.setattr(pairs, "DENSE_C", 0)
+    if path == "dense":
+        monkeypatch.setattr(pairs, "DENSE_C", 0)
     pairs.pair_closest(pack, o, d, t_max)
     rows = pack.arrays["cl_tri_rows"]
     assert rows.is_contiguous() and torch.equal(rows, pack.cl_tri.T)

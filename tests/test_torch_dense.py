@@ -186,13 +186,14 @@ def test_window_hits_equal_slot_hits(packs, monkeypatch):
     rows = pairs._tri_rows(tp)
     win = pairs.window_hit_closest(o, d, t_max, cid_q, pair_q, kk, tp.cl_tri, tp.cl_pad2prim, c, tc,
                                    tp.cl_cnt, rows)
-    slot = pairs.pair_hit_closest(o, d, t_max, cids, tp.cl_tri, tp.cl_pad2prim, c, tc)
+    slot = pairs.pair_hit_closest(o, d, t_max, cids, tp.cl_tri, tp.cl_pad2prim, c, tc, tp.cl_cnt,
+                                  rows)
     for a, b in zip(win, slot):
         assert torch.equal(a, b)
     assert (slot[1] >= 0).any()
     assert torch.equal(pairs.window_hit_any(o, d, t_max, cid_q, pair_q, kk, tp.cl_tri, c, tc, tp.cl_cnt,
                                             rows),
-                       pairs.pair_hit_any(o, d, t_max, cids, tp.cl_tri, c, tc))
+                       pairs.pair_hit_any(o, d, t_max, cids, tp.cl_tri, c, tc, tp.cl_cnt, rows))
 
 
 def test_stream_traversal_matches_reference(packs, monkeypatch):
