@@ -14,12 +14,18 @@ Phases, each of which raises (and exits non-zero) on failure:
    time both (CUDA events, median of 20 runs, the host's launch work
    between the events), and print each kernel's time on the card alone
    beside (the host's work hidden behind a sleep kernel):
-   * K1/K2, K11 and K12 (brute_tiled.cu: K1/K2 on the sublane pack
-     tri_s, K11 on the transposed pack tri_t, both through one kernel,
-     K12 on the bilinear mt_matrix, t_max inf for the K11/K12 closest
-     hits), at the Cornell box's shapes (its triangles x 262,144 camera
-     rays) and on 1,000,000 random rays x 300 random triangles: prim and
-     occlusion equal, t within 1 ulp;
+   * K1/K2, K11 and K12 (brute_tiled.cu: K1/K2's brute_kernel on the
+     sublane pack tri_s, K11's v1_kernel on the transposed pack tri_t,
+     K12's mxu_kernel on the bilinear mt_matrix, t_max inf for the
+     K11/K12 closest hits), at the Cornell box's shapes (its triangles x
+     262,144 camera rays) and on 1,000,000 random rays x 300 random
+     triangles: prim and occlusion equal, t within 1 ulp; beside K1/K2
+     the columns their kernel tests (pk.live_columns), the bound of the
+     tests it runs at one FP32 operation per lane per cycle (no FMA
+     runs), and their former design (v1_kernel on tri_s) on the same
+     inputs, equal and timed alike; then the host's time per call of
+     native.launch (R = 0, nothing launched, and R = 1) and of the K1/K2
+     wrappers beside the former ones;
    * K3/K4/K7/K8 (cluster_hit.cu) on the big-mesh stand-in
      (tests/torch_meshes.py: 69,168 triangles in scenes/bunny.xml's
      configuration) with 262,144 camera rays and 262,144 random
@@ -145,6 +151,9 @@ N_STREAM_SUBSET = 16_384  # rays of the K9/K10 vs plain comparison
 # the card's published peaks (H100 SXM, NVIDIA's data sheet): FP32 outside
 # the tensor cores, and HBM3
 PEAK_FP32_OPS = 67e12
+# the FP32 rate without FMA (one operation per lane per cycle): the kernels
+# are built with -fmad=false
+PEAK_FP32_NOFMA = PEAK_FP32_OPS / 2
 PEAK_BYTES = 3.35e12
 # FP32 operations of one test, counted from the kernels' expressions
 # (csrc/ray_tri.cuh, csrc/brute_tiled.cu) at the least the function needs:
@@ -271,7 +280,8 @@ def compare_brute(pk, name, o, d, t_max, tri, n_tri, stats):
 def brute_all(pk, o, d, t_any, tri_s, tri_t, mt, n_tri, stats):
     """K1/K2, K11 and K12 against their plain versions on one ray set:
     the closest hits with t_max 1e30 (K1, as the renderer calls it) or inf
-    (K11, K12), the occlusion kernels with t_any."""
+    (K11, K12), the occlusion kernels with t_any.  Beside K1/K2, their
+    former design and the bound of the tests K1/K2's kernel runs."""
     import torch
 
     r = o.shape[0]
@@ -281,6 +291,91 @@ def brute_all(pk, o, d, t_any, tri_s, tri_t, mt, n_tri, stats):
                           ("closest_hit", tri_t, t_inf), ("any_hit", tri_t, t_any),
                           ("closest_hit_mxu", mt, t_inf), ("any_hit_mxu", mt, t_any)):
         compare_brute(pk, name, o, d, tm, tri, n_tri, stats)
+        if name == "any_hit_v2":
+            v2_beside(pk, o, d, t_far, t_any, tri_s, stats[-2:])
+
+
+def v2_tests(pk, o, d, t_max, tri, n_live):
+    """Moller-Trumbore tests K2's kernel runs on these rays: each ray tests
+    the n_live live columns in order and stops at its first hit."""
+    import torch
+
+    tests = 0
+    for a in range(0, o.shape[0], 1 << 16):
+        b = a + (1 << 16)
+        _, hit = pk._mt_hit(o[a:b], d[a:b], tri[:, :n_live], t_max[a:b])
+        first = hit.to(torch.uint8).argmax(dim=1) + 1  # the first maximum
+        tests += int(torch.where(hit.any(dim=1), first, n_live).sum())
+    return tests
+
+
+def v2_beside(pk, o, d, t_far, t_any, tri_s, v2_stats):
+    """Beside K1/K2 (v2_stats: their two records): the columns their kernel
+    tests (pk.live_columns) and the bound of the tests it runs, at one FP32
+    operation per lane per cycle (no FMA runs); and the former design,
+    v1_kernel through _closest_tiled / _any_tiled (K11's kernel), on the
+    same rays and tri_s: equal results, timed on the same ruler."""
+    import torch
+
+    r = o.shape[0]
+    n_live = pk.live_columns(tri_s)
+    tests = {True: r * n_live, False: v2_tests(pk, o, d, t_any, tri_s, n_live)}
+    former_c = pk._prepare(o, d, t_far, tri_s)
+    former_a = pk._prepare(o, d, t_any, tri_s)
+    t1, p1 = pk.closest_hit_v2(o, d, t_far, tri_s)
+    t0, p0 = pk._closest_tiled(*former_c)
+    check(torch.equal(p0, p1) and torch.equal(t0, t1), "v1_kernel differs from K1 on tri_s")
+    check(torch.equal(pk._any_tiled(*former_a), pk.any_hit_v2(o, d, t_any, tri_s)),
+          "v1_kernel differs from K2 on tri_s")
+    for s, closest in zip(v2_stats, (True, False)):
+        design_ms = tests[closest] * MT_OPS / PEAK_FP32_NOFMA * 1e3
+        fn = pk._closest_tiled if closest else pk._any_tiled
+        args = former_c if closest else former_a
+
+        def former_call():
+            return fn(*pk._prepare(*args))
+
+        print(f"  {s['name']:24s} {s['shape']:28s} live columns {n_live} of {tri_s.shape[1]}, "
+              f"tests per ray {tests[closest] / r:.3f}: this design's bound "
+              f"{design_ms:.4f} ms ({MT_OPS} operations per test at {PEAK_FP32_NOFMA:.3g}/s); "
+              f"former design (v1_kernel) {time_ms(former_call):.4f} ms (card alone "
+              f"{time_ms(former_call, card_only=True):.4f}), equal results", flush=True)
+
+
+def launch_cost(pk, native, dev, tri_s, calls=2000):
+    """Host time per call (perf_counter over `calls` calls, after a
+    warm-up) of native.launch on K1's entry point with R = 0 (nothing is
+    launched) and R = 1, and of the K1/K2 wrappers at R = 1 beside the
+    former design's (_prepare and _closest_tiled / _any_tiled)."""
+    import torch
+
+    o = torch.zeros((1, 3), device=dev)
+    d = torch.ones((1, 3), device=dev)
+    tm = torch.ones(1, device=dev)
+    t_out = torch.empty(1, device=dev)
+    prim = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def host_us(fn):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / calls * 1e6
+
+    us = {}
+    for r in (0, 1):
+        us[f"native.launch R={r}"] = host_us(lambda: native.launch(
+            pk._lib, "mts_closest_hit_v2", dev, o, d, tm, tri_s, r, tri_s.shape[1], t_out, prim))
+    us["closest_hit_v2"] = host_us(lambda: pk.closest_hit_v2(o, d, tm, tri_s))
+    us["any_hit_v2"] = host_us(lambda: pk.any_hit_v2(o, d, tm, tri_s))
+    us["former closest"] = host_us(lambda: pk._closest_tiled(*pk._prepare(o, d, tm, tri_s)))
+    us["former any"] = host_us(lambda: pk._any_tiled(*pk._prepare(o, d, tm, tri_s)))
+    print("  host us per call: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
+    return us
 
 
 def brute_entry_points(pk, pack, o, d):
@@ -841,6 +936,7 @@ def main():
               torch.as_tensor(pk.pack_triangles_sublane(v0, e1, e2, n_tri), device=dev),
               torch.as_tensor(pk.pack_triangles_transposed(v0, e1, e2, n_tri), device=dev),
               torch.as_tensor(pk.build_mt_matrix(v0, e1, e2, n_tri), device=dev), n_tri, stats)
+    launch_cost(pk, native, dev, pack.tri_s)
 
     os.makedirs(os.path.dirname(STANDIN_PLY), exist_ok=True)
     write_ply(STANDIN_PLY, *bunny_standin(seed=0))

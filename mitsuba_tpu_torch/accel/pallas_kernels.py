@@ -5,12 +5,15 @@ mitsuba_tpu/accel/pallas_kernels.py; the TPU layouts (rays or triangles
 on lanes, ray tiles sized to VMEM) are not carried over:
 
 * K1/K2 `_closest_kernel_v2` / `_any_kernel_v2` (`closest_hit_v2` /
-  `any_hit_v2`) on the sublane pack `tri_s` (Tp a multiple of 8), and
-  K11 `_closest_kernel` / `_any_kernel` (`closest_hit` / `any_hit`) on
-  the transposed pack `tri_t` (Tp a multiple of 128): one function on
-  two paddings of one [9, Tp] layout, so one kernel,
-  `csrc/brute_tiled.cu` `v1_kernel`: one thread per ray, triangle tiles
-  streamed through shared memory, no triangle cap.
+  `any_hit_v2`) on the sublane pack `tri_s` (Tp a multiple of 8), the
+  render path's brute force: `csrc/brute_tiled.cu` `brute_kernel`,
+  persistent blocks that stage the set once, test only its live columns
+  (`live_columns`) and settle without a test the rays that cannot hit.
+* K11 `_closest_kernel` / `_any_kernel` (`closest_hit` / `any_hit`) on
+  the transposed pack `tri_t` (Tp a multiple of 128), the same function
+  on another padding of the same [9, Tp] layout: `csrc/brute_tiled.cu`
+  `v1_kernel`, one thread per ray, triangle tiles streamed through shared
+  memory.  Neither has a triangle cap.
 * K12 `_mxu_closest_kernel` / `_mxu_any_kernel` (`closest_hit_mxu` /
   `any_hit_mxu`): Moller-Trumbore as one bilinear product of the ray
   features [d, o x d, o, 1] with `build_mt_matrix`'s [16, 4 Tp] operand;
@@ -250,12 +253,14 @@ def any_hit_mxu_plain(o, d, t_max, mt_matrix):
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mts_closest_hit_v2.argtypes = [p, p, p, p, i, i, p, p, p]
+    lib.mts_any_hit_v2.argtypes = [p, p, p, p, i, i, p, p]
     lib.mts_closest_hit_tiled.argtypes = [p, p, p, p, i, i, p, p, p]
     lib.mts_any_hit_tiled.argtypes = [p, p, p, p, i, i, p, p]
     lib.mts_closest_hit_mxu.argtypes = [p, p, p, i, i, p, p, p]
     lib.mts_any_hit_mxu.argtypes = [p, p, p, i, i, p, p]
-    for fn in ("mts_closest_hit_tiled", "mts_any_hit_tiled", "mts_closest_hit_mxu",
-               "mts_any_hit_mxu"):
+    for fn in ("mts_closest_hit_v2", "mts_any_hit_v2", "mts_closest_hit_tiled",
+               "mts_any_hit_tiled", "mts_closest_hit_mxu", "mts_any_hit_mxu"):
         getattr(lib, fn).restype = i
 
 
@@ -298,24 +303,58 @@ def _any_tiled(o, d, t_max, tri):
     return occ > 0
 
 
+def _prepare_v2(o, d, t_max, tri_s):
+    """_prepare's checks for K1/K2, with no work where the inputs are
+    already in the kernel's form: t_max is used as it is when it is a
+    float32 [R] tensor on o's device (as accel/intersect.py passes it),
+    and `.contiguous()` returns a contiguous tensor itself."""
+    r = o.shape[0]
+    if not (type(t_max) is torch.Tensor and t_max.dtype == torch.float32
+            and t_max.shape == (r,) and t_max.device == o.device):
+        t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r)
+    native.check_tensors(
+        o, ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
+        ("tri_s", tri_s, torch.float32, None),
+    )
+    if tri_s.ndim != 2 or tri_s.shape[0] != 9:
+        raise ValueError(f"tri_s must be [9, N], N a multiple of 1, got {tuple(tri_s.shape)}")
+    return o.contiguous(), d.contiguous(), t_max.contiguous(), tri_s.contiguous()
+
+
+def live_columns(tri):
+    """The columns of a [9, Tp] pack that K1/K2's kernel tests (for Tp up
+    to 512, one staged chunk; past it, the same count in each chunk of
+    512): the last column whose edges (rows 3-8) are not all zero, plus
+    one, or 0.  A column with zero edges has det = 0 and is never hit, so
+    the columns past it change no result."""
+    live = torch.nonzero((tri[3:9] != 0).any(dim=0))
+    return int(live[-1]) + 1 if live.numel() else 0
+
+
 def closest_hit_v2(o, d, t_max, tri_s):
     """K1: closest hit of each ray against every triangle of tri_s [9, Tp]
     (pack_triangles_sublane).  Returns (t [R] f32, prim [R] i32); see
     closest_hit_plain."""
-    o, d, t_max, tri_s = _prepare(o, d, t_max, tri_s)
-    if o.device.type == "cpu":
+    o, d, t_max, tri_s = _prepare_v2(o, d, t_max, tri_s)
+    if o.is_cpu:
         return closest_hit_plain(o, d, t_max, tri_s)
-    out = _closest_tiled(o, d, t_max, tri_s)
+    r = o.shape[0]
+    t_out = torch.empty(r, dtype=torch.float32, device=o.device)
+    prim = torch.empty(r, dtype=torch.int32, device=o.device)
+    native.launch(_lib, "mts_closest_hit_v2", o.device, o, d, t_max, tri_s, r,
+                  tri_s.shape[1], t_out, prim)
     closest_hit_v2.launches += 1
-    return out
+    return t_out, prim
 
 
 def any_hit_v2(o, d, t_max, tri_s):
     """K2: any hit with t in (RAY_EPS, t_max): bool [R]."""
-    o, d, t_max, tri_s = _prepare(o, d, t_max, tri_s)
-    if o.device.type == "cpu":
+    o, d, t_max, tri_s = _prepare_v2(o, d, t_max, tri_s)
+    if o.is_cpu:
         return any_hit_plain(o, d, t_max, tri_s)
-    occ = _any_tiled(o, d, t_max, tri_s)
+    occ = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    native.launch(_lib, "mts_any_hit_v2", o.device, o, d, t_max, tri_s, o.shape[0],
+                  tri_s.shape[1], occ)
     any_hit_v2.launches += 1
     return occ
 

@@ -45,26 +45,132 @@ def _random_scene(dev, n_tris, n_rays, seed):
     return o, torch.as_tensor(d, device=dev), t_max, tri_s
 
 
+@pytest.mark.parametrize("n_rays", [70_001, 1, 255, 257, 262_145])
 @pytest.mark.parametrize("n_tris", [1, 36, 300, 512, 1000])
-def test_kernels_equal_plain(dev, n_tris):
-    """K1/K2 on tri_s, within one staged tile and past it (no cap)."""
-    o, d, t_max, tri_s = _random_scene(dev, n_tris, 70_001, n_tris)
+def test_kernels_equal_plain(dev, n_tris, n_rays):
+    """K1/K2 on tri_s, within one staged chunk and past it (no cap), at
+    ragged ray counts; K2 returns torch.bool, and K11 (v1_kernel on tri_t)
+    equals K1/K2."""
+    o, d, t_max, tri_s = _random_scene(dev, n_tris, n_rays, n_tris)
+    tri_t, _ = _tiled_operands(dev, n_tris, n_tris)
     for tm in (t_max, torch.full_like(t_max, 1e30)):
         t1, p1 = pk.closest_hit_v2(o, d, tm, tri_s)
         t2, p2 = pk.closest_hit_plain(o, d, tm, tri_s)
         assert torch.equal(p1, p2)
         assert torch.equal(t1, t2)
+        occ = pk.any_hit_v2(o, d, tm, tri_s)
+        assert occ.dtype == torch.bool
+        assert torch.equal(occ, pk.any_hit_plain(o, d, tm, tri_s))
+        _equal(pk.closest_hit(o, d, tm, tri_t), (t1, p1))
+        assert torch.equal(pk.any_hit(o, d, tm, tri_t), occ)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_tris,zero", [
+    (36, (10, 11, 35)),                  # interior columns and the last one
+    (36, tuple(range(36))),              # no live column
+    (1000, tuple(range(520, 1000))),     # the second chunk's live columns end early
+    (700, tuple(range(300, 700))),       # no live column in the second chunk
+])
+def test_kernels_zero_columns_and_ties(dev, n_tris, zero):
+    """K1/K2 equal plain on packs with zero-edge columns (the kernel tests
+    each chunk up to its last live column, pk.live_columns) and with each
+    triangle twice (exact ties: the first index wins), half of the rays
+    aimed at the triangles."""
+    r = np.random.default_rng(n_tris + len(zero))
+    n = n_tris // 2
+    v0 = r.uniform(-1, 1, (n, 3)).astype(np.float32)
+    e1 = r.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    e2 = r.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    v0, e1, e2 = (np.repeat(a, 2, axis=0) for a in (v0, e1, e2))
+    n_rays = 20_001
+    o = r.uniform(-2, 2, (n_rays, 3)).astype(np.float32)
+    k = r.integers(0, n_tris, n_rays)
+    d = v0[k] + r.uniform(0, 0.5, (n_rays, 1)) * e1[k] + r.uniform(0, 0.5, (n_rays, 1)) * e2[k] - o
+    d[::2] = r.normal(size=(len(d[::2]), 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    for j in zero:
+        e1[j], e2[j] = 0.0, -0.0
+    tri_s = torch.as_tensor(pk.pack_triangles_sublane(v0, e1, e2, n_tris), device=dev)
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    t_max = torch.as_tensor(r.uniform(0.2, 3, n_rays).astype(np.float32), device=dev)
+    for tm in (t_max, torch.full_like(t_max, 1e30)):
+        t1, p1 = pk.closest_hit_v2(o, d, tm, tri_s)
+        t2, p2 = pk.closest_hit_plain(o, d, tm, tri_s)
+        assert torch.equal(p1, p2) and torch.equal(t1, t2)
         assert torch.equal(pk.any_hit_v2(o, d, tm, tri_s), pk.any_hit_plain(o, d, tm, tri_s))
+    if len(zero) < n_tris:
+        assert bool((p1 >= 0).any()) and bool((p1 % 2 == 0)[p1 >= 0].all())  # ties: first index
+    else:
+        assert bool((p1 < 0).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("scale", [1e-5, 1e12, 7e18, 3e19, 1e30])
+def test_kernels_extreme_scales(dev, scale):
+    """K1/K2 equal plain with the edges scaled: det about 1e-12 (1e-5),
+    ordinary (1e12), near 2^126 where some rays leave the kernel's fast
+    reciprocal for IEEE division (7e18), past 2^126 (3e19) and infinite
+    (1e30)."""
+    o, d, t_max, tri_s = _random_scene(dev, 300, 50_001, 3)
+    tri = tri_s.clone()
+    tri[3:9] *= scale
+    hits = 0
+    for tm in (t_max, torch.full_like(t_max, 1e30)):
+        t1, p1 = pk.closest_hit_v2(o, d, tm, tri)
+        t2, p2 = pk.closest_hit_plain(o, d, tm, tri)
+        assert torch.equal(p1, p2) and torch.equal(t1, t2)
+        assert torch.equal(pk.any_hit_v2(o, d, tm, tri), pk.any_hit_plain(o, d, tm, tri))
+        hits += int((p1 >= 0).sum())
+    assert hits > 0 or scale in (1e-5, 1e30)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_tris", [36, 1000])
+def test_kernels_rays_that_cannot_hit(dev, n_tris):
+    """K1/K2 equal plain where rays cannot hit, mixed into the warps: an
+    origin or direction with an infinite or NaN component, t_max NaN, 0,
+    negative or 1e-4 (the kernel settles these rays without a test and
+    packs the others into its first threads); a block with none, some and
+    all such rays."""
+    o, d, t_max, tri_s = _random_scene(dev, n_tris, 3 * 256 + 77, 11)
+    r = np.random.default_rng(5)
+    bad = torch.as_tensor(r.random(o.shape[0]) < 0.5, device=dev)
+    bad[:256] = False
+    bad[256:512] = True
+    kinds = torch.as_tensor(r.integers(0, 8, o.shape[0]), device=dev)
+    inf, nan = float("inf"), float("nan")
+    o, d, t_max = o.clone(), d.clone(), t_max.clone()
+    comp = torch.as_tensor(r.integers(0, 3, o.shape[0]), device=dev)
+    rows = torch.arange(o.shape[0], device=dev)
+    for k, (arr, val) in enumerate(((o, inf), (o, nan), (d, -inf), (d, nan))):
+        sel = bad & (kinds == k)
+        arr[rows[sel], comp[sel]] = val
+    for k, val in zip(range(4, 8), (nan, 0.0, -1.0, 1e-4)):
+        t_max[bad & (kinds == k)] = val
+    t1, p1 = pk.closest_hit_v2(o, d, t_max, tri_s)
+    t2, p2 = pk.closest_hit_plain(o, d, t_max, tri_s)
+    assert torch.equal(p1, p2)
+    assert torch.equal(t1.isnan(), t2.isnan())
+    assert torch.equal(t1[~t1.isnan()], t2[~t2.isnan()])
+    assert bool((p1[bad] < 0).all()) and bool((p1[~bad] >= 0).any())
+    occ = pk.any_hit_v2(o, d, t_max, tri_s)
+    assert torch.equal(occ, pk.any_hit_plain(o, d, t_max, tri_s))
+    assert not bool(occ[bad].any()) and bool(occ[~bad].any())
     torch.cuda.synchronize()
 
 
 def test_launch_counters(dev):
+    """One launch counted per wrapper call on the card, none for the plain
+    versions or the former design's wrappers (_closest_tiled / _any_tiled)."""
     o, d, t_max, tri_s = _random_scene(dev, 8, 100, 0)
     c0, a0 = pk.closest_hit_v2.launches, pk.any_hit_v2.launches
     pk.closest_hit_v2(o, d, t_max, tri_s)
     pk.any_hit_v2(o, d, t_max, tri_s)
     pk.any_hit_v2(o, d, t_max, tri_s)
     pk.closest_hit_plain(o, d, t_max, tri_s)
+    pk._closest_tiled(o, d, t_max, tri_s)
+    pk._any_tiled(o, d, t_max, tri_s)
     assert (pk.closest_hit_v2.launches - c0, pk.any_hit_v2.launches - a0) == (1, 2)
 
 
