@@ -295,17 +295,18 @@ def brute_all(pk, o, d, t_any, tri_s, tri_t, mt, n_tri, stats):
             v2_beside(pk, o, d, t_far, t_any, tri_s, stats[-2:])
 
 
-def v2_tests(pk, o, d, t_max, tri, n_live):
+def v2_tests(pk, o, d, t_max, tri):
     """Moller-Trumbore tests K2's kernel runs on these rays: each ray tests
-    the n_live live columns in order and stops at its first hit."""
+    the columns of tri (its live columns) in order and stops at its first
+    hit."""
     import torch
 
-    tests = 0
+    tests, n = 0, tri.shape[1]
     for a in range(0, o.shape[0], 1 << 16):
         b = a + (1 << 16)
-        _, hit = pk._mt_hit(o[a:b], d[a:b], tri[:, :n_live], t_max[a:b])
+        _, hit = pk._mt_hit(o[a:b], d[a:b], tri, t_max[a:b])
         first = hit.to(torch.uint8).argmax(dim=1) + 1  # the first maximum
-        tests += int(torch.where(hit.any(dim=1), first, n_live).sum())
+        tests += int(torch.where(hit.any(dim=1), first, n).sum())
     return tests
 
 
@@ -318,8 +319,9 @@ def v2_beside(pk, o, d, t_far, t_any, tri_s, v2_stats):
     import torch
 
     r = o.shape[0]
-    n_live = pk.live_columns(tri_s)
-    tests = {True: r * n_live, False: v2_tests(pk, o, d, t_any, tri_s, n_live)}
+    cols = pk.live_columns(tri_s)
+    n_live = cols.numel()
+    tests = {True: r * n_live, False: v2_tests(pk, o, d, t_any, tri_s[:, cols])}
     former_c = pk._prepare(o, d, t_far, tri_s)
     former_a = pk._prepare(o, d, t_any, tri_s)
     t1, p1 = pk.closest_hit_v2(o, d, t_far, tri_s)

@@ -37,6 +37,7 @@ from mitsuba_tpu_torch import native
 RAY_EPS = 1e-4
 V2_TRI_SUB = 8  # triangle padding granularity of tri_s
 TRI_TILE = 128  # triangle padding granularity of tri_t and mt_matrix
+V2_CHUNK = 512  # triangles per staged chunk of K1/K2's kernel (kChunk)
 MT_ROWS = 10  # rows of mt_matrix that meet a nonzero ray feature
 # rays per step of the plain versions at up to PLAIN_CHUNK_COLS triangle
 # columns (fewer past it): bounds their [rays, Tp] temporaries
@@ -270,10 +271,13 @@ def _lib():
 
 def _prepare(o, d, t_max, tri, name="tri_s", rows=9, col_multiple=1):
     """Check what the kernels take; returns (o, d, t_max, tri) as
-    contiguous tensors with t_max broadcast to [R]."""
+    contiguous tensors with t_max broadcast to [R].  A float32 [R] t_max on
+    o's device (as accel/intersect.py passes it) is used as it is, and
+    `.contiguous()` returns a contiguous tensor itself."""
     r = o.shape[0]
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
-    t_max = t_max.expand(r)
+    if not (type(t_max) is torch.Tensor and t_max.dtype == torch.float32
+            and t_max.shape == (r,) and t_max.device == o.device):
+        t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r)
     native.check_tensors(
         o, ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
         (name, tri, torch.float32, None),
@@ -303,39 +307,26 @@ def _any_tiled(o, d, t_max, tri):
     return occ > 0
 
 
-def _prepare_v2(o, d, t_max, tri_s):
-    """_prepare's checks for K1/K2, with no work where the inputs are
-    already in the kernel's form: t_max is used as it is when it is a
-    float32 [R] tensor on o's device (as accel/intersect.py passes it),
-    and `.contiguous()` returns a contiguous tensor itself."""
-    r = o.shape[0]
-    if not (type(t_max) is torch.Tensor and t_max.dtype == torch.float32
-            and t_max.shape == (r,) and t_max.device == o.device):
-        t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r)
-    native.check_tensors(
-        o, ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
-        ("tri_s", tri_s, torch.float32, None),
-    )
-    if tri_s.ndim != 2 or tri_s.shape[0] != 9:
-        raise ValueError(f"tri_s must be [9, N], N a multiple of 1, got {tuple(tri_s.shape)}")
-    return o.contiguous(), d.contiguous(), t_max.contiguous(), tri_s.contiguous()
-
-
 def live_columns(tri):
-    """The columns of a [9, Tp] pack that K1/K2's kernel tests (for Tp up
-    to 512, one staged chunk; past it, the same count in each chunk of
-    512): the last column whose edges (rows 3-8) are not all zero, plus
-    one, or 0.  A column with zero edges has det = 0 and is never hit, so
-    the columns past it change no result."""
-    live = torch.nonzero((tri[3:9] != 0).any(dim=0))
-    return int(live[-1]) + 1 if live.numel() else 0
+    """The columns of a [9, Tp] pack that K1/K2's kernel tests, in order
+    (int64 [n]): in each chunk of V2_CHUNK columns, those up to the chunk's
+    last column whose edges (rows 3-8) are not all zero.  A column with
+    zero edges has det = 0 and is never hit, so the columns left out change
+    no result."""
+    live = (tri[3:9] != 0).any(dim=0)
+    cols = [torch.zeros(0, dtype=torch.int64, device=tri.device)]
+    for c0 in range(0, tri.shape[1], V2_CHUNK):
+        nz = torch.nonzero(live[c0:c0 + V2_CHUNK])
+        if nz.numel():
+            cols.append(torch.arange(c0, c0 + int(nz[-1]) + 1, device=tri.device))
+    return torch.cat(cols)
 
 
 def closest_hit_v2(o, d, t_max, tri_s):
     """K1: closest hit of each ray against every triangle of tri_s [9, Tp]
     (pack_triangles_sublane).  Returns (t [R] f32, prim [R] i32); see
     closest_hit_plain."""
-    o, d, t_max, tri_s = _prepare_v2(o, d, t_max, tri_s)
+    o, d, t_max, tri_s = _prepare(o, d, t_max, tri_s)
     if o.is_cpu:
         return closest_hit_plain(o, d, t_max, tri_s)
     r = o.shape[0]
@@ -349,7 +340,7 @@ def closest_hit_v2(o, d, t_max, tri_s):
 
 def any_hit_v2(o, d, t_max, tri_s):
     """K2: any hit with t in (RAY_EPS, t_max): bool [R]."""
-    o, d, t_max, tri_s = _prepare_v2(o, d, t_max, tri_s)
+    o, d, t_max, tri_s = _prepare(o, d, t_max, tri_s)
     if o.is_cpu:
         return any_hit_plain(o, d, t_max, tri_s)
     occ = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)

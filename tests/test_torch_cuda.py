@@ -130,9 +130,9 @@ def test_kernels_extreme_scales(dev, scale):
 def test_kernels_rays_that_cannot_hit(dev, n_tris):
     """K1/K2 equal plain where rays cannot hit, mixed into the warps: an
     origin or direction with an infinite or NaN component, t_max NaN, 0,
-    negative or 1e-4 (the kernel settles these rays without a test and
-    packs the others into its first threads); a block with none, some and
-    all such rays."""
+    negative or 1e-4 (the kernel settles these rays without a test, and
+    K2 packs the others into its first threads); a block with none, some
+    and all such rays."""
     o, d, t_max, tri_s = _random_scene(dev, n_tris, 3 * 256 + 77, 11)
     r = np.random.default_rng(5)
     bad = torch.as_tensor(r.random(o.shape[0]) < 0.5, device=dev)
