@@ -8,24 +8,25 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. require a CUDA device, print the card's name and power limit, and
    build the port's kernels from csrc/ with nvcc (one nvcc per source,
    started together); beside them, ptxas's registers, stack and spills of
-   cluster_hit.cu's and cluster_stream.cu's kernels (K3, K4, K5 and K6 may
-   neither spill nor use a stack);
+   every kernel (K1/K2/K11, K12, K3, K4, K5 and K6 may neither spill nor
+   use a stack);
 2. hold each kernel against its plain PyTorch version on the card and
    time both (CUDA events, median of 20 runs, the host's launch work
    between the events), and print each kernel's time on the card alone
    beside (the host's work hidden behind a sleep kernel):
-   * K1/K2, K11 and K12 (brute_tiled.cu: K1/K2's brute_kernel on the
-     sublane pack tri_s, K11's v1_kernel on the transposed pack tri_t,
-     K12's mxu_kernel on the bilinear mt_matrix, t_max inf for the
-     K11/K12 closest hits), at the Cornell box's shapes (its triangles x
-     262,144 camera rays) and on 1,000,000 random rays x 300 random
-     triangles: prim and occlusion equal, t within 1 ulp; beside K1/K2
-     the columns their kernel tests (pk.live_columns), the bound of the
-     tests it runs at one FP32 operation per lane per cycle (no FMA
-     runs), and their former design (v1_kernel on tri_s) on the same
-     inputs, equal and timed alike; then the host's time per call of
-     native.launch (R = 0, nothing launched, and R = 1) and of the K1/K2
-     wrappers beside the former ones;
+   * K1/K2, K11 and K12 (brute_tiled.cu: K1/K2 and K11 run brute_kernel,
+     on the sublane pack tri_s and the transposed pack tri_t; K12 runs
+     mxu_kernel on the bilinear mt_matrix; t_max inf for the K11/K12
+     closest hits), at the Cornell box's shapes (its triangles x 262,144
+     camera rays) and on 1,000,000 random rays x 300 random triangles:
+     prim and occlusion equal, t within 1 ulp; beside each, the columns
+     its kernel tests (pk.live_columns, pk.mxu_live_columns) and, for
+     K12, the columns flagged for the full ten-row sums (pk.mxu_flags),
+     the tests per ray, the bound of those tests at one FP32 operation per
+     lane per cycle (no FMA runs), and on camera rays the former design's
+     time (FORMER_MS); then the host's time per call of native.launch
+     (R = 0, nothing launched, and R = 1) and of the six brute-force
+     wrappers at R = 1;
    * K3/K4/K7/K8 (cluster_hit.cu) on the big-mesh stand-in
      (tests/torch_meshes.py: 69,168 triangles in scenes/bunny.xml's
      configuration) with 262,144 camera rays and 262,144 random
@@ -64,8 +65,8 @@ Phases, each of which raises (and exits non-zero) on failure:
      (closest_hit / any_hit on pack_scene's tri_t, closest_hit_mxu /
      any_hit_mxu on build_mt_matrix's operand) on the Cornell box's
      262,144 camera rays and shadow rays from below its light to their
-     hits: K11 equal to K1/K2, K12 the same hits but on edge rays (float32
-     forms differ there);
+     hits: K11 equal to K1/K2, K12 equal to its plain version and the same
+     hits as K1/K2 but on edge rays (float32 forms differ there);
    * the stand-in at 64x64, 16 spp, seed 0 against
      tests/golden/torch_bigmesh_64_16.npy (the JAX package's render,
      tests/make_torch_bigmesh_golden.py; RMSE < 5e-3): K3/K4/K7/K8.  If
@@ -139,9 +140,16 @@ RESCAN_PASS_MS = {"cluster_traverse_closest": 1.29, "cluster_traverse_any": 1.66
 # (same card and timing; PERF.md's kernel table): K5/K6 (a full super scan;
 # 8-tile stages of whole Tc-column tiles, one block per 256-pair window) on
 # the dense stand-in, K3/K4 (every cluster box slab-tested; one thread per
-# (ray, slot) over all Tc columns of cl_tri) on the 69k stand-in
+# (ray, slot) over all Tc columns of cl_tri) on the 69k stand-in; on cbox's
+# camera rays K1/K2 (PR 7's table: K11's one-thread-per-ray kernel on
+# tri_s), and K11/K12 before this design (one thread per ray over every
+# column of tri_t and mt, the features formed by a dozen PyTorch launches;
+# time_brute.py on the parent tree, NVIDIA H100 80GB HBM3, 700 W)
 FORMER_MS = {"two_level_cull": 0.4622, "window_hit_closest": 0.4286, "window_hit_any": 0.4224,
-             "dense_cull": 0.3875, "pair_hit_closest": 0.2915, "pair_hit_any": 0.2716}
+             "dense_cull": 0.3875, "pair_hit_closest": 0.2915, "pair_hit_any": 0.2716,
+             "closest_hit_v2": 0.0692, "any_hit_v2": 0.0843,
+             "closest_hit": 0.1384, "any_hit": 0.1219,
+             "closest_hit_mxu": 0.3505, "any_hit_mxu": 0.4011}
 # a sleep of ~1 ms on an H100: longer than any wrapper's host work
 HIDE_HOST_CYCLES = 2_000_000
 THROUGHPUT_SPP_CHUNK = 16
@@ -160,7 +168,8 @@ PEAK_BYTES = 3.35e12
 # Moller-Trumbore 53, a slab test 25, the bilinear Moller-Trumbore 46 (its
 # four dots on the nonzero rows of build_mt_matrix's operand: det 3
 # products, u and v 6 each, t 4, with their sums, 34; the epilogue 12, as
-# in Moller-Trumbore).  The K12 kernel sums all ten rows of each dot, 76.
+# in Moller-Trumbore), which is what K12's kernel sums on a column that
+# pk.mxu_flags leaves clear.
 MT_OPS = 53
 SLAB_OPS = 25
 MXU_OPS = 46
@@ -277,11 +286,11 @@ def compare_brute(pk, name, o, d, t_max, tri, n_tri, stats):
            f"{'hit' if closest else 'occluded'}={frac:.3f}")
 
 
-def brute_all(pk, o, d, t_any, tri_s, tri_t, mt, n_tri, stats):
+def brute_all(pk, o, d, t_any, tri_s, tri_t, mt, n_tri, stats, camera):
     """K1/K2, K11 and K12 against their plain versions on one ray set:
     the closest hits with t_max 1e30 (K1, as the renderer calls it) or inf
-    (K11, K12), the occlusion kernels with t_any.  Beside K1/K2, their
-    former design and the bound of the tests K1/K2's kernel runs."""
+    (K11, K12), the occlusion kernels with t_any; beside each, what its
+    kernel tests (brute_beside)."""
     import torch
 
     r = o.shape[0]
@@ -291,64 +300,61 @@ def brute_all(pk, o, d, t_any, tri_s, tri_t, mt, n_tri, stats):
                           ("closest_hit", tri_t, t_inf), ("any_hit", tri_t, t_any),
                           ("closest_hit_mxu", mt, t_inf), ("any_hit_mxu", mt, t_any)):
         compare_brute(pk, name, o, d, tm, tri, n_tri, stats)
-        if name == "any_hit_v2":
-            v2_beside(pk, o, d, t_far, t_any, tri_s, stats[-2:])
+        brute_beside(pk, stats[-1], o, d, tm, tri, camera)
 
 
-def v2_tests(pk, o, d, t_max, tri):
-    """Moller-Trumbore tests K2's kernel runs on these rays: each ray tests
-    the columns of tri (its live columns) in order and stops at its first
-    hit."""
+def brute_tests(pk, name, o, d, t_max, tri):
+    """(live columns, tests) of a brute-force kernel on these rays: every
+    ray that can hit tests the live columns in order (pk.live_columns, or
+    pk.mxu_live_columns for K12), the closest hit all of them, an
+    occlusion ray up to its first hit; a ray that cannot hit tests none
+    (K12: pk.mxu_can_hit; K1/K2/K11: o and d finite, t_max > RAY_EPS)."""
     import torch
 
-    tests, n = 0, tri.shape[1]
+    mxu = "mxu" in name
+    cols = pk.mxu_live_columns(tri) if mxu else pk.live_columns(tri)
+    n = cols.numel()
+    if mxu:
+        can = pk.mxu_can_hit(o, d, t_max)
+        m = tri[:, torch.cat([cols + b * (tri.shape[1] // 4) for b in range(4)])]
+    else:
+        can = (torch.isfinite(o).all(dim=1) & torch.isfinite(d).all(dim=1)
+               & (t_max > pk.RAY_EPS))
+    if BRUTE[name][1]:
+        return n, int(can.sum()) * n
+    tests = 0
     for a in range(0, o.shape[0], 1 << 16):
         b = a + (1 << 16)
-        _, hit = pk._mt_hit(o[a:b], d[a:b], tri, t_max[a:b])
+        if mxu:
+            _, hit = pk._mxu_hits(pk.ray_features(o[a:b], d[a:b]), m, t_max[a:b])
+        else:
+            _, hit = pk._mt_hit(o[a:b], d[a:b], tri[:, cols], t_max[a:b])
         first = hit.to(torch.uint8).argmax(dim=1) + 1  # the first maximum
-        tests += int(torch.where(hit.any(dim=1), first, n).sum())
-    return tests
+        tests += int(torch.where(can[a:b], torch.where(hit.any(dim=1), first, n), 0).sum())
+    return n, tests
 
 
-def v2_beside(pk, o, d, t_far, t_any, tri_s, v2_stats):
-    """Beside K1/K2 (v2_stats: their two records): the columns their kernel
-    tests (pk.live_columns) and the bound of the tests it runs, at one FP32
-    operation per lane per cycle (no FMA runs); and the former design,
-    v1_kernel through _closest_tiled / _any_tiled (K11's kernel), on the
-    same rays and tri_s: equal results, timed on the same ruler."""
-    import torch
-
-    r = o.shape[0]
-    cols = pk.live_columns(tri_s)
-    n_live = cols.numel()
-    tests = {True: r * n_live, False: v2_tests(pk, o, d, t_any, tri_s[:, cols])}
-    former_c = pk._prepare(o, d, t_far, tri_s)
-    former_a = pk._prepare(o, d, t_any, tri_s)
-    t1, p1 = pk.closest_hit_v2(o, d, t_far, tri_s)
-    t0, p0 = pk._closest_tiled(*former_c)
-    check(torch.equal(p0, p1) and torch.equal(t0, t1), "v1_kernel differs from K1 on tri_s")
-    check(torch.equal(pk._any_tiled(*former_a), pk.any_hit_v2(o, d, t_any, tri_s)),
-          "v1_kernel differs from K2 on tri_s")
-    for s, closest in zip(v2_stats, (True, False)):
-        design_ms = tests[closest] * MT_OPS / PEAK_FP32_NOFMA * 1e3
-        fn = pk._closest_tiled if closest else pk._any_tiled
-        args = former_c if closest else former_a
-
-        def former_call():
-            return fn(*pk._prepare(*args))
-
-        print(f"  {s['name']:24s} {s['shape']:28s} live columns {n_live} of {tri_s.shape[1]}, "
-              f"tests per ray {tests[closest] / r:.3f}: this design's bound "
-              f"{design_ms:.4f} ms ({MT_OPS} operations per test at {PEAK_FP32_NOFMA:.3g}/s); "
-              f"former design (v1_kernel) {time_ms(former_call):.4f} ms (card alone "
-              f"{time_ms(former_call, card_only=True):.4f}), equal results", flush=True)
+def brute_beside(pk, s, o, d, t_max, tri, camera):
+    """Beside a brute-force kernel's record s: the columns its kernel tests
+    and their tests per ray, for K12 also the flagged columns, the bound
+    of those tests at one FP32 operation per lane per cycle (no FMA runs),
+    and on camera rays the former design's time."""
+    name, r = s["name"], o.shape[0]
+    n_live, tests = brute_tests(pk, name, o, d, t_max, tri)
+    mxu = "mxu" in name
+    ops = MXU_OPS if mxu else MT_OPS
+    design_ms = tests * ops / PEAK_FP32_NOFMA * 1e3
+    tp = tri.shape[1] // (4 if mxu else 1)
+    flags = f", flagged {int(pk.mxu_flags(tri).sum())}" if mxu else ""
+    print(f"  {name:24s} {s['shape']:28s} live columns {n_live} of {tp}{flags}, tests per ray "
+          f"{tests / r:.3f}: this design's bound {design_ms:.4f} ms ({ops} operations per "
+          f"test at {PEAK_FP32_NOFMA:.3g}/s){former(name, camera)}", flush=True)
 
 
-def launch_cost(pk, native, dev, tri_s, calls=2000):
+def launch_cost(pk, native, dev, tri_s, tri_t, mt, calls=2000):
     """Host time per call (perf_counter over `calls` calls, after a
     warm-up) of native.launch on K1's entry point with R = 0 (nothing is
-    launched) and R = 1, and of the K1/K2 wrappers at R = 1 beside the
-    former design's (_prepare and _closest_tiled / _any_tiled)."""
+    launched) and R = 1, and of the six brute-force wrappers at R = 1."""
     import torch
 
     o = torch.zeros((1, 3), device=dev)
@@ -372,10 +378,10 @@ def launch_cost(pk, native, dev, tri_s, calls=2000):
     for r in (0, 1):
         us[f"native.launch R={r}"] = host_us(lambda: native.launch(
             pk._lib, "mts_closest_hit_v2", dev, o, d, tm, tri_s, r, tri_s.shape[1], t_out, prim))
-    us["closest_hit_v2"] = host_us(lambda: pk.closest_hit_v2(o, d, tm, tri_s))
-    us["any_hit_v2"] = host_us(lambda: pk.any_hit_v2(o, d, tm, tri_s))
-    us["former closest"] = host_us(lambda: pk._closest_tiled(*pk._prepare(o, d, tm, tri_s)))
-    us["former any"] = host_us(lambda: pk._any_tiled(*pk._prepare(o, d, tm, tri_s)))
+    for name, tri in (("closest_hit_v2", tri_s), ("any_hit_v2", tri_s), ("closest_hit", tri_t),
+                      ("any_hit", tri_t), ("closest_hit_mxu", mt), ("any_hit_mxu", mt)):
+        fn = getattr(pk, name)
+        us[name] = host_us(lambda: fn(o, d, tm, tri))
     print("  host us per call: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
     return us
 
@@ -385,7 +391,8 @@ def brute_entry_points(pk, pack, o, d):
     build_mt_matrix's operand, on the camera rays o, d and on shadow rays
     from a point one unit below the centroid of the emitting triangles to
     the camera rays' first hits (stopping 0.1 % short): K11 equal to K1/K2,
-    K12 the same hits but on edge rays.  (A ray that starts on a surface
+    K12 equal to its plain version and the same hits as K1/K2 but on edge
+    rays.  (A ray that starts on a surface
     is no test of K12: its bilinear t cancels to ~1e-4 at cbox's 550-unit
     coordinates, about RAY_EPS.)  Returns the four launch counts."""
     import torch
@@ -416,11 +423,17 @@ def brute_entry_points(pk, pack, o, d):
     check(torch.equal(p11, p1) and torch.equal(t11[hit], t1[hit]) and bool(torch.isinf(t11[~hit]).all()),
           "closest_hit (K11) differs from closest_hit_v2 (K1) on the camera rays")
     check(torch.equal(a11, a2), "any_hit (K11) differs from any_hit_v2 (K2) on the shadow rays")
+    t12p, p12p = pk.closest_hit_mxu_plain(o, d, torch.full_like(t1, inf), mt)
+    check(torch.equal(p12, p12p) and torch.equal(t12, t12p),
+          "closest_hit_mxu (K12) differs from its plain version on the camera rays")
+    check(torch.equal(a12, pk.any_hit_mxu_plain(o_s, d_s, t_s, mt)),
+          "any_hit_mxu (K12) differs from its plain version on the shadow rays")
     both = hit & (p12 == p1)
     n_prim, n_occ = int((p12 != p1).sum()), int((a12 != a2).sum())
     rel = float(((t12[both] - t1[both]).abs() / t1[both]).max()) if bool(both.any()) else 0.0
     print(f"phase 3: K11/K12 entry points on cbox's {o.shape[0]} camera rays and "
-          f"{o_s.shape[0]} shadow rays: K11 equal to K1/K2; K12 prim differs on {n_prim} rays, "
+          f"{o_s.shape[0]} shadow rays: K11 equal to K1/K2, K12 equal to its plain version; "
+          f"K12 against K1/K2: prim differs on {n_prim} rays, "
           f"occlusion on {n_occ}, max rel t diff where prims agree {rel:.3g}; "
           f"launches {launches}", flush=True)
     check(n_prim <= o.shape[0] // 1000 and n_occ <= o_s.shape[0] // 1000 and rel < 1e-4,
@@ -900,16 +913,16 @@ def main():
 
     # ---- phase 1: build (one nvcc per source, in parallel) ----
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 2) as ex:
-        usage = [ex.submit(native.resource_usage, n) for n in ("cluster_hit", "cluster_stream")]
+    with concurrent.futures.ThreadPoolExecutor(2 * len(SOURCES)) as ex:
+        usage = [ex.submit(native.resource_usage, n) for n in SOURCES]
         libs = dict(zip(SOURCES, ex.map(native.build, SOURCES)))
         usage = {fn: u for f in usage for fn, u in f.result().items()}
     print(f"phase 1: built {sorted(os.path.relpath(p, HERE) for p in libs.values())} "
           f"in {time.time() - t0:.2f} s", flush=True)
     for fn, u in sorted(usage.items()):
         print(f"  ptxas {fn}: {u}", flush=True)
-        if any(k in fn for k in ("dense_cull", "pair_kernel", "two_level_cull",
-                                 "window_kernel")):  # K3, K4, K5, K6
+        if any(k in fn for k in ("brute_kernel", "mxu_kernel", "dense_cull", "pair_kernel",
+                                 "two_level_cull", "window_kernel")):  # K1-K6, K11, K12
             check(u.get("stack", 1) == u.get("spill_stores", 1) == u.get("spill_loads", 1) == 0,
                   f"{fn} uses a stack or spills: {u}")
 
@@ -923,8 +936,9 @@ def main():
     n_cam = o.shape[0]
     n_box = int((pack.tri_t[0] < FAR_V0).sum())
     box_tris = [pack.arrays[k][:n_box].cpu().numpy() for k in ("tri_v0", "tri_e1", "tri_e2")]
+    box_mt = torch.as_tensor(pk.build_mt_matrix(*box_tris, n_box), device=dev)
     brute_all(pk, o, d, torch.full((n_cam,), 1000.0, device=dev), pack.tri_s, pack.tri_t,
-              torch.as_tensor(pk.build_mt_matrix(*box_tris, n_box), device=dev), n_box, stats)
+              box_mt, n_box, stats, True)
     rng = np.random.default_rng(0)
     n_tri, n_ray = 300, 1_000_000
     v0 = rng.uniform(-1, 1, (n_tri, 3)).astype(np.float32)
@@ -937,8 +951,9 @@ def main():
     brute_all(pk, o_r, d_r, torch.as_tensor(rng.uniform(0.2, 3, n_ray).astype(np.float32), device=dev),
               torch.as_tensor(pk.pack_triangles_sublane(v0, e1, e2, n_tri), device=dev),
               torch.as_tensor(pk.pack_triangles_transposed(v0, e1, e2, n_tri), device=dev),
-              torch.as_tensor(pk.build_mt_matrix(v0, e1, e2, n_tri), device=dev), n_tri, stats)
-    launch_cost(pk, native, dev, pack.tri_s)
+              torch.as_tensor(pk.build_mt_matrix(v0, e1, e2, n_tri), device=dev), n_tri, stats,
+              False)
+    launch_cost(pk, native, dev, pack.tri_s, pack.tri_t, box_mt)
 
     os.makedirs(os.path.dirname(STANDIN_PLY), exist_ok=True)
     write_ply(STANDIN_PLY, *bunny_standin(seed=0))

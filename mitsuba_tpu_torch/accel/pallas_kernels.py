@@ -11,13 +11,16 @@ on lanes, ray tiles sized to VMEM) are not carried over:
   (`live_columns`) and settle without a test the rays that cannot hit.
 * K11 `_closest_kernel` / `_any_kernel` (`closest_hit` / `any_hit`) on
   the transposed pack `tri_t` (Tp a multiple of 128), the same function
-  on another padding of the same [9, Tp] layout: `csrc/brute_tiled.cu`
-  `v1_kernel`, one thread per ray, triangle tiles streamed through shared
-  memory.  Neither has a triangle cap.
+  on another padding of the same [9, Tp] layout: the same `brute_kernel`,
+  which skips either padding.  Neither has a triangle cap.
 * K12 `_mxu_closest_kernel` / `_mxu_any_kernel` (`closest_hit_mxu` /
   `any_hit_mxu`): Moller-Trumbore as one bilinear product of the ray
   features [d, o x d, o, 1] with `build_mt_matrix`'s [16, 4 Tp] operand;
-  `csrc/brute_tiled.cu`, one thread per ray, in full float32.
+  `csrc/brute_tiled.cu` `mxu_kernel`, in full float32: persistent blocks
+  that form the features themselves, stage each column's structurally
+  nonzero entries (`MXU_NONZERO`, full sums where `mxu_flags` marks a
+  column), test only the live columns (`mxu_live_columns`) and settle
+  the rays that cannot hit (`mxu_can_hit`) without a test.
 
 Each wrapper runs the plain PyTorch version when its tensors lie on the
 CPU, and the CUDA kernel when they lie on a GPU; there is no fallback
@@ -39,6 +42,11 @@ V2_TRI_SUB = 8  # triangle padding granularity of tri_s
 TRI_TILE = 128  # triangle padding granularity of tri_t and mt_matrix
 V2_CHUNK = 512  # triangles per staged chunk of K1/K2's kernel (kChunk)
 MT_ROWS = 10  # rows of mt_matrix that meet a nonzero ray feature
+# [MT_ROWS, 4]: the entries of a column of mt_matrix (rows 0-9 of its
+# blocks det | u_num | v_num | t_num) that build_mt_matrix can make
+# nonzero: det rows 0-2, u_num and v_num rows 0-5, t_num rows 6-9
+MXU_NONZERO = np.zeros((MT_ROWS, 4), bool)
+MXU_NONZERO[0:3, 0] = MXU_NONZERO[0:6, 1] = MXU_NONZERO[0:6, 2] = MXU_NONZERO[6:10, 3] = True
 # rays per step of the plain versions at up to PLAIN_CHUNK_COLS triangle
 # columns (fewer past it): bounds their [rays, Tp] temporaries
 PLAIN_RAY_CHUNK = 1 << 16
@@ -70,7 +78,7 @@ def pack_triangles_transposed(tri_v0, tri_e1, tri_e2, n_tris):
     of 128 (at least 128); padding columns have v0 = 1e30 and zero edges
     (never hit).  The K11 layout."""
     v0, e1, e2 = _padded(tri_v0, tri_e1, tri_e2, n_tris, TRI_TILE, 1e30)
-    return np.concatenate([v0.T, e1.T, e2.T], axis=0)
+    return np.ascontiguousarray(np.concatenate([v0.T, e1.T, e2.T], axis=0))
 
 
 def build_mt_matrix(tri_v0, tri_e1, tri_e2, n_tris):
@@ -254,14 +262,11 @@ def any_hit_mxu_plain(o, d, t_max, mt_matrix):
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mts_closest_hit_v2.argtypes = [p, p, p, p, i, i, p, p, p]
-    lib.mts_any_hit_v2.argtypes = [p, p, p, p, i, i, p, p]
-    lib.mts_closest_hit_tiled.argtypes = [p, p, p, p, i, i, p, p, p]
-    lib.mts_any_hit_tiled.argtypes = [p, p, p, p, i, i, p, p]
-    lib.mts_closest_hit_mxu.argtypes = [p, p, p, i, i, p, p, p]
-    lib.mts_any_hit_mxu.argtypes = [p, p, p, i, i, p, p]
-    for fn in ("mts_closest_hit_v2", "mts_any_hit_v2", "mts_closest_hit_tiled",
-               "mts_any_hit_tiled", "mts_closest_hit_mxu", "mts_any_hit_mxu"):
+    for fn in ("mts_closest_hit_v2", "mts_closest_hit_mxu"):
+        getattr(lib, fn).argtypes = [p, p, p, p, i, i, p, p, p]
+    for fn in ("mts_any_hit_v2", "mts_any_hit_mxu"):
+        getattr(lib, fn).argtypes = [p, p, p, p, i, i, p, p]
+    for fn in ("mts_closest_hit_v2", "mts_any_hit_v2", "mts_closest_hit_mxu", "mts_any_hit_mxu"):
         getattr(lib, fn).restype = i
 
 
@@ -290,36 +295,72 @@ def _prepare(o, d, t_max, tri, name="tri_s", rows=9, col_multiple=1):
     return o.contiguous(), d.contiguous(), t_max.contiguous(), tri.contiguous()
 
 
-def _closest_tiled(o, d, t_max, tri):
-    """v1_kernel's closest hit on a [9, Tp] pack (tri_s or tri_t)."""
-    t_out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
-    prim = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
-    native.launch(_lib, "mts_closest_hit_tiled", o.device, o, d, t_max, tri,
-                  o.shape[0], tri.shape[1], t_out, prim)
-    return t_out, prim
-
-
-def _any_tiled(o, d, t_max, tri):
-    """v1_kernel's occlusion on a [9, Tp] pack (tri_s or tri_t)."""
-    occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
-    native.launch(_lib, "mts_any_hit_tiled", o.device, o, d, t_max, tri,
-                  o.shape[0], tri.shape[1], occ)
-    return occ > 0
+def _chunk_live(live):
+    """The columns of each chunk of V2_CHUNK up to its last one where the
+    bool [Tp] `live` is set, in order (int64 [n])."""
+    cols = [torch.zeros(0, dtype=torch.int64, device=live.device)]
+    for c0 in range(0, live.shape[0], V2_CHUNK):
+        nz = torch.nonzero(live[c0:c0 + V2_CHUNK])
+        if nz.numel():
+            cols.append(torch.arange(c0, c0 + int(nz[-1]) + 1, device=live.device))
+    return torch.cat(cols)
 
 
 def live_columns(tri):
-    """The columns of a [9, Tp] pack that K1/K2's kernel tests, in order
-    (int64 [n]): in each chunk of V2_CHUNK columns, those up to the chunk's
-    last column whose edges (rows 3-8) are not all zero.  A column with
-    zero edges has det = 0 and is never hit, so the columns left out change
-    no result."""
-    live = (tri[3:9] != 0).any(dim=0)
-    cols = [torch.zeros(0, dtype=torch.int64, device=tri.device)]
-    for c0 in range(0, tri.shape[1], V2_CHUNK):
-        nz = torch.nonzero(live[c0:c0 + V2_CHUNK])
-        if nz.numel():
-            cols.append(torch.arange(c0, c0 + int(nz[-1]) + 1, device=tri.device))
-    return torch.cat(cols)
+    """The columns of a [9, Tp] pack that K1/K2's kernel (and K11's) tests,
+    in order (int64 [n]): in each chunk of V2_CHUNK columns, those up to
+    the chunk's last column whose edges (rows 3-8) are not all zero.  A
+    column with zero edges has det = 0 and is never hit, so the columns
+    left out change no result."""
+    return _chunk_live((tri[3:9] != 0).any(dim=0))
+
+
+def mxu_live_columns(mt_matrix):
+    """The columns of mt_matrix [16, 4 Tp] that K12's kernel tests, in
+    order (int64 [n]): in each chunk of V2_CHUNK columns, those up to the
+    chunk's last column whose det block (rows 0..MT_ROWS-1 of the first Tp
+    columns) is not all zero.  Such a column has det = +-0 for every ray
+    with finite features, and a ray with a non-finite one never hits
+    (mxu_can_hit), so the columns left out change no result."""
+    n = mt_matrix.shape[1] // 4
+    return _chunk_live((mt_matrix[:MT_ROWS, :n] != 0).any(dim=0))
+
+
+def mxu_flags(mt_matrix):
+    """bool [Tp]: the columns of mt_matrix where an entry outside
+    MXU_NONZERO (of rows 0..MT_ROWS-1) is not zero.  K12's kernel sums
+    the dots of a flagged column over all MT_ROWS rows, and of the others
+    over the MXU_NONZERO rows only (the same values for finite features:
+    see csrc/brute_tiled.cu).  None is set on build_mt_matrix's operand."""
+    n = mt_matrix.shape[1] // 4
+    blocks = mt_matrix[:MT_ROWS].reshape(MT_ROWS, 4, n)
+    zero = torch.as_tensor(~MXU_NONZERO, device=mt_matrix.device)
+    return (blocks[zero] != 0).any(dim=0)
+
+
+def mxu_can_hit(o, d, t_max):
+    """bool [R]: the rays K12's kernel tests; it settles the others
+    without a test.  A ray cannot hit when one of its features (d, o x d,
+    o) is not finite, which makes det infinite or NaN for every column, or
+    when t_max is NaN or at most RAY_EPS."""
+    return torch.isfinite(ray_features(o, d)).all(dim=1) & (t_max > RAY_EPS)
+
+
+def _brute_closest(o, d, t_max, tri):
+    """brute_kernel's closest hit on a [9, Tp] pack (tri_s or tri_t)."""
+    t_out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
+    prim = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
+    native.launch(_lib, "mts_closest_hit_v2", o.device, o, d, t_max, tri, o.shape[0],
+                  tri.shape[1], t_out, prim)
+    return t_out, prim
+
+
+def _brute_any(o, d, t_max, tri):
+    """brute_kernel's occlusion on a [9, Tp] pack (tri_s or tri_t)."""
+    occ = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    native.launch(_lib, "mts_any_hit_v2", o.device, o, d, t_max, tri, o.shape[0],
+                  tri.shape[1], occ)
+    return occ
 
 
 def closest_hit_v2(o, d, t_max, tri_s):
@@ -329,13 +370,9 @@ def closest_hit_v2(o, d, t_max, tri_s):
     o, d, t_max, tri_s = _prepare(o, d, t_max, tri_s)
     if o.is_cpu:
         return closest_hit_plain(o, d, t_max, tri_s)
-    r = o.shape[0]
-    t_out = torch.empty(r, dtype=torch.float32, device=o.device)
-    prim = torch.empty(r, dtype=torch.int32, device=o.device)
-    native.launch(_lib, "mts_closest_hit_v2", o.device, o, d, t_max, tri_s, r,
-                  tri_s.shape[1], t_out, prim)
+    out = _brute_closest(o, d, t_max, tri_s)
     closest_hit_v2.launches += 1
-    return t_out, prim
+    return out
 
 
 def any_hit_v2(o, d, t_max, tri_s):
@@ -343,9 +380,7 @@ def any_hit_v2(o, d, t_max, tri_s):
     o, d, t_max, tri_s = _prepare(o, d, t_max, tri_s)
     if o.is_cpu:
         return any_hit_plain(o, d, t_max, tri_s)
-    occ = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
-    native.launch(_lib, "mts_any_hit_v2", o.device, o, d, t_max, tri_s, o.shape[0],
-                  tri_s.shape[1], occ)
+    occ = _brute_any(o, d, t_max, tri_s)
     any_hit_v2.launches += 1
     return occ
 
@@ -355,9 +390,9 @@ def closest_hit(o, d, t_max, tri_t):
     (pack_triangles_transposed; no cap on Tp).  t_max: scalar or [R], may
     be inf.  Returns (t [R] f32, prim [R] i32); see closest_hit_plain."""
     o, d, t_max, tri_t = _prepare(o, d, t_max, tri_t, "tri_t", 9, TRI_TILE)
-    if o.device.type == "cpu":
+    if o.is_cpu:
         return closest_hit_v1_plain(o, d, t_max, tri_t)
-    out = _closest_tiled(o, d, t_max, tri_t)
+    out = _brute_closest(o, d, t_max, tri_t)
     closest_hit.launches += 1
     return out
 
@@ -366,9 +401,9 @@ def any_hit(o, d, t_max, tri_t):
     """K11, occlusion: bool [R], some triangle hit with t in (RAY_EPS,
     t_max)."""
     o, d, t_max, tri_t = _prepare(o, d, t_max, tri_t, "tri_t", 9, TRI_TILE)
-    if o.device.type == "cpu":
+    if o.is_cpu:
         return any_hit_v1_plain(o, d, t_max, tri_t)
-    occ = _any_tiled(o, d, t_max, tri_t)
+    occ = _brute_any(o, d, t_max, tri_t)
     any_hit.launches += 1
     return occ
 
@@ -378,12 +413,13 @@ def closest_hit_mxu(o, d, t_max, mt_matrix):
     mt_matrix [16, 4 Tp] (build_mt_matrix).  t_max: scalar or [R], may be
     inf.  Returns (t [R] f32, prim [R] i32); see closest_hit_plain."""
     o, d, t_max, mt_matrix = _prepare(o, d, t_max, mt_matrix, "mt_matrix", 16, 4 * TRI_TILE)
-    if o.device.type == "cpu":
+    if o.is_cpu:
         return closest_hit_mxu_plain(o, d, t_max, mt_matrix)
-    t_out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
-    prim = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
-    native.launch(_lib, "mts_closest_hit_mxu", o.device, ray_features(o, d), t_max,
-                  mt_matrix, o.shape[0], mt_matrix.shape[1] // 4, t_out, prim)
+    r = o.shape[0]
+    t_out = torch.empty(r, dtype=torch.float32, device=o.device)
+    prim = torch.empty(r, dtype=torch.int32, device=o.device)
+    native.launch(_lib, "mts_closest_hit_mxu", o.device, o, d, t_max, mt_matrix, r,
+                  mt_matrix.shape[1] // 4, t_out, prim)
     closest_hit_mxu.launches += 1
     return t_out, prim
 
@@ -392,13 +428,13 @@ def any_hit_mxu(o, d, t_max, mt_matrix):
     """K12, occlusion: bool [R], some triangle hit with t in (RAY_EPS,
     t_max)."""
     o, d, t_max, mt_matrix = _prepare(o, d, t_max, mt_matrix, "mt_matrix", 16, 4 * TRI_TILE)
-    if o.device.type == "cpu":
+    if o.is_cpu:
         return any_hit_mxu_plain(o, d, t_max, mt_matrix)
-    occ = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
-    native.launch(_lib, "mts_any_hit_mxu", o.device, ray_features(o, d), t_max,
-                  mt_matrix, o.shape[0], mt_matrix.shape[1] // 4, occ)
+    occ = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    native.launch(_lib, "mts_any_hit_mxu", o.device, o, d, t_max, mt_matrix, o.shape[0],
+                  mt_matrix.shape[1] // 4, occ)
     any_hit_mxu.launches += 1
-    return occ > 0
+    return occ
 
 
 for _fn in (closest_hit_v2, any_hit_v2, closest_hit, any_hit, closest_hit_mxu, any_hit_mxu):

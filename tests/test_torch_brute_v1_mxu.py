@@ -285,3 +285,158 @@ def test_wrappers_reject_bad_input(bad):
             continue
         with pytest.raises((TypeError, ValueError)):
             fn(o, d, 1.0, tri)
+
+
+def _mt(name):
+    v0, e1, e2 = _scene(name)[:3]
+    return torch.as_tensor(tpk.build_mt_matrix(v0, e1, e2, len(v0)))
+
+
+def _planted(mt, seed):
+    """A copy of mt with a nonzero planted in each of the 21 structural
+    zeros (rows 0-9 outside MXU_NONZERO), each in a column of its own;
+    returns it and those columns, sorted."""
+    rng = np.random.default_rng(seed)
+    mt = mt.clone()
+    n = mt.shape[1] // 4
+    zeros = np.argwhere(~tpk.MXU_NONZERO)
+    assert len(zeros) == 21
+    cols = rng.choice(n, size=len(zeros), replace=False)
+    for (row, blk), col in zip(zeros, cols):
+        mt[row, blk * n + col] = float(rng.uniform(-0.05, 0.05))
+    return mt, np.sort(cols)
+
+
+def test_mxu_nonzero_matches_build_mt_matrix():
+    """MXU_NONZERO holds the 19 entries build_mt_matrix writes (rows 0-9),
+    and every other entry of its operand is zero."""
+    v0, e1, e2 = _scene("random300")[:3]
+    m = tpk.build_mt_matrix(v0, e1, e2, 300).reshape(16, 4, -1)
+    assert tpk.MXU_NONZERO.sum() == 19
+    assert ((m[:tpk.MT_ROWS] != 0).any(axis=2) == tpk.MXU_NONZERO).all()
+    assert not m[tpk.MT_ROWS:].any()
+
+
+@pytest.mark.parametrize("what", ["cbox", "random1000", "gaps", "padding", "row5"])
+def test_mxu_live_columns(what):
+    """The columns K12's kernel tests: cbox's 36 of 128; all 1,000 of a
+    1,000-triangle set (Tp = 1,024, two chunks); each chunk up to its last
+    column with a nonzero det block when triangles are degenerate (zero
+    edges) in both chunks; none of an all-padding operand; and a det entry
+    planted in a structural zero (row 5) counts."""
+    if what == "gaps":
+        v0, e1, e2 = (a.copy() for a in _scene("random1000")[:3])
+        for sl in (slice(300, 512), slice(700, 1000)):
+            e1[sl], e2[sl] = 0.0, -0.0
+        mt = torch.as_tensor(tpk.build_mt_matrix(v0, e1, e2, 1000))
+        want = torch.cat([torch.arange(300), torch.arange(512, 700)])
+    elif what == "padding":
+        v0, e1, e2 = _scene("cbox")[:3]
+        mt = torch.as_tensor(tpk.build_mt_matrix(v0, e1, e2, 0))
+        want = torch.zeros(0, dtype=torch.int64)
+    elif what == "row5":
+        mt = torch.zeros(16, 4 * 128)
+        mt[5, 77] = 1.0
+        want = torch.arange(78)
+    else:
+        mt = _mt(what)
+        want = torch.arange(36 if what == "cbox" else 1000)
+    assert tuple(mt.shape)[1] % 512 == 0
+    assert torch.equal(tpk.mxu_live_columns(mt), want)
+    if what == "cbox":  # the same columns as K11's on tri_t
+        assert torch.equal(tpk.live_columns(_scene("cbox")[7]), want)
+
+
+@pytest.mark.parametrize("name", ["cbox", "random300", "random1000"])
+def test_mxu_flags(name):
+    """No column of build_mt_matrix's operand is flagged; a nonzero
+    planted in each of the 21 structural zeros flags exactly its column;
+    rows 10-15 (which meet the features' zero pad) flag nothing."""
+    mt = _mt(name)
+    assert not bool(tpk.mxu_flags(mt).any())
+    planted, cols = _planted(mt, 7)
+    np.testing.assert_array_equal(torch.nonzero(tpk.mxu_flags(planted))[:, 0].numpy(), cols)
+    pad = mt.clone()
+    pad[10:] = 1.0
+    assert not bool(tpk.mxu_flags(pad).any())
+
+
+def _cannot_hit(o, d, seed):
+    """Rays [R,3], half of them made unable to hit: every 18th ray each of
+    an infinite or NaN origin or direction component, o x d overflowing (o
+    and d finite), t_max NaN, 0, -1 and RAY_EPS; t_max 400 or inf
+    elsewhere.  Returns (o, d, t_max, bad)."""
+    rng = np.random.default_rng(seed)
+    o, d = o.copy(), d.copy()
+    n = len(o)
+    kind = np.arange(n) % 18
+    comp = rng.integers(0, 3, n)
+    rows = np.arange(n)
+    t_max = np.full(n, 400.0, np.float32)
+    for k, (arr, val) in enumerate(((o, np.inf), (o, np.nan), (d, -np.inf), (d, np.nan))):
+        arr[rows[kind == k], comp[kind == k]] = val
+    o[kind == 4] = (3e38, -3e38, 1e38)
+    d[kind == 4] = (0.6, 0.8, -0.5)
+    for k, val in zip(range(5, 9), (np.nan, 0.0, -1.0, 1e-4)):
+        t_max[kind == k] = val
+    bad = kind < 9
+    t_max[(kind > 9) & (kind % 2 == 0)] = np.inf
+    return o, d, t_max, bad
+
+
+def _kernel_model_closest(o, d, t_max, mt):
+    """K12's kernel as a plain model: rays mxu_can_hit rejects are
+    settled (prim -1, t = t_max); the others are tested against
+    mxu_live_columns, each dot summed over the MXU_NONZERO rows in row order
+    where the column is not flagged (mxu_flags) and over all MT_ROWS rows
+    where it is, then the plain epilogue."""
+    f = tpk.ray_features(o, d)
+    n = mt.shape[1] // 4
+    cols = tpk.mxu_live_columns(mt)
+    flags = tpk.mxu_flags(mt)[cols]
+    dots = []
+    for blk in range(4):
+        c = blk * n + cols
+        rows = np.nonzero(tpk.MXU_NONZERO[:, blk])[0]
+        acc = f[:, rows[0]:rows[0] + 1] * mt[rows[0], c]
+        for k in rows[1:]:
+            acc = acc + f[:, k:k + 1] * mt[k, c]
+        dots.append(torch.where(flags, tpk._mxu_dot(f, mt[:, c], 0, len(c)), acc))
+    det, u_num, v_num, t_num = dots
+    ok = torch.abs(det) > 1e-12
+    inv = torch.where(ok, 1.0 / det, 0.0)
+    u, v, t = u_num * inv, v_num * inv, t_num * inv
+    hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tpk.RAY_EPS)
+           & (t < t_max[:, None]))
+    hit &= tpk.mxu_can_hit(o, d, t_max)[:, None]
+    t_out, prim = tpk._closest_of(t, hit, t_max, torch.arange(len(cols), dtype=torch.int32))
+    prim = torch.where(prim >= 0, cols.to(torch.int32)[prim.clamp(min=0).long()], -1)
+    return t_out, prim.to(torch.int32), hit.any(dim=1)
+
+
+@pytest.mark.parametrize("name", ["cbox", "random300", "random1000"])
+@pytest.mark.parametrize("planted", [False, True], ids=["built", "planted"])
+def test_mxu_rays_that_cannot_hit_and_kernel_model(name, planted):
+    """Rays mxu_can_hit rejects never hit in the plain K12 (non-finite o
+    or d, o x d overflowing, t_max NaN or at most RAY_EPS), on
+    build_mt_matrix's operand and with a nonzero planted in each
+    structural zero; and the kernel's sums (structural rows of clear
+    columns, live columns only, those rays settled) give the plain
+    version's prim, occlusion and t bit for bit."""
+    _, _, _, o, d, _, _, _ = _scene(name)
+    o, d, t_max, bad = _cannot_hit(o, d, 3)
+    o, d, t_max = torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_max)
+    mt = _mt(name)
+    if planted:
+        mt = _planted(mt, 11)[0]
+    can = tpk.mxu_can_hit(o, d, t_max)
+    np.testing.assert_array_equal(can.numpy(), ~bad)
+    t_ref, p_ref = tpk.closest_hit_mxu_plain(o, d, t_max, mt)
+    occ_ref = tpk.any_hit_mxu_plain(o, d, t_max, mt)
+    assert not bool((p_ref[~can] >= 0).any()) and not bool(occ_ref[~can].any())
+    assert bool((p_ref[can] >= 0).any())
+    t_mod, p_mod, occ_mod = _kernel_model_closest(o, d, t_max, mt)
+    assert torch.equal(p_mod, p_ref) and torch.equal(occ_mod, occ_ref)
+    nan = t_ref.isnan()
+    assert torch.equal(t_mod.isnan(), nan)
+    assert torch.equal(t_mod[~nan].view(torch.int32), t_ref[~nan].view(torch.int32))

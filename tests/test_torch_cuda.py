@@ -162,15 +162,14 @@ def test_kernels_rays_that_cannot_hit(dev, n_tris):
 
 def test_launch_counters(dev):
     """One launch counted per wrapper call on the card, none for the plain
-    versions or the former design's wrappers (_closest_tiled / _any_tiled)."""
+    versions."""
     o, d, t_max, tri_s = _random_scene(dev, 8, 100, 0)
     c0, a0 = pk.closest_hit_v2.launches, pk.any_hit_v2.launches
     pk.closest_hit_v2(o, d, t_max, tri_s)
     pk.any_hit_v2(o, d, t_max, tri_s)
     pk.any_hit_v2(o, d, t_max, tri_s)
     pk.closest_hit_plain(o, d, t_max, tri_s)
-    pk._closest_tiled(o, d, t_max, tri_s)
-    pk._any_tiled(o, d, t_max, tri_s)
+    pk.any_hit_plain(o, d, t_max, tri_s)
     assert (pk.closest_hit_v2.launches - c0, pk.any_hit_v2.launches - a0) == (1, 2)
 
 
@@ -225,6 +224,149 @@ def test_tiled_launch_counters(dev):
     pk.closest_hit_v1_plain(o, d, t_max, tri_t)
     pk.any_hit_mxu_plain(o, d, t_max, mt)
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 2, 1, 1]
+
+
+def _cannot_hit(o, d, t_max, seed):
+    """Copies of o, d, t_max where about half of the rays (none of the
+    first 256, all of the next 256) cannot hit: an origin or direction
+    component infinite or NaN, o x d overflowing to inf (o and d finite),
+    t_max NaN, 0, negative or RAY_EPS.  Returns them, the bool mask and
+    the rays of that mask whose o x d overflows (Moller-Trumbore, which
+    forms no o x d, may hit those)."""
+    r = np.random.default_rng(seed)
+    n = o.shape[0]
+    bad = torch.as_tensor(r.random(n) < 0.5, device=o.device)
+    bad[:256] = False
+    bad[256:512] = True
+    kinds = torch.as_tensor(r.integers(0, 9, n), device=o.device)
+    comp = torch.as_tensor(r.integers(0, 3, n), device=o.device)
+    rows = torch.arange(n, device=o.device)
+    o, d, t_max = o.clone(), d.clone(), t_max.clone()
+    inf, nan = float("inf"), float("nan")
+    for k, (arr, val) in enumerate(((o, inf), (o, nan), (d, -inf), (d, nan))):
+        sel = bad & (kinds == k)
+        arr[rows[sel], comp[sel]] = val
+    sel = bad & (kinds == 4)  # finite, but o x d overflows
+    o[sel] = torch.tensor([3e38, -3e38, 1e38], device=o.device)
+    d[sel] = torch.tensor([0.6, 0.8, -0.5], device=o.device)
+    for k, val in zip(range(5, 9), (nan, 0.0, -1.0, 1e-4)):
+        t_max[bad & (kinds == k)] = val
+    return o, d, t_max, bad, bad & (kinds == 4)
+
+
+def _far(t_max, far):
+    """t_max with every limit that leaves a hit possible (above RAY_EPS)
+    set to far."""
+    return torch.where(t_max > pk.RAY_EPS, torch.full_like(t_max, far), t_max)
+
+
+def _same(a, b):
+    """Outputs (t, prim) equal, t bit for bit where it is not NaN."""
+    (t1, p1), (t2, p2) = a, b
+    assert torch.equal(p1, p2)
+    assert torch.equal(t1.isnan(), t2.isnan())
+    assert torch.equal(t1[~t1.isnan()], t2[~t2.isnan()])
+
+
+@pytest.mark.parametrize("n_tris", [36, 300, 1000])
+def test_k11_equals_k1_in_both_packs(dev, n_tris):
+    """K11 runs K1/K2's kernel: on tri_t it equals K1/K2 on tri_s and on
+    tri_t, with rays that cannot hit mixed in, within one staged chunk and
+    past it."""
+    o, d, t_max, tri_s = _random_scene(dev, n_tris, 3 * 256 + 77, n_tris)
+    tri_t, _ = _tiled_operands(dev, n_tris, n_tris)
+    o, d, t_max, bad, overflow = _cannot_hit(o, d, t_max, n_tris)
+    bad &= ~overflow
+    for tm in (t_max, _far(t_max, 1e30)):
+        k11 = pk.closest_hit(o, d, tm, tri_t)
+        for tri in (tri_s, tri_t):
+            _same(pk.closest_hit_v2(o, d, tm, tri), k11)
+            assert torch.equal(pk.any_hit_v2(o, d, tm, tri), pk.any_hit(o, d, tm, tri_t))
+        _same(k11, pk.closest_hit_v1_plain(o, d, tm, tri_t))
+        assert bool((k11[1] >= 0).any()) and not bool((k11[1][bad] >= 0).any())
+    torch.cuda.synchronize()
+
+
+def _planted(mt, seed):
+    """A copy of mt [16, 4 Tp] with a nonzero planted in each structural
+    zero (rows 0-9 outside MXU_NONZERO) of a few columns each, so that
+    those columns are flagged; returns it and the flagged columns."""
+    r = np.random.default_rng(seed)
+    mt = mt.clone()
+    n = mt.shape[1] // 4
+    zeros = np.argwhere(~pk.MXU_NONZERO)
+    cols = r.choice(n, size=min(n, len(zeros)), replace=False)
+    for (row, blk), col in zip(zeros, cols):
+        mt[row, blk * n + col] = float(r.uniform(-0.05, 0.05))
+    return mt, torch.as_tensor(np.sort(cols), device=mt.device)
+
+
+@pytest.mark.parametrize("n_tris", [100, 300, 1000])
+def test_mxu_equal_plain_planted_and_cannot_hit(dev, n_tris):
+    """K12 equal to plain (prim and occlusion equal, t bit for bit) at Tp
+    = 128, 384 and 1,024: on build_mt_matrix's operand, and on it with a
+    nonzero planted in each structural zero of some columns (flagged: the
+    full ten-row sums), with rays that cannot hit mixed in (non-finite
+    features, o x d overflowing, NaN or tiny t_max)."""
+    o, d, t_max, _ = _random_scene(dev, n_tris, 3 * 256 + 77, n_tris)
+    _, mt = _tiled_operands(dev, n_tris, n_tris)
+    o, d, t_max, bad, _ = _cannot_hit(o, d, t_max, n_tris + 1)
+    assert not bool(pk.mxu_can_hit(o, d, t_max)[bad].any())
+    planted, cols = _planted(mt, n_tris)
+    assert not bool(pk.mxu_flags(mt).any())
+    assert torch.equal(torch.nonzero(pk.mxu_flags(planted))[:, 0], cols)
+    hits = 0
+    for m in (mt, planted):
+        for tm in (t_max, _far(t_max, float("inf"))):
+            t1, p1 = pk.closest_hit_mxu(o, d, tm, m)
+            _same((t1, p1), pk.closest_hit_mxu_plain(o, d, tm, m))
+            occ = pk.any_hit_mxu(o, d, tm, m)
+            assert occ.dtype == torch.bool
+            assert torch.equal(occ, pk.any_hit_mxu_plain(o, d, tm, m))
+            assert not bool(occ[bad].any()) and not bool((p1[bad] >= 0).any())
+            hits += int((p1 >= 0).sum())
+    assert hits > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("scale,d_scale", [
+    (1e-5, 1.0), (1e12, 1.0), (1e30, 1.0), (1e4, 1e34), (1e4, 1e35), (1e4, 1e36)])
+def test_mxu_extreme_scales(dev, scale, d_scale):
+    """K12 equal plain with the operand and the directions scaled: det
+    about 1e-12 (1e-5), large (1e12, 1e30), and with directions of 1e34 to
+    1e36 near 2^126 (rays whose bound cannot prove the fast reciprocal
+    exact take IEEE division) and past it (infinite det)."""
+    o, d, t_max, _ = _random_scene(dev, 300, 50_001, 3)
+    _, mt = _tiled_operands(dev, 300, 3)
+    mt, d = mt * scale, d * d_scale
+    hits = 0
+    for tm in (t_max, torch.full_like(t_max, float("inf"))):
+        out = pk.closest_hit_mxu(o, d, tm, mt)
+        _equal(out, pk.closest_hit_mxu_plain(o, d, tm, mt))
+        assert torch.equal(pk.any_hit_mxu(o, d, tm, mt), pk.any_hit_mxu_plain(o, d, tm, mt))
+        hits += int((out[1] >= 0).sum())
+    assert hits > 0 or d_scale > 1 or scale == 1e-5
+    torch.cuda.synchronize()
+
+
+def test_k11_k12_one_kernel_per_call(dev):
+    """Each K11/K12 wrapper call runs one kernel on the card and nothing
+    else: no feature kernels, no `occ > 0` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    o, d, t_max, _ = _random_scene(dev, 300, 10_000, 1)
+    tri_t, mt = _tiled_operands(dev, 300, 1)
+    for fn, tri in ((pk.closest_hit, tri_t), (pk.any_hit, tri_t),
+                    (pk.closest_hit_mxu, mt), (pk.any_hit_mxu, mt)):
+        fn(o, d, t_max, tri)  # warm-up: the library is built and loaded
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(o, d, t_max, tri)
+            torch.cuda.synchronize()
+        on_card = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(on_card) == 1 and on_card[0][1] == 1, (fn.__name__, on_card)
+        assert ("mxu_kernel" if "mxu" in fn.__name__ else "brute_kernel") in on_card[0][0]
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,5 @@
 """The port stands alone: nothing under mitsuba_tpu_torch/, and neither
-chip_smoke.py, profile_pass.py nor the mesh generator they import
+chip_smoke.py, profile_pass.py, time_brute.py nor the mesh generator they import
 (tests/torch_meshes.py), imports JAX or the JAX package (checked on the source's syntax tree, so
 lazy imports inside functions count too), or names a path under
 mitsuba_tpu/ in its code (docstrings and comments may cite the
@@ -19,7 +19,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "mitsuba_tpu"}
 SOURCES = sorted(
     glob.glob(os.path.join(ROOT, "mitsuba_tpu_torch", "**", "*.py"), recursive=True)
-) + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "profile_pass.py", "tests/torch_meshes.py")]
+) + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "profile_pass.py", "time_brute.py",
+                                    "tests/torch_meshes.py")]
 # a citation of a TPU kernel: "mitsuba_tpu/<module>.py:<line>"
 CITATION = re.compile(r"mitsuba_tpu/[\w/]+\.py:\d+")
 
