@@ -52,6 +52,11 @@ Phases, each of which raises (and exits non-zero) on failure:
      kernels they replaced;
      also the natural overflow share at K = 3, KS = 8, and K4 on the
      cluster lists K6 takes (equal results), timed beside K6;
+   * K1/K2 on the matpreview variant's tri_s (its ground's 2 triangles;
+     scenes/matpreview.xml under a constant environment with the
+     independent sampler, tests/torch_meshes.py `matpreview_const_xml`),
+     bit for bit, on its 262,144 camera rays and on the shadow rays of
+     their first hits toward the environment, as a pass spawns them;
    each kernel's time beside its bound (the larger of its operations
    over the card's FP32 rate and its bytes over the memory rate, from
    this run's inputs, counting only the real triangles of padded
@@ -61,6 +66,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    after, and fail unless every kernel of the path launched:
    * scenes/cbox.xml at 64x64, 16 spp, seed 0 against
      tests/golden/cbox_64_16.npy (tone-mapped RMSE < 5e-3): K1/K2;
+   * the matpreview variant at 64x64, 16 spp, seed 0 against
+     tests/golden/torch_matpreview_const_64_16.npy (the JAX package's
+     render; RMSE < 5e-3): K1/K2, with the sphere hits counted (> 0);
    * K11/K12, which no render path calls, through their own entry points
      (closest_hit / any_hit on pack_scene's tri_t, closest_hit_mxu /
      any_hit_mxu on build_mt_matrix's operand) on the Cornell box's
@@ -78,7 +86,7 @@ Phases, each of which raises (and exits non-zero) on failure:
      fallback did not run; with its pack time and peak device memory;
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
-   for the Cornell box and for both stand-ins.
+   for the Cornell box, both stand-ins and the matpreview variant.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -97,6 +105,7 @@ CBOX = os.path.join(HERE, "scenes", "cbox.xml")
 GOLDEN = os.path.join(HERE, "tests", "golden", "cbox_64_16.npy")
 BIGMESH_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_bigmesh_64_16.npy")
 DENSE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_densemesh_64_16.npy")
+MATPREVIEW_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_matpreview_const_64_16.npy")
 STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
 DENSE_PLY = os.path.join(HERE, "build", "dense_standin.ply")
 SOURCES = {"brute_tiled": "mitsuba_tpu_torch/csrc/brute_tiled.cu",
@@ -258,10 +267,10 @@ def check_hits(name, kernel_out, plain_out):
     return err, float(hit.float().mean())
 
 
-def compare_brute(pk, name, o, d, t_max, tri, n_tri, stats):
+def compare_brute(pk, name, o, d, t_max, tri, n_tri, stats, exact=False):
     """A brute-force kernel (K1, K2, K11 or K12) against its plain version
     at one shape; tri: its triangle operand, n_tri: the real triangles in
-    it."""
+    it.  exact: every output equal, bit for bit (else t within 1 ulp)."""
     import torch
 
     plain_name, closest = BRUTE[name]
@@ -271,6 +280,10 @@ def compare_brute(pk, name, o, d, t_max, tri, n_tri, stats):
     kern = lambda: kern_fn(o, d, t_max, tri)  # noqa: E731
     plain = lambda: plain_fn(o, d, t_max, tri)  # noqa: E731
     out = kern()
+    if exact:
+        ref = plain()
+        for a, b in zip(out if closest else (out,), ref if closest else (ref,)):
+            check(torch.equal(a, b), f"{name}: differs from plain on {int((a != b).sum())} rays")
     if closest:
         err, frac = check_hits(name, out, plain())
         tests = r * n_tri  # every triangle, to prove none is nearer
@@ -880,6 +893,61 @@ def camera_rays(scene, dev):
     return o.contiguous(), d.contiguous()
 
 
+def matpreview_rays(scene, pack, dev, seed=0):
+    """The matpreview variant's camera rays (one per pixel centre) and the
+    shadow rays of their first hits as the path tracer spawns them: toward
+    a direction sampled from the constant environment, from the hit point
+    offset along the normal, t_max 1e7."""
+    import torch
+
+    from mitsuba_tpu_torch.accel.intersect import fill_interaction, intersect
+    from mitsuba_tpu_torch.emitter import eval as em
+    from mitsuba_tpu_torch.integrator.path import SHADOW_EPS, _offset_ray
+
+    o, d = camera_rays(scene, dev)
+    its = fill_interaction(pack, o, d, intersect(pack, o, d))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ds = em.sample_direct(pack, its.p, torch.rand(o.shape[0], 3, device=dev, generator=gen))
+    o_sh = _offset_ray(its.p, its.ng, ds.d)
+    t_sh = torch.where(ds.dist >= em.ENV_DIST, 1e7, ds.dist * (1.0 - SHADOW_EPS))
+    keep = its.valid
+    return (o, d), (o_sh[keep].contiguous(), ds.d[keep].contiguous(), t_sh[keep].contiguous())
+
+
+def matpreview_brute(pk, scene, pack, dev, stats):
+    """K1/K2 on the matpreview variant's tri_s (its ground's two
+    triangles) against their plain versions, bit for bit, on its camera
+    rays (t_max 1e30, as the renderer calls them) and on its shadow rays."""
+    import torch
+
+    (o, d), (o_s, d_s, t_s) = matpreview_rays(scene, pack, dev)
+    n_tri = int((pack.tri_s[0] < FAR_V0).sum())
+    check(n_tri == 2, f"matpreview's tri_s holds {n_tri} triangles, expected 2")
+    t_far = torch.full((o.shape[0],), 1e30, device=dev)
+    print(f"  matpreview: {o.shape[0]} camera rays, {o_s.shape[0]} shadow rays, "
+          f"tri_s {tuple(pack.tri_s.shape)}", flush=True)
+    for rays, tm in (((o, d), t_far), ((o_s, d_s), t_s)):
+        for name in ("closest_hit_v2", "any_hit_v2"):
+            compare_brute(pk, name, *rays, tm, pack.tri_s, n_tri, stats, exact=True)
+            brute_beside(pk, stats[-1], *rays, tm, pack.tri_s, False)
+
+
+def count_sphere_hits(intersect_mod):
+    """Wrap the sphere test so that it counts, in .hits, the lanes where a
+    sphere lies nearer than the triangles (closest-hit and shadow queries
+    both); returns the original to restore."""
+    inner = intersect_mod._intersect_spheres
+
+    def counted(pack, o, d, best_t):
+        out = inner(pack, o, d, best_t)
+        counted.hits += int(out[0].sum())
+        return out
+
+    counted.hits = 0
+    intersect_mod._intersect_spheres = counted
+    return inner
+
+
 def main():
     import numpy as np
     import torch
@@ -898,7 +966,13 @@ def main():
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
     sys.path.append(os.path.join(HERE, "tests"))
-    from torch_meshes import bunny_scene_xml, bunny_standin, dense_standin, write_ply
+    from torch_meshes import (
+        bunny_scene_xml,
+        bunny_standin,
+        dense_standin,
+        matpreview_const_xml,
+        write_ply,
+    )
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # camera transforms in full fp32
@@ -954,6 +1028,9 @@ def main():
               torch.as_tensor(pk.build_mt_matrix(v0, e1, e2, n_tri), device=dev), n_tri, stats,
               False)
     launch_cost(pk, native, dev, pack.tri_s, pack.tri_t, box_mt)
+    mp = mt.load_scene_string(matpreview_const_xml())  # 512x512
+    mp_pack = pack_scene(mp, dev)
+    matpreview_brute(pk, mp, mp_pack, dev, stats)
 
     os.makedirs(os.path.dirname(STANDIN_PLY), exist_ok=True)
     write_ply(STANDIN_PLY, *bunny_standin(seed=0))
@@ -998,6 +1075,18 @@ def main():
         mt, {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")},
         scene64, GOLDEN, dev, "cbox")
     launches.update(brute_entry_points(pk, pack, *camera_rays(scene, dev)))
+    from mitsuba_tpu_torch.accel import intersect as intersect_mod
+
+    inner = count_sphere_hits(intersect_mod)
+    mp_launches = render_checked(
+        mt, {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")},
+        mt.load_scene_string(matpreview_const_xml(64, 64)), MATPREVIEW_GOLDEN, dev, "matpreview")
+    sphere_hits = intersect_mod._intersect_spheres.hits
+    intersect_mod._intersect_spheres = inner
+    print(f"  matpreview: {sphere_hits} sphere hits (closest-hit and shadow queries)", flush=True)
+    check(sphere_hits > 0, "the matpreview render hit no sphere")
+    for k, n in mp_launches.items():
+        check(n > 0, f"the matpreview render never launched {k}")
     big64 = mt.load_scene_string(bunny_scene_xml(STANDIN_PLY, 64, 64))
     cluster_names = [k for k, src, _ in KERNELS if src == "cluster_hit"]
     for fn in (pairs.pair_closest, pairs.pair_any):
@@ -1045,6 +1134,7 @@ def main():
     throughput(make_render_pass, new_film, pack, scene, dev, "cbox", card)
     throughput(make_render_pass, new_film, big_pack, big, dev, "bigmesh-standin", card)
     throughput(make_render_pass, new_film, dense_pack, dense, dev, "densemesh-standin", card)
+    throughput(make_render_pass, new_film, mp_pack, mp, dev, "matpreview-const", card)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

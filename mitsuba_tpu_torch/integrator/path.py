@@ -5,10 +5,13 @@ src/integrators/path/path.cpp:119-300).
 Lane i owns a pixel; when its path terminates it starts the pixel's next
 sample at once.  One bounce per iteration: closest hit, environment
 radiance on escape and emitter hit (both with MIS), next-event
-estimation with a shadow ray, diffuse BSDF sampling and Russian
-roulette.  The reference's `lax.while_loop` becomes a host loop
-that checks its exit condition every EXIT_CHECK_EVERY iterations;
-iterations in which no lane has work change nothing.
+estimation with a shadow ray, BSDF sampling and Russian roulette,
+which reads the relative IOR a refraction crossed (`eta`) as the
+reference does; a Dirac lobe (smooth conductor, dielectric, plastic)
+carries MIS weight 1 to the emitter it hits next.  The reference's
+`lax.while_loop` becomes a host loop that checks its exit condition
+every EXIT_CHECK_EVERY iterations; iterations in which no lane has work
+change nothing.
 """
 
 from __future__ import annotations

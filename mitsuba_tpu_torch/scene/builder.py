@@ -1,8 +1,10 @@
 """Scene packing: host scene description -> flat device tensors
 (`ScenePack`); the port of mitsuba_tpu/scene/builder.py for the slice it
 renders: triangle meshes (brute force up to 512 triangles, BVH + cluster
-tables above), diffuse materials with constant reflectance, area
-emitters and a constant environment.
+tables above), analytic spheres (tessellated where they emit), the
+diffuse, conductor, dielectric and plastic material families (smooth and
+rough) with checkerboard-textured reflectances, area emitters and a
+constant environment.
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -22,24 +24,46 @@ from mitsuba_tpu_torch.accel.pallas_kernels import (
     pack_triangles_sublane,
     pack_triangles_transposed,
 )
-from mitsuba_tpu_torch.bsdf.plugins import DIFFUSE, BSDFRecord
+from mitsuba_tpu_torch.bsdf.eval import PORTED as PORTED_TYPES
+from mitsuba_tpu_torch.bsdf.plugins import (
+    DIFFUSE,
+    ROUGHCONDUCTOR,
+    ROUGHDIELECTRIC,
+    ROUGHPLASTIC,
+    BSDFRecord,
+)
+from mitsuba_tpu_torch.bsdf.rtrans import fit_rtrans_poly
+from mitsuba_tpu_torch.core.transform import Transform
 from mitsuba_tpu_torch.emitter.eval import PORTED_KINDS
 from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT
+from mitsuba_tpu_torch.scene.shapes import _apply_transform, _uv_sphere
+from mitsuba_tpu_torch.scene.texture_eval import material_table
+from mitsuba_tpu_torch.scene.textures import TEX_CONSTANT, TEX_CHECKERBOARD
 
 # scenes above this many triangles go through the BVH and cluster tables
 BRUTE_FORCE_MAX_TRIS = 512
+
+# the texture kinds the port evaluates
+PORTED_TEXTURES = frozenset((TEX_CONSTANT, TEX_CHECKERBOARD))
+# BSDF types whose lobes sample a microfacet normal: their distributions
+# make the static mf_dists meta
+_MF_TYPES = (ROUGHCONDUCTOR, ROUGHDIELECTRIC, ROUGHPLASTIC)
 
 # the arrays and meta keys the ported slice reads
 SLICE_ARRAYS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
     "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat", "tri_emit", "tri_s", "tri_t",
-    "mat_type", "mat_cA", "mat_twosided",
+    "mat_type", "mat_cA", "mat_cB", "mat_cC", "mat_cD", "mat_alpha_u",
+    "mat_alpha_v", "mat_eta", "mat_exponent", "mat_dist", "mat_nonlinear",
+    "mat_twosided", "mat_fdr_int", "mat_spec_w", "mat_texA", "mat_rt", "mat_rt_fdr",
+    "tex_type", "tex_c0", "tex_c1", "tex_scale", "tex_uv",
+    "sph_center", "sph_radius", "sph_mat", "sph_emit", "sph_flip",
     "em_kind", "em_rgb", "em_area", "em_tri_lo", "em_tri_hi",
     "area_tri_idx", "area_tri_cdf", "emitter_pmf", "emitter_cdf",
 )
 SLICE_META = (
-    "n_spheres", "n_emitters", "present_types", "emitter_kinds", "use_bvh",
-    "has_area", "has_env", "has_envmap", "env_idx",
+    "n_tris", "n_spheres", "n_emitters", "present_types", "mf_dists", "emitter_kinds",
+    "use_bvh", "has_area", "has_env", "has_envmap", "env_idx", "has_textures", "has_mips",
 )
 # ... and, for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters
 BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_sup", "cl_mbox", "cl_pad2prim")
@@ -50,12 +74,12 @@ BVH_META = (
 # meta flags of reference features the port does not render yet:
 # (key, value meaning "absent", feature name)
 _UNPORTED_FEATURES = (
-    ("n_spheres", 0, "analytic spheres"),
     ("n_cyls", 0, "analytic cylinders"),
     ("has_envmap", False, "envmap emitters"),
     ("has_media", False, "participating media"),
     ("has_sss", False, "subsurface scattering"),
-    ("has_textures", False, "textures"),
+    ("has_mips", False, "bitmap textures"),
+    ("geom_tex_kinds", (), "geometry-driven textures"),
     ("has_bumpmaps", False, "bump/normal maps"),
     ("has_mixtures", False, "mixture/coating BSDFs"),
     ("has_irawan", False, "bsdf 'irawan'"),
@@ -86,9 +110,9 @@ def check_slice(meta: dict):
         if meta.get(key, absent) != absent:
             raise NotImplementedError(f"{feature} not yet ported")
     types = set(meta.get("present_types", (DIFFUSE,)))
-    if types != {DIFFUSE}:
+    if types - PORTED_TYPES:
         raise NotImplementedError(
-            f"bsdf types {sorted(types - {DIFFUSE})} not yet ported"
+            f"bsdf types {sorted(types - PORTED_TYPES)} not yet ported"
         )
     kinds = set(meta.get("emitter_kinds", ()))
     if kinds - PORTED_KINDS:
@@ -97,6 +121,56 @@ def check_slice(meta: dict):
         )
     if meta.get("use_bvh", False):
         _check_clusters(meta)
+
+
+def _check_textures(arrays: dict, meta: dict):
+    """Raise NotImplementedError for texture kinds the port does not
+    evaluate (scene/texture_eval.py: constant and checkerboard)."""
+    if not meta.get("has_textures", False):
+        return
+    kinds = set(np.asarray(arrays["tex_type"]).tolist()) - PORTED_TEXTURES
+    if kinds:
+        raise NotImplementedError(f"texture kinds {sorted(kinds)} not yet ported")
+
+
+def _pack_textures(textures: list) -> dict:
+    """The texture table of the procedural kinds (the reference's
+    _pack_textures without its bitmap atlas)."""
+    n = max(len(textures), 1)
+    tex = {
+        "tex_type": np.zeros(n, np.int32),
+        "tex_c0": np.zeros((n, 3), np.float32),
+        "tex_c1": np.ones((n, 3), np.float32),
+        "tex_scale": np.ones((n, 3), np.float32),
+        # uscale, vscale, uoffset, voffset
+        "tex_uv": np.tile(np.array([1.0, 1.0, 0.0, 0.0], np.float32), (n, 1)),
+    }
+    for i, t in enumerate(textures):
+        tex["tex_type"][i] = t.kind
+        tex["tex_c0"][i] = t.color0
+        tex["tex_c1"][i] = t.color1
+        tex["tex_scale"][i] = t.scale
+        tex["tex_uv"][i] = [*t.uv_scale, *t.uv_offset]
+    return tex
+
+
+def _emissive_sphere_meshes(spheres):
+    """Emissive spheres become triangles, so that area sampling stays
+    triangle-only (reference builder.py:513-541): a 32 x 16 UV sphere
+    whose radius is scaled so that its area is the sphere's, 4 pi r^2."""
+    base = _uv_sphere(32, 16)
+    bp = base.positions
+    bi = base.indices.astype(np.int64)
+    e1 = bp[bi[:, 1]] - bp[bi[:, 0]]
+    e2 = bp[bi[:, 2]] - bp[bi[:, 0]]
+    a_unit = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1).sum()
+    corr = float(np.sqrt(4.0 * np.pi / a_unit))
+    out = []
+    for s in spheres:
+        rr = s.radius * corr
+        t = Transform.translate(*s.center) * Transform.scale(rr, rr, rr)
+        out.append(_apply_transform(base, t, s.flip_normals))
+    return out
 
 
 def _check_clusters(meta: dict):
@@ -130,21 +204,27 @@ def cluster_columns(cl_tri, tc: int):
     return np.minimum((last + 3) // 4 * 4, tc).astype(np.int32)
 
 
-def _with_cl_cnt(arrays: dict, meta: dict) -> dict:
-    """arrays, plus cl_cnt (cluster_columns; not in the reference's pack)
-    where the pack has cluster tables."""
-    if "cl_tri" not in arrays:
-        return arrays
-    return {**arrays, "cl_cnt": cluster_columns(arrays["cl_tri"], meta["cluster_tc"])}
+def _with_derived(arrays: dict, meta: dict) -> dict:
+    """arrays, plus the port's tables that the reference's pack lacks,
+    where it holds what they derive from: mat_params and mat_iparams
+    (texture_eval.material_table) from the material table, cl_cnt
+    (cluster_columns) from the cluster tables."""
+    out = dict(arrays)
+    if "mat_type" in arrays:
+        out["mat_params"], out["mat_iparams"] = material_table(arrays, meta)
+    if "cl_tri" in arrays:
+        out["cl_cnt"] = cluster_columns(arrays["cl_tri"], meta["cluster_tc"])
+    return out
 
 
 def pack_from_numpy(arrays: dict, meta: dict, device) -> ScenePack:
     """Turn a reference pack ({name: numpy array} plus its meta) into the
-    port's pack on `device`, with the port's cl_cnt.  Raises
+    port's pack on `device`, with the port's derived tables.  Raises
     NotImplementedError when the scene needs features the port does not
     render yet."""
     check_slice(meta)
-    return ScenePack(_to_device(_with_cl_cnt(arrays, meta), device), dict(meta))
+    _check_textures(arrays, meta)
+    return ScenePack(_to_device(_with_derived(arrays, meta), device), dict(meta))
 
 
 def pack_scene(scene, device="cuda") -> ScenePack:
@@ -153,6 +233,15 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     materials: list[BSDFRecord] = []
     mat_index: dict[int, int] = {}
     default_bsdf = BSDFRecord(type=DIFFUSE)
+    textures, tex_index = [], {}
+
+    def add_texture(t):
+        if t is None:
+            return -1
+        if id(t) not in tex_index:
+            tex_index[id(t)] = len(textures)
+            textures.append(t)
+        return tex_index[id(t)]
 
     def add_material(rec):
         rec = default_bsdf if rec is None else rec
@@ -175,10 +264,16 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     # ---------------- flatten geometry ----------------
     v0s, e1s, e2s, n0s, n1s, n2s = [], [], [], [], [], []
     uv0s, uv1s, uv2s, tmats, temits = [], [], [], [], []
+    spheres = []  # (SphereData, material id, emitter id)
     for inst in scene.shapes:
         mat_id = add_material(inst.bsdf)
         emit_id = add_emitter(inst.emitter)
-        for mesh in inst.meshes:
+        meshes = list(inst.meshes)
+        if emit_id >= 0:
+            meshes += _emissive_sphere_meshes(inst.spheres)
+        else:
+            spheres += [(sph, mat_id, emit_id) for sph in inst.spheres]
+        for mesh in meshes:
             p = mesh.positions
             i = mesh.indices.astype(np.int64)
             a, b, c = p[i[:, 0]], p[i[:, 1]], p[i[:, 2]]
@@ -257,19 +352,81 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         bvh_arrays = {"bvh_nodes": bvh_nodes, "tri9": tri9, **cl_arrays}
         bvh_meta = {"bvh_n_layouts": n_layouts, **cl_meta}
 
+    # ---------------- spheres ----------------
+    n_sph = len(spheres)
+    sph = {
+        "sph_center": np.zeros((max(n_sph, 1), 3), np.float32),
+        "sph_radius": np.zeros(max(n_sph, 1), np.float32),
+        "sph_mat": np.zeros(max(n_sph, 1), np.int32),
+        "sph_emit": np.full(max(n_sph, 1), -1, np.int32),
+        "sph_flip": np.zeros(max(n_sph, 1), np.float32),
+    }
+    for k, (sd, m, e) in enumerate(spheres):
+        sph["sph_center"][k] = sd.center
+        sph["sph_radius"][k] = sd.radius
+        sph["sph_mat"][k] = m
+        sph["sph_emit"][k] = e
+        sph["sph_flip"][k] = -1.0 if sd.flip_normals else 1.0
+
     # ---------------- material table ----------------
     n_mat = max(len(materials), 1)
     mt = {
         "mat_type": np.zeros(n_mat, np.int32),
         "mat_cA": np.full((n_mat, 3), 0.5, np.float32),
+        "mat_cB": np.ones((n_mat, 3), np.float32),
+        "mat_cC": np.ones((n_mat, 3), np.float32),
+        "mat_cD": np.zeros((n_mat, 3), np.float32),
+        "mat_alpha_u": np.full(n_mat, 0.1, np.float32),
+        "mat_alpha_v": np.full(n_mat, 0.1, np.float32),
+        "mat_eta": np.full(n_mat, 1.5046, np.float32),
+        "mat_exponent": np.full(n_mat, 30.0, np.float32),
+        "mat_dist": np.zeros(n_mat, np.int32),
+        "mat_nonlinear": np.zeros(n_mat, np.float32),
         "mat_twosided": np.zeros(n_mat, np.float32),
+        "mat_fdr_int": np.zeros(n_mat, np.float32),
+        "mat_spec_w": np.full(n_mat, 0.5, np.float32),
+        "mat_texA": np.full(n_mat, -1, np.int32),
     }
     present_types = set()
+    mf_dists = set()  # microfacet distributions in use
     for i, rec in enumerate(materials):
         present_types.add(rec.type)
+        if rec.type in _MF_TYPES:
+            mf_dists.add(int(rec.dist))
         mt["mat_type"][i] = rec.type
         mt["mat_cA"][i] = rec.cA
+        mt["mat_cB"][i] = rec.cB
+        mt["mat_cC"][i] = rec.cC
+        mt["mat_cD"][i] = rec.cD
+        mt["mat_alpha_u"][i] = rec.alpha_u
+        mt["mat_alpha_v"][i] = rec.alpha_v
+        mt["mat_eta"][i] = rec.eta
+        mt["mat_exponent"][i] = rec.exponent
+        mt["mat_dist"][i] = rec.dist
+        mt["mat_nonlinear"][i] = float(rec.nonlinear)
         mt["mat_twosided"][i] = float(rec.twosided)
+        mt["mat_fdr_int"][i] = rec.fdr_int
+        mt["mat_spec_w"][i] = rec.spec_sampling_weight
+        mt["mat_texA"][i] = add_texture(rec.texA)
+
+    # rough-transmittance fits for roughplastic (reference rtrans.h:44-186):
+    # a cubic in cos(theta) of the external transmittance and the internal
+    # diffuse reflectance, per unique (dist, alpha, eta) (bsdf/rtrans.py)
+    mt["mat_rt"] = np.tile(np.array([0.0, 0.0, 0.0, 1.0], np.float32), (n_mat, 1))
+    mt["mat_rt_fdr"] = mt["mat_fdr_int"].copy()
+    rt_cache = {}
+    for i in np.nonzero(mt["mat_type"] == ROUGHPLASTIC)[0]:
+        key = (
+            int(mt["mat_dist"][i]),
+            round(max(float(mt["mat_alpha_u"][i]), 1e-3), 4),
+            round(float(mt["mat_eta"][i]), 4),
+        )
+        if key not in rt_cache:
+            c_ext, _ = fit_rtrans_poly(*key)
+            _, tdiff_int = fit_rtrans_poly(key[0], key[1], 1.0 / key[2])
+            rt_cache[key] = (c_ext, 1.0 - tdiff_int)
+        mt["mat_rt"][i] = rt_cache[key][0]
+        mt["mat_rt_fdr"][i] = rt_cache[key][1]
 
     # ---------------- emitter table ----------------
     n_em = max(len(emitters), 1)
@@ -311,7 +468,9 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "tri_s": tri_s,
         "tri_t": tri_t,
         **bvh_arrays,
+        **sph,
         **mt,
+        **_pack_textures(textures),
         **em,
         "area_tri_idx": (
             np.concatenate(idx_parts).astype(np.int32)
@@ -325,9 +484,11 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "emitter_cdf": emitter_cdf,
     }
     meta = {
-        "n_spheres": 0,
+        "n_tris": n_tris,
+        "n_spheres": n_sph,
         "n_emitters": len(emitters),
         "present_types": tuple(sorted(present_types)) or (DIFFUSE,),
+        "mf_dists": tuple(sorted(mf_dists)),
         "emitter_kinds": tuple(sorted({r.kind for r in emitters})),
         "use_bvh": use_bvh,
         **bvh_meta,
@@ -335,6 +496,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "env_idx": env_idx,
         "has_env": env_idx >= 0,
         "has_envmap": False,
+        "has_textures": len(textures) > 0,
+        "has_mips": False,
     }
     check_slice(meta)
-    return ScenePack(_to_device(_with_cl_cnt(arrays, meta), device), meta)
+    return ScenePack(_to_device(_with_derived(arrays, meta), device), meta)

@@ -46,6 +46,9 @@ class Properties:
     def set(self, name, value):
         self._values[name] = value
 
+    def raw(self, name):
+        return self._values[name]
+
     def _get(self, name, default, expected, caster):
         if name not in self._values:
             return default
@@ -78,6 +81,19 @@ class Properties:
 
     def get_string(self, name, default=None):
         return self._get(name, default, "string", str)
+
+    def get_point(self, name, default=None):
+        """np [3] float64; a scalar broadcasts."""
+
+        def cast(v):
+            a = np.asarray(v, np.float64).ravel()
+            if a.size == 1:
+                a = np.full(3, a[0])
+            if a.size != 3:
+                raise TypeError(f"expected 3 components, got {a.size}")
+            return a
+
+        return self._get(name, default, "point", cast)
 
     def get_spectrum(self, name, default=None):
         """Linear-RGB np [3] float32; scalars broadcast to gray."""

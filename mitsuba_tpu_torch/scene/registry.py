@@ -67,4 +67,5 @@ def _ensure_loaded():
     import mitsuba_tpu_torch.integrator.plugins  # noqa: F401
     import mitsuba_tpu_torch.sampler.plugins  # noqa: F401
     import mitsuba_tpu_torch.scene.shapes  # noqa: F401
+    import mitsuba_tpu_torch.scene.textures  # noqa: F401
     import mitsuba_tpu_torch.sensor.plugins  # noqa: F401

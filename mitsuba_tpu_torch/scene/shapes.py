@@ -4,6 +4,9 @@
   (reference src/shapes/rectangle.cpp:99-110)
 * `cube`: [-1,1]^3 with per-face normals (reference src/shapes/cube.cpp:24-30)
 * `ply`: a triangle mesh from a PLY file (reference src/shapes/ply/*)
+* `sphere`: `center` + `radius` and/or toWorld (reference
+  src/shapes/sphere.cpp:73-110), kept analytic; a non-uniform scale
+  tessellates it
 
 Other shape plugins are not registered and raise NotImplementedError.
 """
@@ -20,10 +23,19 @@ from mitsuba_tpu_torch.scene.registry import register
 
 
 @dataclass
+class SphereData:
+    center: np.ndarray  # [3]
+    radius: float
+    flip_normals: bool = False
+
+
+@dataclass
 class ShapeInstance:
-    """A shape plugin's output: world-space meshes + attachments."""
+    """A shape plugin's output: world-space meshes, analytic spheres and
+    attachments."""
 
     meshes: list = field(default_factory=list)  # list[MeshData]
+    spheres: list = field(default_factory=list)  # list[SphereData]
     bsdf = None  # set by the XML loader
     emitter = None
     id: str = ""
@@ -120,3 +132,51 @@ class PlyShape(_ShapeBase):
                 mesh.normals = None
                 mesh.face_normals = True
         return meshes
+
+
+@register("shape", "sphere")
+class SphereShape:
+    def __init__(self, props):
+        self.props = props
+        self.instance = ShapeInstance(id=props.id)
+        center = props.get_point("center", np.zeros(3))
+        radius = props.get_float("radius", 1.0)
+        t = props.get_transform("toWorld")
+        flip = props.get_bool("flipNormals", False)
+        # toWorld * translate(center) * scale(radius) (sphere.cpp:108-112
+        # folds center and radius into the object transform); analytic
+        # under a uniform scale only
+        full = t * Transform.translate(*center) * Transform.scale(radius, radius, radius)
+        scales = np.linalg.norm(full.m[:3, :3], axis=0)
+        if np.allclose(scales, scales[0], rtol=1e-4):
+            c = full.transform_point_np(np.zeros(3))
+            self.instance.spheres.append(
+                SphereData(center=np.asarray(c, np.float32), radius=float(scales[0]),
+                           flip_normals=flip)
+            )
+        else:
+            self.instance.meshes.append(_apply_transform(_uv_sphere(64, 32), full, flip))
+
+
+def _uv_sphere(n_phi, n_theta) -> MeshData:
+    """Unit UV sphere of (n_theta + 1) x (n_phi + 1) vertices with
+    normals and uv (the reference's tessellation)."""
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi + 1)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    pos = np.stack(
+        [np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp), np.cos(tt)], axis=-1
+    ).reshape(-1, 3)
+    uv = np.stack([pp / (2 * np.pi), 1.0 - tt / np.pi], axis=-1).reshape(-1, 2)
+    idx = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a = i * (n_phi + 1) + j
+            b = a + n_phi + 1
+            idx += [[a, b, a + 1], [a + 1, b, b + 1]]
+    return MeshData(
+        pos.astype(np.float32),
+        np.asarray(idx, np.uint32),
+        pos.astype(np.float32),
+        uv.astype(np.float32),
+    )

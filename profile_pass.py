@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
-    python3 profile_pass.py [dense|bigmesh|cbox] [--hits-only]
+    python3 profile_pass.py [dense|bigmesh|cbox|matpreview] [--hits-only]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
-or for scenes/cbox.xml, at 512x512 and 16 samples per pass:
+for scenes/cbox.xml, or for the matpreview variant (scenes/matpreview.xml
+under a constant environment with the independent sampler,
+tests/torch_meshes.py `matpreview_const_xml`), at 512x512 and 16 samples
+per pass:
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes of the regenerating wavefront (host clock around
@@ -16,8 +19,11 @@ or for scenes/cbox.xml, at 512x512 and 16 samples per pass:
    (kernel time over wall time; the profiler's own overhead lengthens the
    wall), the number of kernels, the 15 kernels of most device time, the
    device time of each of the port's own kernels, and the launches of each
-   of its kernel wrappers in that pass (their counters);
-3. for the meshes, holds the pair pipeline's closest hits of one camera ray
+   of its kernel wrappers in that pass (their counters); and, by stage of
+   the bounce loop (the functions in STAGES, each wrapped in a
+   `record_function` range for this pass only), the host time, the device
+   time of the kernels launched inside and the calls;
+3. for the meshes (dense, bigmesh), holds the pair pipeline's closest hits of one camera ray
    per pixel against the port's stackless BVH walk (accel/intersect.py
    `_bvh_traverse`, plain PyTorch): hit masks, prims and t, and the count
    of prims that differ at unequal t (not an exact-t tie).  Each ray where
@@ -43,6 +49,40 @@ SPP = 16  # samples per pixel of one pass
 TOP = 15  # kernels listed by device time
 
 
+# the bounce loop's stages: (module, functions) whose calls the profiled
+# pass wraps in a record_function range named after the function
+STAGES = (
+    ("mitsuba_tpu_torch.integrator.path",
+     ("intersect", "fill_interaction", "occluded", "shading_frame", "shading_params",
+      "bsdf_eval", "bsdf_pdf", "bsdf_sample")),
+    ("mitsuba_tpu_torch.emitter.eval",
+     ("sample_direct", "eval_env", "pdf_direct_env", "pdf_direct_area")),
+    ("mitsuba_tpu_torch.core.rng", ("rand4",)),
+)
+
+
+def staged():
+    """Wrap each function of STAGES in a record_function range
+    "stage:<name>"; returns a function that undoes it."""
+    import importlib
+
+    import torch
+
+    saved = []
+    for modname, names in STAGES:
+        mod = importlib.import_module(modname)
+        for name in names:
+            fn = getattr(mod, name)
+
+            def wrapped(*a, _fn=fn, _range=f"stage:{name}", **kw):
+                with torch.profiler.record_function(_range):
+                    return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+    return lambda: [setattr(mod, name, fn) for mod, name, fn in saved]
+
+
 def device_us(evt):
     """Self device time of a profiler event average, in microseconds."""
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -53,7 +93,7 @@ def device_us(evt):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("scene", nargs="?", default="dense", choices=("dense", "bigmesh", "cbox"))
+    ap.add_argument("scene", nargs="?", default="dense", choices=("dense", "bigmesh", "cbox", "matpreview"))
     ap.add_argument("--hits-only", action="store_true")
     args = ap.parse_args()
 
@@ -73,7 +113,13 @@ def main():
     from mitsuba_tpu_torch.film.film import new_film
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
-    from torch_meshes import bunny_scene_xml, bunny_standin, dense_standin, write_ply
+    from torch_meshes import (
+        bunny_scene_xml,
+        bunny_standin,
+        dense_standin,
+        matpreview_const_xml,
+        write_ply,
+    )
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -87,6 +133,8 @@ def main():
     if args.scene == "cbox":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
+    elif args.scene == "matpreview":
+        scene = mt.load_scene_string(matpreview_const_xml(RES, RES))
     else:
         mesh = dense_standin if args.scene == "dense" else bunny_standin
         ply = os.path.join(HERE, "build", f"{args.scene}_standin.ply")
@@ -103,7 +151,7 @@ def main():
     if not args.hits_only:
         profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
                        counters(pk, pairs, pb))
-    if args.scene != "cbox":
+    if args.scene in ("dense", "bigmesh"):
         check_hits(scene, pack, dev, camera_rays, intersect, pairs)
     return 0
 
@@ -134,10 +182,16 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
 
     for fn in wrappers.values():
         fn.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall, n = one_pass(4)
+    unstage = staged()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall, n = one_pass(4)
+    finally:
+        unstage()
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # on the device: kernels, and the GPU-side spans of the stage ranges
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("stage:")]
     dev_us = sum(device_us(e) for e in kernels)
     n_k = sum(e.count for e in kernels)
     print(f"profiled pass: wall {wall:.4f} s, {n} rays; device kernel time {dev_us / 1e3:.3f} ms, "
@@ -154,6 +208,15 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
     print("the port's own kernels:", flush=True)
     show([e for e in kernels if e.key.startswith(("(anonymous namespace)::", "void (anonymous"))])
     print(f"kernel launches in the profiled pass: {launches}", flush=True)
+    stages = [e for e in prof.key_averages() if e.key.startswith("stage:")
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    stages.sort(key=lambda e: e.cpu_time_total, reverse=True)
+    print("by stage (host ms inside the range, device ms of the kernels launched in it, calls):",
+          flush=True)
+    for e in stages:
+        dev_total = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        print(f"  {e.key[6:]:18s} host {e.cpu_time_total / 1e3:10.3f} ms  device "
+              f"{dev_total / 1e3:10.3f} ms  {e.count:6d} calls", flush=True)
     ov = {k: pairs.pair_closest.__dict__.get(k) for k in ("rays", "overflow_rays")}
     print(f"pair_closest counters over the run: {ov}", flush=True)
 

@@ -860,3 +860,53 @@ def test_cluster_limits_raise(mesh):
         pairs.dense_cull(o, d, t_any, torch.zeros(max_c + 8, 6, device=o.device), max_c + 1, 3)
     with pytest.raises(ValueError, match="at most"):
         pairs.dense_cull(o, d, t_any, pack.cl_mbox, pack.meta["n_clusters"], max_k + 1)
+
+
+@pytest.fixture(scope="module")
+def matpreview():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_meshes import matpreview_const_xml
+
+    xml = matpreview_const_xml(32, 32)
+    return xml, pack_scene(load_scene_string(xml), torch.device("cuda"))
+
+
+@pytest.mark.parametrize("n_rays", [1, 257, 70_001])
+def test_matpreview_brute_equal_plain(matpreview, n_rays):
+    """K1/K2 on the matpreview variant's two-triangle tri_s, rays aimed at
+    its ground from above and from below it, t_max 1e30 and finite."""
+    _, pack = matpreview
+    dev = pack.tri_s.device
+    r = np.random.default_rng(n_rays)
+    o = torch.as_tensor(r.uniform([-6, -1, -6], [6, 3, 6], (n_rays, 3)).astype(np.float32),
+                        device=dev)
+    target = torch.as_tensor(r.uniform([-9, 0, -9], [9, 0, 9], (n_rays, 3)).astype(np.float32),
+                             device=dev)
+    d = torch.nn.functional.normalize(target - o, dim=1).contiguous()
+    for tm in (torch.full((n_rays,), 1e30, device=dev),
+               torch.as_tensor(r.uniform(0.1, 8, n_rays).astype(np.float32), device=dev)):
+        t1, p1 = pk.closest_hit_v2(o, d, tm, pack.tri_s)
+        t2, p2 = pk.closest_hit_plain(o, d, tm, pack.tri_s)
+        assert torch.equal(p1, p2) and torch.equal(t1, t2)
+        assert torch.equal(pk.any_hit_v2(o, d, tm, pack.tri_s),
+                           pk.any_hit_plain(o, d, tm, pack.tri_s))
+    if n_rays > 1:
+        assert bool((p1 >= 0).any()) and bool((p1 < 0).any())
+
+
+def test_matpreview_render_on_card_matches_cpu(matpreview):
+    """The variant rendered on the card through K1/K2 against the same
+    render on the CPU through their plain versions (same random numbers;
+    float32 last places differ between the devices' math libraries)."""
+    import mitsuba_tpu_torch as mt
+
+    xml, _ = matpreview
+    scene = mt.load_scene_string(xml)
+    pk.closest_hit_v2.launches = pk.any_hit_v2.launches = 0
+    card = mt.render(scene, spp=4, seed=0)
+    assert pk.closest_hit_v2.launches > 0 and pk.any_hit_v2.launches > 0
+    cpu = mt.render(scene, spp=4, seed=0, device="cpu")
+    assert np.isfinite(card).all()
+    rmse = float(np.sqrt(np.mean((card / (1 + card) - cpu / (1 + cpu)) ** 2)))
+    assert rmse < 5e-3, rmse

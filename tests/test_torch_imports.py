@@ -98,3 +98,12 @@ def test_entry_points_default_to_the_card():
     for fn in (render, pack_scene):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__name__
+
+
+def test_materials_modules_are_checked():
+    """The materials slice's modules are among the sources checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("bsdf/microfacet.py", "bsdf/ior.py", "bsdf/rtrans.py", "bsdf/eval.py",
+                "bsdf/plugins.py", "scene/textures.py", "scene/texture_eval.py",
+                "scene/shapes.py", "accel/intersect.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod

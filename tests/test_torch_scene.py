@@ -18,6 +18,7 @@ from mitsuba_tpu_torch.scene.builder import (
     pack_scene,
 )
 from mitsuba_tpu_torch.scene.xml_loader import load_scene, load_scene_string
+from tests.torch_meshes import EMISSIVE_SPHERE_XML, matpreview_const_xml
 
 torch.set_num_threads(1)
 
@@ -49,14 +50,16 @@ def _jax_np(jp):
     return {k: np.asarray(v) for k, v in jp.arrays.items()}
 
 
-@pytest.mark.parametrize("name", ["cbox", "two_lights"])
+@pytest.mark.parametrize("name", ["cbox", "two_lights", "matpreview", "emissive_sphere"])
 def test_pack_equals_reference(name):
     if name == "cbox":
         jp = jpack_scene(jload(CBOX))
         tp = pack_scene(load_scene(CBOX), "cpu")
     else:
-        jp = jpack_scene(jload_string(TWO_LIGHTS))
-        tp = pack_scene(load_scene_string(TWO_LIGHTS), "cpu")
+        xml = {"two_lights": TWO_LIGHTS, "matpreview": matpreview_const_xml(64, 64),
+               "emissive_sphere": EMISSIVE_SPHERE_XML}[name]
+        jp = jpack_scene(jload_string(xml))
+        tp = pack_scene(load_scene_string(xml), "cpu")
     ref = _jax_np(jp)
     for k in SLICE_ARRAYS:
         out = tp.arrays[k].numpy()
@@ -117,10 +120,10 @@ def test_srgb_reflectance_within_one_ulp():
 @pytest.mark.parametrize(
     "snippet",
     [
-        '<bsdf type="roughconductor"/>',
+        '<bsdf type="phong"/>',
         '<emitter type="point"/>',
-        '<shape type="sphere"/>',
-        '<shape type="rectangle"><bsdf type="diffuse"><texture name="reflectance" type="checkerboard"/></bsdf></shape>',
+        '<shape type="cylinder"/>',
+        '<shape type="rectangle"><bsdf type="diffuse"><texture name="reflectance" type="gridtexture"/></bsdf></shape>',
         '<shape type="rectangle"><transform name="toWorld"><rotate x="1" angle="90"/></transform>'
         '<emitter type="area"><blackbody name="radiance" temperature="3000"/></emitter></shape>',
     ],
@@ -138,7 +141,7 @@ def test_unported_pack_features_raise():
     jp = jpack_scene(jload(CBOX))
     # use_bvh without cluster tables: the reference's plain BVH walk is
     # not a ported render path
-    for key, value in (("has_envmap", True), ("use_bvh", True), ("present_types", (0, 3))):
+    for key, value in (("has_envmap", True), ("use_bvh", True), ("present_types", (0, 9))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             pack_from_numpy(_jax_np(jp), {**jp.meta, key: value}, "cpu")
 
@@ -165,3 +168,15 @@ def test_large_scene_raises(monkeypatch):
     monkeypatch.setattr(clusters, "CLUSTER_HBM_MAX", c * tc * 256 - 1)
     with pytest.raises(NotImplementedError, match="without cluster tables"):
         pack_scene(scene, "cpu")
+
+
+def test_unported_texture_kinds_raise():
+    """A reference pack with a bitmap texture (kind 1) is refused, with or
+    without its mip maps; the ported kinds (constant, checkerboard) pass."""
+    jp = jpack_scene(jload_string(matpreview_const_xml(16, 16)))
+    arrays = _jax_np(jp)
+    assert pack_from_numpy(arrays, jp.meta, "cpu").meta["has_textures"]
+    bitmap = {**arrays, "tex_type": np.ones_like(arrays["tex_type"])}
+    for meta in (jp.meta, {**jp.meta, "has_mips": True}):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            pack_from_numpy(bitmap, meta, "cpu")

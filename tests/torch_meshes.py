@@ -10,6 +10,11 @@ non-convex, shadows and lights itself.  It is scaled into the region the
 scene's camera looks at.  `dense_standin` is the same surface at the
 Stanford dragon's triangle count.  `bunny_scene_xml` is scenes/bunny.xml with the
 mesh file replaced, so the configuration stays the scene's own.
+`matpreview_const_xml` is scenes/matpreview.xml with a constant white
+environment in place of its envmap and the independent sampler in place
+of sobol, the materials slice's scene.  `EMISSIVE_SPHERE_XML` and
+`cbox_sphere_xml` hold analytic spheres beside more triangles than
+spheres.
 """
 
 import os
@@ -19,6 +24,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNNY_XML = os.path.join(ROOT, "scenes", "bunny.xml")
+MATPREVIEW_XML = os.path.join(ROOT, "scenes", "matpreview.xml")
+CBOX_XML = os.path.join(ROOT, "scenes", "cbox.xml")
 # where the camera of scenes/bunny.xml looks, and the bunny's extent
 STANDIN_CENTER = (-0.02, 0.1, 0.0)
 STANDIN_RADIUS = 0.07
@@ -125,7 +132,62 @@ def bunny_scene_xml(ply_path, width=None, height=None):
                      lambda m: m.group(1) + ply_path + m.group(2), xml)
     if n != 1:
         raise ValueError(f"{BUNNY_XML} names {n} files, expected its one mesh")
+    return _film_size(xml, width, height)
+
+
+def _film_size(xml, width, height):
     if width is not None:
         xml = xml.replace('name="width" value="512"', f'name="width" value="{width}"')
         xml = xml.replace('name="height" value="512"', f'name="height" value="{height}"')
     return xml
+
+
+def matpreview_const_xml(width=None, height=None):
+    """scenes/matpreview.xml with `<emitter type="constant">` of radiance
+    1 in place of its envmap and `independent` in place of its sobol
+    sampler (same sample count), optionally at another film size."""
+    with open(MATPREVIEW_XML) as f:
+        xml = f.read()
+    const = '<emitter type="constant"><rgb name="radiance" value="1, 1, 1"/></emitter>'
+    xml, n_env = re.subn(r'<emitter type="envmap">.*?</emitter>', const, xml, flags=re.S)
+    xml, n_smp = re.subn(r'<sampler type="sobol">', '<sampler type="independent">', xml)
+    if (n_env, n_smp) != (1, 1):
+        raise ValueError(f"{MATPREVIEW_XML}: {n_env} envmaps and {n_smp} sobol samplers, "
+                         "expected one of each")
+    return _film_size(xml, width, height)
+
+
+# an emissive sphere is tessellated (1,024 triangles: the BVH path) beside
+# an analytic one and a rectangle under a constant environment, seen from
+# the spheres' side at 16 x 16
+EMISSIVE_SPHERE_XML = """
+<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="6"/></integrator>
+  <sensor type="perspective"><float name="fov" value="50"/>
+    <transform name="toWorld"><lookat origin="0.4,1.5,-4" target="0.4,0,-0.5" up="0,1,0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="8"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="16"/><integer name="height" value="16"/>
+      <rfilter type="gaussian"/></film>
+  </sensor>
+  <shape type="rectangle"><bsdf type="roughplastic"><float name="alpha" value="0.2"/></bsdf></shape>
+  <shape type="sphere"><point name="center" x="0" y="0" z="-1"/><float name="radius" value="0.3"/>
+    <emitter type="area"><rgb name="radiance" value="5"/></emitter></shape>
+  <shape type="sphere"><point name="center" x="1" y="0" z="-1"/><float name="radius" value="0.4"/>
+    <bsdf type="roughdielectric"><string name="distribution" value="ggx"/></bsdf></shape>
+  <emitter type="constant"><rgb name="radiance" value="0.5, 0.5, 0.5"/></emitter>
+</scene>
+"""
+
+
+def cbox_sphere_xml(width=None, height=None):
+    """scenes/cbox.xml (36 triangles) with one analytic rough-conductor
+    sphere on the floor in front of the tall block, optionally at another
+    film size."""
+    with open(CBOX_XML) as f:
+        xml = f.read()
+    sphere = ('<shape type="sphere"><point name="center" x="390" y="90" z="150"/>'
+              '<float name="radius" value="90"/><bsdf type="roughconductor"/></shape>')
+    head, n = re.subn(r"</scene>\s*$", sphere + "\n</scene>\n", xml)
+    if n != 1:
+        raise ValueError(f"{CBOX_XML} does not end with </scene>")
+    return _film_size(head, width, height)
