@@ -7,9 +7,11 @@ Phases, each of which raises (and exits non-zero) on failure:
 
 1. require a CUDA device, print the card's name and power limit, and
    build the port's kernels from csrc/ with nvcc (one nvcc per source,
-   started together); beside them, ptxas's registers, stack and spills of
-   every kernel (K1/K2/K11, K12, K3, K4, K5 and K6 may neither spill nor
-   use a stack);
+   started together) and its host alias-table builder
+   (csrc/host/alias_table.cpp) with g++ beside them, which the envmap's
+   table must come from; beside them, ptxas's registers, stack and spills
+   of every kernel (K1/K2/K11, K12, K3, K4, K5 and K6 may neither spill
+   nor use a stack);
 2. hold each kernel against its plain PyTorch version on the card and
    time both (CUDA events, median of 20 runs, the host's launch work
    between the events), and print each kernel's time on the card alone
@@ -52,11 +54,13 @@ Phases, each of which raises (and exits non-zero) on failure:
      kernels they replaced;
      also the natural overflow share at K = 3, KS = 8, and K4 on the
      cluster lists K6 takes (equal results), timed beside K6;
-   * K1/K2 on the matpreview variant's tri_s (its ground's 2 triangles;
-     scenes/matpreview.xml under a constant environment with the
-     independent sampler, tests/torch_meshes.py `matpreview_const_xml`),
-     bit for bit, on its 262,144 camera rays and on the shadow rays of
-     their first hits toward the environment, as a pass spawns them;
+   * K1/K2 on the tri_s of scenes/matpreview.xml (its ground's 2
+     triangles), as it stands (envmap, sobol) and as the variant
+     (a constant environment and the independent sampler,
+     tests/torch_meshes.py `matpreview_const_xml`), bit for bit, on its
+     262,144 camera rays and on the shadow rays of their first hits toward
+     the environment with the first bounce's NEE draw of a pass (for the
+     envmap, alias-sampled directions; t_max 1e7);
    each kernel's time beside its bound (the larger of its operations
    over the card's FP32 rate and its bytes over the memory rate, from
    this run's inputs, counting only the real triangles of padded
@@ -66,6 +70,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    after, and fail unless every kernel of the path launched:
    * scenes/cbox.xml at 64x64, 16 spp, seed 0 against
      tests/golden/cbox_64_16.npy (tone-mapped RMSE < 5e-3): K1/K2;
+   * scenes/matpreview.xml as it stands at 64x64, 16 spp, seed 0 against
+     the reference's own tests/golden/matpreview_64_16.npy (RMSE < 5e-3):
+     K1/K2, with the sphere hits counted (> 0), and the calls of the
+     sobol decision draws (core/sobol.py `sobol_01_dyn`) and of the
+     envmap's alias draw and lookup (emitter/eval.py `_sample_env_dir`,
+     `_env_bilinear`) counted (> 0);
    * the matpreview variant at 64x64, 16 spp, seed 0 against
      tests/golden/torch_matpreview_const_64_16.npy (the JAX package's
      render; RMSE < 5e-3): K1/K2, with the sphere hits counted (> 0);
@@ -86,7 +96,14 @@ Phases, each of which raises (and exits non-zero) on failure:
      fallback did not run; with its pack time and peak device memory;
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
-   for the Cornell box, both stand-ins and the matpreview variant.
+   for the Cornell box, both stand-ins, scenes/matpreview.xml and the
+   matpreview variant (one timed pass, no warm-up); for
+   scenes/matpreview.xml also the tone-mapped RMSE of its 32-spp image
+   against bench_refs/matpreview_512.npz (no gate; the reference recorded
+   0.0112 at 2,048 spp), and from one more pass under torch.profiler
+   (CUDA activity) its kernels per pass and per bounce (K1 launches once
+   per bounce iteration) and its busy share (device time over the
+   profiled pass's wall time).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -106,6 +123,9 @@ GOLDEN = os.path.join(HERE, "tests", "golden", "cbox_64_16.npy")
 BIGMESH_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_bigmesh_64_16.npy")
 DENSE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_densemesh_64_16.npy")
 MATPREVIEW_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_matpreview_const_64_16.npy")
+MATPREVIEW_XML = os.path.join(HERE, "scenes", "matpreview.xml")
+MATPREVIEW_REF_GOLDEN = os.path.join(HERE, "tests", "golden", "matpreview_64_16.npy")
+MATPREVIEW_REF_512 = os.path.join(HERE, "bench_refs", "matpreview_512.npz")
 STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
 DENSE_PLY = os.path.join(HERE, "build", "dense_standin.ply")
 SOURCES = {"brute_tiled": "mitsuba_tpu_torch/csrc/brute_tiled.cu",
@@ -185,6 +205,13 @@ MXU_OPS = 46
 # padding columns of the triangle tables hold the far triangle (v0 = 1e30),
 # which no ray hits: the bounds count only the triangles below this
 FAR_V0 = 1e29
+
+
+T_START = time.time()
+
+
+def elapsed():
+    return f"[{time.time() - T_START:.1f} s]"
 
 
 def check(cond, msg):
@@ -842,37 +869,62 @@ def render_checked(mt, counted, scene, golden_path, dev, label, pack=None):
     return launches
 
 
-def throughput(make_render_pass, new_film, pack, scene, dev, label, card):
-    """Traced rays per second over THROUGHPUT_PASSES passes at 512x512
-    after one warm-up pass."""
+def throughput(make_render_pass, new_film, pack, scene, dev, label, card,
+               passes=THROUGHPUT_PASSES, warm=True, ref=None, closest=None):
+    """Traced rays per second over `passes` passes at 512x512, after one
+    warm-up pass into a film of its own unless `warm` is false (where a
+    scene of the same size and kernels ran just before).  With `ref` (an .npz of the
+    converged image), also the tone-mapped RMSE of the timed passes'
+    image against it; with `closest` (K1's wrapper), one more pass under
+    the profiler for kernels per pass and per bounce and the busy share."""
+    import numpy as np
     import torch
+
+    from mitsuba_tpu_torch.film.film import develop
 
     rec = scene.sensor.record
     w, h = rec.film.width, rec.film.height
     rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler,
                           THROUGHPUT_SPP_CHUNK, dev)
-    film = new_film(h, w, dev)
     t0 = time.time()
-    film, _ = rp(film, 0, 0)
-    torch.cuda.synchronize()
+    if warm:
+        rp(new_film(h, w, dev), 0, 0)
+        torch.cuda.synchronize()
     warm_s = time.time() - t0
+    film = new_film(h, w, dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
     t0 = time.time()
-    for i in range(THROUGHPUT_PASSES):
-        film, n_rays = rp(film, (i + 1) * THROUGHPUT_SPP_CHUNK, 0)
+    for i in range(passes):
+        film, n_rays = rp(film, i * THROUGHPUT_SPP_CHUNK, 0)
         total = total + n_rays
     n_total = int(total)  # synchronises
     elapsed = time.time() - t0
     check(bool(torch.isfinite(film).all()), f"{label} 512x512 film has non-finite values")
     rays_s = n_total / elapsed
-    print(f"phase 4: {label} {w}x{h}, {THROUGHPUT_PASSES} passes x {THROUGHPUT_SPP_CHUNK} spp: "
+    out = {"scene": label, "width": w, "height": h, "spp_chunk": THROUGHPUT_SPP_CHUNK,
+           "passes": passes, "rays": n_total, "seconds": elapsed, "rays_per_s": rays_s,
+           "card": card}
+    print(f"phase 4: {label} {w}x{h}, {passes} passes x {THROUGHPUT_SPP_CHUNK} spp: "
           f"{n_total} rays in {elapsed:.3f} s = {rays_s:.6g} rays/s "
-          f"(first pass {warm_s:.3f} s) on {card}", flush=True)
-    print(json.dumps({"throughput": {
-        "scene": label, "width": w, "height": h, "spp_chunk": THROUGHPUT_SPP_CHUNK,
-        "passes": THROUGHPUT_PASSES, "rays": n_total, "seconds": elapsed,
-        "rays_per_s": rays_s, "card": card,
-    }}), flush=True)
+          f"({f'first pass {warm_s:.3f} s' if warm else 'no warm-up pass'}) on {card}", flush=True)
+    if ref is not None:
+        img = (develop(film) * rec.ray_weight).cpu().numpy()
+        gold = np.load(ref)["img"].astype(np.float32)
+        check(img.shape == gold.shape, f"{label}: image {img.shape}, reference {gold.shape}")
+        out["rmse_vs_ref"] = float(np.sqrt(np.mean((img / (1 + img) - gold / (1 + gold)) ** 2)))
+        print(f"  {label}: tone-mapped RMSE of the {passes * THROUGHPUT_SPP_CHUNK}-spp image vs "
+              f"{os.path.relpath(ref, HERE)}: {out['rmse_vs_ref']:.6g} (no gate)", flush=True)
+    if closest is not None:
+        wall, dev_ms, n_k, iters = profiled_pass(rp, new_film(h, w, dev),
+                                                passes * THROUGHPUT_SPP_CHUNK, closest)
+        check(iters > 0, f"{label}: the profiled pass launched no K1")
+        out.update(profiled_wall_s=wall, device_ms=dev_ms, kernels_per_pass=n_k,
+                   bounce_iterations=iters, kernels_per_bounce=n_k / iters,
+                   busy=dev_ms / 1e3 / wall)
+        print(f"  {label}: profiled pass (CUDA activity) wall {wall:.4f} s, device time "
+              f"{dev_ms:.3f} ms, busy share {out['busy']:.4f}; {n_k} kernels over {iters} bounce "
+              f"iterations = {out['kernels_per_bounce']:.1f} per bounce", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
 
 
 def camera_rays(scene, dev):
@@ -894,42 +946,103 @@ def camera_rays(scene, dev):
 
 
 def matpreview_rays(scene, pack, dev, seed=0):
-    """The matpreview variant's camera rays (one per pixel centre) and the
+    """A matpreview scene's camera rays (one per pixel centre) and the
     shadow rays of their first hits as the path tracer spawns them: toward
-    a direction sampled from the constant environment, from the hit point
-    offset along the normal, t_max 1e7."""
+    a direction sampled from the environment with the NEE draw of a
+    pass's first bounce (sample 0, the scene's sampler), from the hit
+    point offset along the normal, t_max 1e7."""
     import torch
 
     from mitsuba_tpu_torch.accel.intersect import fill_interaction, intersect
+    from mitsuba_tpu_torch.core import rng
     from mitsuba_tpu_torch.emitter import eval as em
-    from mitsuba_tpu_torch.integrator.path import SHADOW_EPS, _offset_ray
+    from mitsuba_tpu_torch.integrator.path import _SLOT_NEE, SHADOW_EPS, _offset_ray
+    from mitsuba_tpu_torch.sampler.plugins import ld_decision4
 
     o, d = camera_rays(scene, dev)
     its = fill_interaction(pack, o, d, intersect(pack, o, d))
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    ds = em.sample_direct(pack, its.p, torch.rand(o.shape[0], 3, device=dev, generator=gen))
+    lane = torch.arange(o.shape[0], device=dev)
+    sidx = torch.zeros_like(lane)
+    dslot = torch.full((o.shape[0],), _SLOT_NEE, dtype=torch.int32, device=dev)
+    u_n = ld_decision4(scene.sensor.record.sampler, lane, sidx, dslot,
+                       rng.rand4(lane, sidx, dslot, seed), seed)
+    ds = em.sample_direct(pack, its.p, u_n[..., :3])
     o_sh = _offset_ray(its.p, its.ng, ds.d)
     t_sh = torch.where(ds.dist >= em.ENV_DIST, 1e7, ds.dist * (1.0 - SHADOW_EPS))
     keep = its.valid
     return (o, d), (o_sh[keep].contiguous(), ds.d[keep].contiguous(), t_sh[keep].contiguous())
 
 
-def matpreview_brute(pk, scene, pack, dev, stats):
-    """K1/K2 on the matpreview variant's tri_s (its ground's two
-    triangles) against their plain versions, bit for bit, on its camera
-    rays (t_max 1e30, as the renderer calls them) and on its shadow rays."""
+def matpreview_brute(pk, scene, pack, dev, stats, label):
+    """K1/K2 on a matpreview scene's tri_s (its ground's two triangles)
+    against their plain versions, bit for bit, on its camera rays (t_max
+    1e30, as the renderer calls them) and on its shadow rays."""
     import torch
 
     (o, d), (o_s, d_s, t_s) = matpreview_rays(scene, pack, dev)
     n_tri = int((pack.tri_s[0] < FAR_V0).sum())
-    check(n_tri == 2, f"matpreview's tri_s holds {n_tri} triangles, expected 2")
+    check(n_tri == 2, f"{label}'s tri_s holds {n_tri} triangles, expected 2")
     t_far = torch.full((o.shape[0],), 1e30, device=dev)
-    print(f"  matpreview: {o.shape[0]} camera rays, {o_s.shape[0]} shadow rays, "
-          f"tri_s {tuple(pack.tri_s.shape)}", flush=True)
+    print(f"  {label}: {o.shape[0]} camera rays, {o_s.shape[0]} shadow rays "
+          f"(t_max {float(t_s.min()):g}..{float(t_s.max()):g}), tri_s {tuple(pack.tri_s.shape)}",
+          flush=True)
     for rays, tm in (((o, d), t_far), ((o_s, d_s), t_s)):
         for name in ("closest_hit_v2", "any_hit_v2"):
             compare_brute(pk, name, *rays, tm, pack.tri_s, n_tri, stats, exact=True)
             brute_beside(pk, stats[-1], *rays, tm, pack.tri_s, False)
+
+
+def count_calls(mod, name):
+    """Wrap mod.name so that it counts its calls in .calls; returns the
+    original to restore."""
+    inner = getattr(mod, name)
+
+    def counted(*args, **kwargs):
+        counted.calls += 1
+        return inner(*args, **kwargs)
+
+    counted.calls = 0
+    setattr(mod, name, counted)
+    return inner
+
+
+def device_us(evt):
+    """Self device time of a profiler event average, in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return getattr(evt, attr)
+    return 0.0
+
+
+def device_events(prof):
+    """(device ms, count) of a finished profile's device events (kernels,
+    copies, fills; not the device spans of record_function ranges), read
+    from its raw events: key_averages() first builds every CPU and device
+    event into a tree of Python objects, which takes tens of seconds for
+    a matpreview pass."""
+    import torch
+
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+    return sum(e.duration_ns() for e in evs) / 1e6, len(evs)
+
+
+def profiled_pass(rp, film, sample_base, closest):
+    """One pass under torch.profiler (CUDA activity only, so that the
+    profiler adds little host work): (wall s, device ms, device events,
+    bounce iterations), the iterations counted by K1's launches (one
+    closest hit per iteration)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    closest.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _, n_rays = rp(film, sample_base, 0)
+        int(n_rays)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return (wall, *device_events(prof), closest.launches)
 
 
 def count_sphere_hits(intersect_mod):
@@ -962,7 +1075,11 @@ def main():
     from mitsuba_tpu_torch.accel import pairs
     from mitsuba_tpu_torch.accel import pallas_bvh as pb
     from mitsuba_tpu_torch.accel import pallas_kernels as pk
+    from mitsuba_tpu_torch.core import sobol
+    from mitsuba_tpu_torch.core.distribution import alias_library
+    from mitsuba_tpu_torch.emitter import eval as em
     from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.sampler.plugins import SOBOL
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
     sys.path.append(os.path.join(HERE, "tests"))
@@ -987,12 +1104,16 @@ def main():
 
     # ---- phase 1: build (one nvcc per source, in parallel) ----
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2 * len(SOURCES)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(2 * len(SOURCES) + 1) as ex:
+        alias = ex.submit(alias_library)
         usage = [ex.submit(native.resource_usage, n) for n in SOURCES]
         libs = dict(zip(SOURCES, ex.map(native.build, SOURCES)))
         usage = {fn: u for f in usage for fn, u in f.result().items()}
+        check(alias.result() is not None,
+              "g++ could not build the alias-table builder csrc/host/alias_table.cpp")
     print(f"phase 1: built {sorted(os.path.relpath(p, HERE) for p in libs.values())} "
-          f"in {time.time() - t0:.2f} s", flush=True)
+          f"and {os.path.relpath(alias.result()._name, HERE)} in {time.time() - t0:.2f} s "
+          f"{elapsed()}", flush=True)
     for fn, u in sorted(usage.items()):
         print(f"  ptxas {fn}: {u}", flush=True)
         if any(k in fn for k in ("brute_kernel", "mxu_kernel", "dense_cull", "pair_kernel",
@@ -1001,7 +1122,7 @@ def main():
                   f"{fn} uses a stack or spills: {u}")
 
     # ---- phase 2: kernels vs plain on the card ----
-    print("phase 2: kernels vs plain versions", flush=True)
+    print(f"phase 2: kernels vs plain versions {elapsed()}", flush=True)
     stats = []
     scene = mt.load_scene(CBOX)
     scene.sensor.record.film.width = scene.sensor.record.film.height = 512
@@ -1028,9 +1149,13 @@ def main():
               torch.as_tensor(pk.build_mt_matrix(v0, e1, e2, n_tri), device=dev), n_tri, stats,
               False)
     launch_cost(pk, native, dev, pack.tri_s, pack.tri_t, box_mt)
+    real = mt.load_scene(MATPREVIEW_XML)  # 512x512, envmap and sobol
+    real_pack = pack_scene(real, dev)
+    check(real_pack.meta["has_envmap"], "scenes/matpreview.xml packed without its envmap")
+    matpreview_brute(pk, real, real_pack, dev, stats, "matpreview")
     mp = mt.load_scene_string(matpreview_const_xml())  # 512x512
     mp_pack = pack_scene(mp, dev)
-    matpreview_brute(pk, mp, mp_pack, dev, stats)
+    matpreview_brute(pk, mp, mp_pack, dev, stats, "matpreview variant")
 
     os.makedirs(os.path.dirname(STANDIN_PLY), exist_ok=True)
     write_ply(STANDIN_PLY, *bunny_standin(seed=0))
@@ -1068,6 +1193,7 @@ def main():
     compare_dense(pairs, pb, "random", dense_pack, o_r, d_r, t_any, stats, rng)
 
     # ---- phase 3: the slices on the card, through the kernels ----
+    print(f"phase 3: renders {elapsed()}", flush=True)
     counted = counters(pk, pairs, pb)
     scene64 = mt.load_scene(CBOX)
     scene64.sensor.record.film.width = scene64.sensor.record.film.height = 64
@@ -1077,16 +1203,37 @@ def main():
     launches.update(brute_entry_points(pk, pack, *camera_rays(scene, dev)))
     from mitsuba_tpu_torch.accel import intersect as intersect_mod
 
+    real64 = mt.load_scene(MATPREVIEW_XML)
+    real64.sensor.record.film.width = real64.sensor.record.film.height = 64
+    check(real64.sensor.record.sampler.kind == SOBOL, "scenes/matpreview.xml is not sobol")
+    inner = count_sphere_hits(intersect_mod)
+    arms = [(mod, name, count_calls(mod, name)) for mod, name in (
+        (sobol, "sobol_01_dyn"), (em, "_sample_env_dir"), (em, "_env_bilinear"))]
+    real_launches = render_checked(
+        mt, {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")},
+        real64, MATPREVIEW_REF_GOLDEN, dev, "matpreview")
+    sphere_hits = intersect_mod._intersect_spheres.hits
+    calls = {name: getattr(mod, name).calls for mod, name, _ in arms}
+    intersect_mod._intersect_spheres = inner
+    for mod, name, fn in arms:
+        setattr(mod, name, fn)
+    print(f"  matpreview: {sphere_hits} sphere hits (closest-hit and shadow queries); calls of "
+          f"the sobol decision draw and the envmap arms {calls}", flush=True)
+    check(sphere_hits > 0, "the matpreview render hit no sphere")
+    for k, n in {**real_launches, **calls}.items():
+        check(n > 0, f"the matpreview render never ran {k}")
     inner = count_sphere_hits(intersect_mod)
     mp_launches = render_checked(
         mt, {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")},
-        mt.load_scene_string(matpreview_const_xml(64, 64)), MATPREVIEW_GOLDEN, dev, "matpreview")
+        mt.load_scene_string(matpreview_const_xml(64, 64)), MATPREVIEW_GOLDEN, dev,
+        "matpreview variant")
     sphere_hits = intersect_mod._intersect_spheres.hits
     intersect_mod._intersect_spheres = inner
-    print(f"  matpreview: {sphere_hits} sphere hits (closest-hit and shadow queries)", flush=True)
-    check(sphere_hits > 0, "the matpreview render hit no sphere")
+    print(f"  matpreview variant: {sphere_hits} sphere hits (closest-hit and shadow queries)",
+          flush=True)
+    check(sphere_hits > 0, "the matpreview variant's render hit no sphere")
     for k, n in mp_launches.items():
-        check(n > 0, f"the matpreview render never launched {k}")
+        check(n > 0, f"the matpreview variant's render never launched {k}")
     big64 = mt.load_scene_string(bunny_scene_xml(STANDIN_PLY, 64, 64))
     cluster_names = [k for k, src, _ in KERNELS if src == "cluster_hit"]
     for fn in (pairs.pair_closest, pairs.pair_any):
@@ -1131,10 +1278,14 @@ def main():
         check(n > 0, f"the render never launched {k}")
 
     # ---- phase 4: throughput at 512x512 ----
+    print(f"phase 4: throughput {elapsed()}", flush=True)
     throughput(make_render_pass, new_film, pack, scene, dev, "cbox", card)
     throughput(make_render_pass, new_film, big_pack, big, dev, "bigmesh-standin", card)
     throughput(make_render_pass, new_film, dense_pack, dense, dev, "densemesh-standin", card)
-    throughput(make_render_pass, new_film, mp_pack, mp, dev, "matpreview-const", card)
+    throughput(make_render_pass, new_film, real_pack, real, dev, "matpreview", card,
+               ref=MATPREVIEW_REF_512, closest=pk.closest_hit_v2)
+    throughput(make_render_pass, new_film, mp_pack, mp, dev, "matpreview-const", card, passes=1,
+               warm=False)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded
@@ -1159,6 +1310,7 @@ def main():
             "bound_by": first[name]["bound_by"],
             "library_ms": None,
         })
+    print(f"done {elapsed()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

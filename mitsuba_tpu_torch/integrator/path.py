@@ -64,8 +64,8 @@ def _check_integrator(pack, integ):
         raise NotImplementedError(f"integrator '{integ.kind}' not yet ported")
     if integ.strict_normals or integ.hide_emitters:
         raise NotImplementedError("path options strictNormals/hideEmitters not yet ported")
-    if pack.meta.get("has_envmap", False) or pack.meta.get("has_sss", False):
-        raise NotImplementedError("envmap lights / subsurface not yet ported")
+    if pack.meta.get("has_sss", False):
+        raise NotImplementedError("subsurface scattering not yet ported")
 
 
 def path_trace_regen(

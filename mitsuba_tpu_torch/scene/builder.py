@@ -4,7 +4,7 @@ renders: triangle meshes (brute force up to 512 triangles, BVH + cluster
 tables above), analytic spheres (tessellated where they emit), the
 diffuse, conductor, dielectric and plastic material families (smooth and
 rough) with checkerboard-textured reflectances, area emitters and a
-constant environment.
+constant or image-based (`envmap`) environment.
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -33,9 +33,10 @@ from mitsuba_tpu_torch.bsdf.plugins import (
     BSDFRecord,
 )
 from mitsuba_tpu_torch.bsdf.rtrans import fit_rtrans_poly
+from mitsuba_tpu_torch.core.distribution import Distribution2D, build_alias
 from mitsuba_tpu_torch.core.transform import Transform
 from mitsuba_tpu_torch.emitter.eval import PORTED_KINDS
-from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT
+from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT, ENVMAP
 from mitsuba_tpu_torch.scene.shapes import _apply_transform, _uv_sphere
 from mitsuba_tpu_torch.scene.texture_eval import material_table
 from mitsuba_tpu_torch.scene.textures import TEX_CONSTANT, TEX_CHECKERBOARD
@@ -60,10 +61,13 @@ SLICE_ARRAYS = (
     "sph_center", "sph_radius", "sph_mat", "sph_emit", "sph_flip",
     "em_kind", "em_rgb", "em_area", "em_tri_lo", "em_tri_hi",
     "area_tri_idx", "area_tri_cdf", "emitter_pmf", "emitter_cdf",
+    "env_image", "env_to_world", "env_to_local", "env_density", "env_alias_prob",
+    "env_alias_idx", "env_alias_fused",
 )
 SLICE_META = (
     "n_tris", "n_spheres", "n_emitters", "present_types", "mf_dists", "emitter_kinds",
-    "use_bvh", "has_area", "has_env", "has_envmap", "env_idx", "has_textures", "has_mips",
+    "use_bvh", "has_area", "has_env", "has_envmap", "env_idx", "env_alias_fused_ok",
+    "has_textures", "has_mips",
 )
 # ... and, for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters
 BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_sup", "cl_mbox", "cl_pad2prim")
@@ -75,7 +79,6 @@ BVH_META = (
 # (key, value meaning "absent", feature name)
 _UNPORTED_FEATURES = (
     ("n_cyls", 0, "analytic cylinders"),
-    ("has_envmap", False, "envmap emitters"),
     ("has_media", False, "participating media"),
     ("has_sss", False, "subsurface scattering"),
     ("has_mips", False, "bitmap textures"),
@@ -171,6 +174,54 @@ def _emissive_sphere_meshes(spheres):
         t = Transform.translate(*s.center) * Transform.scale(rr, rr, rr)
         out.append(_apply_transform(base, t, s.flip_normals))
     return out
+
+
+def _luminance(rgb):
+    """Y of linear RGB in float32 (reference core/spectrum.py luminance,
+    spectrum.h getLuminance)."""
+    return (rgb[..., 0] * np.float32(0.212671) + rgb[..., 1] * np.float32(0.715160)
+            + rgb[..., 2] * np.float32(0.072169))
+
+
+def _env_table(rec) -> tuple[dict, dict]:
+    """The environment's arrays and meta (reference builder.py:1236-1331):
+    for an envmap its scaled image, its transforms and the alias table of
+    its luminance x sin(theta) weights (+1e-12, so that every pixel can
+    be drawn), each row fused as [prob, alias, dens_self, dens_alias];
+    for a constant environment or none, the reference's 1 x 2 stand-in.
+    The alias table replaces the reference's hierarchical CDF inversion
+    (src/emitters/envmap.cpp sampleDirection) with the same per-pixel
+    density, so pdfs and MIS weights are unchanged."""
+    env_image = np.zeros((1, 2, 3), np.float32)
+    env_to_world = np.eye(4, dtype=np.float32)
+    env_weights = np.ones((1, 2))
+    if rec is not None and rec.kind == ENVMAP:
+        env_image = rec.env_image * rec.scale
+        env_to_world = rec.to_world.m.astype(np.float32)
+    if rec is not None and env_image.size > 3:
+        h = env_image.shape[0]
+        sin_t = np.sin((np.arange(h) + 0.5) / h * np.pi)
+        env_weights = _luminance(env_image) * sin_t[:, None] + 1e-12
+    dist = Distribution2D.from_weights(env_weights)
+    prob, alias = build_alias(env_weights)
+    fused_ok = prob.size < (1 << 24)  # alias ids exact in float32
+    dens = dist.density.reshape(-1)
+    fused = (
+        np.stack([prob, alias.astype(np.float32), dens, dens[alias]], axis=-1).astype(np.float32)
+        if fused_ok else np.zeros((1, 4), np.float32)
+    )
+    arrays = {
+        "env_image": np.asarray(env_image, np.float32),
+        "env_to_world": env_to_world,
+        "env_to_local": np.linalg.inv(env_to_world.astype(np.float64)).astype(np.float32),
+        "env_density": dist.density,
+        "env_alias_prob": prob,
+        "env_alias_idx": alias,
+        "env_alias_fused": fused,
+    }
+    meta = {"env_alias_fused_ok": fused_ok,
+            "has_envmap": rec is not None and rec.kind == ENVMAP}
+    return arrays, meta
 
 
 def _check_clusters(meta: dict):
@@ -445,7 +496,9 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         em["em_kind"][i] = rec.kind
         em["em_rgb"][i] = rec.radiance
         weights[i] = rec.sampling_weight
-        if rec.kind == CONSTANT:
+        if rec.kind in (CONSTANT, ENVMAP):
+            if rec.kind == ENVMAP:
+                em["em_rgb"][i] = rec.radiance * rec.scale
             env_idx = i
             continue
         ids = np.nonzero(tri_emit == i)[0]
@@ -462,6 +515,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     pmf = weights / weights.sum() if weights.sum() > 0 else weights
     emitter_cdf = np.concatenate([[0.0], np.cumsum(pmf)]).astype(np.float32)
     emitter_cdf[-1] = 1.0
+    env_arrays, env_meta = _env_table(emitters[env_idx] if env_idx >= 0 else None)
 
     arrays = {
         **tri,
@@ -482,6 +536,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         ),
         "emitter_pmf": pmf.astype(np.float32),
         "emitter_cdf": emitter_cdf,
+        **env_arrays,
     }
     meta = {
         "n_tris": n_tris,
@@ -495,7 +550,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "has_area": any(r.kind == AREA for r in emitters),
         "env_idx": env_idx,
         "has_env": env_idx >= 0,
-        "has_envmap": False,
+        **env_meta,
         "has_textures": len(textures) > 0,
         "has_mips": False,
     }

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
-    python3 profile_pass.py [dense|bigmesh|cbox|matpreview] [--hits-only]
+    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const] [--hits-only]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
-for scenes/cbox.xml, or for the matpreview variant (scenes/matpreview.xml
-under a constant environment with the independent sampler,
-tests/torch_meshes.py `matpreview_const_xml`), at 512x512 and 16 samples
-per pass:
+for scenes/cbox.xml, for scenes/matpreview.xml as it stands (envmap,
+sobol), or for its variant (a constant environment and the independent
+sampler, tests/torch_meshes.py `matpreview_const_xml`), at 512x512 and 16
+samples per pass:
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes of the regenerating wavefront (host clock around
@@ -58,6 +58,7 @@ STAGES = (
     ("mitsuba_tpu_torch.emitter.eval",
      ("sample_direct", "eval_env", "pdf_direct_env", "pdf_direct_area")),
     ("mitsuba_tpu_torch.core.rng", ("rand4",)),
+    ("mitsuba_tpu_torch.integrator.path", ("ld_decision4",)),
 )
 
 
@@ -83,17 +84,10 @@ def staged():
     return lambda: [setattr(mod, name, fn) for mod, name, fn in saved]
 
 
-def device_us(evt):
-    """Self device time of a profiler event average, in microseconds."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return getattr(evt, attr)
-    return 0.0
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("scene", nargs="?", default="dense", choices=("dense", "bigmesh", "cbox", "matpreview"))
+    ap.add_argument("scene", nargs="?", default="dense",
+                    choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const"))
     ap.add_argument("--hits-only", action="store_true")
     args = ap.parse_args()
 
@@ -105,7 +99,7 @@ def main():
     sys.path.insert(0, HERE)
     sys.path.append(os.path.join(HERE, "tests"))
     import mitsuba_tpu_torch as mt
-    from chip_smoke import SOURCES, camera_rays, counters
+    from chip_smoke import MATPREVIEW_XML, SOURCES, camera_rays, counters
     from mitsuba_tpu_torch import native
     from mitsuba_tpu_torch.accel import intersect, pairs
     from mitsuba_tpu_torch.accel import pallas_bvh as pb
@@ -134,6 +128,9 @@ def main():
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
     elif args.scene == "matpreview":
+        scene = mt.load_scene(MATPREVIEW_XML)
+        scene.sensor.record.film.width = scene.sensor.record.film.height = RES
+    elif args.scene == "matpreview-const":
         scene = mt.load_scene_string(matpreview_const_xml(RES, RES))
     else:
         mesh = dense_standin if args.scene == "dense" else bunny_standin
@@ -159,6 +156,8 @@ def main():
 def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers):
     """Steps 1 and 2; wrappers: the port's kernel wrappers by name."""
     import torch
+
+    from chip_smoke import device_events, device_us
 
     rec = scene.sensor.record
     rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, SPP, dev)
@@ -195,7 +194,8 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
     dev_us = sum(device_us(e) for e in kernels)
     n_k = sum(e.count for e in kernels)
     print(f"profiled pass: wall {wall:.4f} s, {n} rays; device kernel time {dev_us / 1e3:.3f} ms, "
-          f"busy share {dev_us / 1e6 / wall:.4f}; {n_k} kernels", flush=True)
+          f"busy share {dev_us / 1e6 / wall:.4f}; {n_k} kernels (raw device events: "
+          f"{'%.3f ms, %d' % device_events(prof)})", flush=True)
     kernels.sort(key=device_us, reverse=True)
 
     def show(evts):

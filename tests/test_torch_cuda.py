@@ -910,3 +910,119 @@ def test_matpreview_render_on_card_matches_cpu(matpreview):
     assert np.isfinite(card).all()
     rmse = float(np.sqrt(np.mean((card / (1 + card) - cpu / (1 + cpu)) ** 2)))
     assert rmse < 5e-3, rmse
+
+
+@pytest.fixture(scope="module")
+def matpreview_real():
+    """scenes/matpreview.xml as it stands (envmap, sobol) at 64x64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import MATPREVIEW_XML
+
+    scene = mt.load_scene(MATPREVIEW_XML)
+    scene.sensor.record.film.width = scene.sensor.record.film.height = 64
+    return scene, pack_scene(scene, torch.device("cuda"))
+
+
+def test_real_matpreview_golden_on_card(matpreview_real):
+    """The reference's own golden (sobol, envmap, VNDF) at
+    tests/test_golden.py's gate, through K1/K2 on the card."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import ROOT
+
+    scene, pack = matpreview_real
+    pk.closest_hit_v2.launches = pk.any_hit_v2.launches = 0
+    img = mt.render(scene, spp=16, seed=0, pack=pack)
+    assert pk.closest_hit_v2.launches > 0 and pk.any_hit_v2.launches > 0
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "matpreview_64_16.npy"))
+    assert img.shape == golden.shape and np.isfinite(img).all()
+    rmse = float(np.sqrt(np.mean((img / (1 + img) - golden / (1 + golden)) ** 2)))
+    assert rmse < 5e-3, rmse
+
+
+def test_real_matpreview_shadow_rays_equal_plain(matpreview_real):
+    """K1/K2 bit-equal to plain on the real scene's camera rays and on
+    the shadow rays of their first hits toward alias-sampled envmap
+    directions (t_max 1e7), as a pass spawns them."""
+    from mitsuba_tpu_torch.accel.intersect import fill_interaction, intersect
+    from mitsuba_tpu_torch.emitter import eval as em
+    from mitsuba_tpu_torch.integrator.path import _offset_ray
+    from mitsuba_tpu_torch.sensor.plugins import generate_rays
+
+    scene, pack = matpreview_real
+    dev = pack.tri_s.device
+    rec = scene.sensor.record
+    cam = rec.pack(64, 64, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    o, d = generate_rays(cam, torch.rand(4096, 2, device=dev, generator=g),
+                         torch.zeros(4096, 2, device=dev))
+    its = fill_interaction(pack, o, d, intersect(pack, o, d))
+    ds = em.sample_direct(pack, its.p, torch.rand(4096, 3, device=dev, generator=g))
+    assert bool((ds.kind == 6).all())
+    keep = its.valid
+    o_s = _offset_ray(its.p, its.ng, ds.d)[keep].contiguous()
+    d_s = ds.d[keep].contiguous()
+    t_s = torch.full((o_s.shape[0],), 1e7, device=dev)
+    assert o_s.shape[0] > 1000
+    for oo, dd, tm in ((o.contiguous(), d.contiguous(), torch.full((4096,), 1e30, device=dev)),
+                       (o_s, d_s, t_s)):
+        t1, p1 = pk.closest_hit_v2(oo, dd, tm, pack.tri_s)
+        t2, p2 = pk.closest_hit_plain(oo, dd, tm, pack.tri_s)
+        assert torch.equal(p1, p2) and torch.equal(t1, t2)
+        assert torch.equal(pk.any_hit_v2(oo, dd, tm, pack.tri_s),
+                           pk.any_hit_plain(oo, dd, tm, pack.tri_s))
+
+
+def test_sobol_and_samplers_on_card_equal_cpu(dev):
+    """The byte tables, Faure Halton and every sampler kind's draws on
+    card tensors equal the CPU's, word for word."""
+    from mitsuba_tpu_torch.core import rng, sobol
+    from mitsuba_tpu_torch.sampler import plugins as sp
+
+    r = np.random.default_rng(0)
+    idx = torch.as_tensor(r.integers(0, 2**32, 70_001, dtype=np.uint64).astype(np.int64))
+    lane = torch.as_tensor(r.integers(0, 2**18, 70_001))
+    dims = torch.as_tensor(r.integers(-2, 170, (70_001, 4)).astype(np.int32))
+    dslot = torch.as_tensor((np.arange(70_001) % 48).astype(np.int32))
+    fb = torch.as_tensor(r.random((70_001, 4)).astype(np.float32))
+
+    def both(fn, *args):
+        cpu = fn(*args)
+        card = fn(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), cpu), fn.__name__
+
+    both(sobol.sobol_bits, idx, (0, 1, 2, 3, 159))
+    both(sobol.sobol_bits_dyn, idx, dims)
+    both(rng.sobol_2d_scrambled, idx, lane, idx ^ 0x5A5A5A5A)
+    for slot in range(12):
+        both(sobol.halton_faure, idx, slot)
+    for kind in range(6):
+        rec = sp.SamplerRecord(kind=kind, sample_count=16, seed=2)
+        both(lambda ln, i: rec.pixel_sample(ln, i, 16), lane, idx)
+        both(rec.lens_sample, lane, idx)
+        both(lambda ln, i, ds, f: sp.ld_decision4(rec, ln, i, ds, f, 7), lane, idx, dslot, fb)
+
+
+def test_env_alias_draw_on_card_equals_cpu(matpreview_real):
+    """The pack's env tables on the card equal the CPU pack's, and the
+    alias draw picks the same texels there (the lat-long uv it samples is
+    bit-equal: basic float32 operations only)."""
+    from mitsuba_tpu_torch.emitter import eval as em
+
+    scene, pack = matpreview_real
+    cpu = pack_scene(scene, "cpu")
+    for k in ("env_image", "env_density", "env_alias_prob", "env_alias_idx", "env_alias_fused"):
+        assert torch.equal(pack.arrays[k].cpu(), cpu.arrays[k]), k
+    u2 = torch.as_tensor(np.random.default_rng(1).random((70_001, 2)).astype(np.float32))
+    seen, inner = [], em._env_dir_from_uv
+    em._env_dir_from_uv = lambda p, uv: (seen.append(uv.cpu()), inner(p, uv))[1]
+    try:
+        em._sample_env_dir(cpu, u2)
+        em._sample_env_dir(pack, u2.to(pack.env_density.device))
+    finally:
+        em._env_dir_from_uv = inner
+    assert torch.equal(seen[0], seen[1])

@@ -88,7 +88,8 @@ def test_port_sources_lie_in_the_port():
 
     port = os.path.join(ROOT, "mitsuba_tpu_torch") + os.sep
     assert native.CSRC_DIR.startswith(port) and native.HOST_SRC_DIR.startswith(port)
-    assert os.path.isfile(os.path.join(native.HOST_SRC_DIR, "bvh_builder.cpp"))
+    for src in ("bvh_builder.cpp", "alias_table.cpp"):
+        assert os.path.isfile(os.path.join(native.HOST_SRC_DIR, src)), src
 
 
 def test_entry_points_default_to_the_card():
@@ -101,9 +102,12 @@ def test_entry_points_default_to_the_card():
 
 
 def test_materials_modules_are_checked():
-    """The materials slice's modules are among the sources checked above."""
+    """The modules of the materials and envmap slices are among the
+    sources checked above."""
     rel = {os.path.relpath(p, ROOT) for p in SOURCES}
     for mod in ("bsdf/microfacet.py", "bsdf/ior.py", "bsdf/rtrans.py", "bsdf/eval.py",
                 "bsdf/plugins.py", "scene/textures.py", "scene/texture_eval.py",
-                "scene/shapes.py", "accel/intersect.py"):
+                "scene/shapes.py", "accel/intersect.py", "io/exr.py", "io/images.py",
+                "io/pfm.py", "io/png.py", "core/distribution.py", "core/sobol.py",
+                "sampler/plugins.py", "emitter/eval.py"):
         assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
