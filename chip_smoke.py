@@ -61,6 +61,13 @@ Phases, each of which raises (and exits non-zero) on failure:
      262,144 camera rays and on the shadow rays of their first hits toward
      the environment with the first bounce's NEE draw of a pass (for the
      envmap, alias-sampled directions; t_max 1e7);
+   * K3/K4 (closest) on scenes/smoke.xml's closest-hit queries (1,038
+     triangles in 11 clusters): the camera rays' query and the three
+     shadow segments of the first NEE (through the null cube and the
+     smoke, with finite t_max) of a 64x64, 16-spp pass and of the phase-4
+     pass (256x256, 32 spp: 2,097,152 rays a query; `smoke_queries`), bit
+     for bit (cluster lists; t, prim, u, v), and K7 on the batch each
+     query hands the fallback;
    each kernel's time beside its bound (the larger of its operations
    over the card's FP32 rate and its bytes over the memory rate, from
    this run's inputs, counting only the real triangles of padded
@@ -94,6 +101,15 @@ Phases, each of which raises (and exits non-zero) on failure:
      tests/golden/torch_densemesh_64_16.npy (RMSE < 5e-3): K5/K6/K9/K10,
      and none of K3/K4/K7/K8 (the dispatch); K = KS = 1 again if the
      fallback did not run; with its pack time and peak device memory;
+   * scenes/smoke.xml at 64x64, 16 spp, seed 0 (volpath through the
+     batched wavefront and its splat) against
+     tests/golden/torch_smoke_64_16.npy (the JAX package's render, traced
+     through its pair pipeline; RMSE < 5e-3): K3/K4 launched, the rays that
+     took the K7 fallback, and the medium events and the null boundaries
+     crossed by shadow rays counted (> 0);
+   * scenes/cbox.xml under the mitchell filter at 64x64, 16 spp, seed 0
+     against tests/golden/torch_cbox_mitchell_64_16.npy (RMSE < 5e-3):
+     K1/K2 (the kernels line's launches add both renders');
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
    for the Cornell box, both stand-ins, scenes/matpreview.xml and the
@@ -103,7 +119,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    0.0112 at 2,048 spp), and from one more pass under torch.profiler
    (CUDA activity) its kernels per pass and per bounce (K1 launches once
    per bounce iteration) and its busy share (device time over the
-   profiled pass's wall time).
+   profiled pass's wall time); last, scenes/smoke.xml at the reference's
+   bench resolution, 256x256, 32 spp, as one pass of 2,097,152 lanes (no
+   warm-up): rays/s, peak device memory, the tone-mapped RMSE against
+   bench_refs/smoke_256.npz (no gate; the reference recorded 0.0110 at
+   256 spp), and from a profiled pass its device ms, events, kernels per
+   event and busy share.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -126,6 +147,9 @@ MATPREVIEW_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_matpreview_cons
 MATPREVIEW_XML = os.path.join(HERE, "scenes", "matpreview.xml")
 MATPREVIEW_REF_GOLDEN = os.path.join(HERE, "tests", "golden", "matpreview_64_16.npy")
 MATPREVIEW_REF_512 = os.path.join(HERE, "bench_refs", "matpreview_512.npz")
+SMOKE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_smoke_64_16.npy")
+SMOKE_REF_256 = os.path.join(HERE, "bench_refs", "smoke_256.npz")
+MITCHELL_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_cbox_mitchell_64_16.npy")
 STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
 DENSE_PLY = os.path.join(HERE, "build", "dense_standin.ply")
 SOURCES = {"brute_tiled": "mitsuba_tpu_torch/csrc/brute_tiled.cu",
@@ -183,6 +207,9 @@ FORMER_MS = {"two_level_cull": 0.4622, "window_hit_closest": 0.4286, "window_hit
 HIDE_HOST_CYCLES = 2_000_000
 THROUGHPUT_SPP_CHUNK = 16
 THROUGHPUT_PASSES = 2
+# scenes/smoke.xml at the reference's bench resolution, as one pass of
+# 256 x 256 x 32 = 2,097,152 lanes of the batched wavefront
+SMOKE_RES, SMOKE_SPP = 256, 32
 N_RAYS = 262_144
 N_STREAM_SUBSET = 16_384  # rays of the K9/K10 vs plain comparison
 # the card's published peaks (H100 SXM, NVIDIA's data sheet): FP32 outside
@@ -819,6 +846,104 @@ def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
     print(line, flush=True)
 
 
+class _FirstNEE(Exception):
+    """Stops a render pass at its first shadow query."""
+
+
+def smoke_queries(vp, make_render_pass, new_film, scene, pack, dev, spp):
+    """The closest-hit queries of one pass of scenes/smoke.xml (the
+    scene's film size, spp samples per pixel) up to its first NEE, as the
+    volpath tracer makes them: (label, o, d, t_max) of the camera rays'
+    query (t_max inf) and of each of the SHADOW_SEGMENTS closest-hit calls
+    of the first NEE (finite t_max; from the event's medium vertices
+    inside the cube and its surface hits, then from the null boundaries
+    crossed)."""
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    inner, inner_hit, args, queries = vp._attenuated_visibility, vp.intersect, [], []
+
+    def stop(*a):
+        args.extend(a)
+        raise _FirstNEE
+
+    def spy(pack_, o, d, t_max=float("inf")):
+        t = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(o.shape[0])
+        queries.append((o.contiguous(), d.contiguous(), t.contiguous()))
+        return inner_hit(pack_, o, d, t_max)
+
+    vp._attenuated_visibility, vp.intersect = stop, spy
+    try:
+        make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)(
+            new_film(h, w, dev), 0, 0)
+    except _FirstNEE:
+        pass
+    finally:
+        vp._attenuated_visibility = inner
+        vp.intersect = inner_hit
+    check(len(queries) == 1 and bool(args), "the smoke pass made no shadow query after its "
+                                            "camera rays' closest hit")
+    check(queries[0][0].shape[0] == w * h * spp,
+          f"the smoke pass traced {queries[0][0].shape[0]} camera rays, not {w * h * spp}")
+    vp.intersect = spy
+    try:
+        inner(*args)
+    finally:
+        vp.intersect = inner_hit
+    labels = ["camera"] + [f"segment {k}" for k in range(len(queries) - 1)]
+    return [(label, *q) for label, q in zip(labels, queries)]
+
+
+def compare_segments(pairs, pb, pack, queries, stats, res, plain_reps=20):
+    """K3 and K4 (closest) on the smoke's closest-hit queries against
+    their plain versions, bit for bit (cluster lists; t, prim, u, v),
+    timed; and the fallback (K7) on the batch the pair pipeline hands it."""
+    import torch
+
+    c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    kk = min(pairs.K, c)
+    sizes = cluster_sizes(pack)
+    tabs = (pack.cl_cnt, pairs._tri_rows(pack))
+    for label, o, d, t_seg in queries:
+        r = o.shape[0]
+        _, t_max = pb.finite_tmax(t_seg, o)  # as pair_closest passes it on
+        inside = ((o[:, 0].abs() < 0.5) & (o[:, 1] > 0) & (o[:, 1] < 1) & (o[:, 2].abs() < 0.5))
+        label = f"smoke {res} {label}"
+        shape = f"{label} rays={r} C={c}"
+        fin = torch.isfinite(t_seg)
+        span = (f" in {float(t_seg[fin].min()):.4g}..{float(t_seg[fin].max()):.4g}"
+                if bool(fin.any()) else "")
+        print(f"  {shape}: {int(fin.sum())} finite t_max{span}, {int(inside.sum())} "
+              f"origins inside the cube's box", flush=True)
+        k3 = pairs.dense_cull(o, d, t_max, pack.cl_mbox, c, kk)
+        p3 = pairs.dense_cull_plain(o, d, t_max, pack.cl_mbox, c, kk)
+        torch.cuda.synchronize()
+        for a, b, what in zip(k3, p3, ("cid", "entry", "n_cl", "kept_max")):
+            check(torch.equal(a, b), f"dense_cull on {shape}: {what} differs")
+        del p3
+        record(stats, "dense_cull", shape, 0.0,
+               lambda: pairs.dense_cull(o, d, t_max, pack.cl_mbox, c, kk),
+               lambda: pairs.dense_cull_plain(o, d, t_max, pack.cl_mbox, c, kk),
+               r * c * SLAB_OPS, nbytes(o, d, t_max, pack.cl_mbox.reshape(-1, 6)[:c], *k3),
+               f"clusters hit/ray={float(k3[2].float().mean()):.3f}", plain_reps=plain_reps)
+        cids = k3[0]
+        args = (o, d, t_max, cids, pack.cl_tri, pack.cl_pad2prim, c, tc)
+        out = pairs.pair_hit_closest(*args, *tabs)
+        ref = pairs.pair_hit_closest_plain(*args)
+        torch.cuda.synchronize()
+        for a, b, what in zip(out, ref, ("t", "prim", "u", "v")):
+            check(torch.equal(a, b), f"pair_hit_closest on {shape}: {what} differs")
+        del ref
+        record(stats, "pair_hit_closest", shape, 0.0,
+               lambda: pairs.pair_hit_closest(*args, *tabs),
+               lambda: pairs.pair_hit_closest_plain(*args),
+               pair_tests(cids, sizes) * MT_OPS,
+               nbytes(o, d, t_max, cids, pack.cl_tri, pack.cl_pad2prim, *out),
+               f"slot hit={float((out[1] >= 0).float().mean()):.3f}", plain_reps=plain_reps)
+        fallback_walks(pairs, pb, label, pack, o, d, t_max, True)
+
+
 def k4_beside_k6(pairs, name, k6_out, k6_ms, shape, args):
     """K4 (the per-pair kernel, which reads each pair's cluster from L2
     or memory) on the cluster lists K6 just took from the sorted queue:
@@ -870,13 +995,17 @@ def render_checked(mt, counted, scene, golden_path, dev, label, pack=None):
 
 
 def throughput(make_render_pass, new_film, pack, scene, dev, label, card,
-               passes=THROUGHPUT_PASSES, warm=True, ref=None, closest=None):
-    """Traced rays per second over `passes` passes at 512x512, after one
-    warm-up pass into a film of its own unless `warm` is false (where a
-    scene of the same size and kernels ran just before).  With `ref` (an .npz of the
-    converged image), also the tone-mapped RMSE of the timed passes'
-    image against it; with `closest` (K1's wrapper), one more pass under
-    the profiler for kernels per pass and per bounce and the busy share."""
+               passes=THROUGHPUT_PASSES, warm=True, ref=None, iterations=None,
+               spp=THROUGHPUT_SPP_CHUNK, unit="bounce"):
+    """Traced rays per second over `passes` passes of `spp` samples per
+    pixel at the scene's film size, after one warm-up pass into a film of
+    its own unless `warm` is false (where a scene of the same size and
+    kernels ran just before).  With `ref` (an .npz of the converged
+    image), also the tone-mapped RMSE of the timed passes' image against
+    it; with `iterations` (a count that grows by one per iteration of the
+    integrator's loop: K1's launches for the path tracer, one per bounce;
+    volpath_trace.events, one per event), one more pass under the profiler
+    for kernels per pass and per iteration (`unit`) and the busy share."""
     import numpy as np
     import torch
 
@@ -884,8 +1013,7 @@ def throughput(make_render_pass, new_film, pack, scene, dev, label, card,
 
     rec = scene.sensor.record
     w, h = rec.film.width, rec.film.height
-    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler,
-                          THROUGHPUT_SPP_CHUNK, dev)
+    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
     t0 = time.time()
     if warm:
         rp(new_film(h, w, dev), 0, 0)
@@ -893,37 +1021,39 @@ def throughput(make_render_pass, new_film, pack, scene, dev, label, card,
     warm_s = time.time() - t0
     film = new_film(h, w, dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     for i in range(passes):
-        film, n_rays = rp(film, i * THROUGHPUT_SPP_CHUNK, 0)
+        film, n_rays = rp(film, i * spp, 0)
         total = total + n_rays
     n_total = int(total)  # synchronises
     elapsed = time.time() - t0
-    check(bool(torch.isfinite(film).all()), f"{label} 512x512 film has non-finite values")
+    check(bool(torch.isfinite(film).all()), f"{label} {w}x{h} film has non-finite values")
     rays_s = n_total / elapsed
-    out = {"scene": label, "width": w, "height": h, "spp_chunk": THROUGHPUT_SPP_CHUNK,
+    out = {"scene": label, "width": w, "height": h, "spp_chunk": spp,
            "passes": passes, "rays": n_total, "seconds": elapsed, "rays_per_s": rays_s,
-           "card": card}
-    print(f"phase 4: {label} {w}x{h}, {passes} passes x {THROUGHPUT_SPP_CHUNK} spp: "
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    print(f"phase 4: {label} {w}x{h}, {passes} passes x {spp} spp: "
           f"{n_total} rays in {elapsed:.3f} s = {rays_s:.6g} rays/s "
-          f"({f'first pass {warm_s:.3f} s' if warm else 'no warm-up pass'}) on {card}", flush=True)
+          f"({f'first pass {warm_s:.3f} s' if warm else 'no warm-up pass'}; peak device memory "
+          f"{out['peak_gib']:.3f} GiB) on {card}", flush=True)
     if ref is not None:
         img = (develop(film) * rec.ray_weight).cpu().numpy()
         gold = np.load(ref)["img"].astype(np.float32)
         check(img.shape == gold.shape, f"{label}: image {img.shape}, reference {gold.shape}")
         out["rmse_vs_ref"] = float(np.sqrt(np.mean((img / (1 + img) - gold / (1 + gold)) ** 2)))
-        print(f"  {label}: tone-mapped RMSE of the {passes * THROUGHPUT_SPP_CHUNK}-spp image vs "
+        print(f"  {label}: tone-mapped RMSE of the {passes * spp}-spp image vs "
               f"{os.path.relpath(ref, HERE)}: {out['rmse_vs_ref']:.6g} (no gate)", flush=True)
-    if closest is not None:
-        wall, dev_ms, n_k, iters = profiled_pass(rp, new_film(h, w, dev),
-                                                passes * THROUGHPUT_SPP_CHUNK, closest)
-        check(iters > 0, f"{label}: the profiled pass launched no K1")
+    if iterations is not None:
+        wall, dev_ms, n_k, iters = profiled_pass(rp, new_film(h, w, dev), passes * spp,
+                                                iterations)
+        check(iters > 0, f"{label}: the profiled pass ran no {unit}")
         out.update(profiled_wall_s=wall, device_ms=dev_ms, kernels_per_pass=n_k,
-                   bounce_iterations=iters, kernels_per_bounce=n_k / iters,
+                   iterations=iters, unit=unit, kernels_per_iteration=n_k / iters,
                    busy=dev_ms / 1e3 / wall)
         print(f"  {label}: profiled pass (CUDA activity) wall {wall:.4f} s, device time "
-              f"{dev_ms:.3f} ms, busy share {out['busy']:.4f}; {n_k} kernels over {iters} bounce "
-              f"iterations = {out['kernels_per_bounce']:.1f} per bounce", flush=True)
+              f"{dev_ms:.3f} ms, busy share {out['busy']:.4f}; {n_k} kernels over {iters} "
+              f"{unit} iterations = {out['kernels_per_iteration']:.1f} per {unit}", flush=True)
     print(json.dumps({"throughput": out}), flush=True)
 
 
@@ -1027,22 +1157,22 @@ def device_events(prof):
     return sum(e.duration_ns() for e in evs) / 1e6, len(evs)
 
 
-def profiled_pass(rp, film, sample_base, closest):
+def profiled_pass(rp, film, sample_base, iterations):
     """One pass under torch.profiler (CUDA activity only, so that the
     profiler adds little host work): (wall s, device ms, device events,
-    bounce iterations), the iterations counted by K1's launches (one
-    closest hit per iteration)."""
+    loop iterations), the iterations read from the count iterations()
+    before and after."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    closest.launches = 0
+    before = iterations()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         _, n_rays = rp(film, sample_base, 0)
         int(n_rays)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    return (wall, *device_events(prof), closest.launches)
+    return (wall, *device_events(prof), iterations() - before)
 
 
 def count_sphere_hits(intersect_mod):
@@ -1083,11 +1213,14 @@ def main():
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
     sys.path.append(os.path.join(HERE, "tests"))
+    from mitsuba_tpu_torch.integrator import volpath as vp
     from torch_meshes import (
         bunny_scene_xml,
         bunny_standin,
+        cbox_mitchell_xml,
         dense_standin,
         matpreview_const_xml,
+        smoke_xml,
         write_ply,
     )
 
@@ -1192,6 +1325,23 @@ def main():
     compare_dense(pairs, pb, "camera", dense_pack, o, d, t_any, stats, rng)
     compare_dense(pairs, pb, "random", dense_pack, o_r, d_r, t_any, stats, rng)
 
+    smoke64 = mt.load_scene_string(smoke_xml(64, 64))
+    smoke_pack = pack_scene(smoke64, dev)
+    check(smoke_pack.meta["use_bvh"] and smoke_pack.meta["has_media"],
+          "scenes/smoke.xml packed without its BVH or its media")
+    print(f"  smoke: {smoke_pack.meta['n_tris']} triangles in {smoke_pack.meta['n_clusters']} "
+          f"clusters, {smoke_pack.meta['n_het']} grid of {tuple(smoke_pack.het_dims[0].tolist())}",
+          flush=True)
+    compare_segments(pairs, pb, smoke_pack,
+                     smoke_queries(vp, make_render_pass, new_film, smoke64, smoke_pack, dev, 16),
+                     stats, "64x64x16")
+    # the shapes the phase-4 pass hands these kernels: 2,097,152 rays a query
+    smoke = mt.load_scene_string(smoke_xml(SMOKE_RES, SMOKE_RES))
+    compare_segments(pairs, pb, smoke_pack,
+                     smoke_queries(vp, make_render_pass, new_film, smoke, smoke_pack, dev,
+                                   SMOKE_SPP),
+                     stats, f"{SMOKE_RES}x{SMOKE_RES}x{SMOKE_SPP}", plain_reps=3)
+
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
     counted = counters(pk, pairs, pb)
@@ -1274,6 +1424,25 @@ def main():
     for k in cluster_names:  # the dispatch: none of the big-mesh kernels
         check(dense_launches[k] == 0, f"the dense render launched {k}")
     launches.update({k: dense_launches[k] for k in stream_names})
+
+    # the smoke slice: volpath through K3/K4 (K7 on overflow)
+    smoke_names = ("dense_cull", "pair_hit_closest", "cluster_traverse_closest")
+    for fn in (pairs.pair_closest, pairs.pair_any):
+        fn.rays = fn.overflow_rays = 0
+    smoke_launches = render_checked(mt, {k: counted[k] for k in smoke_names}, smoke64,
+                                    SMOKE_GOLDEN, dev, "smoke", pack=smoke_pack)
+    events = {"medium events": int(vp.volpath_trace.last_medium_events),
+              "null boundaries crossed by shadow rays": int(vp.volpath_trace.last_null_crossings)}
+    print(f"  smoke: {pairs.pair_closest.overflow_rays} of {pairs.pair_closest.rays} closest-hit "
+          f"rays overflowed (K={pairs.K}) and took the fallback (K7 launched "
+          f"{smoke_launches['cluster_traverse_closest']} times); {events}", flush=True)
+    for k, n in {**{k: smoke_launches[k] for k in smoke_names[:2]}, **events}.items():
+        check(n > 0, f"the smoke render ran no {k}")
+    mitchell_launches = render_checked(
+        mt, {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")},
+        mt.load_scene_string(cbox_mitchell_xml(64, 64)), MITCHELL_GOLDEN, dev, "cbox mitchell")
+    for k, n in {**smoke_launches, **mitchell_launches}.items():
+        launches[k] += n
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -1283,9 +1452,12 @@ def main():
     throughput(make_render_pass, new_film, big_pack, big, dev, "bigmesh-standin", card)
     throughput(make_render_pass, new_film, dense_pack, dense, dev, "densemesh-standin", card)
     throughput(make_render_pass, new_film, real_pack, real, dev, "matpreview", card,
-               ref=MATPREVIEW_REF_512, closest=pk.closest_hit_v2)
+               ref=MATPREVIEW_REF_512, iterations=lambda: pk.closest_hit_v2.launches)
     throughput(make_render_pass, new_film, mp_pack, mp, dev, "matpreview-const", card, passes=1,
                warm=False)
+    throughput(make_render_pass, new_film, smoke_pack, smoke, dev, "smoke", card, passes=1,
+               warm=False, ref=SMOKE_REF_256, iterations=lambda: vp.volpath_trace.events,
+               spp=SMOKE_SPP, unit="event")
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

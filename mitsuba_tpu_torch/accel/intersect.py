@@ -7,6 +7,7 @@ accel/pairs.py (K3/K4, with the K7/K8 fallback): the CUDA kernels for
 tensors on a GPU, their plain versions for tensors on the CPU.  Analytic
 spheres are tested after the triangles with plain tensor operations, as
 the reference tests them with XLA operations.
+`fill_interaction` also reads the media on either side of a hit.
 `_bvh_traverse` / `_bvh_traverse_any` are the reference's stackless BVH
 walks (the path its intersect takes off the TPU), kept as the references
 the tests hold the pair pipeline to.
@@ -49,6 +50,10 @@ class SurfaceInteraction(NamedTuple):
     prim: torch.Tensor
     wi_world: torch.Tensor  # -ray.d
     bary: torch.Tensor  # [R, 2] triangle barycentrics
+    # interior / exterior medium ids (-1 vacuum, and on a miss); None in a
+    # scene without media, where nothing reads them
+    med_in: torch.Tensor | None
+    med_ex: torch.Tensor | None
 
 
 def _moller_trumbore(o, d, v0, e1, e2, t_max):
@@ -294,8 +299,22 @@ def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
         emit = torch.where(sphere, emit_s, emit)
     # orient the geometric normal to the shading normal's hemisphere
     ng = torch.where((mm.dot(ng, ns) < 0.0)[:, None], -ng, ng)
+    if pack.meta.get("has_media", False):
+        # the media on either side (reference intersect.py:963-976), from
+        # the lane's own kind's table
+        med_in, med_ex = take_fused(tri_id, pack.tri_med_in, pack.tri_med_ex)
+        if has_spheres:
+            med_in_s, med_ex_s = take_fused(
+                torch.where(hit.is_sphere, prim, 0), pack.sph_med_in, pack.sph_med_ex
+            )
+            med_in = torch.where(hit.is_sphere, med_in_s, med_in)
+            med_ex = torch.where(hit.is_sphere, med_ex_s, med_ex)
+        med_in = torch.where(hit.valid, med_in, -1)
+        med_ex = torch.where(hit.valid, med_ex, -1)
+    else:
+        med_in = med_ex = None
     return SurfaceInteraction(
         valid=hit.valid, t=hit.t, p=p, ng=ng, ns=ns, uv=uv, mat=mat,
         emit=emit, prim=hit.prim, wi_world=-d,
-        bary=torch.stack([hit.u, hit.v], dim=-1),
+        bary=torch.stack([hit.u, hit.v], dim=-1), med_in=med_in, med_ex=med_ex,
     )

@@ -1,6 +1,6 @@
 """BSDF sample / eval / pdf over lanes (port of mitsuba_tpu/bsdf/eval.py
 for the types `diffuse`, `conductor`, `roughconductor`, `dielectric`,
-`roughdielectric`, `plastic` and `roughplastic`).
+`roughdielectric`, `plastic`, `roughplastic` and `null`).
 
 Every type present in the scene is evaluated on all lanes and selected
 by the lane's type, as in the reference.  Conventions as there: `wi`,
@@ -24,6 +24,7 @@ from mitsuba_tpu_torch.bsdf.plugins import (
     CONDUCTOR,
     DIELECTRIC,
     DIFFUSE,
+    NULL_BSDF,
     PLASTIC,
     ROUGHCONDUCTOR,
     ROUGHDIELECTRIC,
@@ -35,7 +36,9 @@ from mitsuba_tpu_torch.core import warp
 INV_PI = 1.0 / math.pi
 # the material types evaluated here
 PORTED = frozenset((DIFFUSE, CONDUCTOR, ROUGHCONDUCTOR, DIELECTRIC, ROUGHDIELECTRIC, PLASTIC,
-                    ROUGHPLASTIC))
+                    ROUGHPLASTIC, NULL_BSDF))
+# the ported types whose every lobe is a Dirac delta
+DELTA_TYPES = (CONDUCTOR, DIELECTRIC, NULL_BSDF)
 
 
 class BSDFSample(NamedTuple):
@@ -388,6 +391,9 @@ def bsdf_sample(sp, wi, u2, ulobe, present):
             f = _roughplastic_eval(sp, wi, wo_t)
             ok = (pdf_t > 1e-10) & (mm.cos_theta(wo_t) > 0) & (ci > 0)
             put(tm, wo_t, _weight(f, pdf_t, ok), pdf_t, False, 1.0)
+        elif t == NULL_BSDF:
+            # straight through: eval and pdf are 0, the sample has weight 1
+            put(tm, -wi, torch.ones_like(wi), 1.0, True, 1.0)
 
     # un-flip wo for two-sided lanes
     return BSDFSample(wo * flip_vec, weight, pdf, delta, eta_s)

@@ -1,6 +1,6 @@
 """BSDF plugins (port of mitsuba_tpu/bsdf/plugins.py): `diffuse`,
 `conductor`, `roughconductor`, `dielectric`, `roughdielectric`,
-`plastic` and `roughplastic`, with reflectances that may be textures
+`plastic`, `roughplastic` and `null` (an index-matched boundary), with reflectances that may be textures
 (scene/textures.py).  Each parses `Properties` into a `BSDFRecord`, which
 the scene builder packs into the material table."""
 
@@ -192,3 +192,12 @@ class RoughPlastic(Plastic):
         rec.type = ROUGHPLASTIC
         _alpha(props, rec)
         return rec
+
+
+@register("bsdf", "null")
+class NullBSDF(_BSDFBase):
+    """reference: src/bsdfs/null.cpp (a medium's index-matched boundary:
+    rays pass straight through)."""
+
+    def _build(self, props):
+        return BSDFRecord(type=NULL_BSDF)

@@ -18,6 +18,8 @@ _MASK = 0xFFFFFFFF
 # streams arrive with the slices that draw from them)
 STREAM_PATH = 0  # integrator bounce loops: slot = bounce * 4 + decision
 STREAM_CAMERA = 1  # sampler-owned draws: film jitter, lens
+STREAM_MEDIUM_DIST = 2  # heterogeneous delta tracking (sample_distance)
+STREAM_MEDIUM_TRANS = 3  # shadow-ray ratio tracking (transmittance)
 
 
 def _u32(x):

@@ -1,5 +1,5 @@
 """Square-to-X sampling warps (port of mitsuba_tpu/core/warp.py, the
-warps on the path tracer's main path)."""
+warps on the path and volumetric path tracers' main paths)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch
 from mitsuba_tpu_torch.core.math import safe_sqrt
 
 INV_PI = 1.0 / math.pi
+INV_FOURPI = 1.0 / (4.0 * math.pi)
 
 
 def square_to_uniform_sphere(s):
@@ -59,3 +60,34 @@ def square_to_std_normal(s):
     )
     phi = 2.0 * math.pi * s[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def square_to_tent(s):
+    """1D tent over [-1, 1] applied per component."""
+    return torch.where(
+        s < 0.5,
+        torch.sqrt(2.0 * s) - 1.0,
+        1.0 - torch.sqrt(torch.clamp(2.0 - 2.0 * s, min=0.0)),
+    )
+
+
+def square_to_phase_hg(s, g):
+    """Henyey-Greenstein phase direction around +z (forward = +z);
+    reference src/phase/hg.cpp sample().  g: float or tensor."""
+    g = torch.as_tensor(g, dtype=s.dtype, device=s.device)
+    iso = torch.abs(g) < 1e-4
+    den = 1.0 - g + 2.0 * g * s[..., 0]
+    sqr = (1.0 - g * g) / torch.where(torch.abs(den) < 1e-10, 1e-10, den)
+    cos_theta_hg = (1.0 + g * g - sqr * sqr) / torch.where(iso, 1.0, 2.0 * g)
+    cos_theta = torch.where(iso, 1.0 - 2.0 * s[..., 0], cos_theta_hg)
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = 2.0 * math.pi * s[..., 1]
+    return torch.stack(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
+    )
+
+
+def square_to_phase_hg_pdf(cos_theta, g):
+    g = torch.as_tensor(g, dtype=cos_theta.dtype, device=cos_theta.device)
+    tmp = 1.0 + g * g - 2.0 * g * cos_theta
+    return INV_FOURPI * (1.0 - g * g) / torch.clamp(tmp * safe_sqrt(tmp), min=1e-20)

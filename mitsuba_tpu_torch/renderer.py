@@ -1,11 +1,25 @@
-"""Render orchestration (port of mitsuba_tpu/renderer.py, the
-regenerating-wavefront branch).
+"""Render orchestration (port of mitsuba_tpu/renderer.py: both branches
+of `make_render_pass` and the whole-frame pass loop of `render`).
 
-One render pass traces every pixel x a chunk of samples per pixel and
-accumulates into the film with dense adds: each lane owns its pixel,
-and filter importance sampling keeps every sample in its own pixel.
-Passes loop on the host.  The lane -> (pixel, sample index) mapping is
-the reference's, so the port draws the reference's random numbers.
+One render pass traces every pixel x a chunk of samples per pixel; passes
+loop on the host.  Two strategies, chosen as the reference chooses them
+(renderer.py:78-92):
+
+* the regenerating wavefront, for scenes without media under a filter
+  that supports importance sampling (box, tent, gaussian): each lane
+  owns a pixel, starts the pixel's next sample as soon as a path ends,
+  and accumulates into its own pixel with dense adds;
+* the batched wavefront otherwise (every media scene, and the mitchell,
+  catmullrom and lanczos filters): one lane per (sample, pixel), traced
+  to completion by the integrator's trace function, and splatted into
+  the filter footprint with `splat_grid`.
+
+The lane -> (pixel, sample index) mapping is the reference's, so the port
+draws the reference's random numbers.  In the batched branch a lane's
+result depends only on its (pixel, sample index), so the reference's
+media lane budget and row bands (sized for its TPU's execution limits)
+would change only the order of the film's float sums; the port renders
+the frame whole.
 """
 
 from __future__ import annotations
@@ -14,9 +28,10 @@ import math
 
 import torch
 
-from mitsuba_tpu_torch.film.film import develop, new_film
+from mitsuba_tpu_torch.film.film import develop, new_film, splat_grid
 from mitsuba_tpu_torch.film.plugins import filter_importance_sample, supports_fis
-from mitsuba_tpu_torch.integrator.path import path_trace_regen
+from mitsuba_tpu_torch.integrator import volpath  # noqa: F401 (registers "volpath")
+from mitsuba_tpu_torch.integrator.path import TRACE_FNS, path_trace_regen
 from mitsuba_tpu_torch.scene.builder import pack_scene
 from mitsuba_tpu_torch.sensor.plugins import generate_rays
 
@@ -24,6 +39,12 @@ from mitsuba_tpu_torch.sensor.plugins import generate_rays
 # they fix the lane -> (pixel, sample index) mapping, so they must match
 DEFAULT_LANES_PER_PASS = 1 << 21  # rays in flight per pass
 TARGET_LANES = 1 << 18  # regenerating lanes per pass at small resolutions
+
+
+def uses_regen(pack, film_rec) -> bool:
+    """The reference's choice of the regenerating wavefront: a filter with
+    importance sampling and no media (path and volpath are path-like)."""
+    return supports_fis(film_rec.rfilter) and not pack.meta.get("has_media", False)
 
 
 def make_render_pass(pack, integ, sensor_rec, film_rec, sampler_rec, spp_chunk,
@@ -35,8 +56,10 @@ def make_render_pass(pack, integ, sensor_rec, film_rec, sampler_rec, spp_chunk,
     n_px = w * h
     cam = sensor_rec.pack(w, h, device)
     rfilter = film_rec.rfilter
-    if not supports_fis(rfilter):
-        raise NotImplementedError("splatting reconstruction filters not yet ported")
+    if integ.kind not in TRACE_FNS:
+        raise NotImplementedError(f"integrator '{integ.kind}' not yet ported")
+    if not uses_regen(pack, film_rec):
+        return _batched_pass(pack, integ, cam, film_rec, sampler_rec, spp_chunk, device)
 
     # several regenerating lanes per pixel keep the device full at small
     # resolutions (reference renderer.py:95-105)
@@ -75,6 +98,34 @@ def make_render_pass(pack, integ, sensor_rec, film_rec, sampler_rec, spp_chunk,
         contrib = torch.cat([L_sum, n_done.to(torch.float32)[..., None]], dim=-1)
         film = film + contrib.reshape(lpp, h, w, 4).sum(dim=0)
         return film, n_rays
+
+    return render_pass
+
+
+def _batched_pass(pack, integ, cam, film_rec, sampler_rec, spp_chunk, device):
+    """The classic batched wavefront (reference renderer.py:144-195):
+    lanes [spp_chunk, H * W], grid-aligned so that the splat is dense."""
+    trace = TRACE_FNS[integ.kind]
+    w, h = film_rec.width, film_rec.height
+    n_px = w * h
+    px = torch.arange(n_px, dtype=torch.int64, device=device)
+    lane = px[None, :].expand(spp_chunk, n_px).reshape(-1)
+    px_x = (lane % w).to(torch.float32)
+    px_y = (lane // w).to(torch.float32)
+    s_i = torch.arange(spp_chunk, dtype=torch.int64, device=device)[:, None]
+
+    def render_pass(film, sample_base, seed):
+        sidx = ((sample_base + s_i) & 0xFFFFFFFF).expand(spp_chunk, n_px).reshape(-1)
+        jitter = sampler_rec.pixel_sample(lane, sidx, sampler_rec.sample_count)
+        pos01 = torch.stack([(px_x + jitter[..., 0]) / w, (px_y + jitter[..., 1]) / h], dim=-1)
+        u_lens = (
+            sampler_rec.lens_sample(lane, sidx) if cam["use_lens"] else torch.zeros_like(jitter)
+        )
+        o, d = generate_rays(cam, pos01, u_lens)
+        L = trace(pack, integ, o, d, lane, sidx, sampler_rec, seed)
+        film = splat_grid(film, jitter.reshape(spp_chunk, h, w, 2),
+                          L.reshape(spp_chunk, h, w, 3), film_rec.rfilter)
+        return film, trace.last_ray_count
 
     return render_pass
 

@@ -2,9 +2,11 @@
 (`ScenePack`); the port of mitsuba_tpu/scene/builder.py for the slice it
 renders: triangle meshes (brute force up to 512 triangles, BVH + cluster
 tables above), analytic spheres (tessellated where they emit), the
-diffuse, conductor, dielectric and plastic material families (smooth and
-rough) with checkerboard-textured reflectances, area emitters and a
-constant or image-based (`envmap`) environment.
+diffuse, conductor, dielectric, plastic and null material families
+(smooth and rough) with checkerboard-textured reflectances, area
+emitters, a constant or image-based (`envmap`) environment, and
+homogeneous and heterogeneous media attached to shapes as their
+interior or exterior (`_pack_media`).
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -13,6 +15,7 @@ of the same scene are interchangeable.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +40,13 @@ from mitsuba_tpu_torch.core.distribution import Distribution2D, build_alias
 from mitsuba_tpu_torch.core.transform import Transform
 from mitsuba_tpu_torch.emitter.eval import PORTED_KINDS
 from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT, ENVMAP
+from mitsuba_tpu_torch.medium.plugins import (
+    HETEROGENEOUS,
+    HG,
+    KKAY,
+    MAX_PHASE_COMPONENTS,
+    MICROFLAKE,
+)
 from mitsuba_tpu_torch.scene.shapes import _apply_transform, _uv_sphere
 from mitsuba_tpu_torch.scene.texture_eval import material_table
 from mitsuba_tpu_torch.scene.textures import TEX_CONSTANT, TEX_CHECKERBOARD
@@ -69,6 +79,18 @@ SLICE_META = (
     "use_bvh", "has_area", "has_env", "has_envmap", "env_idx", "env_alias_fused_ok",
     "has_textures", "has_mips",
 )
+# ... for scenes with media, the medium tables (`_pack_media`) ...
+MEDIA_ARRAYS = (
+    "tri_med_in", "tri_med_ex", "sph_med_in", "sph_med_ex",
+    "med_sigma_s", "med_sigma_a", "med_ph_kinds", "med_ph_gs", "med_ph_ws", "med_sampling_w",
+    "med_strategy", "med_density", "med_mx_sigma", "med_mx_istart", "med_mx_cdf",
+    "med_mx_norm", "med_het_slot", "het_corners", "het_super", "het_w2g", "het_albedo",
+    "het_dims", "het_sdims", "het_cbase", "het_sbase",
+)
+MEDIA_META = (
+    "has_media", "n_media", "hom_strategies", "phase_kinds", "n_het", "het_simpson",
+    "het_super_b", "camera_medium",
+)
 # ... and, for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters
 BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_sup", "cl_mbox", "cl_pad2prim")
 BVH_META = (
@@ -79,7 +101,6 @@ BVH_META = (
 # (key, value meaning "absent", feature name)
 _UNPORTED_FEATURES = (
     ("n_cyls", 0, "analytic cylinders"),
-    ("has_media", False, "participating media"),
     ("has_sss", False, "subsurface scattering"),
     ("has_mips", False, "bitmap textures"),
     ("geom_tex_kinds", (), "geometry-driven textures"),
@@ -117,6 +138,10 @@ def check_slice(meta: dict):
         raise NotImplementedError(
             f"bsdf types {sorted(types - PORTED_TYPES)} not yet ported"
         )
+    fiber = {KKAY: "kkay", MICROFLAKE: "microflake"}
+    for kind in meta.get("phase_kinds", ()):
+        if kind in fiber:
+            raise NotImplementedError(f"phase '{fiber[kind]}' not yet ported")
     kinds = set(meta.get("emitter_kinds", ()))
     if kinds - PORTED_KINDS:
         raise NotImplementedError(
@@ -224,6 +249,176 @@ def _env_table(rec) -> tuple[dict, dict]:
     return arrays, meta
 
 
+# grid cells per supergrid cell along each axis (reference builder.py:1382)
+SUPER_B = 8
+
+
+def _bf16(a):
+    """float32 numpy -> the nearest bfloat16 value (ties to even), as
+    float32; what the reference's ml_dtypes cast gives."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _maxexp_tables(st):
+    """Maximum-of-exponentials tables of one medium (maxexp.h:30-58):
+    the descending rates, interval starts, normalized CDF knots and the
+    normalization (reference builder.py:1516-1551)."""
+    s = np.sort(st.astype(np.float64))[::-1]
+    cdf = np.zeros(4, np.float64)
+    istart = np.zeros(3, np.float64)
+    for k in range(3):
+        lower = -1.0 if k == 0 else -((s[k] / s[k - 1]) ** (-s[k] / (s[k] - s[k - 1])))
+        upper = 0.0 if k == 2 else -((s[k + 1] / s[k]) ** (-s[k] / (s[k + 1] - s[k])))
+        cdf[k + 1] = cdf[k] + (upper - lower)
+        istart[k] = 0.0 if k == 0 else np.log(s[k] / s[k - 1]) / (s[k] - s[k - 1])
+    return s, istart, cdf / cdf[3], cdf[3]
+
+
+def _het_grid(m, bf16):
+    """A heterogeneous medium's grid tables (reference builder.py:1407-1475):
+    the scaled density grid, quantized to bfloat16 where `bf16` holds, so
+    that the majorants bound exactly what tracking reads; its corner
+    rows (one 8-wide row per base point (z, y, x) in [-1, D-1] x ..., the
+    2 x 2 x 2 block of a trilinear lookup, over a zero-padded grid); the
+    supergrid of SUPER_B^3-cell maxima dilated by one cell; the
+    world -> grid-normalized affine map."""
+    vol = m.density
+    grid = vol.grid[..., 0] if vol.grid.ndim == 4 else vol.grid
+    grid = np.ascontiguousarray(grid * m.scale, np.float32)
+    if bf16:
+        grid = _bf16(grid)
+    d_, h_, w_ = grid.shape
+    gp = np.zeros((d_ + 2, h_ + 2, w_ + 2), np.float32)
+    gp[1:-1, 1:-1, 1:-1] = grid
+    corners = np.empty((d_ + 1, h_ + 1, w_ + 1, 8), np.float32)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                corners[..., dz * 4 + dy * 2 + dx] = gp[
+                    dz:dz + d_ + 1, dy:dy + h_ + 1, dx:dx + w_ + 1
+                ]
+    sd = [max((n + SUPER_B - 1) // SUPER_B, 1) for n in (d_, h_, w_)]
+    sup = np.zeros(sd, np.float32)
+    for z in range(sd[0]):
+        for y in range(sd[1]):
+            for x in range(sd[2]):
+                sup[z, y, x] = grid[
+                    max(z * SUPER_B - 1, 0):(z + 1) * SUPER_B + 1,
+                    max(y * SUPER_B - 1, 0):(y + 1) * SUPER_B + 1,
+                    max(x * SUPER_B - 1, 0):(x + 1) * SUPER_B + 1,
+                ].max()
+    ext = np.maximum(vol.aabb_max - vol.aabb_min, 1e-9)
+    to_local = np.eye(4)
+    to_local[:3, :3] = np.diag(1.0 / ext)
+    to_local[:3, 3] = -vol.aabb_min / ext
+    w2g = (to_local @ vol.to_world.inv).astype(np.float32)[:3].reshape(-1)
+    return corners.reshape(-1, 8), sup.reshape(-1), [d_, h_, w_], sd, w2g
+
+
+def _pack_media(media: list) -> tuple[dict, dict]:
+    """The medium table (reference builder.py:1335-1620, meta :1738-1761)
+    without the fiber-phase tables: per medium its homogeneous
+    coefficients, free-path strategy (0 balance, 1 a fixed density for
+    single/manual, 2 maximum) and sampling weight, its phase as up to
+    MAX_PHASE_COMPONENTS (kind, g, weight) leaves (kind -1: empty), and
+    for heterogeneous media a slot in the grid tables.  The corner rows
+    are stored as bfloat16 when the grid was quantized (the same values,
+    one 16-byte row per lookup)."""
+    n_med = max(len(media), 1)
+    a = {
+        "med_sigma_s": np.zeros((n_med, 3), np.float32),
+        "med_sigma_a": np.zeros((n_med, 3), np.float32),
+        "med_ph_kinds": np.full((n_med, MAX_PHASE_COMPONENTS), -1, np.int32),
+        "med_ph_gs": np.zeros((n_med, MAX_PHASE_COMPONENTS), np.float32),
+        "med_ph_ws": np.zeros((n_med, MAX_PHASE_COMPONENTS), np.float32),
+        "med_sampling_w": np.zeros(n_med, np.float32),
+        "med_strategy": np.zeros(n_med, np.int32),
+        "med_density": np.zeros(n_med, np.float32),
+        "med_mx_sigma": np.ones((n_med, 3), np.float32),
+        "med_mx_istart": np.zeros((n_med, 3), np.float32),
+        "med_mx_cdf": np.zeros((n_med, 4), np.float32),
+        "med_mx_norm": np.ones(n_med, np.float32),
+        "med_het_slot": np.full(n_med, -1, np.int32),
+    }
+    # the reference's knob: bfloat16 densities (the default) or float32
+    bf16 = os.environ.get("MTS_HET_BF16", "1") != "0"
+    a["med_ph_kinds"][:, 0] = 0
+    a["med_ph_ws"][:, 0] = 1.0
+    corners, sup, dims, sdims, w2g, albedo, cbase, sbase = [], [], [], [], [], [], [], []
+    for i, m in enumerate(media):
+        comps = m.phase.components or [(m.phase.kind, m.phase.g, 1.0)]
+        for ci, (k_, g_, w_) in enumerate(comps):
+            a["med_ph_kinds"][i, ci] = k_
+            a["med_ph_gs"][i, ci] = g_ if k_ == HG else 0.0
+            a["med_ph_ws"][i, ci] = w_
+        if m.kind == HETEROGENEOUS:
+            a["med_het_slot"][i] = len(dims)
+            c, s_, d_, sd, w = _het_grid(m, bf16)
+            cbase.append(sum(p.shape[0] for p in corners))
+            sbase.append(sum(p.shape[0] for p in sup))
+            corners.append(c)
+            sup.append(s_)
+            dims.append(d_)
+            sdims.append(sd)
+            w2g.append(w)
+            albedo.append(np.asarray(m.albedo.constant, np.float32)
+                          if m.albedo is not None and m.albedo.constant is not None
+                          else np.full(3, 0.9, np.float32))
+            continue
+        a["med_sigma_s"][i] = m.sigma_s
+        a["med_sigma_a"][i] = m.sigma_a
+        # sampling weight = the largest single-channel albedo, at least
+        # 0.5 where it scatters (reference homogeneous.cpp:168-181)
+        st = m.sigma_s + m.sigma_a
+        alb = float(np.where(st > 0, m.sigma_s / np.maximum(st, 1e-20), 0.0).max())
+        a["med_sampling_w"][i] = max(alb, 0.5) if alb > 0 else 0.0
+        if m.sampling_weight >= 0:
+            a["med_sampling_w"][i] = m.sampling_weight
+        if m.strategy in ("single", "manual"):
+            a["med_strategy"][i] = 1
+            a["med_density"][i] = m.sampling_density
+        elif m.strategy == "maximum":
+            a["med_strategy"][i] = 2
+            (a["med_mx_sigma"][i], a["med_mx_istart"][i], a["med_mx_cdf"][i],
+             a["med_mx_norm"][i]) = _maxexp_tables(st)
+    n_het = len(dims)
+    if n_het == 0:
+        corners, sup = [np.zeros((1, 8), np.float32)], [np.zeros(1, np.float32)]
+        dims, sdims, cbase, sbase = [[1, 1, 1]], [[1, 1, 1]], [0], [0]
+        w2g = [np.eye(4, dtype=np.float32)[:3].reshape(-1)]
+        albedo = [np.full(3, 0.9, np.float32)]
+    het_corners = np.concatenate(corners)
+    a.update({
+        # a torch tensor: numpy has no bfloat16 (_to_device keeps it)
+        "het_corners": (torch.from_numpy(het_corners).to(torch.bfloat16)
+                        if n_het and bf16 else het_corners),
+        "het_super": np.concatenate(sup),
+        "het_w2g": np.stack(w2g),  # [K, 12] row-major 3x4
+        "het_albedo": np.stack(albedo),
+        "het_dims": np.asarray(dims, np.int32),  # [K, 3] (D, H, W)
+        "het_sdims": np.asarray(sdims, np.int32),
+        "het_cbase": np.asarray(cbase, np.int32),
+        "het_sbase": np.asarray(sbase, np.int32),
+    })
+    meta = {
+        "has_media": len(media) > 0,
+        "n_media": len(media),
+        "hom_strategies": tuple(sorted({int(s) for s in a["med_strategy"].tolist()}))
+        if media else (0,),
+        "phase_kinds": tuple(sorted({int(k) for k in a["med_ph_kinds"].ravel() if k >= 0}))
+        if media else (),
+        "n_het": n_het,
+        # deterministic Simpson transmittance iff every heterogeneous
+        # medium asks for it (a static per-scene dispatch)
+        "het_simpson": n_het > 0 and all(
+            m.method == "simpson" for m in media if m.kind == HETEROGENEOUS
+        ),
+        "het_super_b": SUPER_B,
+        "camera_medium": -1,
+    }
+    return a, meta
+
+
 def _check_clusters(meta: dict):
     """The port renders BVH scenes through the cluster tables (K3-K10).
     The reference packs none past its HBM budget (CLUSTER_HBM_MAX, at
@@ -239,8 +434,17 @@ def _check_clusters(meta: dict):
 def _to_device(arrays: dict, device) -> dict:
     """Each array as a C-contiguous tensor on `device`.  torch.tensor keeps
     a numpy array's strides, and cl_tri and tri_t are built as transposes:
-    left so, every kernel wrapper's .contiguous() copied them per call."""
-    return {k: torch.tensor(np.ascontiguousarray(v), device=device) for k, v in arrays.items()}
+    left so, every kernel wrapper's .contiguous() copied them per call.
+    bfloat16 tables (het_corners) come as tensors, or from a reference
+    pack as numpy arrays of ml_dtypes' bfloat16, which torch cannot read."""
+    def tensor(v):
+        if torch.is_tensor(v):
+            return v.to(device).contiguous()
+        if v.dtype.name == "bfloat16":
+            return torch.from_numpy(v.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+        return torch.tensor(np.ascontiguousarray(v), device=device)
+
+    return {k: tensor(v) for k, v in arrays.items()}
 
 
 def cluster_columns(cl_tri, tc: int):
@@ -312,18 +516,30 @@ def pack_scene(scene, device="cuda") -> ScenePack:
             emitters.append(rec)
         return em_ids[id(rec)]
 
+    media, med_ids = [], {}
+
+    def add_medium(rec):
+        if rec is None:
+            return -1
+        if id(rec) not in med_ids:
+            med_ids[id(rec)] = len(media)
+            media.append(rec)
+        return med_ids[id(rec)]
+
     # ---------------- flatten geometry ----------------
     v0s, e1s, e2s, n0s, n1s, n2s = [], [], [], [], [], []
-    uv0s, uv1s, uv2s, tmats, temits = [], [], [], [], []
-    spheres = []  # (SphereData, material id, emitter id)
+    uv0s, uv1s, uv2s, tmats, temits, tmed_in, tmed_ex = [], [], [], [], [], [], []
+    spheres = []  # (SphereData, material id, emitter id, interior, exterior)
     for inst in scene.shapes:
         mat_id = add_material(inst.bsdf)
         emit_id = add_emitter(inst.emitter)
+        med_in = add_medium(inst.interior_medium)
+        med_ex = add_medium(inst.exterior_medium)
         meshes = list(inst.meshes)
         if emit_id >= 0:
             meshes += _emissive_sphere_meshes(inst.spheres)
         else:
-            spheres += [(sph, mat_id, emit_id) for sph in inst.spheres]
+            spheres += [(sph, mat_id, emit_id, med_in, med_ex) for sph in inst.spheres]
         for mesh in meshes:
             p = mesh.positions
             i = mesh.indices.astype(np.int64)
@@ -352,6 +568,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
                 uv2s.append(z)
             tmats.append(np.full(len(i), mat_id, np.int32))
             temits.append(np.full(len(i), emit_id, np.int32))
+            tmed_in.append(np.full(len(i), med_in, np.int32))
+            tmed_ex.append(np.full(len(i), med_ex, np.int32))
 
     def cat(parts, shape_tail, dtype=np.float32):
         if parts:
@@ -366,6 +584,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "tri_uv2": cat(uv2s, (2,)),
         "tri_mat": cat(tmats, (), np.int32),
         "tri_emit": cat(temits, (), np.int32),
+        "tri_med_in": cat(tmed_in, (), np.int32),
+        "tri_med_ex": cat(tmed_ex, (), np.int32),
     }
     n_tris = len(tri["tri_v0"])
     use_bvh = n_tris > BRUTE_FORCE_MAX_TRIS
@@ -387,7 +607,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     tri_emit = tri["tri_emit"]
     # pad with LEAF_SIZE far-away rows: index-clamped gathers and the
     # cluster tiles' dummy slots (index n_tris) never leave the tables
-    pad_fill = {"tri_v0": 1e30, "tri_emit": -1}
+    pad_fill = {"tri_v0": 1e30, "tri_emit": -1, "tri_med_in": -1, "tri_med_ex": -1}
     for k, a in tri.items():
         pad = np.full((LEAF_SIZE,) + a.shape[1:], pad_fill.get(k, 0), a.dtype)
         tri[k] = np.concatenate([a, pad])
@@ -411,13 +631,17 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "sph_mat": np.zeros(max(n_sph, 1), np.int32),
         "sph_emit": np.full(max(n_sph, 1), -1, np.int32),
         "sph_flip": np.zeros(max(n_sph, 1), np.float32),
+        "sph_med_in": np.full(max(n_sph, 1), -1, np.int32),
+        "sph_med_ex": np.full(max(n_sph, 1), -1, np.int32),
     }
-    for k, (sd, m, e) in enumerate(spheres):
+    for k, (sd, m, e, mi, mx) in enumerate(spheres):
         sph["sph_center"][k] = sd.center
         sph["sph_radius"][k] = sd.radius
         sph["sph_mat"][k] = m
         sph["sph_emit"][k] = e
         sph["sph_flip"][k] = -1.0 if sd.flip_normals else 1.0
+        sph["sph_med_in"][k] = mi
+        sph["sph_med_ex"][k] = mx
 
     # ---------------- material table ----------------
     n_mat = max(len(materials), 1)
@@ -516,6 +740,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     emitter_cdf = np.concatenate([[0.0], np.cumsum(pmf)]).astype(np.float32)
     emitter_cdf[-1] = 1.0
     env_arrays, env_meta = _env_table(emitters[env_idx] if env_idx >= 0 else None)
+    med_arrays, med_meta = _pack_media(media)
 
     arrays = {
         **tri,
@@ -537,6 +762,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "emitter_pmf": pmf.astype(np.float32),
         "emitter_cdf": emitter_cdf,
         **env_arrays,
+        **med_arrays,
     }
     meta = {
         "n_tris": n_tris,
@@ -553,6 +779,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         **env_meta,
         "has_textures": len(textures) > 0,
         "has_mips": False,
+        **med_meta,
     }
     check_slice(meta)
     return ScenePack(_to_device(_with_derived(arrays, meta), device), meta)

@@ -38,6 +38,8 @@ class ShapeInstance:
     spheres: list = field(default_factory=list)  # list[SphereData]
     bsdf = None  # set by the XML loader
     emitter = None
+    interior_medium = None  # MediumRecord or None (vacuum)
+    exterior_medium = None
     id: str = ""
 
 

@@ -54,6 +54,7 @@ class SceneDescription:
     sensor: object = None
     shapes: list = field(default_factory=list)
     emitters: list = field(default_factory=list)  # non-shape emitters
+    media: dict = field(default_factory=dict)  # top-level media by id
     ids: dict = field(default_factory=dict)
     path: str = ""
 
@@ -227,6 +228,8 @@ class SceneLoader:
             scene.shapes.append(obj.instance)
         elif cat == "emitter":
             scene.emitters.append(obj.record)
+        elif cat == "medium":
+            scene.media[obj.record.id or "default"] = obj.record
         # top-level bsdfs etc. exist only to define ids
 
     def _finalize_sensor(self, sensor_obj):
@@ -250,14 +253,22 @@ class SceneLoader:
     def _attach_shape_children(self, shape_obj):
         from mitsuba_tpu_torch.bsdf.plugins import BSDFRecord
         from mitsuba_tpu_torch.emitter.plugins import EmitterRecord
+        from mitsuba_tpu_torch.medium.plugins import MediumRecord
 
         inst = shape_obj.instance
-        for _, child in shape_obj.props.children:
+        for name, child in shape_obj.props.children:
             rec = getattr(child, "record", None)
             if isinstance(rec, BSDFRecord):
                 inst.bsdf = rec
             elif isinstance(rec, EmitterRecord):
                 inst.emitter = rec
+            elif isinstance(rec, MediumRecord):
+                # a nested or referenced medium: "interior" unless named
+                # "exterior" (reference xml_loader.py _attach_shape_children)
+                if name == "interior" or not name:
+                    inst.interior_medium = rec
+                elif name == "exterior":
+                    inst.exterior_medium = rec
             else:
                 raise NotImplementedError(
                     f"shape child {type(child).__name__} not yet ported"

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
-    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const] [--hits-only]
+    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke] [--hits-only]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
 for scenes/cbox.xml, for scenes/matpreview.xml as it stands (envmap,
 sobol), or for its variant (a constant environment and the independent
 sampler, tests/torch_meshes.py `matpreview_const_xml`), at 512x512 and 16
-samples per pass:
+samples per pass; or for scenes/smoke.xml (volpath, the batched
+wavefront) at the reference's bench resolution, 256x256, and 32 samples
+per pass (one pass of 2,097,152 lanes):
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
-   and three timed passes of the regenerating wavefront (host clock around
-   work that ends in a synchronise), printing seconds and traced rays per
-   second of each;
+   and three timed passes (host clock around work that ends in a
+   synchronise), printing seconds and traced rays per second of each;
 2. profiles one more pass with torch.profiler (CPU and CUDA activities):
    the pass's wall time, the device time of its kernels, the busy share
    (kernel time over wall time; the profiler's own overhead lengthens the
@@ -21,8 +22,10 @@ samples per pass:
    device time of each of the port's own kernels, and the launches of each
    of its kernel wrappers in that pass (their counters); and, by stage of
    the bounce loop (the functions in STAGES, each wrapped in a
-   `record_function` range for this pass only), the host time, the device
-   time of the kernels launched inside and the calls;
+   `record_function` range for this pass only; SMOKE_STAGES for smoke,
+   whose ranges nest: `_het_track` inside `sample_distance`, the shadow
+   segments' `intersect` inside `_attenuated_visibility`), the host time,
+   the device time of the kernels launched inside and the calls;
 3. for the meshes (dense, bigmesh), holds the pair pipeline's closest hits of one camera ray
    per pixel against the port's stackless BVH walk (accel/intersect.py
    `_bvh_traverse`, plain PyTorch): hit masks, prims and t, and the count
@@ -60,17 +63,31 @@ STAGES = (
     ("mitsuba_tpu_torch.core.rng", ("rand4",)),
     ("mitsuba_tpu_torch.integrator.path", ("ld_decision4",)),
 )
+# the volumetric event loop's stages (scenes/smoke.xml)
+SMOKE_STAGES = (
+    ("mitsuba_tpu_torch.integrator.volpath",
+     ("intersect", "fill_interaction", "_attenuated_visibility", "shading_params",
+      "bsdf_eval", "bsdf_pdf", "bsdf_sample")),
+    ("mitsuba_tpu_torch.medium.eval",
+     ("sample_distance", "_het_track", "transmittance", "phase_sample", "phase_eval",
+      "phase_pdf")),
+    ("mitsuba_tpu_torch.emitter.eval", ("sample_direct",)),
+    ("mitsuba_tpu_torch.core.rng", ("rand4",)),
+    ("mitsuba_tpu_torch.renderer", ("splat_grid",)),
+)
+# film size and samples per pass of each scene
+RES_SPP = {"smoke": (256, 32)}
 
 
-def staged():
-    """Wrap each function of STAGES in a record_function range
+def staged(stages):
+    """Wrap each function of `stages` in a record_function range
     "stage:<name>"; returns a function that undoes it."""
     import importlib
 
     import torch
 
     saved = []
-    for modname, names in STAGES:
+    for modname, names in stages:
         mod = importlib.import_module(modname)
         for name in names:
             fn = getattr(mod, name)
@@ -87,7 +104,8 @@ def staged():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("scene", nargs="?", default="dense",
-                    choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const"))
+                    choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
+                             "smoke"))
     ap.add_argument("--hits-only", action="store_true")
     args = ap.parse_args()
 
@@ -112,6 +130,7 @@ def main():
         bunny_standin,
         dense_standin,
         matpreview_const_xml,
+        smoke_xml,
         write_ply,
     )
 
@@ -124,7 +143,10 @@ def main():
     for name in SOURCES:
         native.build(name)
 
-    if args.scene == "cbox":
+    res, spp = RES_SPP.get(args.scene, (RES, SPP))
+    if args.scene == "smoke":
+        scene = mt.load_scene_string(smoke_xml(res, res))
+    elif args.scene == "cbox":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
     elif args.scene == "matpreview":
@@ -140,33 +162,35 @@ def main():
         scene = mt.load_scene_string(bunny_scene_xml(ply, RES, RES))
     t0 = time.time()
     pack = pack_scene(scene, dev)
-    print(f"{args.scene} {RES}x{RES}, {SPP} spp per pass: packed in "
+    print(f"{args.scene} {res}x{res}, {spp} spp per pass: packed in "
           f"{time.time() - t0:.3f} s; meta n_clusters={pack.meta.get('n_clusters')} "
           f"n_supers={pack.meta.get('n_supers')} cluster_vmem_ok={pack.meta.get('cluster_vmem_ok')}",
           flush=True)
 
     if not args.hits_only:
         profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
-                       counters(pk, pairs, pb))
+                       counters(pk, pairs, pb), res, spp,
+                       SMOKE_STAGES if args.scene == "smoke" else STAGES)
     if args.scene in ("dense", "bigmesh"):
         check_hits(scene, pack, dev, camera_rays, intersect, pairs)
     return 0
 
 
-def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers):
+def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers, res, spp,
+                   stages):
     """Steps 1 and 2; wrappers: the port's kernel wrappers by name."""
     import torch
 
     from chip_smoke import device_events, device_us
 
     rec = scene.sensor.record
-    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, SPP, dev)
-    film = new_film(RES, RES, dev)
+    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
+    film = new_film(res, res, dev)
 
     def one_pass(i):
         nonlocal film
         t0 = time.time()
-        film, n_rays = rp(film, i * SPP, 0)
+        film, n_rays = rp(film, i * spp, 0)
         n = int(n_rays)  # synchronises
         torch.cuda.synchronize()
         return time.time() - t0, n
@@ -179,15 +203,19 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
 
     from torch.profiler import ProfilerActivity, profile
 
+    from mitsuba_tpu_torch.integrator.volpath import volpath_trace
+
     for fn in wrappers.values():
         fn.launches = 0
-    unstage = staged()
+    events = volpath_trace.events
+    unstage = staged(stages)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall, n = one_pass(4)
     finally:
         unstage()
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    events = volpath_trace.events - events  # volpath's event loop (0 for path)
     # on the device: kernels, and the GPU-side spans of the stage ranges
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith("stage:")]
@@ -208,6 +236,9 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
     print("the port's own kernels:", flush=True)
     show([e for e in kernels if e.key.startswith(("(anonymous namespace)::", "void (anonymous"))])
     print(f"kernel launches in the profiled pass: {launches}", flush=True)
+    if events:
+        print(f"volpath events in the profiled pass: {events}, {n_k / events:.1f} kernels per "
+              f"event", flush=True)
     stages = [e for e in prof.key_averages() if e.key.startswith("stage:")
               and e.device_type == torch.autograd.DeviceType.CPU]
     stages.sort(key=lambda e: e.cpu_time_total, reverse=True)

@@ -11,13 +11,21 @@ the matpreview variant.
   870,480 triangles (minutes: the BVH walk of 870k triangles on the CPU);
 * tests/golden/torch_matpreview_const_64_16.npy: `matpreview_const_xml`,
   scenes/matpreview.xml under a constant environment with the
-  independent sampler (~10 s).
+  independent sampler (~10 s);
+* tests/golden/torch_smoke_64_16.npy: scenes/smoke.xml (volpath, a
+  heterogeneous medium in a `null` cube, 1,038 triangles), traced as the
+  JAX package traces BVH scenes on its TPU (`reference_pair_traversal`;
+  ~80 s on the CPU);
+* tests/golden/torch_cbox_mitchell_64_16.npy: scenes/cbox.xml under the
+  mitchell filter (the batched wavefront and its splat; ~5 s).
 
-    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [bigmesh] [densemesh] [matpreview]
+    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [bigmesh] [densemesh] [matpreview] [smoke] [cbox_mitchell]
 
-With no argument all three are written.
+With no argument all five are written.
 """
 
+import contextlib
+import functools
 import os
 import sys
 import time
@@ -28,8 +36,10 @@ from tests.torch_meshes import (
     ROOT,
     bunny_scene_xml,
     bunny_standin,
+    cbox_mitchell_xml,
     dense_standin,
     matpreview_const_xml,
+    smoke_xml,
     write_ply,
 )
 
@@ -42,7 +52,29 @@ def _standin_xml(mesh, ply):
     return make
 
 
-# name -> (golden, the scene's XML at 64x64)
+@contextlib.contextmanager
+def reference_pair_traversal():
+    """Within the block the JAX package traces scenes with cluster tables
+    as on its TPU: through its pair pipeline (accel/pairs.py), whose
+    Pallas kernels run in interpret mode, instead of its XLA BVH walk.
+    The port's K3/K4/K7 follow the pair pipeline, which breaks exact-t
+    ties (coplanar faces, such as scenes/smoke.xml's cube on its floor)
+    differently from the walk.  Patches two module attributes of the JAX
+    package for the block's duration."""
+    from mitsuba_tpu.accel import intersect as jis
+    from mitsuba_tpu.accel import pairs as jprs
+
+    saved = jis._use_clusters, jprs.pair_closest, jprs.pair_any
+    jis._use_clusters = lambda pack: pack.meta.get("n_clusters", 0) > 0
+    jprs.pair_closest = functools.partial(saved[1], interpret=True)
+    jprs.pair_any = functools.partial(saved[2], interpret=True)
+    try:
+        yield
+    finally:
+        jis._use_clusters, jprs.pair_closest, jprs.pair_any = saved
+
+
+# name -> (golden, the scene's XML at 64x64, traced through the pair pipeline)
 GOLDENS = {
     "bigmesh": (os.path.join(ROOT, "tests", "golden", "torch_bigmesh_64_16.npy"),
                 _standin_xml(bunny_standin, os.path.join(ROOT, "build", "bunny_standin.ply"))),
@@ -50,6 +82,10 @@ GOLDENS = {
                   _standin_xml(dense_standin, os.path.join(ROOT, "build", "dense_standin.ply"))),
     "matpreview": (os.path.join(ROOT, "tests", "golden", "torch_matpreview_const_64_16.npy"),
                    lambda: matpreview_const_xml(64, 64)),
+    "smoke": (os.path.join(ROOT, "tests", "golden", "torch_smoke_64_16.npy"),
+              lambda: smoke_xml(64, 64), True),
+    "cbox_mitchell": (os.path.join(ROOT, "tests", "golden", "torch_cbox_mitchell_64_16.npy"),
+                      lambda: cbox_mitchell_xml(64, 64)),
 }
 
 
@@ -61,10 +97,11 @@ def main(names):
     from mitsuba_tpu.scene.xml_loader import load_scene_string
 
     for name in names:
-        golden, make_xml = GOLDENS[name]
+        golden, make_xml, *pairs = GOLDENS[name]
         t0 = time.time()
         scene = load_scene_string(make_xml())
-        img = np.asarray(mitsuba_tpu.render(scene, spp=16, seed=0), np.float32)
+        with reference_pair_traversal() if pairs else contextlib.nullcontext():
+            img = np.asarray(mitsuba_tpu.render(scene, spp=16, seed=0), np.float32)
         np.save(golden, img)
         print(f"wrote {golden}: shape {img.shape}, mean {img.mean():.6f}, "
               f"{time.time() - t0:.1f} s")

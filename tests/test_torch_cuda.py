@@ -1026,3 +1026,77 @@ def test_env_alias_draw_on_card_equals_cpu(matpreview_real):
     finally:
         em._env_dir_from_uv = inner
     assert torch.equal(seen[0], seen[1])
+
+
+@pytest.fixture(scope="module")
+def smoke_card():
+    """scenes/smoke.xml at 32x32, packed on the card (1,038 triangles in
+    11 clusters: the pair pipeline)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import smoke_xml
+
+    scene = mt.load_scene_string(smoke_xml(32, 32))
+    return scene, pack_scene(scene, torch.device("cuda"))
+
+
+def test_smoke_shadow_segments_equal_plain(smoke_card):
+    """K3/K4 (closest) bit-equal to plain on the smoke's shadow segments:
+    the three closest-hit queries of a 16-spp pass's first NEE, through
+    the null cube and the smoke, with finite t_max; and on the camera
+    rays' query before them."""
+    from chip_smoke import smoke_queries
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.integrator import volpath as vp
+    from mitsuba_tpu_torch.renderer import make_render_pass
+
+    scene, pack = smoke_card
+    c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    queries = smoke_queries(vp, make_render_pass, new_film, scene, pack, torch.device("cuda"), 16)
+    assert [q[0] for q in queries] == ["camera"] + [f"segment {k}"
+                                                    for k in range(vp.SHADOW_SEGMENTS)]
+    for _, o, d, t_seg in queries:
+        _, t_max = pb.finite_tmax(t_seg, o)
+        k3 = pairs.dense_cull(o, d, t_max, pack.cl_mbox, c, min(pairs.K, c))
+        for a, b in zip(k3, pairs.dense_cull_plain(o, d, t_max, pack.cl_mbox, c, min(pairs.K, c))):
+            assert torch.equal(a, b)
+        args = (o, d, t_max, k3[0], pack.cl_tri, pack.cl_pad2prim, c, tc)
+        out = pairs.pair_hit_closest(*args, pack.cl_cnt, pairs._tri_rows(pack))
+        for a, b in zip(out, pairs.pair_hit_closest_plain(*args)):
+            assert torch.equal(a, b)
+        assert bool((out[1] >= 0).any())
+
+
+def test_smoke_render_on_card_matches_cpu(smoke_card):
+    """volpath through the batched wavefront on the card (K3/K4, K7 on
+    overflow) against the same render on the CPU through their plain
+    versions (the same random numbers)."""
+    import mitsuba_tpu_torch as mt
+
+    scene, pack = smoke_card
+    pairs.dense_cull.launches = pairs.pair_hit_closest.launches = 0
+    card = mt.render(scene, spp=4, seed=0, pack=pack)
+    assert pairs.dense_cull.launches > 0 and pairs.pair_hit_closest.launches > 0
+    cpu = mt.render(scene, spp=4, seed=0, device="cpu")
+    assert np.isfinite(card).all()
+    rmse = float(np.sqrt(np.mean((card / (1 + card) - cpu / (1 + cpu)) ** 2)))
+    assert rmse < 5e-3, rmse
+
+
+def test_smoke_as_it_stands_on_card(smoke_card):
+    """`render(load_scene("scenes/smoke.xml"))` as a user calls it: the
+    scene as it stands (192x192, 32 spp: one pass of 1,179,648 lanes), on
+    the card by default; its mean within 5 % of the reference's converged
+    256x256 image (bench_refs/smoke_256.npz, the same view)."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import ROOT, SMOKE_XML
+
+    pairs.dense_cull.launches = 0
+    img = mt.render(mt.load_scene(SMOKE_XML))
+    assert pairs.dense_cull.launches > 0
+    assert img.shape == (192, 192, 3) and np.isfinite(img).all()
+    ref = np.load(os.path.join(ROOT, "bench_refs", "smoke_256.npz"))["img"]
+    assert abs(img.mean() - ref.mean()) < 0.05 * ref.mean(), (img.mean(), ref.mean())

@@ -111,3 +111,12 @@ def test_materials_modules_are_checked():
                 "io/pfm.py", "io/png.py", "core/distribution.py", "core/sobol.py",
                 "sampler/plugins.py", "emitter/eval.py"):
         assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+
+
+def test_media_modules_are_checked():
+    """The modules of the smoke slice (media, volpath, the splatting film)
+    are among the sources checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("medium/plugins.py", "medium/eval.py", "integrator/volpath.py",
+                "integrator/path.py", "film/film.py", "film/plugins.py", "renderer.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod

@@ -14,7 +14,9 @@ mesh file replaced, so the configuration stays the scene's own.
 environment in place of its envmap and the independent sampler in place
 of sobol, the materials slice's scene.  `EMISSIVE_SPHERE_XML` and
 `cbox_sphere_xml` hold analytic spheres beside more triangles than
-spheres.
+spheres.  `smoke_xml` is scenes/smoke.xml (the media slice's scene) and
+`cbox_mitchell_xml` scenes/cbox.xml under the mitchell filter, each
+optionally at another film size.
 """
 
 import os
@@ -26,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNNY_XML = os.path.join(ROOT, "scenes", "bunny.xml")
 MATPREVIEW_XML = os.path.join(ROOT, "scenes", "matpreview.xml")
 CBOX_XML = os.path.join(ROOT, "scenes", "cbox.xml")
+SMOKE_XML = os.path.join(ROOT, "scenes", "smoke.xml")
 # where the camera of scenes/bunny.xml looks, and the bunny's extent
 STANDIN_CENTER = (-0.02, 0.1, 0.0)
 STANDIN_RADIUS = 0.07
@@ -137,8 +140,8 @@ def bunny_scene_xml(ply_path, width=None, height=None):
 
 def _film_size(xml, width, height):
     if width is not None:
-        xml = xml.replace('name="width" value="512"', f'name="width" value="{width}"')
-        xml = xml.replace('name="height" value="512"', f'name="height" value="{height}"')
+        xml = re.sub(r'name="width" value="\d+"', f'name="width" value="{width}"', xml)
+        xml = re.sub(r'name="height" value="\d+"', f'name="height" value="{height}"', xml)
     return xml
 
 
@@ -191,3 +194,27 @@ def cbox_sphere_xml(width=None, height=None):
     if n != 1:
         raise ValueError(f"{CBOX_XML} does not end with </scene>")
     return _film_size(head, width, height)
+
+
+def smoke_xml(width=None, height=None):
+    """scenes/smoke.xml with its density grid's file name made absolute (so
+    that the text loads from any directory), optionally at another film
+    size."""
+    with open(SMOKE_XML) as f:
+        xml = f.read()
+    vol = os.path.join(ROOT, "scenes", "assets", "smoke.vol")
+    xml, n = re.subn(r'value="assets/smoke.vol"', f'value="{vol}"', xml)
+    if n != 1:
+        raise ValueError(f"{SMOKE_XML} names {n} smoke.vol files, expected one")
+    return _film_size(xml, width, height)
+
+
+def cbox_mitchell_xml(width=None, height=None):
+    """scenes/cbox.xml with `<rfilter type="mitchell"/>` in place of its
+    gaussian filter, optionally at another film size."""
+    with open(CBOX_XML) as f:
+        xml = f.read()
+    xml, n = re.subn(r'<rfilter type="gaussian"\s*/>', '<rfilter type="mitchell"/>', xml)
+    if n != 1:
+        raise ValueError(f"{CBOX_XML} holds {n} gaussian filters, expected one")
+    return _film_size(xml, width, height)
