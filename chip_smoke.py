@@ -68,6 +68,14 @@ Phases, each of which raises (and exits non-zero) on failure:
      pass (256x256, 32 spp: 2,097,152 rays a query; `smoke_queries`), bit
      for bit (cluster lists; t, prim, u, v), and K7 on the batch each
      query hands the fallback;
+   * the light-transport slice (`capture_queries`): K1/K2 (closest and
+     any) on the particle tracer's first two camera-connection queries on
+     cbox at 512x512, 4 particles per pixel (1,048,576 segments each),
+     and K3, K4 (any and closest) on the first three connection queries
+     of a 64x64 glass_caustics bdpt chunk (131,072 segments each; lanes
+     whose vertices are not both live carry an empty segment), bit for
+     bit, with K7/K8 on the batches those queries hand the fallback (at
+     K = 1 where none overflows at the natural K);
    each kernel's time beside its bound (the larger of its operations
    over the card's FP32 rate and its bytes over the memory rate, from
    this run's inputs, counting only the real triangles of padded
@@ -110,6 +118,18 @@ Phases, each of which raises (and exits non-zero) on failure:
    * scenes/cbox.xml under the mitchell filter at 64x64, 16 spp, seed 0
      against tests/golden/torch_cbox_mitchell_64_16.npy (RMSE < 5e-3):
      K1/K2 (the kernels line's launches add both renders');
+   * scenes/glass_caustics.xml (bdpt, maxDepth 24 capped to 16 edges) at
+     64x64, 16 spp against the reference's own
+     tests/golden/glass_caustics_64_16.npy (RMSE < 5e-3), and at 16x16,
+     4 spp against tests/golden/torch_glass_bdpt_16_4.npy (the JAX
+     package's render through its pair pipeline): K3/K4 launched, K7/K8 on
+     overflow; scenes/cbox.xml under the particle tracer at 64x64, 16
+     particles per pixel against torch_cbox_ptracer_64_16.npy, and bdpt on
+     tests/test_bdpt.py's spot-light and media scenes at 24x24, 16 spp
+     against torch_spot_bdpt_24_16.npy and torch_media_bdpt_24_16.npy
+     (these four goldens at their tests/torch_meshes.py GOLDEN_GATES,
+     1e-5 to 1e-7): K1/K2 launched (K1 alone for the media scene, whose connections are
+     closest-hit segments through its null sphere);
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
    for the Cornell box, both stand-ins, scenes/matpreview.xml and the
@@ -124,7 +144,15 @@ Phases, each of which raises (and exits non-zero) on failure:
    warm-up): rays/s, peak device memory, the tone-mapped RMSE against
    bench_refs/smoke_256.npz (no gate; the reference recorded 0.0110 at
    256 spp), and from a profiled pass its device ms, events, kernels per
-   event and busy share.
+   event and busy share; then glass_caustics with bdpt at 16 edges at its
+   bench resolution, 256x256, chunk after chunk of 131,072 lanes (2 spp)
+   for about 60 s (at least 2 chunks, at most 32 spp: `glass_throughput`),
+   with seconds per chunk, rays/s, peak device memory, K3/K4/K7/K8
+   launches per chunk, the tone-mapped RMSE against
+   bench_refs/glass_caustics_256.npz (no gate) and a profiled chunk's
+   kernels and busy share; one chunk at the scene's own 512x512 (262,144
+   lanes); and the particle tracer on cbox at 512x512, 4 particles per
+   pixel (one batch of 1,048,576): seconds and rays/s.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -149,6 +177,12 @@ MATPREVIEW_REF_GOLDEN = os.path.join(HERE, "tests", "golden", "matpreview_64_16.
 MATPREVIEW_REF_512 = os.path.join(HERE, "bench_refs", "matpreview_512.npz")
 SMOKE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_smoke_64_16.npy")
 SMOKE_REF_256 = os.path.join(HERE, "bench_refs", "smoke_256.npz")
+GLASS_REF_256 = os.path.join(HERE, "bench_refs", "glass_caustics_256.npz")
+GLASS_GOLDEN = os.path.join(HERE, "tests", "golden", "glass_caustics_64_16.npy")
+GLASS_PAIR_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_glass_bdpt_16_4.npy")
+PTRACER_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_cbox_ptracer_64_16.npy")
+SPOT_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_spot_bdpt_24_16.npy")
+MEDIA_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_media_bdpt_24_16.npy")
 MITCHELL_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_cbox_mitchell_64_16.npy")
 STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
 DENSE_PLY = os.path.join(HERE, "build", "dense_standin.ply")
@@ -811,7 +845,7 @@ def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
     kern = getattr(pb, f"cluster_{'traverse' if resident else 'stream'}_{kind}")
     if not batch:
         print(f"  {kern.__name__}: no {label} ray took the fallback", flush=True)
-        return
+        return False
     o_f, d_f, t_f = batch[0]
     _, t_f = pb.finite_tmax(t_f, o_f)
     args = (o_f.contiguous(), d_f.contiguous(), t_f, pack.cl_box, pack.cl_tri,
@@ -844,6 +878,7 @@ def fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
                  f"{time_ms(lambda: stream(*args)):.4f} ms; full-rescan kernel "
                  f"{RESCAN_PASS_MS[kern.__name__]} ms per launch in a profiled pass")
     print(line, flush=True)
+    return True
 
 
 class _FirstNEE(Exception):
@@ -892,30 +927,36 @@ def smoke_queries(vp, make_render_pass, new_film, scene, pack, dev, spp):
     finally:
         vp.intersect = inner_hit
     labels = ["camera"] + [f"segment {k}" for k in range(len(queries) - 1)]
+    for label, (o, _, _) in zip(labels, queries):
+        inside = ((o[:, 0].abs() < 0.5) & (o[:, 1] > 0) & (o[:, 1] < 1) & (o[:, 2].abs() < 0.5))
+        print(f"  smoke {w}x{h}x{spp} {label}: {int(inside.sum())} origins inside the cube's "
+              f"box", flush=True)
     return [(label, *q) for label, q in zip(labels, queries)]
 
 
-def compare_segments(pairs, pb, pack, queries, stats, res, plain_reps=20):
-    """K3 and K4 (closest) on the smoke's closest-hit queries against
-    their plain versions, bit for bit (cluster lists; t, prim, u, v),
-    timed; and the fallback (K7) on the batch the pair pipeline hands it."""
+def compare_segments(pairs, pb, pack, queries, stats, plain_reps=20, any_hit=False,
+                     retry=False):
+    """K3 and K4 (closest; with any_hit also any) on (label, o, d, t_max)
+    queries against their plain versions, bit for bit (cluster lists; t,
+    prim, u, v; occlusion), timed; and the fallback (K7; with any_hit also
+    K8) on the batch the pair pipeline hands it, with retry at K = 1 where
+    no ray overflows at the natural K.  Returns the fallbacks that ran
+    (True: closest, False: any)."""
     import torch
 
     c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
     kk = min(pairs.K, c)
     sizes = cluster_sizes(pack)
     tabs = (pack.cl_cnt, pairs._tri_rows(pack))
+    ran = set()
     for label, o, d, t_seg in queries:
         r = o.shape[0]
         _, t_max = pb.finite_tmax(t_seg, o)  # as pair_closest passes it on
-        inside = ((o[:, 0].abs() < 0.5) & (o[:, 1] > 0) & (o[:, 1] < 1) & (o[:, 2].abs() < 0.5))
-        label = f"smoke {res} {label}"
         shape = f"{label} rays={r} C={c}"
         fin = torch.isfinite(t_seg)
         span = (f" in {float(t_seg[fin].min()):.4g}..{float(t_seg[fin].max()):.4g}"
                 if bool(fin.any()) else "")
-        print(f"  {shape}: {int(fin.sum())} finite t_max{span}, {int(inside.sum())} "
-              f"origins inside the cube's box", flush=True)
+        print(f"  {shape}: {int(fin.sum())} finite t_max{span}", flush=True)
         k3 = pairs.dense_cull(o, d, t_max, pack.cl_mbox, c, kk)
         p3 = pairs.dense_cull_plain(o, d, t_max, pack.cl_mbox, c, kk)
         torch.cuda.synchronize()
@@ -928,6 +969,17 @@ def compare_segments(pairs, pb, pack, queries, stats, res, plain_reps=20):
                r * c * SLAB_OPS, nbytes(o, d, t_max, pack.cl_mbox.reshape(-1, 6)[:c], *k3),
                f"clusters hit/ray={float(k3[2].float().mean()):.3f}", plain_reps=plain_reps)
         cids = k3[0]
+        if any_hit:
+            args_any = (o, d, t_max, cids, pack.cl_tri, c, tc)
+            k4a = pairs.pair_hit_any(*args_any, *tabs)
+            check(torch.equal(k4a, pairs.pair_hit_any_plain(*args_any)),
+                  f"pair_hit_any on {shape}: occlusion differs")
+            record(stats, "pair_hit_any", shape, 0.0,
+                   lambda: pairs.pair_hit_any(*args_any, *tabs),
+                   lambda: pairs.pair_hit_any_plain(*args_any),
+                   pair_tests(cids, sizes, k4a) * MT_OPS,
+                   nbytes(o, d, t_max, cids, pack.cl_tri, k4a),
+                   f"occluded={float(k4a.any(dim=1).float().mean()):.3f}", plain_reps=plain_reps)
         args = (o, d, t_max, cids, pack.cl_tri, pack.cl_pad2prim, c, tc)
         out = pairs.pair_hit_closest(*args, *tabs)
         ref = pairs.pair_hit_closest_plain(*args)
@@ -941,7 +993,17 @@ def compare_segments(pairs, pb, pack, queries, stats, res, plain_reps=20):
                pair_tests(cids, sizes) * MT_OPS,
                nbytes(o, d, t_max, cids, pack.cl_tri, pack.cl_pad2prim, *out),
                f"slot hit={float((out[1] >= 0).float().mean()):.3f}", plain_reps=plain_reps)
-        fallback_walks(pairs, pb, label, pack, o, d, t_max, True)
+        for closest in (True, False) if any_hit else (True,):
+            if fallback_walks(pairs, pb, label, pack, o, d, t_max, closest):
+                ran.add(closest)
+            elif retry:
+                natural, pairs.K = pairs.K, 1
+                try:
+                    if fallback_walks(pairs, pb, f"{label} (K=1)", pack, o, d, t_max, closest):
+                        ran.add(closest)
+                finally:
+                    pairs.K = natural
+    return ran
 
 
 def k4_beside_k6(pairs, name, k6_out, k6_ms, shape, args):
@@ -967,18 +1029,23 @@ def counters(pk, pairs, pb):
             if hasattr(mod, name)}
 
 
-def render_checked(mt, counted, scene, golden_path, dev, label, pack=None):
-    """Render at 64x64, 16 spp, seed 0 with the given launch counters set
-    to 0 just before; check finiteness and the golden gate.  Returns the
+def render_checked(mt, counted, scene, golden_path, dev, label, pack=None, spp=16):
+    """Render at the scene's film size (64x64 unless said otherwise), spp
+    samples per pixel, seed 0 with the given launch counters set to 0 just
+    before; check finiteness and the golden's gate (tests/torch_meshes.py
+    GOLDEN_GATES, else tests/test_golden.py's 5e-3).  Returns the
     launches."""
     import numpy as np
     import torch
+    from torch_meshes import GOLDEN_GATES
+
+    gate = GOLDEN_GATES.get(os.path.basename(golden_path), 5e-3)
 
     for fn in counted.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    img = mt.render(scene, spp=16, seed=0, device=dev, pack=pack)
+    img = mt.render(scene, spp=spp, seed=0, device=dev, pack=pack)
     render_s = time.time() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
     print(f"  {label}: peak device memory of the render "
@@ -987,10 +1054,11 @@ def render_checked(mt, counted, scene, golden_path, dev, label, pack=None):
     check(img.shape == golden.shape, f"{label}: image shape {img.shape} != {golden.shape}")
     check(bool(np.isfinite(img).all()), f"{label}: image has non-finite values")
     rmse = float(np.sqrt(np.mean((img / (1 + img) - golden / (1 + golden)) ** 2)))
-    print(f"phase 3: {label} 64x64 16 spp on the card in {render_s:.2f} s: "
-          f"tone-mapped RMSE vs golden {rmse:.6g} (gate 5e-3), mean {img.mean():.6f}, "
+    print(f"phase 3: {label} {img.shape[1]}x{img.shape[0]} {spp} spp on the card in "
+          f"{render_s:.2f} s: "
+          f"tone-mapped RMSE vs golden {rmse:.6g} (gate {gate:g}), mean {img.mean():.6f}, "
           f"launches {launches}", flush=True)
-    check(rmse < 5e-3, f"{label}: golden gate failed: RMSE {rmse}")
+    check(rmse < gate, f"{label}: golden gate failed: RMSE {rmse} (gate {gate:g})")
     return launches
 
 
@@ -1191,6 +1259,138 @@ def count_sphere_hits(intersect_mod):
     return inner
 
 
+class _Enough(Exception):
+    """Stops a render after the queries it was run for."""
+
+
+def capture_queries(mod, name, n, run):
+    """(o, d, t_max) of the first n calls of mod.name (an occlusion query)
+    that run() makes; run stops there."""
+    import torch
+
+    inner, got = getattr(mod, name), []
+
+    def spy(pack_, o, d, t_max):
+        t = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(o.shape[0])
+        got.append((o.contiguous(), d.contiguous(), t.contiguous()))
+        if len(got) == n:
+            raise _Enough
+        return inner(pack_, o, d, t_max)
+
+    setattr(mod, name, spy)
+    try:
+        run()
+    except _Enough:
+        pass
+    finally:
+        setattr(mod, name, inner)
+    check(len(got) == n, f"{mod.__name__}.{name} was called {len(got)} times, expected {n}")
+    return got
+
+
+def ptracer_segments(pk, tpt, scene, pack, dev, stats):
+    """K1/K2 against their plain versions, bit for bit, on the particle
+    tracer's camera connections on cbox (512x512, 4 particles per pixel:
+    one batch of 1,048,576): the emitted particles' connection and the
+    first surface vertices'; finite t_max between two offset points."""
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    lane = torch.arange(tpt.BATCH_MAX, device=dev)
+    run = tpt.make_ptracer_batch(pack, scene.integrator, rec, w, h, 0)
+    segs = capture_queries(tpt, "occluded", 2, lambda: run(
+        torch.zeros(h, w, 3, device=dev), lane, torch.zeros_like(lane)))
+    n_tri = int((pack.tri_s[0] < FAR_V0).sum())
+    for label, (o, d, t) in zip(("emitter", "vertex 1"), segs):
+        fin = torch.isfinite(t)
+        print(f"  ptracer camera connections ({label}): {o.shape[0]} rays, t_max "
+              f"{float(t[fin].min()):.4g}..{float(t[fin].max()):.4g}", flush=True)
+        for name in ("closest_hit_v2", "any_hit_v2"):
+            compare_brute(pk, name, o, d, t, pack.tri_s, n_tri, stats, exact=True)
+
+
+def bdpt_segments(pairs, pb, tb, scene, pack, dev, stats, n=3):
+    """K3/K4/K7/K8 on the connection segments of one bdpt chunk of the
+    glass scene (the scene's 16 edges; 64x64 at the lane budget's 32 spp,
+    131,072 lanes): the first n connections (t = 2; s = 1, 2, 3) from the
+    camera subpath's first vertex, each a finite segment between two
+    offset points."""
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    spp_chunk = tb.DEFAULT_LANES // (w * h)
+    lane = torch.arange(w * h, device=dev).repeat(spp_chunk)
+    sidx = torch.arange(spp_chunk, device=dev).repeat_interleave(w * h)
+    chunk = tb.make_bdpt_chunk(pack, scene.integrator, rec, w, h, 0)
+    queries = [(f"glass bdpt connection s={k + 1} t=2", *q) for k, q in
+               enumerate(capture_queries(tb, "occluded", n, lambda: chunk(lane, sidx)))]
+    ran = compare_segments(pairs, pb, pack, queries, stats, any_hit=True, retry=True)
+    check(ran == {True, False}, "no bdpt connection segment reached K7 and K8 (even at K=1)")
+
+
+def glass_throughput(tb, counted, scene, pack, dev, card, budget_s=60.0, max_spp=32):
+    """bdpt on the glass scene at the scene's film size, chunk by chunk
+    (iter_bdpt: MTS_BDPT_LANES lanes a chunk) until budget_s has passed,
+    at least 2 chunks and up to max_spp: seconds per chunk, rays/s
+    (closest-hit rays of live walk lanes plus the shadow rays of live
+    connections), peak device memory, the kernels' launches per chunk, the
+    tone-mapped RMSE against bench_refs/glass_caustics_256.npz where the
+    film is 256x256; then one more chunk under the profiler: kernels per
+    chunk and busy share."""
+    import numpy as np
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, img, done, rays = [], None, 0, 0
+    t_all = t0 = time.time()
+    for img, done, rays in tb.iter_bdpt(scene, pack, max_spp, 0, dev):
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        t0 = time.time()
+        if len(times) >= 2 and time.time() - t_all >= budget_s:
+            break
+    n_rays = int(rays)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    image = img().cpu().numpy()
+    check(bool(np.isfinite(image).all()), f"glass {w}x{h}: image has non-finite values")
+    total = sum(times)
+    out = {"scene": "glass_caustics-bdpt", "width": w, "height": h, "chunks": len(times),
+           "spp": done, "seconds_per_chunk": times, "rays": n_rays, "seconds": total,
+           "rays_per_s": n_rays / total, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_chunk": {k: n / len(times) for k, n in launches.items()}, "card": card}
+    print(f"phase 4: glass_caustics bdpt {w}x{h}, {len(times)} chunks = {done} spp: seconds per "
+          f"chunk {[round(x, 3) for x in times]}, {n_rays} rays in {total:.3f} s = "
+          f"{out['rays_per_s']:.6g} rays/s, peak device memory {out['peak_gib']:.3f} GiB, "
+          f"launches per chunk {out['launches_per_chunk']} on {card}", flush=True)
+    if (w, h) == (256, 256):
+        gold = np.load(GLASS_REF_256)["img"].astype(np.float32)
+        out["rmse_vs_ref"] = float(np.sqrt(np.mean((image / (1 + image) - gold / (1 + gold)) ** 2)))
+        print(f"  glass_caustics: tone-mapped RMSE of the {done}-spp image vs "
+              f"{os.path.relpath(GLASS_REF_256, HERE)}: {out['rmse_vs_ref']:.6g} (no gate; the "
+              f"reference's curve: 0.062 at 32 spp with 8 edges)", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    chunks = tb.iter_bdpt(scene, pack, max_spp, 0, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        next(chunks)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev_ms, n_k = device_events(prof)
+    out.update(profiled_wall_s=wall, device_ms=dev_ms, kernels_per_chunk=n_k,
+               busy=dev_ms / 1e3 / wall)
+    print(f"  glass_caustics: profiled chunk (CUDA activity) wall {wall:.4f} s, device time "
+          f"{dev_ms:.3f} ms, busy share {out['busy']:.4f}; {n_k} kernels per chunk", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1213,14 +1413,20 @@ def main():
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
     sys.path.append(os.path.join(HERE, "tests"))
+    from mitsuba_tpu_torch.integrator import bdpt as tb
+    from mitsuba_tpu_torch.integrator import ptracer as tpt
     from mitsuba_tpu_torch.integrator import volpath as vp
     from torch_meshes import (
+        bdpt_media_xml,
         bunny_scene_xml,
         bunny_standin,
         cbox_mitchell_xml,
+        cbox_ptracer_xml,
         dense_standin,
+        glass_xml,
         matpreview_const_xml,
         smoke_xml,
+        two_wall_xml,
         write_ply,
     )
 
@@ -1332,15 +1538,25 @@ def main():
     print(f"  smoke: {smoke_pack.meta['n_tris']} triangles in {smoke_pack.meta['n_clusters']} "
           f"clusters, {smoke_pack.meta['n_het']} grid of {tuple(smoke_pack.het_dims[0].tolist())}",
           flush=True)
-    compare_segments(pairs, pb, smoke_pack,
-                     smoke_queries(vp, make_render_pass, new_film, smoke64, smoke_pack, dev, 16),
-                     stats, "64x64x16")
-    # the shapes the phase-4 pass hands these kernels: 2,097,152 rays a query
+    # at 64x64x16, and at the shapes the phase-4 pass hands these kernels:
+    # 2,097,152 rays a query
     smoke = mt.load_scene_string(smoke_xml(SMOKE_RES, SMOKE_RES))
-    compare_segments(pairs, pb, smoke_pack,
-                     smoke_queries(vp, make_render_pass, new_film, smoke, smoke_pack, dev,
-                                   SMOKE_SPP),
-                     stats, f"{SMOKE_RES}x{SMOKE_RES}x{SMOKE_SPP}", plain_reps=3)
+    for sc, spp, reps in ((smoke64, 16, 20), (smoke, SMOKE_SPP, 3)):
+        res = f"{sc.sensor.record.film.width}x{sc.sensor.record.film.height}x{spp}"
+        queries = smoke_queries(vp, make_render_pass, new_film, sc, smoke_pack, dev, spp)
+        compare_segments(pairs, pb, smoke_pack, [(f"smoke {res} {q[0]}", *q[1:]) for q in queries],
+                         stats, plain_reps=reps)
+
+    # the light-transport slice: the particle tracer's camera connections
+    # on cbox (K1/K2), bdpt's connection segments on glass (K3/K4, K7/K8)
+    print(f"  light transport {elapsed()}", flush=True)
+    pt_scene = mt.load_scene_string(cbox_ptracer_xml())  # 512x512
+    ptracer_segments(pk, tpt, pt_scene, pack, dev, stats)
+    glass64 = mt.load_scene_string(glass_xml(64, 64))
+    glass_pack = pack_scene(glass64, dev)
+    check(glass_pack.meta["use_bvh"] and glass_pack.meta["n_tris"] == 1026,
+          "scenes/glass_caustics.xml does not pack into 1,026 triangles with cluster tables")
+    bdpt_segments(pairs, pb, tb, glass64, glass_pack, dev, stats)
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -1443,6 +1659,42 @@ def main():
         mt.load_scene_string(cbox_mitchell_xml(64, 64)), MITCHELL_GOLDEN, dev, "cbox mitchell")
     for k, n in {**smoke_launches, **mitchell_launches}.items():
         launches[k] += n
+
+    # the light-transport slice: bdpt on glass as it stands (16 edges)
+    # through K3/K4 (K7/K8 on overflow), ptracer and bdpt under delta
+    # lights and in a medium through K1/K2
+    print(f"  light transport {elapsed()}", flush=True)
+    glass_names = ("dense_cull", "pair_hit_closest", "pair_hit_any", "cluster_traverse_closest",
+                   "cluster_traverse_any")
+    for fn in (pairs.pair_closest, pairs.pair_any):
+        fn.rays = fn.overflow_rays = 0
+    glass_launches = render_checked(mt, {k: counted[k] for k in glass_names}, glass64,
+                                    GLASS_GOLDEN, dev, "glass_caustics bdpt", pack=glass_pack)
+    print(f"  glass: {pairs.pair_closest.overflow_rays} of {pairs.pair_closest.rays} closest-hit "
+          f"and {pairs.pair_any.overflow_rays} of {pairs.pair_any.rays} shadow rays overflowed "
+          f"(K={pairs.K}) and took the fallback; {int(tb.render_bdpt.last_ray_count)} rays",
+          flush=True)
+    for k in glass_names[:3]:
+        check(glass_launches[k] > 0, f"the glass render never launched {k}")
+    glass_launches = {k: glass_launches[k] + n for k, n in render_checked(
+        mt, {k: counted[k] for k in glass_names}, mt.load_scene_string(glass_xml(16, 16)),
+        GLASS_PAIR_GOLDEN, dev, "glass_caustics bdpt (pair-pipeline golden)", spp=4).items()}
+    brute = {k: counted[k] for k in ("closest_hit_v2", "any_hit_v2")}
+    lt_launches = {}
+    for label, xml, golden, spp in (
+            ("cbox ptracer", cbox_ptracer_xml(64, 64), PTRACER_GOLDEN, 16),
+            ("two-wall spot bdpt", two_wall_xml("spot", "bdpt", max_depth=8, spp=16), SPOT_GOLDEN,
+             16),
+            ("media bdpt", bdpt_media_xml("bdpt", max_depth=6, spp=16), MEDIA_GOLDEN, 16)):
+        got = render_checked(mt, brute, mt.load_scene_string(xml), golden, dev, label, spp=spp)
+        for k, n in got.items():
+            # the media scene's shadow rays are closest-hit segments
+            # through its null sphere (volpath._attenuated_visibility)
+            check(n > 0 or (label == "media bdpt" and k == "any_hit_v2"),
+                  f"the {label} render never launched {k}")
+            lt_launches[k] = lt_launches.get(k, 0) + n
+    for k, n in {**glass_launches, **lt_launches}.items():
+        launches[k] += n
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -1458,6 +1710,25 @@ def main():
     throughput(make_render_pass, new_film, smoke_pack, smoke, dev, "smoke", card, passes=1,
                warm=False, ref=SMOKE_REF_256, iterations=lambda: vp.volpath_trace.events,
                spp=SMOKE_SPP, unit="event")
+    print(f"phase 4: light transport {elapsed()}", flush=True)
+    glass_counted = {k: counted[k] for k in glass_names}
+    glass256 = mt.load_scene_string(glass_xml(256, 256))
+    glass_throughput(tb, glass_counted, glass256, glass_pack, dev, card)
+    # the scene's own film size: spp_chunk floors at 1, 262,144 lanes
+    glass512 = mt.load_scene(os.path.join(HERE, "scenes", "glass_caustics.xml"))
+    glass_throughput(tb, glass_counted, glass512, glass_pack, dev, card, budget_s=0.0, max_spp=1)
+    for fn in brute.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img = tpt.render_ptracer(pt_scene, spp=4, pack=pack, device=dev)
+    pt_s = time.time() - t0
+    pt_rays = int(tpt.render_ptracer.last_ray_count)
+    check(bool(np.isfinite(img).all()) and img.mean() > 0, "the ptracer image is not finite")
+    print(f"phase 4: cbox ptracer 512x512, 4 particles per pixel (one batch of "
+          f"{tpt.BATCH_MAX}): {pt_rays} rays in {pt_s:.3f} s = {pt_rays / pt_s:.6g} rays/s (no "
+          f"warm-up), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+          f"launches {({k: fn.launches for k, fn in brute.items()})} on {card}", flush=True)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

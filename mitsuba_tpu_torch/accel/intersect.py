@@ -259,6 +259,19 @@ def occluded(pack, o, d, t_max) -> torch.Tensor:
     return occ
 
 
+def empty_segments(pack, live, o, d, t):
+    """(o, d, t) of shadow segments with the lanes outside `live` replaced
+    by an empty segment (t = 0) that starts outside the scene's bounding
+    sphere, so that it meets no cluster box; the occlusion queries settle
+    t_max <= 0 as occluded."""
+    c = pack.meta["scene_center"]
+    far = torch.tensor([c[0], c[1], c[2] + 2.0 * pack.meta["scene_radius"] + 1.0],
+                       dtype=torch.float32, device=o.device)
+    l3 = live[..., None]
+    z_axis = torch.tensor([0.0, 0.0, 1.0], device=o.device)
+    return torch.where(l3, o, far), torch.where(l3, d, z_axis), torch.where(live, t, 0.0)
+
+
 def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
     """Per-hit surface data (= fillIntersectionRecord, reference
     records.inl): the triangle branch, and the sphere branch where the

@@ -20,6 +20,7 @@ STREAM_PATH = 0  # integrator bounce loops: slot = bounce * 4 + decision
 STREAM_CAMERA = 1  # sampler-owned draws: film jitter, lens
 STREAM_MEDIUM_DIST = 2  # heterogeneous delta tracking (sample_distance)
 STREAM_MEDIUM_TRANS = 3  # shadow-ray ratio tracking (transmittance)
+STREAM_LIGHT = 4  # light-subpath walks (ptracer / bdpt light paths)
 
 
 def _u32(x):

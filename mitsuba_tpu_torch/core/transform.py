@@ -84,6 +84,9 @@ class Transform:
         w = p @ self.m[3, :3].T + self.m[3, 3]
         return r / w[..., None] if np.ndim(w) else r / w
 
+    def transform_vector_np(self, v):
+        return np.asarray(v, np.float64) @ self.m[:3, :3].T
+
     def transform_normal_np(self, n):
         return np.asarray(n, np.float64) @ self.inv[:3, :3]
 

@@ -1,5 +1,5 @@
 """Square-to-X sampling warps (port of mitsuba_tpu/core/warp.py, the
-warps on the path and volumetric path tracers' main paths)."""
+warps of the path, volumetric path, bidirectional and particle tracers)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch
 from mitsuba_tpu_torch.core.math import safe_sqrt
 
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
 INV_FOURPI = 1.0 / (4.0 * math.pi)
 
 
@@ -18,6 +19,25 @@ def square_to_uniform_sphere(s):
     r = safe_sqrt(1.0 - z * z)
     phi = 2.0 * math.pi * s[..., 0]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_cone(s, cos_cutoff):
+    """Uniform direction in a cone around +z with cos(angle) >= cos_cutoff
+    (a tensor broadcasting against s[..., 0])."""
+    z = 1.0 - s[..., 0] * (1.0 - cos_cutoff)
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * s[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_cone_pdf(cos_cutoff):
+    return INV_TWOPI / (1.0 - cos_cutoff)
+
+
+def square_to_uniform_disk(s):
+    r = torch.sqrt(s[..., 0])
+    phi = 2.0 * math.pi * s[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
 
 
 def square_to_uniform_disk_concentric(s):

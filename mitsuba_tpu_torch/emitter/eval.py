@@ -1,8 +1,10 @@
-"""Emitter sampling and evaluation (port of mitsuba_tpu/emitter/eval.py,
-the area-light, constant- and image-environment branches of
+"""Emitter sampling and evaluation (port of mitsuba_tpu/emitter/eval.py:
 Scene::sampleEmitterDirect / pdfEmitterDirect / evalEnvironment,
-reference src/librender/scene.cpp:828-841).  The returned `value` is
-Le/pdf with the emitter-selection probability folded in.
+reference src/librender/scene.cpp:828-841, for every ported kind: area
+lights, the delta lights `point`, `spot`, `directional` and `collimated`,
+and the constant and image environments).  The returned `value` is
+Le/pdf with the emitter-selection probability folded in; a delta light's
+pdf is the selection mass.
 
 The envmap is a lat-long image (reference src/emitters/envmap.cpp),
 looked up bilinearly and sampled through the pack's alias table of its
@@ -20,13 +22,21 @@ import torch
 from mitsuba_tpu_torch.core import math as mm
 from mitsuba_tpu_torch.core import warp
 from mitsuba_tpu_torch.core.gather import take_fused
-from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT, ENVMAP
+from mitsuba_tpu_torch.emitter.plugins import (
+    AREA,
+    COLLIMATED,
+    CONSTANT,
+    DIRECTIONAL,
+    ENVMAP,
+    POINT,
+    SPOT,
+)
 
 ENV_DIST = 1e7  # pseudo-distance for env/directional lights
 INV_PI = 1.0 / math.pi
 INV_TWOPI = 0.5 / math.pi
 INV_FOURPI = 0.25 / math.pi
-PORTED_KINDS = frozenset({AREA, CONSTANT, ENVMAP})
+PORTED_KINDS = frozenset({AREA, POINT, SPOT, DIRECTIONAL, COLLIMATED, CONSTANT, ENVMAP})
 
 
 class DirectSample(NamedTuple):
@@ -205,28 +215,50 @@ def sample_direct(pack, p_ref, u3):
     dist = torch.full((r,), ENV_DIST, dtype=torch.float32, device=dev)
     pdf = torch.zeros(r, dtype=torch.float32, device=dev)
     value = torch.zeros(r, 3, dtype=torch.float32, device=dev)
+    delta = torch.zeros(r, dtype=torch.bool, device=dev)
     n_l = torch.zeros(r, 3, dtype=torch.float32, device=dev)
+
+    def put(m, d_t, dist_t, pdf_t, val_t, delta_t, n_t=None):
+        nonlocal d, dist, pdf, value, delta, n_l
+        d = torch.where(m[..., None], d_t, d)
+        dist = torch.where(m, dist_t, dist)
+        pdf = torch.where(m, pdf_t, pdf)
+        value = torch.where(m[..., None], val_t, value)
+        delta = torch.where(m, delta_t, delta)
+        if n_t is not None:
+            n_l = torch.where(m[..., None], n_t, n_l)
 
     # per-kind branches are gated on the scene's emitter set, as in the
     # reference; a lane takes its emitter's branch
     if AREA in kinds:
         d_a, dist_a, pdf_a, val_a, n_a = _sample_area(pack, e, pmf, rgb, p_ref, u2)
-        m = kind == AREA
-        d = torch.where(m[..., None], d_a, d)
-        dist = torch.where(m, dist_a, dist)
-        pdf = torch.where(m, pdf_a, pdf)
-        value = torch.where(m[..., None], val_a, value)
-        n_l = torch.where(m[..., None], n_a, n_l)
+        put(kind == AREA, d_a, dist_a, pdf_a, val_a, False, n_a)
+    if POINT in kinds or SPOT in kinds:
+        # point: intensity / d^2 (reference point.cpp sampleDirect)
+        em_pos, em_dir, cc, cb = take_fused(
+            e, pack.em_pos, pack.em_dir, pack.em_cos_cutoff, pack.em_cos_beam
+        )
+        to_l = em_pos - p_ref
+        dist_p = mm.length(to_l)
+        d_p = to_l / torch.clamp(dist_p, min=1e-12)[..., None]
+        inv_d2 = 1.0 / torch.clamp(dist_p * dist_p, min=1e-12)
+        val_p = rgb * (inv_d2 / torch.clamp(pmf, min=1e-12))[..., None]
+        put(kind == POINT, d_p, dist_p, pmf, val_p, True)
+        # spot: a linear falloff between beamWidth and cutoff (spot.cpp)
+        cos_f = -mm.dot(d_p, em_dir)
+        put(kind == SPOT, d_p, dist_p, pmf, val_p * spot_falloff(cos_f, cc, cb)[..., None], True)
+    if DIRECTIONAL in kinds or COLLIMATED in kinds:
+        # directional (directional.cpp); a collimated beam is never sampled
+        # (collimated.cpp:126-135): its lanes keep the zero sample
+        d_dir = -pack.em_dir[e]
+        val_d = rgb / torch.clamp(pmf, min=1e-12)[..., None]
+        put(kind == DIRECTIONAL, d_dir, ENV_DIST, pmf, val_d, True)
     if CONSTANT in kinds:
         # uniform sphere (reference constant.cpp sampleDirect)
         d_c = warp.square_to_uniform_sphere(u2)
         pdf_c = pmf * INV_FOURPI
-        val_c = rgb / torch.clamp(pdf_c, min=1e-12)[..., None]
-        m = kind == CONSTANT
-        d = torch.where(m[..., None], d_c, d)
-        dist = torch.where(m, ENV_DIST, dist)
-        pdf = torch.where(m, pdf_c, pdf)
-        value = torch.where(m[..., None], val_c, value)
+        put(kind == CONSTANT, d_c, ENV_DIST, pdf_c, rgb / torch.clamp(pdf_c, min=1e-12)[..., None],
+            False)
     if pack.meta.get("has_envmap", False):
         d_e, pdf_e = _sample_env_dir(pack, u2)
         le = _env_bilinear(pack, _env_uv_from_dir(pack, d_e))
@@ -234,15 +266,16 @@ def sample_direct(pack, p_ref, u3):
         val_e = torch.where(
             (pdf_e > 1e-12)[..., None], le / torch.clamp(pdf_e, min=1e-12)[..., None], 0.0
         )
-        m = kind == ENVMAP
-        d = torch.where(m[..., None], d_e, d)
-        dist = torch.where(m, ENV_DIST, dist)
-        pdf = torch.where(m, pdf_e, pdf)
-        value = torch.where(m[..., None], val_e, value)
-    return DirectSample(
-        d=d, dist=dist, pdf=pdf, value=value,
-        delta=torch.zeros(r, dtype=torch.bool, device=dev), n=n_l, kind=kind,
-    )
+        put(kind == ENVMAP, d_e, ENV_DIST, pdf_e, val_e, False)
+    return DirectSample(d=d, dist=dist, pdf=pdf, value=value, delta=delta, n=n_l, kind=kind)
+
+
+def spot_falloff(cos_f, cc, cb):
+    """A spot light's linear falloff between the cosines of its cutoff
+    (cc) and its beam width (cb) (reference spot.cpp)."""
+    fall = torch.clamp((cos_f - cc) / torch.clamp(cb - cc, min=1e-6), 0.0, 1.0)
+    fall = torch.where(cos_f >= cb, 1.0, fall)
+    return torch.where(cos_f <= cc, 0.0, fall)
 
 
 def pdf_direct_area(pack, emit_id, dist, cos_l):

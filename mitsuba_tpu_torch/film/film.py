@@ -9,8 +9,10 @@ go through `splat_grid`: each (sample, pixel) lane splats into its
 filter footprint as a sum over samples followed by one static shifted
 add per footprint offset (reference ImageBlock::put,
 include/mitsuba/render/imageblock.h:113-170, with the kernels evaluated
-exactly instead of from the reference's 31-entry LUT).  The general
-scatter `splat` is not ported: no ported path calls it.
+exactly instead of from the reference's 31-entry LUT).  `splat_add` is
+the light image's scatter (bdpt's t = 1 strategies): a filtered splat at
+an arbitrary position, normalized over its footprint.  The reference's
+general scatter `splat` is not ported: none of its modules calls it.
 """
 
 from __future__ import annotations
@@ -102,3 +104,47 @@ def splat_grid(film, jitter, value, rfilter: RFilterRecord):
             xd = slice(max(-dx, 0), w + min(-dx, 0))
             out[ys, xs] += contrib[yd, xd]
     return out
+
+
+def splat_add(img, pos, value, rfilter: RFilterRecord, valid=None):
+    """Additive reconstruction-filtered splat with no weight channel (the
+    light image, whose normalization is the sample count; reference
+    bdpt_wr.cpp).  Each splat is normalized over its footprint, so it
+    deposits exactly `value`.  img: [H, W, 3]; pos: [R, 2] continuous
+    pixel coordinates; value: [R, 3].  Returns the updated image.  On the
+    card the adds land in any order (index_add_), so the sums may differ
+    from run to run in the last places."""
+    h, w = img.shape[0], img.shape[1]
+    radius = rfilter.radius
+    fw = int(math.ceil(2.0 * radius))
+    value = torch.nan_to_num(value, nan=0.0, posinf=0.0, neginf=0.0)
+    if valid is not None:
+        value = torch.where(valid[..., None], value, 0.0)
+    # non-finite positions (masked-out lanes) must not alias to pixel 0: a
+    # NaN cast to an integer is undefined
+    x = torch.nan_to_num(pos[..., 0], nan=-1e6, posinf=1e6, neginf=-1e6)
+    y = torch.nan_to_num(pos[..., 1], nan=-1e6, posinf=1e6, neginf=-1e6)
+    x0 = torch.floor(x - radius + 0.5).to(torch.int32)
+    y0 = torch.floor(y - radius + 0.5).to(torch.int32)
+
+    # pass 1: the footprint's weight total (per-splat normalization)
+    wsum = torch.zeros_like(x)
+    taps = []
+    for dy in range(fw):
+        py = y0 + dy
+        wy = filter_eval_1d(rfilter, py.to(torch.float32) + 0.5 - y)
+        for dx in range(fw):
+            px = x0 + dx
+            wx = filter_eval_1d(rfilter, px.to(torch.float32) + 0.5 - x)
+            wgt = torch.clamp(wx * wy, min=0.0)
+            taps.append((px, py, wgt))
+            wsum = wsum + wgt
+    inv = 1.0 / torch.clamp(wsum, min=1e-12)
+
+    flat = img.reshape(-1, 3).clone()
+    for px, py, wgt in taps:
+        inside = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+        idx = torch.where(inside, py * w + px, 0)
+        amount = torch.where(inside, wgt * inv, 0.0)[..., None]
+        flat.index_add_(0, idx, value * amount)
+    return flat.reshape(h, w, 3)

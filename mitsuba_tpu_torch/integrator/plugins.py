@@ -1,5 +1,6 @@
 """Integrator plugins (port of mitsuba_tpu/integrator/plugins.py): `path`,
-and `volpath` and `volpath_simple` (both of kind "volpath")."""
+`volpath` and `volpath_simple` (both of kind "volpath"), `bdpt` and
+`ptracer`."""
 
 from __future__ import annotations
 
@@ -48,3 +49,17 @@ class VolPathIntegrator(_IntBase):
 @register("integrator", "volpath_simple")
 class VolPathSimpleIntegrator(_IntBase):
     kind = "volpath"
+
+
+@register("integrator", "bdpt")
+class BDPTIntegrator(_IntBase):
+    """reference: src/integrators/bdpt/bdpt.cpp:133."""
+
+    kind = "bdpt"
+
+
+@register("integrator", "ptracer")
+class PTracerIntegrator(_IntBase):
+    """reference: src/integrators/ptracer/ptracer.cpp."""
+
+    kind = "ptracer"

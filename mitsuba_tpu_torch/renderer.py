@@ -138,6 +138,15 @@ def render(scene, spp=None, seed=0, *, device="cuda", pack=None):
     device = torch.device(device)
     if pack is None:
         pack = pack_scene(scene, device)
+    # integrators with their own orchestration (reference renderer.py:298-310)
+    if scene.integrator.kind == "bdpt":
+        from mitsuba_tpu_torch.integrator.bdpt import render_bdpt
+
+        return render_bdpt(scene, spp=spp, seed=seed, pack=pack, device=device)
+    if scene.integrator.kind == "ptracer":
+        from mitsuba_tpu_torch.integrator.ptracer import render_ptracer
+
+        return render_ptracer(scene, spp=spp, seed=seed, pack=pack, device=device)
     sensor_rec = scene.sensor.record
     film_rec = sensor_rec.film
     sampler_rec = sensor_rec.sampler

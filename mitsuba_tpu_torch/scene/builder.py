@@ -39,7 +39,7 @@ from mitsuba_tpu_torch.bsdf.rtrans import fit_rtrans_poly
 from mitsuba_tpu_torch.core.distribution import Distribution2D, build_alias
 from mitsuba_tpu_torch.core.transform import Transform
 from mitsuba_tpu_torch.emitter.eval import PORTED_KINDS
-from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT, ENVMAP
+from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT, DIRECTIONAL, ENVMAP
 from mitsuba_tpu_torch.medium.plugins import (
     HETEROGENEOUS,
     HG,
@@ -69,7 +69,8 @@ SLICE_ARRAYS = (
     "mat_twosided", "mat_fdr_int", "mat_spec_w", "mat_texA", "mat_rt", "mat_rt_fdr",
     "tex_type", "tex_c0", "tex_c1", "tex_scale", "tex_uv",
     "sph_center", "sph_radius", "sph_mat", "sph_emit", "sph_flip",
-    "em_kind", "em_rgb", "em_area", "em_tri_lo", "em_tri_hi",
+    "em_kind", "em_rgb", "em_area", "em_tri_lo", "em_tri_hi", "em_pos", "em_dir",
+    "em_cos_cutoff", "em_cos_beam",
     "area_tri_idx", "area_tri_cdf", "emitter_pmf", "emitter_cdf",
     "env_image", "env_to_world", "env_to_local", "env_density", "env_alias_prob",
     "env_alias_idx", "env_alias_fused",
@@ -77,7 +78,7 @@ SLICE_ARRAYS = (
 SLICE_META = (
     "n_tris", "n_spheres", "n_emitters", "present_types", "mf_dists", "emitter_kinds",
     "use_bvh", "has_area", "has_env", "has_envmap", "env_idx", "env_alias_fused_ok",
-    "has_textures", "has_mips",
+    "has_textures", "has_mips", "has_delta_emitters", "scene_center", "scene_radius",
 )
 # ... for scenes with media, the medium tables (`_pack_media`) ...
 MEDIA_ARRAYS = (
@@ -199,6 +200,24 @@ def _emissive_sphere_meshes(spheres):
         t = Transform.translate(*s.center) * Transform.scale(rr, rr, rr)
         out.append(_apply_transform(base, t, s.flip_normals))
     return out
+
+
+def _bounding_sphere(tri, spheres):
+    """(center, radius) of the scene's bounds, in float32 as the reference
+    computes them (reference builder.py): the triangles' corners and the
+    analytic spheres' boxes."""
+    v = tri["tri_v0"]
+    pts = [v, v + tri["tri_e1"], v + tri["tri_e2"]] if len(v) else []
+    if spheres:
+        c = np.array([s[0].center for s in spheres], np.float32)
+        r = np.array([s[0].radius for s in spheres], np.float32)
+        pts += [c - r[:, None], c + r[:, None]]
+    if not pts:
+        return (0.0, 0.0, 0.0), 1.0
+    allp = np.concatenate(pts, axis=0)
+    lo, hi = allp.min(axis=0), allp.max(axis=0)
+    center = 0.5 * (lo + hi)
+    return tuple(float(x) for x in center), float(np.linalg.norm(hi - center)) + 1e-6
 
 
 def _luminance(rgb):
@@ -605,6 +624,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         np.cross(tri["tri_e1"], tri["tri_e2"]), axis=-1
     )
     tri_emit = tri["tri_emit"]
+    center, radius = _bounding_sphere(tri, spheres)
     # pad with LEAF_SIZE far-away rows: index-clamped gathers and the
     # cluster tiles' dummy slots (index n_tris) never leave the tables
     pad_fill = {"tri_v0": 1e30, "tri_emit": -1, "tri_med_in": -1, "tri_med_ex": -1}
@@ -711,6 +731,10 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "em_area": np.ones(n_em, np.float32),
         "em_tri_lo": np.zeros(n_em, np.int32),
         "em_tri_hi": np.zeros(n_em, np.int32),
+        "em_pos": np.zeros((n_em, 3), np.float32),
+        "em_dir": np.tile(np.array([[0, 0, 1]], np.float32), (n_em, 1)),
+        "em_cos_cutoff": np.zeros(n_em, np.float32),
+        "em_cos_beam": np.zeros(n_em, np.float32),
     }
     idx_parts, cdf_parts = [], []
     at_cursor = 0
@@ -724,6 +748,15 @@ def pack_scene(scene, device="cuda") -> ScenePack:
             if rec.kind == ENVMAP:
                 em["em_rgb"][i] = rec.radiance * rec.scale
             env_idx = i
+            continue
+        if rec.is_delta():
+            # point / spot / collimated carry an intensity, directional an
+            # irradiance; spot's cone as cosines (reference builder.py)
+            em["em_rgb"][i] = rec.irradiance if rec.kind == DIRECTIONAL else rec.intensity
+            em["em_pos"][i] = rec.position
+            em["em_dir"][i] = rec.direction
+            em["em_cos_cutoff"][i] = np.cos(np.deg2rad(rec.cutoff_angle_deg))
+            em["em_cos_beam"][i] = np.cos(np.deg2rad(rec.beam_width_deg))
             continue
         ids = np.nonzero(tri_emit == i)[0]
         areas = tri_area[ids]
@@ -779,6 +812,11 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         **env_meta,
         "has_textures": len(textures) > 0,
         "has_mips": False,
+        "has_delta_emitters": any(r.is_delta() for r in emitters),
+        # the scene's bounding sphere: where directional and environment
+        # emission starts (bdpt, ptracer)
+        "scene_center": center,
+        "scene_radius": radius,
         **med_meta,
     }
     check_slice(meta)

@@ -95,6 +95,8 @@ class Properties:
 
         return self._get(name, default, "point", cast)
 
+    get_vector = get_point
+
     def get_spectrum(self, name, default=None):
         """Linear-RGB np [3] float32; scalars broadcast to gray."""
 

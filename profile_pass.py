@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
-    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke] [--hits-only]
+    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass] [--hits-only]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
@@ -10,7 +10,10 @@ sobol), or for its variant (a constant environment and the independent
 sampler, tests/torch_meshes.py `matpreview_const_xml`), at 512x512 and 16
 samples per pass; or for scenes/smoke.xml (volpath, the batched
 wavefront) at the reference's bench resolution, 256x256, and 32 samples
-per pass (one pass of 2,097,152 lanes):
+per pass (one pass of 2,097,152 lanes); or for scenes/glass_caustics.xml
+(bdpt, 16 edges) at its bench resolution, 256x256, where a pass is one
+chunk of the lane budget (MTS_BDPT_LANES, 131,072 lanes: 2 samples per
+pixel) with its light-image splats:
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -24,7 +27,9 @@ per pass (one pass of 2,097,152 lanes):
    the bounce loop (the functions in STAGES, each wrapped in a
    `record_function` range for this pass only; SMOKE_STAGES for smoke,
    whose ranges nest: `_het_track` inside `sample_distance`, the shadow
-   segments' `intersect` inside `_attenuated_visibility`), the host time,
+   segments' `intersect` inside `_attenuated_visibility`; BDPT_STAGES for
+   glass, where `intersect` nests inside `_walk` and `occluded` stands for
+   the connections' shadow rays), the host time,
    the device time of the kernels launched inside and the calls;
 3. for the meshes (dense, bigmesh), holds the pair pipeline's closest hits of one camera ray
    per pixel against the port's stackless BVH walk (accel/intersect.py
@@ -75,8 +80,49 @@ SMOKE_STAGES = (
     ("mitsuba_tpu_torch.core.rng", ("rand4",)),
     ("mitsuba_tpu_torch.renderer", ("splat_grid",)),
 )
+# a bdpt chunk's stages (scenes/glass_caustics.xml)
+BDPT_STAGES = (
+    ("mitsuba_tpu_torch.integrator.bdpt",
+     ("_walk", "intersect", "fill_interaction", "occluded", "shading_params", "bsdf_eval",
+      "bsdf_pdf", "bsdf_sample", "_sample_light_vertex", "_mis_weight", "_v_f", "_v_pdf",
+      "_to_area")),
+    ("mitsuba_tpu_torch.emitter.eval", ("sample_direct",)),
+    ("mitsuba_tpu_torch.core.rng", ("rand4",)),
+    ("mitsuba_tpu_torch.film.film", ("splat_add",)),
+)
 # film size and samples per pass of each scene
-RES_SPP = {"smoke": (256, 32)}
+RES_SPP = {"smoke": (256, 32), "glass": (256, 2)}
+
+
+def bdpt_pass(scene, pack, spp, dev):
+    """One bdpt chunk of spp samples per pixel (lanes laid out as
+    render_bdpt lays them) as a render pass: fn(film, sample_base, seed)
+    -> (film, rays traced); the estimates land in film[..., :3], the
+    light-image splats in an image of its own.  The chunk draws with seed
+    0."""
+    import torch
+
+    from mitsuba_tpu_torch.film import film as film_mod
+    from mitsuba_tpu_torch.integrator import bdpt
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    chunk = bdpt.make_bdpt_chunk(pack, scene.integrator, rec, w, h, 0)
+    lane = torch.arange(w * h, device=dev).repeat(spp)
+    s_i = torch.arange(spp, device=dev).repeat_interleave(w * h)
+    light = torch.zeros(h, w, 3, device=dev)
+
+    def rp(film, sample_base, seed):
+        nonlocal light
+        before = chunk.stats["rays"]
+        L, splats = chunk(lane, sample_base + s_i)
+        for pos, val, ok in splats:
+            light = film_mod.splat_add(light, pos, val, rec.film.rfilter, valid=ok)
+        film = film.clone()
+        film[..., :3] += L.reshape(spp, h, w, 3).sum(dim=0)
+        return film, chunk.stats["rays"] - before
+
+    return rp
 
 
 def staged(stages):
@@ -105,7 +151,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
-                             "smoke"))
+                             "smoke", "glass"))
     ap.add_argument("--hits-only", action="store_true")
     args = ap.parse_args()
 
@@ -129,6 +175,7 @@ def main():
         bunny_scene_xml,
         bunny_standin,
         dense_standin,
+        glass_xml,
         matpreview_const_xml,
         smoke_xml,
         write_ply,
@@ -146,6 +193,8 @@ def main():
     res, spp = RES_SPP.get(args.scene, (RES, SPP))
     if args.scene == "smoke":
         scene = mt.load_scene_string(smoke_xml(res, res))
+    elif args.scene == "glass":
+        scene = mt.load_scene_string(glass_xml(res, res))
     elif args.scene == "cbox":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
@@ -170,7 +219,7 @@ def main():
     if not args.hits_only:
         profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
                        counters(pk, pairs, pb), res, spp,
-                       SMOKE_STAGES if args.scene == "smoke" else STAGES)
+                       {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES}.get(args.scene, STAGES))
     if args.scene in ("dense", "bigmesh"):
         check_hits(scene, pack, dev, camera_rays, intersect, pairs)
     return 0
@@ -184,7 +233,10 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
     from chip_smoke import device_events, device_us
 
     rec = scene.sensor.record
-    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
+    if scene.integrator.kind == "bdpt":
+        rp = bdpt_pass(scene, pack, spp, dev)
+    else:
+        rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
     film = new_film(res, res, dev)
 
     def one_pass(i):

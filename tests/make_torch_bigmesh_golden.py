@@ -17,11 +17,28 @@ the matpreview variant.
   JAX package traces BVH scenes on its TPU (`reference_pair_traversal`;
   ~80 s on the CPU);
 * tests/golden/torch_cbox_mitchell_64_16.npy: scenes/cbox.xml under the
-  mitchell filter (the batched wavefront and its splat; ~5 s).
+  mitchell filter (the batched wavefront and its splat; ~5 s);
+* tests/golden/torch_glass_bdpt_16_4.npy: scenes/glass_caustics.xml as it
+  stands (bdpt, maxDepth 24 capped to MTS_BDPT_MAX_EDGES = 16 edges) at
+  16x16, 4 spp, through the pair pipeline;
+* tests/golden/torch_cbox_ptracer_64_16.npy: scenes/cbox.xml under the
+  particle tracer, 16 particles per pixel;
+* tests/golden/torch_spot_bdpt_24_16.npy: tests/test_bdpt.py's two-wall
+  scene under its spot light, bdpt at maxDepth 8, 24x24, 16 spp;
+* tests/golden/torch_media_bdpt_24_16.npy: tests/test_bdpt.py's media
+  scene (a homogeneous fog in a `null` sphere), bdpt at maxDepth 6,
+  24x24, 16 spp.
 
-    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [bigmesh] [densemesh] [matpreview] [smoke] [cbox_mitchell]
+    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [bigmesh] [densemesh] [matpreview] [smoke] [cbox_mitchell] [glass_bdpt] [cbox_ptracer] [spot_bdpt] [media_bdpt]
 
-With no argument all five are written.
+With no argument all nine are written.  Each line the script prints
+gives the golden's render time, XLA's compile included; the last four
+took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
+(the 16-edge program's compile; 16 edges fit, so no smaller cap was
+needed), cbox_ptracer 6.4 s, spot_bdpt 25.9 s and media_bdpt 200.8 s:
+
+    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden glass_bdpt
+    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden cbox_ptracer spot_bdpt media_bdpt
 """
 
 import contextlib
@@ -34,12 +51,16 @@ import numpy as np
 
 from tests.torch_meshes import (
     ROOT,
+    bdpt_media_xml,
     bunny_scene_xml,
     bunny_standin,
     cbox_mitchell_xml,
+    cbox_ptracer_xml,
     dense_standin,
+    glass_xml,
     matpreview_const_xml,
     smoke_xml,
+    two_wall_xml,
     write_ply,
 )
 
@@ -74,7 +95,8 @@ def reference_pair_traversal():
         jis._use_clusters, jprs.pair_closest, jprs.pair_any = saved
 
 
-# name -> (golden, the scene's XML at 64x64, traced through the pair pipeline)
+# name -> (golden, the scene's XML, [traced through the pair pipeline,
+# [spp]]); 64x64 at 16 spp unless said otherwise
 GOLDENS = {
     "bigmesh": (os.path.join(ROOT, "tests", "golden", "torch_bigmesh_64_16.npy"),
                 _standin_xml(bunny_standin, os.path.join(ROOT, "build", "bunny_standin.ply"))),
@@ -86,6 +108,14 @@ GOLDENS = {
               lambda: smoke_xml(64, 64), True),
     "cbox_mitchell": (os.path.join(ROOT, "tests", "golden", "torch_cbox_mitchell_64_16.npy"),
                       lambda: cbox_mitchell_xml(64, 64)),
+    "glass_bdpt": (os.path.join(ROOT, "tests", "golden", "torch_glass_bdpt_16_4.npy"),
+                   lambda: glass_xml(16, 16), True, 4),
+    "cbox_ptracer": (os.path.join(ROOT, "tests", "golden", "torch_cbox_ptracer_64_16.npy"),
+                     lambda: cbox_ptracer_xml(64, 64)),
+    "spot_bdpt": (os.path.join(ROOT, "tests", "golden", "torch_spot_bdpt_24_16.npy"),
+                  lambda: two_wall_xml("spot", "bdpt", max_depth=8, spp=16), True),
+    "media_bdpt": (os.path.join(ROOT, "tests", "golden", "torch_media_bdpt_24_16.npy"),
+                   lambda: bdpt_media_xml("bdpt", max_depth=6, spp=16), True),
 }
 
 
@@ -97,11 +127,12 @@ def main(names):
     from mitsuba_tpu.scene.xml_loader import load_scene_string
 
     for name in names:
-        golden, make_xml, *pairs = GOLDENS[name]
+        golden, make_xml, *rest = GOLDENS[name]
+        pairs, spp = (rest + [False, 16])[:2]
         t0 = time.time()
         scene = load_scene_string(make_xml())
         with reference_pair_traversal() if pairs else contextlib.nullcontext():
-            img = np.asarray(mitsuba_tpu.render(scene, spp=16, seed=0), np.float32)
+            img = np.asarray(mitsuba_tpu.render(scene, spp=spp, seed=0), np.float32)
         np.save(golden, img)
         print(f"wrote {golden}: shape {img.shape}, mean {img.mean():.6f}, "
               f"{time.time() - t0:.1f} s")

@@ -1100,3 +1100,159 @@ def test_smoke_as_it_stands_on_card(smoke_card):
     assert img.shape == (192, 192, 3) and np.isfinite(img).all()
     ref = np.load(os.path.join(ROOT, "bench_refs", "smoke_256.npz"))["img"]
     assert abs(img.mean() - ref.mean()) < 0.05 * ref.mean(), (img.mean(), ref.mean())
+
+
+# ---- the light-transport slice: delta lights, ptracer and bdpt ----
+
+def _tm_rmse(a, b):
+    return float(np.sqrt(np.mean((a / (1 + a) - b / (1 + b)) ** 2)))
+
+
+def test_delta_sample_direct_on_card_equals_cpu(dev):
+    """sample_direct's delta arms on the card against the CPU, on the
+    scene whose emitter pick reaches all four delta kinds and an area
+    light."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.emitter import eval as em
+    from torch_meshes import delta_mix_xml
+
+    scene = mt.load_scene_string(delta_mix_xml())
+    packs = pack_scene(scene, dev), pack_scene(scene, "cpu")
+    r = np.random.default_rng(0)
+    p = torch.as_tensor(r.uniform([-2, 0, -2], [2, 2, 2], (65_536, 3)).astype(np.float32))
+    u = torch.as_tensor(r.uniform(0, 1, (65_536, 3)).astype(np.float32))
+    card = em.sample_direct(packs[0], p.to(dev), u.to(dev))
+    cpu = em.sample_direct(packs[1], p, u)
+    # PyTorch's CUDA and CPU kernels round cosines and distances in other
+    # last places, which the spot's falloff (over cos beam - cos cutoff)
+    # and the area pdf's distance squared enlarge: measured up to 5e-4
+    # relative on 69 of 196,608 values
+    for a, b in zip(card, cpu):
+        if a.dtype.is_floating_point:
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3, atol=1e-5)
+        else:
+            assert torch.equal(a.cpu(), b)
+
+
+def test_ptracer_connections_equal_plain(dev):
+    """K1/K2 bit-equal to plain on the particle tracer's camera connections
+    on cbox (finite segments between offset points), and the render's
+    launches."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import capture_queries
+    from mitsuba_tpu_torch.integrator import ptracer as tpt
+    from torch_meshes import cbox_ptracer_xml
+
+    scene = mt.load_scene_string(cbox_ptracer_xml(64, 64))
+    pack = pack_scene(scene, dev)
+    rec = scene.sensor.record
+    lane = torch.arange(65_536, device=dev)
+    run = tpt.make_ptracer_batch(pack, scene.integrator, rec, 64, 64, 0)
+    segs = capture_queries(tpt, "occluded", 3, lambda: run(
+        torch.zeros(64, 64, 3, device=dev), lane, torch.zeros_like(lane)))
+    for o, d, t in segs:
+        assert torch.isfinite(t).all()
+        assert torch.equal(pk.any_hit_v2(o, d, t, pack.tri_s), pk.any_hit_plain(o, d, t, pack.tri_s))
+        _equal(pk.closest_hit_v2(o, d, t, pack.tri_s), pk.closest_hit_plain(o, d, t, pack.tri_s))
+
+
+def test_ptracer_golden_on_card(dev):
+    """cbox under the particle tracer at 64x64, 16 particles per pixel on
+    the card (K1/K2; the splat adds land in any order) against the
+    reference's golden."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import GOLDEN_GATES, ROOT, cbox_ptracer_xml
+
+    pk.any_hit_v2.launches = 0
+    img = mt.render(mt.load_scene_string(cbox_ptracer_xml(64, 64)), spp=16, seed=0)
+    assert pk.any_hit_v2.launches > 0
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "torch_cbox_ptracer_64_16.npy"))
+    assert _tm_rmse(img, golden) < GOLDEN_GATES["torch_cbox_ptracer_64_16.npy"]
+
+
+@pytest.fixture(scope="module")
+def glass_card():
+    """scenes/glass_caustics.xml at 16x16 (1,026 triangles in clusters:
+    the pair pipeline), packed on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import glass_xml
+
+    scene = mt.load_scene_string(glass_xml(16, 16))
+    return scene, pack_scene(scene, torch.device("cuda"))
+
+
+def test_bdpt_connections_equal_plain(glass_card):
+    """K3/K4 (any and closest) bit-equal to plain on the first connection
+    segments of a glass chunk (16 edges), and K7/K8 on the batches the
+    pair pipeline hands its fallback at K = 1."""
+    from chip_smoke import capture_queries
+    from mitsuba_tpu_torch.integrator import bdpt as tb
+
+    scene, pack = glass_card
+    dev = torch.device("cuda")
+    c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    lane = torch.arange(256, device=dev).repeat(4)
+    sidx = torch.arange(4, device=dev).repeat_interleave(256)
+    chunk = tb.make_bdpt_chunk(pack, scene.integrator, scene.sensor.record, 16, 16, 0)
+    for o, d, t_seg in capture_queries(tb, "occluded", 4, lambda: chunk(lane, sidx)):
+        _, t_max = pb.finite_tmax(t_seg, o)
+        k3 = pairs.dense_cull(o, d, t_max, pack.cl_mbox, c, min(pairs.K, c))
+        for a, b in zip(k3, pairs.dense_cull_plain(o, d, t_max, pack.cl_mbox, c, min(pairs.K, c))):
+            assert torch.equal(a, b)
+        tabs = (pack.cl_cnt, pairs._tri_rows(pack))
+        args = (o, d, t_max, k3[0], pack.cl_tri, c, tc)
+        assert torch.equal(pairs.pair_hit_any(*args, *tabs), pairs.pair_hit_any_plain(*args))
+        args = (o, d, t_max, k3[0], pack.cl_tri, pack.cl_pad2prim, c, tc)
+        for a, b in zip(pairs.pair_hit_closest(*args, *tabs), pairs.pair_hit_closest_plain(*args)):
+            assert torch.equal(a, b)
+        walk = (o, d, t_max, pack.cl_box, pack.cl_tri, tc)
+        _equal(pb.cluster_traverse_closest(*walk), pb.cluster_traverse_closest_plain(*walk))
+        assert torch.equal(pb.cluster_traverse_any(*walk), pb.cluster_traverse_any_plain(*walk))
+
+
+def test_bdpt_chunk_on_card_matches_cpu(glass_card):
+    """One glass chunk (16x16, 4 spp, 16 edges) on the card against the
+    same chunk on the CPU through the plain versions (the same random
+    numbers): the estimates and the light-image splats."""
+    from mitsuba_tpu_torch.integrator import bdpt as tb
+
+    scene, pack = glass_card
+    cpu_pack = pack_scene(scene, "cpu")
+    out = []
+    for p, dv in ((pack, torch.device("cuda")), (cpu_pack, torch.device("cpu"))):
+        lane = torch.arange(256, device=dv).repeat(4)
+        sidx = torch.arange(4, device=dv).repeat_interleave(256)
+        out.append(tb.make_bdpt_chunk(p, scene.integrator, scene.sensor.record, 16, 16, 0)(
+            lane, sidx))
+    (L_card, spl_card), (L_cpu, spl_cpu) = out
+    np.testing.assert_allclose(L_card.cpu().numpy(), L_cpu.numpy(), rtol=3e-4, atol=1e-6)
+    for (_, v_a, ok_a), (_, v_b, ok_b) in zip(spl_card, spl_cpu):
+        assert (ok_a.cpu() != ok_b).sum() <= 2
+        both = (ok_a.cpu() & ok_b).numpy()
+        np.testing.assert_allclose(v_a.cpu().numpy()[both], v_b.numpy()[both], rtol=3e-4,
+                                   atol=1e-6)
+
+
+def test_glass_goldens_on_card(glass_card):
+    """`render(load_scene("scenes/glass_caustics.xml"))` cut to 16x16, 4
+    spp and to 64x64, 16 spp (bdpt, 16 edges) on the card against the
+    pair-pipeline golden and the reference's own golden."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import GOLDEN_GATES, ROOT, glass_xml
+
+    scene, pack = glass_card
+    gold = os.path.join(ROOT, "tests", "golden")
+    pairs.dense_cull.launches = 0
+    img = mt.render(scene, spp=4, seed=0, pack=pack)
+    assert pairs.dense_cull.launches > 0
+    assert (_tm_rmse(img, np.load(os.path.join(gold, "torch_glass_bdpt_16_4.npy")))
+            < GOLDEN_GATES["torch_glass_bdpt_16_4.npy"])
+    img = mt.render(mt.load_scene_string(glass_xml(64, 64)), spp=16, seed=0)
+    assert np.isfinite(img).all()
+    assert _tm_rmse(img, np.load(os.path.join(gold, "glass_caustics_64_16.npy"))) < 5e-3

@@ -120,3 +120,19 @@ def test_media_modules_are_checked():
     for mod in ("medium/plugins.py", "medium/eval.py", "integrator/volpath.py",
                 "integrator/path.py", "film/film.py", "film/plugins.py", "renderer.py"):
         assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+
+
+def test_light_transport_modules_are_checked():
+    """The modules of the light-transport slice (bdpt, ptracer, the delta
+    emitters) are among the sources checked above, and their entry points
+    run on the card unless asked otherwise."""
+    from mitsuba_tpu_torch.integrator import bdpt, ptracer
+
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("integrator/bdpt.py", "integrator/ptracer.py", "integrator/plugins.py",
+                "emitter/plugins.py", "emitter/eval.py", "core/warp.py", "core/rng.py",
+                "film/film.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+    for fn in (bdpt.render_bdpt, bdpt.iter_bdpt, ptracer.render_ptracer):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn.__name__

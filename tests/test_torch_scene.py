@@ -121,7 +121,7 @@ def test_srgb_reflectance_within_one_ulp():
     "snippet",
     [
         '<bsdf type="phong"/>',
-        '<emitter type="point"/>',
+        '<emitter type="sky"/>',
         '<shape type="cylinder"/>',
         '<shape type="rectangle"><bsdf type="diffuse"><texture name="reflectance" type="gridtexture"/></bsdf></shape>',
         '<shape type="rectangle"><transform name="toWorld"><rotate x="1" angle="90"/></transform>'

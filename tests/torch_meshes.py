@@ -218,3 +218,194 @@ def cbox_mitchell_xml(width=None, height=None):
     if n != 1:
         raise ValueError(f"{CBOX_XML} holds {n} gaussian filters, expected one")
     return _film_size(xml, width, height)
+
+
+# ---- the light-transport slice: delta lights, bdpt and ptracer ----
+
+GLASS_XML = os.path.join(ROOT, "scenes", "glass_caustics.xml")
+
+# tone-mapped RMSE gates of the light-transport goldens in tests/golden/
+# (the JAX package's renders), each a few times above the largest reading
+# of the port on the CPU and on an NVIDIA H100 80GB HBM3 (700 W): glass
+# 3.4e-7 / 1.3e-7, cbox ptracer 4.6e-6 / 4.7e-6 (nearest-pixel splats; the
+# card's adds land in any order), spot bdpt 1.3e-8 / 6.0e-9, media bdpt
+# 2.5e-8 / 1.7e-8.  Deep strategies carry little tone-mapped energy: a
+# dropped strategy or MIS ratio past 5 edges moves the media render by
+# less than tests/test_golden.py's 5e-3.  That gate stays for the
+# reference's own glass_caustics_64_16.npy, which came from its other
+# traversal (6.6e-4 on the card).
+GOLDEN_GATES = {
+    "torch_glass_bdpt_16_4.npy": 2e-6,
+    "torch_cbox_ptracer_64_16.npy": 1e-5,
+    "torch_spot_bdpt_24_16.npy": 1e-7,
+    "torch_media_bdpt_24_16.npy": 1e-7,
+}
+
+# the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
+# beam aimed at its floor
+DELTA_EMITTERS = {
+    "point": """<emitter type="point">
+      <point name="position" x="0.5" y="2" z="-1"/>
+      <rgb name="intensity" value="6, 5, 4"/></emitter>""",
+    "spot": """<emitter type="spot">
+      <transform name="toWorld"><lookat origin="0,2.5,-1" target="0,0,0" up="0,0,1"/></transform>
+      <float name="cutoffAngle" value="40"/><float name="beamWidth" value="25"/>
+      <rgb name="intensity" value="8, 8, 8"/></emitter>""",
+    "directional": """<emitter type="directional">
+      <vector name="direction" x="0.3" y="-1" z="0.4"/>
+      <rgb name="irradiance" value="2, 2, 2"/></emitter>""",
+    "collimated": """<emitter type="collimated">
+      <transform name="toWorld"><lookat origin="0.2,2,-0.5" target="0.2,0,0.3" up="0,0,1"/></transform>
+      <rgb name="power" value="3, 3, 3"/></emitter>""",
+}
+
+
+def two_wall_xml(emitter_xml, integrator="path", max_depth=4, spp=64, width=24, height=24):
+    """tests/test_bdpt.py's scene: a floor and a back wall (4 triangles,
+    box filter) lit by `emitter_xml` (a key of DELTA_EMITTERS or XML)."""
+    emitter_xml = DELTA_EMITTERS.get(emitter_xml, emitter_xml)
+    return f"""
+    <scene version="0.5.0">
+      <integrator type="{integrator}">
+        <integer name="maxDepth" value="{max_depth}"/>
+        <integer name="rrDepth" value="100"/>
+      </integrator>
+      <sensor type="perspective">
+        <float name="fov" value="60"/>
+        <transform name="toWorld">
+          <lookat origin="0,1,-3.5" target="0,0.5,0" up="0,1,0"/>
+        </transform>
+        <sampler type="independent">
+          <integer name="sampleCount" value="{spp}"/>
+        </sampler>
+        <film type="hdrfilm">
+          <integer name="width" value="{width}"/>
+          <integer name="height" value="{height}"/>
+          <rfilter type="box"/>
+        </film>
+      </sensor>
+      <shape type="rectangle">
+        <transform name="toWorld">
+          <rotate x="1" angle="-90"/>
+          <scale value="4"/>
+        </transform>
+        <bsdf type="diffuse">
+          <rgb name="reflectance" value="0.6, 0.5, 0.4"/>
+        </bsdf>
+      </shape>
+      <shape type="rectangle">
+        <transform name="toWorld">
+          <scale value="4"/>
+          <translate z="2"/>
+        </transform>
+        <bsdf type="diffuse">
+          <rgb name="reflectance" value="0.4, 0.5, 0.6"/>
+        </bsdf>
+      </shape>
+      {emitter_xml}
+    </scene>"""
+
+
+def bdpt_media_xml(integrator="bdpt", max_depth=6, spp=96, width=24, height=24, extra=""):
+    """tests/test_bdpt.py's media scene: a homogeneous fog in a `null`
+    analytic sphere over a floor, under a rectangular area light, and
+    `extra` (a key of DELTA_EMITTERS or XML) beside them."""
+    extra = DELTA_EMITTERS.get(extra, extra)
+    return f"""
+    <scene version="0.5.0">
+      <integrator type="{integrator}">
+        <integer name="maxDepth" value="{max_depth}"/>
+        <integer name="rrDepth" value="100"/>
+      </integrator>
+      <sensor type="perspective">
+        <float name="fov" value="50"/>
+        <transform name="toWorld">
+          <lookat origin="0,0.5,-3" target="0,0.3,0" up="0,1,0"/>
+        </transform>
+        <sampler type="independent">
+          <integer name="sampleCount" value="{spp}"/></sampler>
+        <film type="hdrfilm">
+          <integer name="width" value="{width}"/>
+          <integer name="height" value="{height}"/>
+          <rfilter type="box"/></film>
+      </sensor>
+      <shape type="sphere">
+        <float name="radius" value="1.2"/>
+        <bsdf type="null"/>
+        <medium name="interior" type="homogeneous">
+          <rgb name="sigmaS" value="0.5, 0.5, 0.5"/>
+          <rgb name="sigmaA" value="0.05, 0.05, 0.05"/>
+        </medium>
+      </shape>
+      <shape type="rectangle">
+        <transform name="toWorld">
+          <rotate x="1" angle="90"/>
+          <translate y="2.2"/>
+        </transform>
+        <emitter type="area">
+          <rgb name="radiance" value="6, 5, 4"/>
+        </emitter>
+      </shape>
+      <shape type="rectangle">
+        <transform name="toWorld">
+          <rotate x="1" angle="-90"/>
+          <scale value="4"/>
+          <translate y="-1.4"/>
+        </transform>
+        <bsdf type="diffuse">
+          <rgb name="reflectance" value="0.5, 0.5, 0.5"/>
+        </bsdf>
+      </shape>
+      {extra}
+    </scene>"""
+
+
+def glass_xml(width=None, height=None, max_depth=None):
+    """scenes/glass_caustics.xml (bdpt; 1,026 triangles with its emissive
+    sphere tessellated, one analytic glass sphere), optionally at another
+    film size or maxDepth."""
+    with open(GLASS_XML) as f:
+        xml = f.read()
+    if max_depth is not None:
+        xml, n = re.subn(r'name="maxDepth" value="\d+"', f'name="maxDepth" value="{max_depth}"',
+                         xml)
+        if n != 1:
+            raise ValueError(f"{GLASS_XML} holds {n} maxDepth values, expected one")
+    return _film_size(xml, width, height)
+
+
+def with_integrator(xml, kind, max_depth=None):
+    """`xml` with its integrator replaced by `kind` (keeping maxDepth and
+    rrDepth unless max_depth is given)."""
+    xml, n = re.subn(r'<integrator type="\w+"', f'<integrator type="{kind}"', xml, count=1)
+    if n != 1:
+        raise ValueError("no integrator in the scene")
+    if max_depth is not None:
+        xml = re.sub(r'name="maxDepth" value="-?\d+"', f'name="maxDepth" value="{max_depth}"',
+                     xml, count=1)
+    return xml
+
+
+def cbox_ptracer_xml(width=None, height=None):
+    """scenes/cbox.xml under the particle tracer (its maxDepth 16),
+    optionally at another film size."""
+    with open(CBOX_XML) as f:
+        return _film_size(with_integrator(f.read(), "ptracer"), width, height)
+
+
+def delta_mix_xml(integrator="path", max_depth=4, spp=8, width=24, height=24):
+    """The two-wall scene lit by all four delta lights at once and a small
+    area light (sampling weights 1, 2, 1, 1, 0.5), so that the emitter
+    pick reaches every kind."""
+    area = """<shape type="rectangle">
+      <transform name="toWorld"><scale value="0.3"/><rotate x="1" angle="90"/>
+        <translate x="-1" y="2.5" z="0.5"/></transform>
+      <emitter type="area"><rgb name="radiance" value="5, 5, 4"/>
+        <float name="samplingWeight" value="0.5"/></emitter></shape>"""
+    lights = "".join(
+        DELTA_EMITTERS[k].replace(
+            "</emitter>", f'<float name="samplingWeight" value="{wgt}"/></emitter>'
+        )
+        for k, wgt in (("point", 1), ("spot", 2), ("directional", 1), ("collimated", 1))
+    )
+    return two_wall_xml(lights + area, integrator, max_depth, spp, width, height)
