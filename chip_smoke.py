@@ -76,6 +76,16 @@ Phases, each of which raises (and exits non-zero) on failure:
      whose vertices are not both live carry an empty segment), bit for
      bit, with K7/K8 on the batches those queries hand the fallback (at
      K = 1 where none overflows at the natural K);
+   * the Metropolis slice (`capture_calls`): K3, K4 (any and closest) on
+     the queries of the first bidirectional step of scenes/door.xml as it
+     stands (256x256, 65,536 chains after the bootstrap, 8 edges: the
+     proposal's camera query and its first three connections;
+     `door_step_segments`), with K7/K8 on their fallback batches; K3/K4
+     (closest) and K7 on the finite rays of three re-traces of one
+     manifold proposal on glass_caustics under mlt at 256x256, maxDepth 6
+     (`manifold_segments`); K1/K2 on the first closest-hit and shadow
+     queries of one mlt step's path re-trace on cbox at 512x512 (131,072
+     chains; `mlt_brute`); all bit for bit;
    each kernel's time beside its bound (the larger of its operations
    over the card's FP32 rate and its bytes over the memory rate, from
    this run's inputs, counting only the real triangles of padded
@@ -130,6 +140,12 @@ Phases, each of which raises (and exits non-zero) on failure:
      (these four goldens at their tests/torch_meshes.py GOLDEN_GATES,
      1e-5 to 1e-7): K1/K2 launched (K1 alone for the media scene, whose connections are
      closest-hit segments through its null sphere);
+   * the Metropolis slice, each against its golden (the JAX package's
+     render) at its GOLDEN_GATES gate: scenes/door.xml under pssmlt
+     (bidirectional and unidirectional), mlt and erpt at 16x16 (K3/K4
+     launched), scenes/cbox.xml under mlt and erpt at 24x24 (K1/K2), and
+     glass_caustics under mlt with the manifold perturbation at 16x16
+     (K3/K4);
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
    for the Cornell box, both stand-ins, scenes/matpreview.xml and the
@@ -146,13 +162,24 @@ Phases, each of which raises (and exits non-zero) on failure:
    256 spp), and from a profiled pass its device ms, events, kernels per
    event and busy share; then glass_caustics with bdpt at 16 edges at its
    bench resolution, 256x256, chunk after chunk of 131,072 lanes (2 spp)
-   for about 60 s (at least 2 chunks, at most 32 spp: `glass_throughput`),
+   for about 60 s (at least 2 chunks, at most 32 spp: `generator_throughput`),
    with seconds per chunk, rays/s, peak device memory, K3/K4/K7/K8
    launches per chunk, the tone-mapped RMSE against
    bench_refs/glass_caustics_256.npz (no gate) and a profiled chunk's
    kernels and busy share; one chunk at the scene's own 512x512 (262,144
    lanes); and the particle tracer on cbox at 512x512, 4 particles per
-   pixel (one batch of 1,048,576): seconds and rays/s.
+   pixel (one batch of 1,048,576): seconds and rays/s; last the
+   Metropolis slice (`generator_throughput` again): scenes/door.xml as it
+   stands (pssmlt, bidirectional, 8 edges; 256x256, 65,536 chains) at 32
+   mutations per pixel, then the same with `bidirectional` false, then
+   glass_caustics under pssmlt (16 edges, 256x256) for about 60 s: the
+   bootstrap's seconds, seconds per step, rays/s, kernels per step and
+   busy share (one profiled step of a second run), K3/K4/K7/K8 launches per step (door's
+   run is the slice's main path: its counters are set to 0 just before
+   and read just after), peak device memory, and the tone-mapped RMSE
+   against bench_refs/door_256.npz (the reference's TPU run: 0.0424
+   bidirectional, 0.0728 unidirectional) or
+   bench_refs/glass_caustics_256.npz (no gate).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -178,6 +205,7 @@ MATPREVIEW_REF_512 = os.path.join(HERE, "bench_refs", "matpreview_512.npz")
 SMOKE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_smoke_64_16.npy")
 SMOKE_REF_256 = os.path.join(HERE, "bench_refs", "smoke_256.npz")
 GLASS_REF_256 = os.path.join(HERE, "bench_refs", "glass_caustics_256.npz")
+DOOR_REF_256 = os.path.join(HERE, "bench_refs", "door_256.npz")
 GLASS_GOLDEN = os.path.join(HERE, "tests", "golden", "glass_caustics_64_16.npy")
 GLASS_PAIR_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_glass_bdpt_16_4.npy")
 PTRACER_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_cbox_ptracer_64_16.npy")
@@ -1037,7 +1065,7 @@ def render_checked(mt, counted, scene, golden_path, dev, label, pack=None, spp=1
     launches."""
     import numpy as np
     import torch
-    from torch_meshes import GOLDEN_GATES
+    from torch_meshes import GOLDEN_GATES, tm_rmse
 
     gate = GOLDEN_GATES.get(os.path.basename(golden_path), 5e-3)
 
@@ -1053,7 +1081,7 @@ def render_checked(mt, counted, scene, golden_path, dev, label, pack=None, spp=1
     golden = np.load(golden_path)
     check(img.shape == golden.shape, f"{label}: image shape {img.shape} != {golden.shape}")
     check(bool(np.isfinite(img).all()), f"{label}: image has non-finite values")
-    rmse = float(np.sqrt(np.mean((img / (1 + img) - golden / (1 + golden)) ** 2)))
+    rmse = tm_rmse(img, golden)
     print(f"phase 3: {label} {img.shape[1]}x{img.shape[0]} {spp} spp on the card in "
           f"{render_s:.2f} s: "
           f"tone-mapped RMSE vs golden {rmse:.6g} (gate {gate:g}), mean {img.mean():.6f}, "
@@ -1076,6 +1104,7 @@ def throughput(make_render_pass, new_film, pack, scene, dev, label, card,
     for kernels per pass and per iteration (`unit`) and the busy share."""
     import numpy as np
     import torch
+    from torch_meshes import tm_rmse
 
     from mitsuba_tpu_torch.film.film import develop
 
@@ -1109,7 +1138,7 @@ def throughput(make_render_pass, new_film, pack, scene, dev, label, card,
         img = (develop(film) * rec.ray_weight).cpu().numpy()
         gold = np.load(ref)["img"].astype(np.float32)
         check(img.shape == gold.shape, f"{label}: image {img.shape}, reference {gold.shape}")
-        out["rmse_vs_ref"] = float(np.sqrt(np.mean((img / (1 + img) - gold / (1 + gold)) ** 2)))
+        out["rmse_vs_ref"] = tm_rmse(img, gold)
         print(f"  {label}: tone-mapped RMSE of the {passes * spp}-spp image vs "
               f"{os.path.relpath(ref, HERE)}: {out['rmse_vs_ref']:.6g} (no gate)", flush=True)
     if iterations is not None:
@@ -1266,26 +1295,8 @@ class _Enough(Exception):
 def capture_queries(mod, name, n, run):
     """(o, d, t_max) of the first n calls of mod.name (an occlusion query)
     that run() makes; run stops there."""
-    import torch
-
-    inner, got = getattr(mod, name), []
-
-    def spy(pack_, o, d, t_max):
-        t = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(o.shape[0])
-        got.append((o.contiguous(), d.contiguous(), t.contiguous()))
-        if len(got) == n:
-            raise _Enough
-        return inner(pack_, o, d, t_max)
-
-    setattr(mod, name, spy)
-    try:
-        run()
-    except _Enough:
-        pass
-    finally:
-        setattr(mod, name, inner)
-    check(len(got) == n, f"{mod.__name__}.{name} was called {len(got)} times, expected {n}")
-    return got
+    return [as_segment(args)
+            for _, args in capture_calls(mod, (name,), run, lambda got: len(got) == n)]
 
 
 def ptracer_segments(pk, tpt, scene, pack, dev, stats):
@@ -1330,65 +1341,201 @@ def bdpt_segments(pairs, pb, tb, scene, pack, dev, stats, n=3):
     check(ran == {True, False}, "no bdpt connection segment reached K7 and K8 (even at K=1)")
 
 
-def glass_throughput(tb, counted, scene, pack, dev, card, budget_s=60.0, max_spp=32):
-    """bdpt on the glass scene at the scene's film size, chunk by chunk
-    (iter_bdpt: MTS_BDPT_LANES lanes a chunk) until budget_s has passed,
-    at least 2 chunks and up to max_spp: seconds per chunk, rays/s
-    (closest-hit rays of live walk lanes plus the shadow rays of live
-    connections), peak device memory, the kernels' launches per chunk, the
-    tone-mapped RMSE against bench_refs/glass_caustics_256.npz where the
-    film is 256x256; then one more chunk under the profiler: kernels per
-    chunk and busy share."""
+def generator_throughput(label, steps, counted, w, h, card, unit, budget_s=None, ref=None,
+                         note="", setup=False, **info):
+    """Times a render that yields after each unit of work (a bdpt chunk, a
+    Metropolis step): `steps()` starts one, yielding (image: a tensor or
+    a callable giving one; units done; the rays traced so far, an int64
+    tensor).  With `setup` the first yield ends the set-up (the chains'
+    bootstrap), timed apart.  Runs to the end, or until budget_s has
+    passed with at least 2 units; prints seconds per unit, rays/s (as the
+    trace counts them: closest-hit rays of live lanes and shadow rays of
+    live connections), peak device memory, the kernels' launches per
+    unit, the tone-mapped RMSE of the image against `ref` (an .npz);
+    then one more unit of a second run under the profiler (CUDA
+    activity: kernels per unit, busy share).  Returns the launches of the
+    timed run (counters set to 0 just before)."""
     import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch_meshes import tm_rmse
+
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_all = t0 = time.time()
+    run = steps()
+    out = {"scene": label, "width": w, "height": h, **info}
+    if setup:
+        _, _, rays = next(run)
+        torch.cuda.synchronize()
+        out["setup_s"] = time.time() - t0
+        before = {k: fn.launches for k, fn in counted.items()}
+        rays0, t0 = int(rays), time.time()
+    else:
+        before, rays0 = dict.fromkeys(counted, 0), 0
+    times, img, done = [], None, 0
+    for img, done, rays in run:
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        t0 = time.time()
+        if budget_s is not None and len(times) >= 2 and t0 - t_all >= budget_s:
+            break
+    n_rays = int(rays) - rays0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    per_unit = {k: (n - before[k]) / max(len(times), 1) for k, n in launches.items()}
+    image = (img() if callable(img) else img).cpu().numpy()
+    check(image.shape == (h, w, 3) and bool(np.isfinite(image).all()),
+          f"{label}: the image is not finite or of shape {image.shape}")
+    total = sum(times)
+    out.update({f"{unit}s": len(times), "done": done, f"seconds_per_{unit}": times,
+                "rays": n_rays, "seconds": total, "rays_per_s": n_rays / total if total else None,
+                f"launches_per_{unit}": per_unit, "launches": launches,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card})
+    rays_s = f"{out['rays_per_s']:.6g}" if total else "-"
+    setup_s = f", set-up {out['setup_s']:.3f} s" if setup else ""
+    print(f"phase 4: {label} {w}x{h}, {len(times)} {unit}s = {done} done{setup_s}: seconds "
+          f"per {unit} {[round(x, 3) for x in times]}, {n_rays} rays in {total:.3f} s = "
+          f"{rays_s} rays/s, peak device memory {out['peak_gib']:.3f} GiB, launches per {unit} "
+          f"{per_unit} on {card}", flush=True)
+    if ref is not None:
+        gold = np.load(ref)["img"].astype(np.float32)
+        check(image.shape == gold.shape, f"{label}: image {image.shape}, reference {gold.shape}")
+        out["rmse_vs_ref"] = tm_rmse(image, gold)
+        print(f"  {label}: tone-mapped RMSE of the image ({done} done) vs "
+              f"{os.path.relpath(ref, HERE)}: {out['rmse_vs_ref']:.6g} (no gate{note})", flush=True)
+    run = steps()
+    if setup:
+        next(run)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        next(run)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    run.close()
+    dev_ms, n_k = device_events(prof)
+    out.update({"profiled_wall_s": wall, "device_ms": dev_ms, f"kernels_per_{unit}": n_k,
+                "busy": dev_ms / 1e3 / wall})
+    print(f"  {label}: profiled {unit} (CUDA activity) wall {wall:.4f} s, device time "
+          f"{dev_ms:.3f} ms, busy share {out['busy']:.4f}; {n_k} kernels per {unit}", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+    return launches
+
+
+def capture_calls(mod, names, run, stop):
+    """(name, args) of the calls of mod.<names> that run() makes, until
+    stop(calls) holds; run stops there.  Each spy has a `launches` count,
+    since a kernel wrapper counts its launches on its module's name."""
+    inner, got = {n: getattr(mod, n) for n in names}, []
+
+    def make(name):
+        def spy(*args):
+            got.append((name, args))
+            if stop(got):
+                raise _Enough
+            return inner[name](*args)
+        spy.launches = 0
+        return spy
+
+    for n in names:
+        setattr(mod, n, make(n))
+    try:
+        run()
+    except _Enough:
+        pass
+    finally:
+        for n, fn in inner.items():
+            setattr(mod, n, fn)
+    check(stop(got), f"{mod.__name__}: the run stopped before its queries ({len(got)} calls)")
+    return got
+
+
+def as_segment(args):
+    """(o, d, t_max [R]) of a closest-hit or occlusion query's arguments
+    (pack, o, d[, t_max]); t_max inf where the query has none."""
+    import math
+
+    import torch
+
+    _, o, d, *t = args
+    t = torch.as_tensor(t[0] if t else math.inf, dtype=torch.float32, device=o.device)
+    return o.contiguous(), d.contiguous(), t.expand(o.shape[0]).contiguous()
+
+
+def door_step_segments(pairs, pb, tb, tps, scene, pack, dev, stats, n=3):
+    """K3/K4 (closest and any), with K7/K8 on the batches they hand the
+    fallback, bit for bit against plain on the queries of door's first
+    bidirectional step as it stands (256x256: 65,536 chains after the
+    bootstrap; 8 edges): the proposal's camera query and its first n
+    connections (finite segments between offset points)."""
+    steps = tps.iter_pssmlt(scene, pack, 1, 0, None, dev)
+    next(steps)  # the bootstrap
+    got = capture_calls(tb, ("intersect", "occluded"), lambda: next(steps),
+                        lambda g: sum(c[0] == "occluded" for c in g) == n)
+    cam = next(args for name, args in got if name == "intersect")
+    conn = [args for name, args in got if name == "occluded"]
+    queries = [("door step 1 camera", *as_segment(cam))] + [
+        (f"door step 1 connection {k}", *as_segment(c)) for k, c in enumerate(conn)]
+    ran = compare_segments(pairs, pb, pack, queries, stats, any_hit=True, retry=True)
+    check(ran == {True, False}, "no door query reached K7 and K8 (even at K=1)")
+
+
+def manifold_segments(pairs, pb, tmm, tps, scene, pack, dev, stats, n_chains=65_536):
+    """K3/K4 (closest) with K7 bit for bit against plain on the re-traces
+    of one manifold proposal on glass (scene at its film size, maxDepth
+    6; n_chains rows seeded as bootstrap batch 0 seeds them): the path
+    re-trace's camera query, the first chain-end trace of the current
+    state's Jacobian and the first of the Newton solve.  Lanes whose
+    chain is not eligible carry non-finite rays there, which no result
+    reads; only the finite rays are compared (K3 and its plain version
+    differ on NaN, ROADMAP C)."""
     import torch
 
     rec = scene.sensor.record
     w, h = rec.film.width, rec.film.height
-    for fn in counted.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    times, img, done, rays = [], None, 0, 0
-    t_all = t0 = time.time()
-    for img, done, rays in tb.iter_bdpt(scene, pack, max_spp, 0, dev):
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-        t0 = time.time()
-        if len(times) >= 2 and time.time() - t_all >= budget_s:
-            break
-    n_rays = int(rays)
-    launches = {k: fn.launches for k, fn in counted.items()}
-    image = img().cpu().numpy()
-    check(bool(np.isfinite(image).all()), f"glass {w}x{h}: image has non-finite values")
-    total = sum(times)
-    out = {"scene": "glass_caustics-bdpt", "width": w, "height": h, "chunks": len(times),
-           "spp": done, "seconds_per_chunk": times, "rays": n_rays, "seconds": total,
-           "rays_per_s": n_rays / total, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches_per_chunk": {k: n / len(times) for k, n in launches.items()}, "card": card}
-    print(f"phase 4: glass_caustics bdpt {w}x{h}, {len(times)} chunks = {done} spp: seconds per "
-          f"chunk {[round(x, 3) for x in times]}, {n_rays} rays in {total:.3f} s = "
-          f"{out['rays_per_s']:.6g} rays/s, peak device memory {out['peak_gib']:.3f} GiB, "
-          f"launches per chunk {out['launches_per_chunk']} on {card}", flush=True)
-    if (w, h) == (256, 256):
-        gold = np.load(GLASS_REF_256)["img"].astype(np.float32)
-        out["rmse_vs_ref"] = float(np.sqrt(np.mean((image / (1 + image) - gold / (1 + gold)) ** 2)))
-        print(f"  glass_caustics: tone-mapped RMSE of the {done}-spp image vs "
-              f"{os.path.relpath(GLASS_REF_256, HERE)}: {out['rmse_vs_ref']:.6g} (no gate; the "
-              f"reference's curve: 0.062 at 32 spp with 8 edges)", flush=True)
-    from torch.profiler import ProfilerActivity, profile
+    D = tps.dims_for(6)
+    seed_mlt = tps.rng.stream_seed(0, tps.rng.STREAM_MLT)
+    U = tps._boot_rows(n_chains, D, 0, seed_mlt, dev)
+    lanes = torch.arange(n_chains, device=dev)
+    cam = rec.pack(w, h, dev)
+    # dmax = 6 path vertices, then 3 residuals of kmax + 1 = 5 traces for
+    # the Jacobian, the lens move's camera ray, then the solve's residuals
+    picks = {0: "path re-trace camera", 6: "Jacobian chain end", 22: "Newton solve chain end"}
+    got = capture_calls(tmm, ("intersect",), lambda: tmm.propose_manifold(
+        pack, scene.integrator, cam, w, h, U, 3, seed_mlt, lanes), lambda g: len(g) > max(picks))
+    queries = []
+    for i, label in picks.items():
+        o, d, t = as_segment(got[i][1])
+        fin = torch.isfinite(o).all(dim=1) & torch.isfinite(d).all(dim=1)
+        print(f"  glass manifold proposal, {label}: {int(fin.sum())} of {o.shape[0]} rays "
+              f"finite", flush=True)
+        queries.append((f"glass manifold {label}", o[fin].contiguous(), d[fin].contiguous(),
+                        t[fin].contiguous()))
+    compare_segments(pairs, pb, pack, queries, stats, retry=True)
 
-    chunks = tb.iter_bdpt(scene, pack, max_spp, 0, dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        next(chunks)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    dev_ms, n_k = device_events(prof)
-    out.update(profiled_wall_s=wall, device_ms=dev_ms, kernels_per_chunk=n_k,
-               busy=dev_ms / 1e3 / wall)
-    print(f"  glass_caustics: profiled chunk (CUDA activity) wall {wall:.4f} s, device time "
-          f"{dev_ms:.3f} ms, busy share {out['busy']:.4f}; {n_k} kernels per chunk", flush=True)
-    print(json.dumps({"throughput": out}), flush=True)
-    return launches
+
+def mlt_brute(pk, tps, tml, scene, pack, dev, stats):
+    """K1/K2 bit for bit against plain on the first closest-hit and shadow
+    queries of one mlt step's path_from_primary on cbox (512x512 as it
+    stands: 131,072 chains; a Veach proposal from rows seeded as bootstrap
+    batch 0 seeds them)."""
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    n = min(1 << 17, w * h)
+    md = scene.integrator.max_depth
+    D = tps.dims_for(md)
+    seed_mlt = tps.rng.stream_seed(0, tps.rng.STREAM_MLT)
+    U, _ = tml.propose_veach(tps._boot_rows(n, D, 0, seed_mlt, dev), 0, seed_mlt, w, h, md, 0.2)
+    got = {}
+    for name, args in capture_calls(
+            pk, ("closest_hit_v2", "any_hit_v2"),
+            lambda: tps.path_from_primary(pack, scene.integrator, rec.pack(w, h, dev), w, h, U),
+            lambda g: len({c[0] for c in g}) == 2):
+        got.setdefault(name, args)
+    n_tri = int((pack.tri_s[0] < FAR_V0).sum())
+    for name, (o, d, t_max, tri) in got.items():
+        print(f"  cbox mlt step ({name}): {o.shape[0]} rays", flush=True)
+        compare_brute(pk, name, o, d, t_max, tri, n_tri, stats, exact=True)
 
 
 def main():
@@ -1414,19 +1561,28 @@ def main():
     from mitsuba_tpu_torch.scene.builder import pack_scene
     sys.path.append(os.path.join(HERE, "tests"))
     from mitsuba_tpu_torch.integrator import bdpt as tb
+    from mitsuba_tpu_torch.integrator import mlt as tml
+    from mitsuba_tpu_torch.integrator import mut_manifold as tmm
+    from mitsuba_tpu_torch.integrator import pssmlt as tps
     from mitsuba_tpu_torch.integrator import ptracer as tpt
     from mitsuba_tpu_torch.integrator import volpath as vp
     from torch_meshes import (
+        DOOR_XML,
         bdpt_media_xml,
         bunny_scene_xml,
         bunny_standin,
+        cbox_chain_xml,
         cbox_mitchell_xml,
         cbox_ptracer_xml,
         dense_standin,
+        door_xml,
+        glass_manifold_xml,
         glass_xml,
         matpreview_const_xml,
         smoke_xml,
         two_wall_xml,
+        with_integrator,
+        with_properties,
         write_ply,
     )
 
@@ -1557,6 +1713,24 @@ def main():
     check(glass_pack.meta["use_bvh"] and glass_pack.meta["n_tris"] == 1026,
           "scenes/glass_caustics.xml does not pack into 1,026 triangles with cluster tables")
     bdpt_segments(pairs, pb, tb, glass64, glass_pack, dev, stats)
+
+    # the Metropolis slice: door's first bidirectional step as it stands
+    # (K3/K4, K7/K8), the re-traces of a manifold proposal on glass
+    # (K3/K4, K7) and one mlt step's path re-trace on cbox (K1/K2)
+    print(f"  Metropolis {elapsed()}", flush=True)
+    door = mt.load_scene(DOOR_XML)  # 256x256, pssmlt, maxDepth 8
+    door_pack = pack_scene(door, dev)
+    dm = door_pack.meta
+    print(f"  door: {dm['n_tris']} triangles in {dm['n_clusters']} clusters, "
+          f"{dm['n_spheres']} analytic sphere(s), use_bvh={dm['use_bvh']}", flush=True)
+    check(dm["use_bvh"] and dm["n_tris"] == 1096 and dm["n_spheres"] == 1,
+          "scenes/door.xml does not pack into 1,096 triangles and one sphere with cluster tables")
+    door_step_segments(pairs, pb, tb, tps, door, door_pack, dev, stats)
+    glass_mani = mt.load_scene_string(with_integrator(glass_xml(256, 256), "mlt", max_depth=6))
+    manifold_segments(pairs, pb, tmm, tps, glass_mani, glass_pack, dev, stats)
+    with open(CBOX) as f:
+        cbox_mlt = mt.load_scene_string(with_integrator(f.read(), "mlt", max_depth=4))
+    mlt_brute(pk, tps, tml, cbox_mlt, pack, dev, stats)
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -1695,6 +1869,33 @@ def main():
             lt_launches[k] = lt_launches.get(k, 0) + n
     for k, n in {**glass_launches, **lt_launches}.items():
         launches[k] += n
+
+    # the Metropolis slice: pssmlt on door as it stands (bidirectional,
+    # 8 edges) and unidirectional, mlt and erpt on door and cbox, mlt with
+    # the manifold perturbation on glass, each against its golden
+    print(f"  Metropolis {elapsed()}", flush=True)
+    chain_names = glass_names  # K3/K4, K7/K8 on overflow
+    for label, xml, golden, spp, names, pk_ in (
+            ("door pssmlt", door_xml(16, 16, 1024), "torch_door_pssmlt_16_4.npy", 4,
+             chain_names, door_pack),
+            ("door pssmlt unidirectional", door_xml(16, 16, 1024, bidirectional=False),
+             "torch_door_pssmlt_uni_16_4.npy", 4, chain_names, door_pack),
+            ("door mlt", with_integrator(door_xml(16, 16, 1024), "mlt"), "torch_door_mlt_16_4.npy",
+             4, chain_names, door_pack),
+            ("door erpt", with_properties(with_integrator(door_xml(16, 16, 1024), "erpt"),
+                                          '<integer name="chainLength" value="8"/>'),
+             "torch_door_erpt_16_1.npy", 1, chain_names, door_pack),
+            ("cbox mlt", cbox_chain_xml("mlt"), "torch_cbox_mlt_24_8.npy", 8,
+             ("closest_hit_v2", "any_hit_v2"), pack),
+            ("cbox erpt", cbox_chain_xml("erpt", chain_length=20), "torch_cbox_erpt_24_1.npy", 1,
+             ("closest_hit_v2", "any_hit_v2"), pack),
+            ("glass mlt, manifold perturbation", glass_manifold_xml(),
+             "torch_glass_mlt_manifold_16_8.npy", 8, chain_names, glass_pack)):
+        got = render_checked(mt, {k: counted[k] for k in names}, mt.load_scene_string(xml),
+                             os.path.join(HERE, "tests", "golden", golden), dev, label, pack=pk_,
+                             spp=spp)
+        for k in names[:3] if "cbox" not in label else names:
+            check(got[k] > 0, f"the {label} render never launched {k}")
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -1713,10 +1914,15 @@ def main():
     print(f"phase 4: light transport {elapsed()}", flush=True)
     glass_counted = {k: counted[k] for k in glass_names}
     glass256 = mt.load_scene_string(glass_xml(256, 256))
-    glass_throughput(tb, glass_counted, glass256, glass_pack, dev, card)
+    generator_throughput(
+        "glass_caustics-bdpt", lambda: tb.iter_bdpt(glass256, glass_pack, 32, 0, dev),
+        glass_counted, 256, 256, card, "chunk", budget_s=60.0, ref=GLASS_REF_256,
+        note="; the reference's curve: 0.062 at 32 spp with 8 edges")
     # the scene's own film size: spp_chunk floors at 1, 262,144 lanes
     glass512 = mt.load_scene(os.path.join(HERE, "scenes", "glass_caustics.xml"))
-    glass_throughput(tb, glass_counted, glass512, glass_pack, dev, card, budget_s=0.0, max_spp=1)
+    generator_throughput(
+        "glass_caustics-bdpt", lambda: tb.iter_bdpt(glass512, glass_pack, 1, 0, dev),
+        glass_counted, 512, 512, card, "chunk", budget_s=0.0)
     for fn in brute.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1729,6 +1935,35 @@ def main():
           f"{tpt.BATCH_MAX}): {pt_rays} rays in {pt_s:.3f} s = {pt_rays / pt_s:.6g} rays/s (no "
           f"warm-up), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"launches {({k: fn.launches for k, fn in brute.items()})} on {card}", flush=True)
+
+    # the Metropolis slice: door as it stands (pssmlt, bidirectional, 8
+    # edges; 65,536 chains) at 32 mutations per pixel, and unidirectional;
+    # glass_caustics under pssmlt (16 edges) for about 60 s
+    print(f"phase 4: Metropolis {elapsed()}", flush=True)
+    door_counted = {k: counted[k] for k in glass_names}
+
+    def pssmlt_steps(scene, pack):
+        return lambda: ((img, done, st["rays"])
+                        for img, done, _, st in tps.iter_pssmlt(scene, pack, 32, 0, None, dev))
+
+    door_uni = mt.load_scene_string(door_xml(bidirectional=False))
+    glass_pssmlt = mt.load_scene_string(with_integrator(glass_xml(256, 256), "pssmlt"))
+    door_launches = generator_throughput(
+        "door-pssmlt", pssmlt_steps(door, door_pack), door_counted, 256, 256, card, "step",
+        ref=DOOR_REF_256, setup=True, chains=65_536,
+        note="; the reference's TPU run: 0.0424 bidirectional, 0.0728 unidirectional")
+    for k in glass_names[:3]:
+        check(door_launches[k] > 0, f"door's pssmlt never launched {k}")
+    for k in glass_names:
+        launches[k] += door_launches[k]
+    generator_throughput(
+        "door-pssmlt-unidirectional", pssmlt_steps(door_uni, door_pack), door_counted, 256,
+        256, card, "step", ref=DOOR_REF_256, setup=True, chains=65_536,
+        note="; the reference's TPU run: 0.0728")
+    generator_throughput(
+        "glass-pssmlt", pssmlt_steps(glass_pssmlt, glass_pack), door_counted, 256, 256, card,
+        "step", budget_s=60.0, ref=GLASS_REF_256, setup=True, chains=65_536,
+        note="; never measured on the TPU")
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

@@ -21,6 +21,7 @@ STREAM_CAMERA = 1  # sampler-owned draws: film jitter, lens
 STREAM_MEDIUM_DIST = 2  # heterogeneous delta tracking (sample_distance)
 STREAM_MEDIUM_TRANS = 3  # shadow-ray ratio tracking (transmittance)
 STREAM_LIGHT = 4  # light-subpath walks (ptracer / bdpt light paths)
+STREAM_MLT = 5  # pssmlt/mlt/erpt chain mutations and control decisions
 
 
 def _u32(x):

@@ -1,6 +1,7 @@
-"""Colour helpers the scene loader calls (host numpy part of
-mitsuba_tpu/core/spectrum.py).  The port renders linear RGB; tabulated
-spectra and blackbody emitters are not ported yet."""
+"""Colour helpers (port of mitsuba_tpu/core/spectrum.py): the host numpy
+part the scene loader calls, and `luminance`, the Metropolis chains'
+target.  The port renders linear RGB; tabulated spectra and blackbody
+emitters are not ported yet."""
 
 from __future__ import annotations
 
@@ -23,3 +24,8 @@ def blackbody_rgb(temperature_k):
 
 def interpolated_spectrum_to_rgb(wavelengths, values):
     raise NotImplementedError("tabulated spectra not yet ported")
+
+
+def luminance(rgb):
+    """Y of linear RGB (reference spectrum.h getLuminance); rgb [..., 3]."""
+    return rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 + rgb[..., 2] * 0.072169

@@ -1,5 +1,6 @@
 """Square-to-X sampling warps (port of mitsuba_tpu/core/warp.py, the
-warps of the path, volumetric path, bidirectional and particle tracers)."""
+warps of the path, volumetric path, bidirectional and particle tracers,
+and the concentric inverse the manifold perturbation writes back with)."""
 
 from __future__ import annotations
 
@@ -65,6 +66,39 @@ def square_to_cosine_hemisphere(s):
 
 def square_to_cosine_hemisphere_pdf(d):
     return torch.clamp(d[..., 2], min=0.0) * INV_PI
+
+
+def uniform_disk_concentric_to_square(p):
+    """Inverse of the Shirley-Chiu concentric mapping: disk point [..., 2]
+    -> uniform square sample [..., 2] (the manifold perturbation writes a
+    solved direction back into primary-sample space with it)."""
+    x, y = p[..., 0], p[..., 1]
+    rr = torch.sqrt(x * x + y * y)
+    theta = torch.atan2(y, x)  # (-pi, pi]
+    q = math.pi / 4.0
+    abs_t = torch.abs(theta)
+    # wedge 1: |theta| <= pi/4 (r1 = +r); wedge 2: pi/4 < theta < 3pi/4
+    # (r2 = +r); wedge 3: |theta| >= 3pi/4 (r1 = -r); wedge 4: the rest
+    # (r2 = -r)
+    r1_a, r2_a = rr, rr * theta / q
+    r2_b, r1_b = rr, (math.pi / 2.0 - theta) * rr / q
+    phi_c = theta - torch.sign(theta) * math.pi
+    r1_c, r2_c = -rr, -rr * phi_c / q
+    phi_d = theta + math.pi
+    r2_d, r1_d = -rr, (math.pi / 2.0 - phi_d) * (-rr) / q
+
+    in1 = abs_t <= q
+    in2 = (theta > q) & (theta < 3.0 * q)
+    in3 = abs_t >= 3.0 * q
+    r1 = torch.where(in1, r1_a, torch.where(in2, r1_b, torch.where(in3, r1_c, r1_d)))
+    r2 = torch.where(in1, r2_a, torch.where(in2, r2_b, torch.where(in3, r2_c, r2_d)))
+    u = torch.stack([(r1 + 1.0) * 0.5, (r2 + 1.0) * 0.5], dim=-1)
+    return torch.clamp(u, 0.0, 1.0 - 1e-7)
+
+
+def cosine_hemisphere_to_square(d):
+    """Inverse of square_to_cosine_hemisphere for d with d_z >= 0."""
+    return uniform_disk_concentric_to_square(d[..., 0:2])
 
 
 def square_to_uniform_triangle(s):

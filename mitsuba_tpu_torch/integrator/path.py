@@ -18,6 +18,8 @@ in which no lane has work change nothing.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from mitsuba_tpu_torch.accel.intersect import fill_interaction, intersect, occluded
@@ -62,8 +64,9 @@ def _offset_ray(p, n, d):
 
 def _check_integrator(pack, integ):
     # volpath on a scene without media is the path integrator (reference
-    # integrator/volpath.py:95-99, renderer.py:78-92)
-    if integ.kind not in ("path", "volpath"):
+    # integrator/volpath.py:95-99, renderer.py:78-92); direct is the path
+    # integrator cut to one bounce (direct_trace)
+    if integ.kind not in ("path", "volpath", "direct"):
         raise NotImplementedError(f"integrator '{integ.kind}' not yet ported")
     if integ.strict_normals or integ.hide_emitters:
         raise NotImplementedError("path options strictNormals/hideEmitters not yet ported")
@@ -297,6 +300,18 @@ def path_trace_regen(
     return L_acc + L, sample_i, n_rays
 
 
+def direct_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
+    """MIDirect: emitter and BSDF sampling of direct illumination only
+    (reference path.py:568-572, src/integrators/direct/direct.cpp): the
+    path tracer at maxDepth 2 without roulette.  The chain integrators
+    render their direct component through it (pssmlt.add_direct_component).
+    The rays traced are left in direct_trace.last_ray_count."""
+    one_bounce = dataclasses.replace(integ, max_depth=2, rr_depth=100)
+    L = path_trace(pack, one_bounce, o, d, lane, sample_idx, sampler, seed)
+    direct_trace.last_ray_count = path_trace.last_ray_count
+    return L
+
+
 # trace functions of the batched wavefront by integrator kind
 # (integrator/volpath.py adds "volpath")
-TRACE_FNS = {"path": path_trace}
+TRACE_FNS = {"path": path_trace, "direct": direct_trace}

@@ -1,6 +1,7 @@
 """Integrator plugins (port of mitsuba_tpu/integrator/plugins.py): `path`,
-`volpath` and `volpath_simple` (both of kind "volpath"), `bdpt` and
-`ptracer`."""
+`volpath` and `volpath_simple` (both of kind "volpath"), `direct`, `bdpt`,
+`ptracer`, and the Metropolis family `pssmlt`, `mlt` and `erpt`, which
+read the reference's property names."""
 
 from __future__ import annotations
 
@@ -16,6 +17,13 @@ class IntegratorRecord:
     rr_depth: int = 5
     strict_normals: bool = False
     hide_emitters: bool = False
+    # pssmlt / mlt / erpt
+    direct_samples: int = -1
+    bidirectional: bool = False
+    luminance_samples: int = 100000
+    p_large: float = 0.3
+    chain_length: int = 100
+    manifold_perturbation: bool = False
 
 
 class _IntBase:
@@ -30,6 +38,18 @@ class _IntBase:
             strict_normals=props.get_bool("strictNormals", False),
             hide_emitters=props.get_bool("hideEmitters", False),
         )
+        self._finish(props)
+
+    def _finish(self, props):
+        pass
+
+
+def _refuse(props, name, default, get):
+    """A property that no port code reads: refused, by name, unless it
+    holds its default, so that no scene renders as if it were unset."""
+    if get(name, default) != default:
+        raise NotImplementedError(f"integrator property {name} = {get(name, default)} "
+                                  f"is not ported (only {default})")
 
 
 @register("integrator", "path")
@@ -51,11 +71,67 @@ class VolPathSimpleIntegrator(_IntBase):
     kind = "volpath"
 
 
+@register("integrator", "direct")
+class DirectIntegrator(_IntBase):
+    """reference: src/integrators/direct/direct.cpp (MIDirect)."""
+
+    kind = "direct"
+
+    def _finish(self, props):
+        # one emitter and one BSDF sample per lane (as the reference's
+        # direct_trace, which reads no sample counts)
+        for name in ("shadingSamples", "emitterSamples", "bsdfSamples"):
+            _refuse(props, name, 1, props.get_int)
+
+
 @register("integrator", "bdpt")
 class BDPTIntegrator(_IntBase):
     """reference: src/integrators/bdpt/bdpt.cpp:133."""
 
     kind = "bdpt"
+
+
+@register("integrator", "pssmlt")
+class PSSMLTIntegrator(_IntBase):
+    """reference: src/integrators/pssmlt/pssmlt.cpp:150 (integrator/pssmlt.py).
+    The mutations per pixel are not a property: render's spp sets them."""
+
+    kind = "pssmlt"
+
+    def _finish(self, props):
+        self.record.bidirectional = props.get_bool("bidirectional", True)
+        self.record.luminance_samples = props.get_int("luminanceSamples", 100000)
+        _refuse(props, "twoStage", False, props.get_bool)
+        self.record.p_large = props.get_float("pLarge", 0.3)
+        # >= 0: render the direct component with this many ordinary samples
+        # and keep the chains for longer paths (reference directSamples; -1
+        # keeps everything in the chain target)
+        self.record.direct_samples = props.get_int("directSamples", -1)
+
+
+@register("integrator", "mlt")
+class MLTIntegrator(PSSMLTIntegrator):
+    """reference: src/integrators/mlt/mlt.cpp — the Veach mutation suite
+    over chain tensors (integrator/mlt.py)."""
+
+    kind = "mlt"
+
+    def _finish(self, props):
+        super()._finish(props)
+        # reference mlt.cpp:194 — the manifold perturbation, opt-in
+        self.record.manifold_perturbation = props.get_bool("manifoldPerturbation", False)
+
+
+@register("integrator", "erpt")
+class ERPTIntegrator(PSSMLTIntegrator):
+    """reference: src/integrators/erpt/erpt.cpp:134 — energy redistribution
+    with perturbation-only chains (integrator/mlt.py)."""
+
+    kind = "erpt"
+
+    def _finish(self, props):
+        super()._finish(props)
+        self.record.chain_length = props.get_int("chainLength", 100)
 
 
 @register("integrator", "ptracer")

@@ -58,7 +58,8 @@ def make_render_pass(pack, integ, sensor_rec, film_rec, sampler_rec, spp_chunk,
     rfilter = film_rec.rfilter
     if integ.kind not in TRACE_FNS:
         raise NotImplementedError(f"integrator '{integ.kind}' not yet ported")
-    if not uses_regen(pack, film_rec):
+    # only the path-like integrators regenerate (reference renderer.py:75-93)
+    if integ.kind not in ("path", "volpath") or not uses_regen(pack, film_rec):
         return _batched_pass(pack, integ, cam, film_rec, sampler_rec, spp_chunk, device)
 
     # several regenerating lanes per pixel keep the device full at small
@@ -147,6 +148,17 @@ def render(scene, spp=None, seed=0, *, device="cuda", pack=None):
         from mitsuba_tpu_torch.integrator.ptracer import render_ptracer
 
         return render_ptracer(scene, spp=spp, seed=seed, pack=pack, device=device)
+    # the chain integrators: spp is the mutations per pixel for pssmlt and
+    # mlt, the seeds per pixel for erpt
+    if scene.integrator.kind == "pssmlt":
+        from mitsuba_tpu_torch.integrator.pssmlt import render_pssmlt
+
+        return render_pssmlt(scene, spp=spp, seed=seed, pack=pack, device=device)
+    if scene.integrator.kind in ("mlt", "erpt"):
+        from mitsuba_tpu_torch.integrator import mlt
+
+        fn = mlt.render_mlt if scene.integrator.kind == "mlt" else mlt.render_erpt
+        return fn(scene, spp=spp, seed=seed, pack=pack, device=device)
     sensor_rec = scene.sensor.record
     film_rec = sensor_rec.film
     sampler_rec = sensor_rec.sampler

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
-    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass] [--hits-only]
+    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door]
+                            [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
@@ -13,7 +14,9 @@ wavefront) at the reference's bench resolution, 256x256, and 32 samples
 per pass (one pass of 2,097,152 lanes); or for scenes/glass_caustics.xml
 (bdpt, 16 edges) at its bench resolution, 256x256, where a pass is one
 chunk of the lane budget (MTS_BDPT_LANES, 131,072 lanes: 2 samples per
-pixel) with its light-image splats:
+pixel) with its light-image splats; or for scenes/door.xml as it stands
+(pssmlt, bidirectional, 8 edges, 256x256: 65,536 chains), where a pass is
+one Metropolis step of every chain and the warm-up pass the bootstrap:
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -29,8 +32,16 @@ pixel) with its light-image splats:
    whose ranges nest: `_het_track` inside `sample_distance`, the shadow
    segments' `intersect` inside `_attenuated_visibility`; BDPT_STAGES for
    glass, where `intersect` nests inside `_walk` and `occluded` stands for
-   the connections' shadow rays), the host time,
+   the connections' shadow rays; for door BDPT_STAGES inside the step's
+   own ranges `bootstrap`, `propose`, `trace`, `splat` and `accept`,
+   integrator/pssmlt.py), the host time,
    the device time of the kernels launched inside and the calls;
+   for door, the steps then go on to N mutations per pixel (`--mutations`,
+   default 32), printing at 32, 64, 128, ... and at N the seconds so far
+   (the bootstrap and every step, the profiled one included) and the
+   tone-mapped RMSE against bench_refs/door_256.npz, and last the time to
+   RMSE 0.01 projected from the last point (RMSE taken to fall as the
+   inverse square root of the steps);
 3. for the meshes (dense, bigmesh), holds the pair pipeline's closest hits of one camera ray
    per pixel against the port's stackless BVH walk (accel/intersect.py
    `_bvh_traverse`, plain PyTorch): hit masks, prims and t, and the count
@@ -90,8 +101,66 @@ BDPT_STAGES = (
     ("mitsuba_tpu_torch.core.rng", ("rand4",)),
     ("mitsuba_tpu_torch.film.film", ("splat_add",)),
 )
-# film size and samples per pass of each scene
-RES_SPP = {"smoke": (256, 32), "glass": (256, 2)}
+# film size and samples per pass of each scene (door: one step, one
+# mutation per pixel)
+RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1)}
+
+
+def chain_pass(scene, pack, dev, mutations):
+    """The steps of a PSSMLT render of `mutations` mutations per pixel
+    (iter_pssmlt; seed 0) as a render pass: fn(film, sample_base, seed)
+    -> (film, rays traced); the first call runs the bootstrap, each later
+    one a step.  fn.state holds the last image, the steps done, the steps
+    in all and the seconds of all calls so far."""
+    import torch
+
+    from mitsuba_tpu_torch.integrator.pssmlt import iter_pssmlt
+
+    steps = iter_pssmlt(scene, pack, mutations, 0, None, dev)
+    state = {"seconds": 0.0, "rays": 0}
+
+    def rp(film, sample_base, seed):
+        t0 = time.time()
+        img, done, n_steps, st = next(steps)
+        torch.cuda.synchronize()
+        state.update(img=img, done=done, n_steps=n_steps,
+                     seconds=state["seconds"] + time.time() - t0)
+        rays = int(st["rays"]) - state["rays"]
+        state["rays"] = int(st["rays"])
+        return film, torch.tensor(rays)
+
+    rp.state = state
+    return rp
+
+
+def door_ladder(rp, ref):
+    """Step on to the end of the chain pass rp, printing at 32, 64, ...
+    steps and at the last the seconds so far and the tone-mapped RMSE of
+    the image against ref (an .npz); then the projected time to RMSE
+    0.01."""
+    import numpy as np
+    from torch_meshes import tm_rmse
+
+    gold = np.load(ref)["img"].astype(np.float32)
+    st = rp.state
+
+    def point():
+        img = st["img"].cpu().numpy()
+        rmse = tm_rmse(img, gold)
+        print(f"ladder: {st['done']} mutations per pixel, {st['seconds']:.3f} s, tone-mapped "
+              f"RMSE vs {os.path.relpath(ref, HERE)} {rmse:.6g}", flush=True)
+        return rmse
+
+    mark, rmse = 32, None
+    while st["done"] < st["n_steps"]:
+        rp(None, 0, 0)
+        if st["done"] == mark:
+            rmse = point()
+            mark *= 2
+    if st["done"] != mark // 2:
+        rmse = point()
+    print(f"ladder: projected time to RMSE 0.01: {st['seconds'] * (rmse / 0.01) ** 2:.1f} s "
+          f"(RMSE ~ steps^-1/2 from the last point)", flush=True)
 
 
 def bdpt_pass(scene, pack, spp, dev):
@@ -151,8 +220,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
-                             "smoke", "glass"))
+                             "smoke", "glass", "door"))
     ap.add_argument("--hits-only", action="store_true")
+    ap.add_argument("--mutations", type=int, default=32,
+                    help="door: the mutations per pixel the steps go on to")
     args = ap.parse_args()
 
     import torch
@@ -195,6 +266,8 @@ def main():
         scene = mt.load_scene_string(smoke_xml(res, res))
     elif args.scene == "glass":
         scene = mt.load_scene_string(glass_xml(res, res))
+    elif args.scene == "door":
+        scene = mt.load_scene(os.path.join(HERE, "scenes", "door.xml"))
     elif args.scene == "cbox":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
@@ -217,17 +290,21 @@ def main():
           flush=True)
 
     if not args.hits_only:
-        profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
-                       counters(pk, pairs, pb), res, spp,
-                       {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES}.get(args.scene, STAGES))
+        rp = profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
+                            counters(pk, pairs, pb), res, spp,
+                            {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES,
+                             "door": BDPT_STAGES}.get(args.scene, STAGES), args.mutations)
+        if args.scene == "door":
+            door_ladder(rp, os.path.join(HERE, "bench_refs", "door_256.npz"))
     if args.scene in ("dense", "bigmesh"):
         check_hits(scene, pack, dev, camera_rays, intersect, pairs)
     return 0
 
 
 def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers, res, spp,
-                   stages):
-    """Steps 1 and 2; wrappers: the port's kernel wrappers by name."""
+                   stages, mutations):
+    """Steps 1 and 2; wrappers: the port's kernel wrappers by name.
+    Returns the render pass."""
     import torch
 
     from chip_smoke import device_events, device_us
@@ -235,6 +312,8 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
     rec = scene.sensor.record
     if scene.integrator.kind == "bdpt":
         rp = bdpt_pass(scene, pack, spp, dev)
+    elif scene.integrator.kind == "pssmlt":
+        rp = chain_pass(scene, pack, dev, mutations)
     else:
         rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
     film = new_film(res, res, dev)
@@ -302,6 +381,7 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
               f"{dev_total / 1e3:10.3f} ms  {e.count:6d} calls", flush=True)
     ov = {k: pairs.pair_closest.__dict__.get(k) for k in ("rays", "overflow_rays")}
     print(f"pair_closest counters over the run: {ov}", flush=True)
+    return rp
 
 
 def mt64(o, d, tri9):

@@ -27,11 +27,24 @@ the matpreview variant.
   scene under its spot light, bdpt at maxDepth 8, 24x24, 16 spp;
 * tests/golden/torch_media_bdpt_24_16.npy: tests/test_bdpt.py's media
   scene (a homogeneous fog in a `null` sphere), bdpt at maxDepth 6,
-  24x24, 16 spp.
+  24x24, 16 spp;
+* the Metropolis slice, seed 0, luminanceSamples 1,024, one chain per
+  pixel (render's default): tests/golden/torch_door_pssmlt_16_4.npy,
+  scenes/door.xml as it stands (pssmlt, bidirectional, maxDepth 8) at
+  16x16, 4 mutations per pixel, through the pair pipeline;
+  torch_door_pssmlt_uni_16_4.npy, the same with bidirectional false;
+  torch_door_mlt_16_4.npy and torch_door_erpt_16_1.npy, door under mlt
+  (4 mutations per pixel) and erpt (1 seed per pixel, chainLength 8);
+  torch_cbox_mlt_24_8.npy and torch_cbox_erpt_24_1.npy, scenes/cbox.xml
+  at 24x24, maxDepth 4 under mlt (8 mutations per pixel) and erpt (1
+  seed per pixel, chainLength 20); torch_glass_mlt_manifold_16_8.npy,
+  scenes/glass_caustics.xml under mlt with manifoldPerturbation at 16x16,
+  maxDepth 6, 8 mutations per pixel (steps 3 and 7 are manifold steps),
+  through the pair pipeline.
 
-    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [bigmesh] [densemesh] [matpreview] [smoke] [cbox_mitchell] [glass_bdpt] [cbox_ptracer] [spot_bdpt] [media_bdpt]
+    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
-With no argument all nine are written.  Each line the script prints
+With no argument all sixteen are written.  Each line the script prints
 gives the golden's render time, XLA's compile included; the last four
 took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
 (the 16-edge program's compile; 16 edges fit, so no smaller cap was
@@ -39,6 +52,13 @@ needed), cbox_ptracer 6.4 s, spot_bdpt 25.9 s and media_bdpt 200.8 s:
 
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden glass_bdpt
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden cbox_ptracer spot_bdpt media_bdpt
+
+The Metropolis goldens took, on the same CPU (XLA's compile included;
+door_pssmlt and glass_mlt_manifold shared it with other work): cbox_mlt
+6.8 s, cbox_erpt 4.3 s, door_pssmlt_uni 20.2 s, glass_mlt_manifold 271.9
+s, door_pssmlt 613.7 s, door_mlt 14.5 s, door_erpt 16.7 s:
+
+    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden cbox_mlt cbox_erpt door_pssmlt_uni glass_mlt_manifold door_pssmlt door_mlt door_erpt
 """
 
 import contextlib
@@ -54,13 +74,18 @@ from tests.torch_meshes import (
     bdpt_media_xml,
     bunny_scene_xml,
     bunny_standin,
+    cbox_chain_xml,
     cbox_mitchell_xml,
     cbox_ptracer_xml,
     dense_standin,
+    door_xml,
+    glass_manifold_xml,
     glass_xml,
     matpreview_const_xml,
     smoke_xml,
     two_wall_xml,
+    with_integrator,
+    with_properties,
     write_ply,
 )
 
@@ -116,6 +141,25 @@ GOLDENS = {
                   lambda: two_wall_xml("spot", "bdpt", max_depth=8, spp=16), True),
     "media_bdpt": (os.path.join(ROOT, "tests", "golden", "torch_media_bdpt_24_16.npy"),
                    lambda: bdpt_media_xml("bdpt", max_depth=6, spp=16), True),
+    "door_pssmlt": (os.path.join(ROOT, "tests", "golden", "torch_door_pssmlt_16_4.npy"),
+                    lambda: door_xml(16, 16, luminance_samples=1024), True, 4),
+    "door_pssmlt_uni": (os.path.join(ROOT, "tests", "golden", "torch_door_pssmlt_uni_16_4.npy"),
+                        lambda: door_xml(16, 16, luminance_samples=1024, bidirectional=False),
+                        True, 4),
+    "door_mlt": (os.path.join(ROOT, "tests", "golden", "torch_door_mlt_16_4.npy"),
+                 lambda: with_integrator(door_xml(16, 16, luminance_samples=1024), "mlt"),
+                 True, 4),
+    "door_erpt": (os.path.join(ROOT, "tests", "golden", "torch_door_erpt_16_1.npy"),
+                  lambda: with_properties(
+                      with_integrator(door_xml(16, 16, luminance_samples=1024), "erpt"),
+                      '<integer name="chainLength" value="8"/>'), True, 1),
+    "cbox_mlt": (os.path.join(ROOT, "tests", "golden", "torch_cbox_mlt_24_8.npy"),
+                 lambda: cbox_chain_xml("mlt"), False, 8),
+    "cbox_erpt": (os.path.join(ROOT, "tests", "golden", "torch_cbox_erpt_24_1.npy"),
+                  lambda: cbox_chain_xml("erpt", chain_length=20), False, 1),
+    "glass_mlt_manifold": (os.path.join(ROOT, "tests", "golden",
+                                        "torch_glass_mlt_manifold_16_8.npy"),
+                           glass_manifold_xml, True, 8),
 }
 
 

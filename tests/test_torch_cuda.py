@@ -1256,3 +1256,152 @@ def test_glass_goldens_on_card(glass_card):
     img = mt.render(mt.load_scene_string(glass_xml(64, 64)), spp=16, seed=0)
     assert np.isfinite(img).all()
     assert _tm_rmse(img, np.load(os.path.join(gold, "glass_caustics_64_16.npy"))) < 5e-3
+
+
+# ---- the Metropolis slice ----
+
+def _metropolis_xml(name):
+    from torch_meshes import (
+        cbox_chain_xml,
+        door_xml,
+        glass_manifold_xml,
+        with_integrator,
+        with_properties,
+    )
+
+    door = door_xml(16, 16, luminance_samples=1024)
+    return {
+        "torch_door_pssmlt_16_4.npy": (door, 4),
+        "torch_door_pssmlt_uni_16_4.npy": (
+            door_xml(16, 16, luminance_samples=1024, bidirectional=False), 4),
+        "torch_door_mlt_16_4.npy": (with_integrator(door, "mlt"), 4),
+        "torch_door_erpt_16_1.npy": (with_properties(with_integrator(door, "erpt"),
+                                                     '<integer name="chainLength" value="8"/>'), 1),
+        "torch_cbox_mlt_24_8.npy": (cbox_chain_xml("mlt"), 8),
+        "torch_cbox_erpt_24_1.npy": (cbox_chain_xml("erpt", chain_length=20), 1),
+        "torch_glass_mlt_manifold_16_8.npy": (glass_manifold_xml(), 8),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "torch_door_pssmlt_16_4.npy", "torch_door_pssmlt_uni_16_4.npy", "torch_door_mlt_16_4.npy",
+    "torch_door_erpt_16_1.npy", "torch_cbox_mlt_24_8.npy", "torch_cbox_erpt_24_1.npy",
+    "torch_glass_mlt_manifold_16_8.npy"])
+def test_metropolis_goldens_on_card(dev, name):
+    """The chain integrators' goldens (the JAX package's renders) on the
+    card, each at its tests/torch_meshes.py GOLDEN_GATES gate."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import GOLDEN_GATES, ROOT
+
+    xml, spp = _metropolis_xml(name)
+    img = mt.render(mt.load_scene_string(xml), spp=spp, seed=0)
+    gold = np.load(os.path.join(ROOT, "tests", "golden", name))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert _tm_rmse(img, gold) < GOLDEN_GATES[name], _tm_rmse(img, gold)
+
+
+def test_door_pssmlt_agrees_with_bdpt_on_card(dev):
+    """door (pssmlt as it stands, bidirectional) at 64x64 against the
+    port's bdpt at the same size and budget (24 mutations / samples per
+    pixel), as the reference's tests/test_mlt.py holds its mlt: the mean
+    radiometry within 40 %, and the 8x8 block means (away from the dark
+    blocks) within 50 % at the median."""
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import door_xml, with_integrator
+
+    m = mt.render(mt.load_scene_string(door_xml(64, 64)), spp=24, seed=3)
+    b = mt.render(mt.load_scene_string(with_integrator(door_xml(64, 64), "bdpt")), spp=24, seed=3)
+    assert np.isfinite(m).all() and np.isfinite(b).all()
+    assert m.mean() > 0.02 and b.mean() > 0.02
+    assert abs(m.mean() - b.mean()) < 0.4 * max(m.mean(), b.mean()), (m.mean(), b.mean())
+    mb = m.reshape(8, 8, 8, 8, 3).mean(axis=(1, 3, 4))
+    bb = b.reshape(8, 8, 8, 8, 3).mean(axis=(1, 3, 4))
+    sel = bb > 0.25 * bb.mean()
+    assert np.median(np.abs(mb - bb)[sel] / bb[sel]) < 0.5
+
+
+def test_door_step_queries_equal_plain(dev):
+    """K3/K4 (closest and any) and K7/K8 on their fallback batches bit-equal
+    to plain on the queries of door's first bidirectional step at 32x32
+    (1,024 chains): the proposal's camera query and three connections."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import as_segment, capture_calls
+    from mitsuba_tpu_torch.integrator import bdpt as tb
+    from mitsuba_tpu_torch.integrator import pssmlt as tps
+    from torch_meshes import door_xml
+
+    scene = mt.load_scene_string(door_xml(32, 32, luminance_samples=2048))
+    pack = pack_scene(scene, dev)
+    steps = tps.iter_pssmlt(scene, pack, 1, 0, None, dev)
+    next(steps)
+    got = capture_calls(tb, ("intersect", "occluded"), lambda: next(steps),
+                        lambda g: sum(c[0] == "occluded" for c in g) == 3)
+    c, tc = pack.meta["n_clusters"], pack.meta["cluster_tc"]
+    tabs = (pack.cl_cnt, pairs._tri_rows(pack))
+    queries = [next(args for name, args in got if name == "intersect")] + [
+        args for name, args in got if name == "occluded"]
+    for o, d, t_seg in map(as_segment, queries):
+        _, t_max = pb.finite_tmax(t_seg, o)
+        k3 = pairs.dense_cull(o, d, t_max, pack.cl_mbox, c, min(pairs.K, c))
+        for a, b in zip(k3, pairs.dense_cull_plain(o, d, t_max, pack.cl_mbox, c, min(pairs.K, c))):
+            assert torch.equal(a, b)
+        args = (o, d, t_max, k3[0], pack.cl_tri, c, tc)
+        assert torch.equal(pairs.pair_hit_any(*args, *tabs), pairs.pair_hit_any_plain(*args))
+        args = (o, d, t_max, k3[0], pack.cl_tri, pack.cl_pad2prim, c, tc)
+        for a, b in zip(pairs.pair_hit_closest(*args, *tabs), pairs.pair_hit_closest_plain(*args)):
+            assert torch.equal(a, b)
+        walk = (o, d, t_max, pack.cl_box, pack.cl_tri, tc)
+        _equal(pb.cluster_traverse_closest(*walk), pb.cluster_traverse_closest_plain(*walk))
+        assert torch.equal(pb.cluster_traverse_any(*walk), pb.cluster_traverse_any_plain(*walk))
+
+
+def test_pssmlt_step_on_card_matches_cpu(dev):
+    """One PSSMLT step of door (16x16, 256 chains, bidirectional) on the
+    card against the same step on the CPU through the plain versions: the
+    same bootstrap seeds and proposals (the same random numbers), the
+    acceptance ratios at rtol 1e-3 on all but a few lanes."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.integrator import pssmlt as tps
+    from torch_meshes import door_xml
+
+    scene = mt.load_scene_string(door_xml(16, 16, luminance_samples=512))
+    out = []
+    for dv in (dev, torch.device("cpu")):
+        pack = pack_scene(scene, dv)
+        rec = scene.sensor.record
+        trace, D, _ = tps.make_chain_trace(pack, scene.integrator, rec, rec.pack(16, 16, dv), 16,
+                                           16)
+        seed_mlt = tps.rng.stream_seed(0, tps.rng.STREAM_MLT)
+        U0, b = tps.bootstrap_chains(trace, D, 256, 2, 0, seed_mlt, dv)
+        U_p, u_ctl = tps._propose(U0, 0, torch.arange(256, device=dv), seed_mlt, 0.3)
+        cur = trace(U0)
+        prop = trace(U_p)
+        _, _, a, _ = tps._mh(torch.zeros(16, 16, 3, device=dv),
+                             (U0, cur[0], cur[1], tps._chain_lum(cur[1])),
+                             (U_p, prop[0], prop[1], tps._chain_lum(prop[1])), u_ctl[:, 1], 1.0,
+                             16, 16)
+        out.append((U0.cpu(), b, U_p.cpu(), a.cpu()))
+    (U0_c, b_c, Up_c, a_c), (U0_h, b_h, Up_h, a_h) = out
+    assert (U0_c != U0_h).any(dim=1).sum() <= 2
+    np.testing.assert_allclose(b_c, b_h, rtol=1e-4)
+    same = ~(U0_c != U0_h).any(dim=1)
+    assert (Up_c[same] != Up_h[same]).float().mean() < 0.01
+    close = np.isclose(a_c.numpy(), a_h.numpy(), rtol=1e-3, atol=1e-6)
+    assert (~close[same.numpy()]).sum() <= 3
+
+
+def test_manifold_retrace_equal_plain(dev):
+    """K3/K4 (closest) and K7 bit-equal to plain on the re-traces of one
+    manifold proposal on glass (48x48, maxDepth 6, 4,096 chains; finite
+    rays: chip_smoke.manifold_segments)."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import manifold_segments
+    from mitsuba_tpu_torch.integrator import mut_manifold as tmm
+    from mitsuba_tpu_torch.integrator import pssmlt as tps
+    from torch_meshes import glass_xml, with_integrator
+
+    scene = mt.load_scene_string(with_integrator(glass_xml(48, 48), "mlt", max_depth=6))
+    manifold_segments(pairs, pb, tmm, tps, scene, pack_scene(scene, dev), dev, [],
+                      n_chains=4096)

@@ -136,3 +136,19 @@ def test_light_transport_modules_are_checked():
     for fn in (bdpt.render_bdpt, bdpt.iter_bdpt, ptracer.render_ptracer):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__name__
+
+
+def test_metropolis_modules_are_checked():
+    """The modules of the Metropolis slice (pssmlt, mlt and erpt, the
+    manifold walks and perturbation) are among the sources checked above,
+    and their entry points run on the card unless asked otherwise."""
+    from mitsuba_tpu_torch.integrator import mlt, pssmlt
+
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("integrator/pssmlt.py", "integrator/mlt.py", "integrator/manifold.py",
+                "integrator/mut_manifold.py", "integrator/path.py", "integrator/plugins.py",
+                "core/spectrum.py", "core/warp.py", "core/rng.py", "renderer.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+    for fn in (pssmlt.render_pssmlt, pssmlt.iter_pssmlt, mlt.render_mlt, mlt.render_erpt):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn.__name__

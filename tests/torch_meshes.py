@@ -29,6 +29,15 @@ BUNNY_XML = os.path.join(ROOT, "scenes", "bunny.xml")
 MATPREVIEW_XML = os.path.join(ROOT, "scenes", "matpreview.xml")
 CBOX_XML = os.path.join(ROOT, "scenes", "cbox.xml")
 SMOKE_XML = os.path.join(ROOT, "scenes", "smoke.xml")
+
+
+def tm_rmse(a, b):
+    """The RMSE of two linear HDR images after the tone map x / (1 + x),
+    which every golden gate and reference comparison reads."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.sqrt(np.mean((a / (1 + a) - b / (1 + b)) ** 2)))
+
+
 # where the camera of scenes/bunny.xml looks, and the bunny's extent
 STANDIN_CENTER = (-0.02, 0.1, 0.0)
 STANDIN_RADIUS = 0.07
@@ -239,6 +248,23 @@ GOLDEN_GATES = {
     "torch_cbox_ptracer_64_16.npy": 1e-5,
     "torch_spot_bdpt_24_16.npy": 1e-7,
     "torch_media_bdpt_24_16.npy": 1e-7,
+    # the Metropolis slice (CPU readings: door 3.1e-7, door unidirectional
+    # 4.2e-8, door mlt 4.2e-8, door erpt 5.8e-8, glass mlt with the
+    # manifold perturbation 1.6e-6).  A chain that takes another path
+    # after a last-place difference keeps it, and with one chain per
+    # pixel it moves its pixel whole: cbox's paths diverge on ~1 lane in
+    # 500 (ROADMAP C), which puts cbox mlt at 2.0e-2 (2.5e-2 on the card)
+    # and erpt at 6.0e-3.  So the cbox mlt golden is coverage only (the
+    # chains through K1/K2): a squared acceptance ratio reads 2.7e-2, under
+    # its gate.  tests/test_torch_mlt.py::test_cbox_one_step holds cbox's
+    # mlt step instead.
+    "torch_door_pssmlt_16_4.npy": 2e-6,
+    "torch_door_pssmlt_uni_16_4.npy": 3e-7,
+    "torch_door_mlt_16_4.npy": 3e-7,
+    "torch_door_erpt_16_1.npy": 3e-7,
+    "torch_glass_mlt_manifold_16_8.npy": 1e-5,
+    "torch_cbox_mlt_24_8.npy": 5e-2,
+    "torch_cbox_erpt_24_1.npy": 2e-2,
 }
 
 # the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
@@ -409,3 +435,52 @@ def delta_mix_xml(integrator="path", max_depth=4, spp=8, width=24, height=24):
         for k, wgt in (("point", 1), ("spot", 2), ("directional", 1), ("collimated", 1))
     )
     return two_wall_xml(lights + area, integrator, max_depth, spp, width, height)
+
+
+# ---- the Metropolis slice: pssmlt, mlt, erpt ----
+
+DOOR_XML = os.path.join(ROOT, "scenes", "door.xml")
+
+
+def with_properties(xml, props):
+    """`xml` with `props` (XML property elements) added to its integrator."""
+    xml, n = re.subn(r'(<integrator type="\w+"\s*>)', r"\1" + props, xml, count=1)
+    if n != 1:
+        raise ValueError("no integrator element with children in the scene")
+    return xml
+
+
+def door_xml(width=None, height=None, luminance_samples=None, bidirectional=True):
+    """scenes/door.xml (pssmlt, maxDepth 8; 1,096 triangles with its
+    emissive sphere tessellated, an analytic rough-copper sphere),
+    optionally at another film size, with fewer bootstrap samples
+    (luminanceSamples, 100,000 by default) or with the unidirectional
+    technique."""
+    with open(DOOR_XML) as f:
+        xml = _film_size(f.read(), width, height)
+    props = ""
+    if luminance_samples is not None:
+        props += f'<integer name="luminanceSamples" value="{luminance_samples}"/>'
+    if not bidirectional:
+        props += '<boolean name="bidirectional" value="false"/>'
+    return with_properties(xml, props) if props else xml
+
+
+def cbox_chain_xml(kind, width=24, height=24, max_depth=4, luminance_samples=1024,
+                   chain_length=None):
+    """scenes/cbox.xml under a chain integrator (mlt or erpt; the
+    reference's tests/test_mlt.py takes cbox at 24x24, maxDepth 4)."""
+    with open(CBOX_XML) as f:
+        xml = _film_size(with_integrator(f.read(), kind, max_depth=max_depth), width, height)
+    props = f'<integer name="luminanceSamples" value="{luminance_samples}"/>'
+    if chain_length is not None:
+        props += f'<integer name="chainLength" value="{chain_length}"/>'
+    return with_properties(xml, props)
+
+
+def glass_manifold_xml(width=16, height=16, max_depth=6, luminance_samples=1024):
+    """scenes/glass_caustics.xml under mlt with the manifold perturbation
+    (the reference's tests/test_manifold_mlt.py takes maxDepth 6)."""
+    xml = with_integrator(glass_xml(width, height), "mlt", max_depth=max_depth)
+    return with_properties(xml, f'<integer name="luminanceSamples" value="{luminance_samples}"/>'
+                                '<boolean name="manifoldPerturbation" value="true"/>')
