@@ -86,6 +86,12 @@ Phases, each of which raises (and exits non-zero) on failure:
      (`manifold_segments`); K1/K2 on the first closest-hit and shadow
      queries of one mlt step's path re-trace on cbox at 512x512 (131,072
      chains; `mlt_brute`); all bit for bit;
+   * the photon-mapping slice: K3/K4 (closest) with K7 on the first
+     closest-hit query of an sppm photon walk on glass_caustics at 256x256
+     (262,144 photons; `sppm_walk_segments`) and of the volumetric photon
+     mapper's walk on smoke (131,072; `pm_walk_segments`), and K1/K2 on a
+     vpl pass's camera query and first VPL's shadow batch on cbox at
+     512x512 (`vpl_brute`), bit for bit;
    each kernel's time beside its bound (the larger of its operations
    over the card's FP32 rate and its bytes over the memory rate, from
    this run's inputs, counting only the real triangles of padded
@@ -146,6 +152,12 @@ Phases, each of which raises (and exits non-zero) on failure:
      launched), scenes/cbox.xml under mlt and erpt at 24x24 (K1/K2), and
      glass_caustics under mlt with the manifold perturbation at 16x16
      (K3/K4);
+   * the photon-mapping slice, each against its golden at its
+     GOLDEN_GATES gate with the photons an iteration the golden was made
+     with (MTS_SPPM_PHOTONS): scenes/cbox.xml under sppm and ppm at 24x24
+     (K1/K2), glass_caustics under sppm at 16x16 (K3/K4), the homogeneous
+     slab of tests/torch_meshes.py under the photon mapper at 32x32
+     (K3/K4), cbox under vpl at 24x24 (K1/K2), 4 iterations or passes;
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
    for the Cornell box, both stand-ins, scenes/matpreview.xml and the
@@ -179,13 +191,23 @@ Phases, each of which raises (and exits non-zero) on failure:
    and read just after), peak device memory, and the tone-mapped RMSE
    against bench_refs/door_256.npz (the reference's TPU run: 0.0424
    bidirectional, 0.0728 unidirectional) or
-   bench_refs/glass_caustics_256.npz (no gate).
+   bench_refs/glass_caustics_256.npz (no gate); last the photon-mapping
+   slice: glass_caustics under sppm (maxDepth 24, 256x256, 2^18 photons
+   an iteration) for about 30 s and smoke under the volumetric photon
+   mapper (256x256, 2^17 photons) for about 20 s (`photon_throughput`:
+   seconds per iteration and the eye and photon passes' means, photons
+   stored, the gather's overflow share, kernels and busy share of a
+   profiled iteration, peak memory, launches per iteration, RMSE against
+   bench_refs), and cbox under vpl at 512x512, 4 passes of 64 VPL paths
+   (seconds and K1/K2 launches per pass, RMSE against
+   bench_refs/cbox_512.npz).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -206,6 +228,7 @@ SMOKE_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_smoke_64_16.npy")
 SMOKE_REF_256 = os.path.join(HERE, "bench_refs", "smoke_256.npz")
 GLASS_REF_256 = os.path.join(HERE, "bench_refs", "glass_caustics_256.npz")
 DOOR_REF_256 = os.path.join(HERE, "bench_refs", "door_256.npz")
+CBOX_REF_512 = os.path.join(HERE, "bench_refs", "cbox_512.npz")
 GLASS_GOLDEN = os.path.join(HERE, "tests", "golden", "glass_caustics_64_16.npy")
 GLASS_PAIR_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_glass_bdpt_16_4.npy")
 PTRACER_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_cbox_ptracer_64_16.npy")
@@ -1388,13 +1411,14 @@ def generator_throughput(label, steps, counted, w, h, card, unit, budget_s=None,
     check(image.shape == (h, w, 3) and bool(np.isfinite(image).all()),
           f"{label}: the image is not finite or of shape {image.shape}")
     total = sum(times)
-    out.update({f"{unit}s": len(times), "done": done, f"seconds_per_{unit}": times,
+    units = unit + ("es" if unit.endswith("s") else "s")
+    out.update({units: len(times), "done": done, f"seconds_per_{unit}": times,
                 "rays": n_rays, "seconds": total, "rays_per_s": n_rays / total if total else None,
                 f"launches_per_{unit}": per_unit, "launches": launches,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card})
     rays_s = f"{out['rays_per_s']:.6g}" if total else "-"
     setup_s = f", set-up {out['setup_s']:.3f} s" if setup else ""
-    print(f"phase 4: {label} {w}x{h}, {len(times)} {unit}s = {done} done{setup_s}: seconds "
+    print(f"phase 4: {label} {w}x{h}, {len(times)} {units} = {done} done{setup_s}: seconds "
           f"per {unit} {[round(x, 3) for x in times]}, {n_rays} rays in {total:.3f} s = "
           f"{rays_s} rays/s, peak device memory {out['peak_gib']:.3f} GiB, launches per {unit} "
           f"{per_unit} on {card}", flush=True)
@@ -1538,6 +1562,125 @@ def mlt_brute(pk, tps, tml, scene, pack, dev, stats):
         compare_brute(pk, name, o, d, t_max, tri, n_tri, stats, exact=True)
 
 
+def sppm_walk_segments(pairs, pb, tsppm, scene, pack, dev, stats, n_photons=1 << 18):
+    """K3/K4 (closest), with K7 on the batch they hand the fallback, bit
+    for bit against plain on the first closest-hit query of an sppm photon
+    walk on glass at the scene's film size (the first iteration's
+    n_photons photons leaving the emitters: finite origins)."""
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    eye, photon, extent = tsppm.make_sppm_passes(pack, scene.integrator, rec, w, h, 0, dev)
+    _, vps = eye(torch.arange(w * h, device=dev), 0)
+    r0 = tsppm.initial_radius(extent, w, h)
+    r2 = torch.full((w * h,), r0 * r0, device=dev)
+    lane = torch.arange(n_photons, device=dev)
+    got = capture_calls(tsppm, ("intersect",), lambda: photon(lane, 0, vps, r2),
+                        lambda g: len(g) == 1)
+    check(got[0][1][1].shape[0] == n_photons, "the photon walk's first query is not every photon")
+    compare_segments(pairs, pb, pack, [("glass sppm photon walk depth 0", *as_segment(got[0][1]))],
+                     stats, retry=True)
+
+
+def pm_walk_segments(pairs, pb, tpm, tsppm, scene, pack, dev, stats, n_photons=1 << 17):
+    """K3/K4 (closest), with K7 on its fallback batch, bit for bit against
+    plain on the first closest-hit query of the volumetric photon mapper's
+    photon walk on smoke (n_photons photons leaving the emitters)."""
+    import torch
+
+    rec = scene.sensor.record
+    photon, meta = tpm.make_photon_pass(pack, tsppm.max_depth_of(scene.integrator), 0, dev)
+    cell_s = 2.0 * tsppm.initial_radius(meta["extent"], rec.film.width, rec.film.height)
+    lane = torch.arange(n_photons, device=dev)
+    got = capture_calls(tpm, ("intersect",), lambda: photon(lane, 0, cell_s),
+                        lambda g: len(g) == 1)
+    check(got[0][1][1].shape[0] == n_photons, "the photon walk's first query is not every photon")
+    compare_segments(pairs, pb, pack, [("smoke photonmapper walk event 0",
+                                        *as_segment(got[0][1]))], stats, retry=True)
+
+
+def vpl_brute(pk, tvpl, scene, pack, dev, stats):
+    """K1/K2 bit for bit against plain on one VPL pass of cbox at the
+    scene's film size: the eye walk's camera query (K1) and the first
+    VPL's shadow batch (K2; the pixels it does not light carry an empty
+    segment)."""
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    one = tvpl.make_vpl_pass(pack, scene.integrator, rec, w, h, 0, dev)
+    got = {}
+
+    def enough(calls):
+        for name, args in calls:
+            if args[0].shape[0] == w * h:
+                got.setdefault(name, args)
+        return len(got) == 2
+
+    capture_calls(pk, ("closest_hit_v2", "any_hit_v2"),
+                  lambda: one(torch.zeros(h, w, 3, device=dev), 0), enough)
+    n_tri = int((pack.tri_s[0] < FAR_V0).sum())
+    for name, (o, d, t_max, tri) in got.items():
+        print(f"  cbox vpl pass ({name}): {o.shape[0]} rays, "
+              f"{int((t_max > 0).sum())} with a segment", flush=True)
+        compare_brute(pk, name, o, d, t_max, tri, n_tri, stats, exact=True)
+
+
+@contextlib.contextmanager
+def photon_env(photons):
+    """The photons of an iteration (MTS_SPPM_PHOTONS) for the renders of
+    the block, as the goldens were made; restored after."""
+    saved = os.environ.get("MTS_SPPM_PHOTONS")
+    if photons:
+        os.environ["MTS_SPPM_PHOTONS"] = str(photons)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MTS_SPPM_PHOTONS", None)
+        else:
+            os.environ["MTS_SPPM_PHOTONS"] = saved
+
+
+def photon_throughput(label, iterate, scene, pack, photons, counted, card, ref, budget_s, dev,
+                      note=""):
+    """generator_throughput over the iterations of a photon mapper
+    (iter_sppm or iter_photonmapper, timed: a synchronise after each
+    pass), then the timed run's seconds of the eye and photon passes, the
+    photons stored per iteration and, for sppm, the share of the gather's
+    windows past PHOTONS_PER_CELL."""
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    runs = []
+
+    def steps():
+        last = {}
+        runs.append(last)
+        for img, done, st in iterate(scene, pack, 100_000, 0, photons, dev, timed=True):
+            last.update(st, done=done)
+            yield img, done, st["rays"]
+
+    generator_throughput(label, steps, counted, w, h, card, "iteration", budget_s=budget_s,
+                         ref=ref, note=note, photons=photons)
+    st = runs[0]
+    n = st["done"]
+    out = {"scene": label, "iterations": n, "eye_s": st["eye_s"], "photon_s": st["photon_s"],
+           "card": card}
+    if "photons" in st:
+        out.update(photons_stored_per_iteration=st["photons"] / n,
+                   overflow_share=st["overflow"] / (8 * n))
+    else:
+        out.update(volume_photons_per_iteration=st["volume_photons"] / n,
+                   surface_photons_per_iteration=st["surface_photons"] / n)
+    mean = statistics.mean
+    print(f"  {label}: eye pass {mean(st['eye_s']):.4f} s, photon pass "
+          f"{mean(st['photon_s']):.4f} s per iteration (means of {n}); "
+          + ", ".join(f"{k} {v:.6g}" for k, v in out.items()
+                      if k.endswith(("_iteration", "_share"))) + f" on {card}", flush=True)
+    print(json.dumps({"photon_mapping": out}), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1563,9 +1706,12 @@ def main():
     from mitsuba_tpu_torch.integrator import bdpt as tb
     from mitsuba_tpu_torch.integrator import mlt as tml
     from mitsuba_tpu_torch.integrator import mut_manifold as tmm
+    from mitsuba_tpu_torch.integrator import photonmapper as tpm
     from mitsuba_tpu_torch.integrator import pssmlt as tps
     from mitsuba_tpu_torch.integrator import ptracer as tpt
+    from mitsuba_tpu_torch.integrator import sppm as tsppm
     from mitsuba_tpu_torch.integrator import volpath as vp
+    from mitsuba_tpu_torch.integrator import vpl as tvpl
     from torch_meshes import (
         DOOR_XML,
         bdpt_media_xml,
@@ -1574,10 +1720,12 @@ def main():
         cbox_chain_xml,
         cbox_mitchell_xml,
         cbox_ptracer_xml,
+        cbox_xml,
         dense_standin,
         door_xml,
         glass_manifold_xml,
         glass_xml,
+        homog_slab_xml,
         matpreview_const_xml,
         smoke_xml,
         two_wall_xml,
@@ -1731,6 +1879,19 @@ def main():
     with open(CBOX) as f:
         cbox_mlt = mt.load_scene_string(with_integrator(f.read(), "mlt", max_depth=4))
     mlt_brute(pk, tps, tml, cbox_mlt, pack, dev, stats)
+
+    # the photon-mapping slice: an sppm photon walk's first query on glass
+    # (K3/K4, K7), a vpl pass's camera and shadow batches on cbox (K1/K2),
+    # the volumetric photon mapper's first walk query on smoke (K3/K4, K7)
+    print(f"  photon mapping {elapsed()}", flush=True)
+    glass_sppm = mt.load_scene_string(with_integrator(glass_xml(256, 256), "sppm"))
+    sppm_walk_segments(pairs, pb, tsppm, glass_sppm, glass_pack, dev, stats)
+    with open(CBOX) as f:
+        cbox_vpl = mt.load_scene_string(with_integrator(f.read(), "vpl"))  # 512x512
+    vpl_brute(pk, tvpl, cbox_vpl, pack, dev, stats)
+    smoke_pm = mt.load_scene_string(with_integrator(smoke_xml(SMOKE_RES, SMOKE_RES),
+                                                    "photonmapper"))
+    pm_walk_segments(pairs, pb, tpm, tsppm, smoke_pm, smoke_pack, dev, stats)
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -1896,6 +2057,32 @@ def main():
                              spp=spp)
         for k in names[:3] if "cbox" not in label else names:
             check(got[k] > 0, f"the {label} render never launched {k}")
+
+    # the photon-mapping slice, each against its golden (the JAX package's
+    # render) at its GOLDEN_GATES gate, with the photons an iteration the
+    # golden was made with: sppm and ppm on cbox (K1/K2), sppm on glass
+    # (K3/K4), the volumetric photon mapper on the homogeneous slab
+    # (K3/K4), vpl on cbox (K1/K2)
+    print(f"  photon mapping {elapsed()}", flush=True)
+    for label, xml, golden, names, pk_, photons in (
+            ("cbox sppm", cbox_xml("sppm", 24, 24), "torch_cbox_sppm_24_4.npy", brute, pack,
+             1 << 14),
+            ("cbox ppm", cbox_xml("ppm", 24, 24), "torch_cbox_sppm_24_4.npy", brute, pack,
+             1 << 14),
+            ("glass sppm", with_integrator(glass_xml(16, 16), "sppm"),
+             "torch_glass_sppm_16_4.npy", {k: counted[k] for k in glass_names}, glass_pack,
+             1 << 12),
+            ("slab photonmapper", homog_slab_xml(), "torch_homog_photonmapper_32_4.npy",
+             {k: counted[k] for k in glass_names}, None, 1 << 12),
+            ("cbox vpl", cbox_xml("vpl", 24, 24), "torch_cbox_vpl_24_4.npy", brute, pack, None)):
+        with photon_env(photons):
+            got = render_checked(mt, names, mt.load_scene_string(xml),
+                                 os.path.join(HERE, "tests", "golden", golden), dev, label,
+                                 pack=pk_, spp=4)
+        for k in list(names)[:2]:  # K1/K2, or K3 and K4's closest hit
+            check(got[k] > 0, f"the {label} render never launched {k}")
+        for k, n in got.items():
+            launches[k] += n
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -1964,6 +2151,22 @@ def main():
         "glass-pssmlt", pssmlt_steps(glass_pssmlt, glass_pack), door_counted, 256, 256, card,
         "step", budget_s=60.0, ref=GLASS_REF_256, setup=True, chains=65_536,
         note="; never measured on the TPU")
+
+    # the photon-mapping slice: glass under sppm (maxDepth 24, 2^18
+    # photons an iteration) for about 30 s, smoke under the volumetric
+    # photon mapper (2^17 photons) for about 20 s, both at 256x256, and
+    # cbox under vpl at 512x512, 4 passes of 64 VPL paths
+    print(f"phase 4: photon mapping {elapsed()}", flush=True)
+    photon_throughput("glass_caustics-sppm", tsppm.iter_sppm, glass_sppm, glass_pack, 1 << 18,
+                      glass_counted, card, GLASS_REF_256, 30.0, dev,
+                      note="; bdpt's 0.0634 at 32 spp")
+    photon_throughput("smoke-photonmapper", tpm.iter_photonmapper, smoke_pm, smoke_pack,
+                      1 << 17, {k: counted[k] for k in smoke_names}, card, SMOKE_REF_256, 20.0,
+                      dev)
+    generator_throughput(
+        "cbox-vpl", lambda: ((img, done, st["rays"])
+                             for img, done, st in tvpl.iter_vpl(cbox_vpl, pack, 4, 0, dev)),
+        brute, 512, 512, card, "pass", ref=CBOX_REF_512, vpls=tvpl.vpl_count())
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

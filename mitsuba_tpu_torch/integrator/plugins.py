@@ -1,7 +1,8 @@
 """Integrator plugins (port of mitsuba_tpu/integrator/plugins.py): `path`,
 `volpath` and `volpath_simple` (both of kind "volpath"), `direct`, `bdpt`,
-`ptracer`, and the Metropolis family `pssmlt`, `mlt` and `erpt`, which
-read the reference's property names."""
+`ptracer`, the Metropolis family `pssmlt`, `mlt` and `erpt`, and the
+photon-density and many-light family `photonmapper`, `ppm`, `sppm` and
+`vpl`, which read the reference's property names."""
 
 from __future__ import annotations
 
@@ -139,3 +140,38 @@ class PTracerIntegrator(_IntBase):
     """reference: src/integrators/ptracer/ptracer.cpp."""
 
     kind = "ptracer"
+
+
+@register("integrator", "photonmapper")
+class PhotonMapper(_IntBase):
+    """reference: src/integrators/photonmapper/photonmapper.cpp (with a
+    volume map and the beam radiance estimate, integrator/photonmapper.py)."""
+
+    kind = "photonmapper"
+
+
+@register("integrator", "ppm")
+class PPMIntegrator(_IntBase):
+    """reference: src/integrators/photonmapper/ppm.cpp; the sppm code
+    renders it (integrator/sppm.py)."""
+
+    kind = "ppm"
+
+
+@register("integrator", "sppm")
+class SPPMIntegrator(_IntBase):
+    """reference: src/integrators/photonmapper/sppm.cpp (integrator/sppm.py)."""
+
+    kind = "sppm"
+
+
+@register("integrator", "vpl")
+class VPLIntegrator(_IntBase):
+    """reference: src/integrators/vpl/vpl.cpp (integrator/vpl.py)."""
+
+    kind = "vpl"
+
+    def _finish(self, props):
+        # the geometry term is clamped at (0.1 * scene radius)^2: the
+        # reference's vpl pass reads no clamping property
+        _refuse(props, "clamping", 0.1, props.get_float)

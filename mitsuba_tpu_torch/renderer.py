@@ -159,6 +159,21 @@ def render(scene, spp=None, seed=0, *, device="cuda", pack=None):
 
         fn = mlt.render_mlt if scene.integrator.kind == "mlt" else mlt.render_erpt
         return fn(scene, spp=spp, seed=seed, pack=pack, device=device)
+    # the photon-density and many-light family (reference renderer.py:312-326)
+    if scene.integrator.kind == "vpl":
+        from mitsuba_tpu_torch.integrator.vpl import render_vpl
+
+        return render_vpl(scene, spp=spp, seed=seed, pack=pack, device=device)
+    if scene.integrator.kind == "photonmapper":
+        # media scenes get the volume map and the beam radiance estimate;
+        # without media this is sppm
+        from mitsuba_tpu_torch.integrator.photonmapper import render_photonmapper
+
+        return render_photonmapper(scene, spp=spp, seed=seed, pack=pack, device=device)
+    if scene.integrator.kind in ("sppm", "ppm"):
+        from mitsuba_tpu_torch.integrator.sppm import render_sppm
+
+        return render_sppm(scene, spp=spp, seed=seed, pack=pack, device=device)
     sensor_rec = scene.sensor.record
     film_rec = sensor_rec.film
     sampler_rec = sensor_rec.sampler

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
-    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door]
-                            [--hits-only] [--mutations N]
+    python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door|
+                             glass-sppm|smoke-pm|cbox-vpl] [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
@@ -16,7 +16,14 @@ per pass (one pass of 2,097,152 lanes); or for scenes/glass_caustics.xml
 chunk of the lane budget (MTS_BDPT_LANES, 131,072 lanes: 2 samples per
 pixel) with its light-image splats; or for scenes/door.xml as it stands
 (pssmlt, bidirectional, 8 edges, 256x256: 65,536 chains), where a pass is
-one Metropolis step of every chain and the warm-up pass the bootstrap:
+one Metropolis step of every chain and the warm-up pass the bootstrap; or
+for the photon-mapping slice, where a pass is one iteration: glass-sppm
+(scenes/glass_caustics.xml under sppm, maxDepth 24, 256x256, 2^18
+photons), smoke-pm (scenes/smoke.xml under the volumetric photon mapper,
+256x256, 2^17 photons) and cbox-vpl (scenes/cbox.xml under vpl, 512x512,
+64 VPL paths), each with its own ranges "stage:eye", "stage:photon_walk",
+"stage:sort", "stage:gather", "stage:bre" and "stage:vpl_shadow"
+(integrator/sppm.py, photonmapper.py, vpl.py) around PHOTON_STAGES:
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -101,9 +108,20 @@ BDPT_STAGES = (
     ("mitsuba_tpu_torch.core.rng", ("rand4",)),
     ("mitsuba_tpu_torch.film.film", ("splat_add",)),
 )
+# the photon-mapping slice's queries and shading, inside the integrators'
+# own stage ranges
+PHOTON_STAGES = tuple(
+    (f"mitsuba_tpu_torch.integrator.{mod}", names) for mod, names in (
+        ("sppm", ("intersect", "occluded", "bsdf_eval", "bsdf_sample")),
+        ("photonmapper", ("intersect", "_attenuated_visibility", "bsdf_eval", "bsdf_sample")),
+        ("vpl", ("intersect", "occluded", "bsdf_eval", "bsdf_sample")))
+) + (("mitsuba_tpu_torch.medium.eval", ("sample_distance", "transmittance", "phase_eval")),
+     ("mitsuba_tpu_torch.core.rng", ("rand4",)))
 # film size and samples per pass of each scene (door: one step, one
-# mutation per pixel)
-RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1)}
+# mutation per pixel; the photon mappers: one iteration)
+RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1), "glass-sppm": (256, 1),
+           "smoke-pm": (256, 1), "cbox-vpl": (512, 1)}
+PHOTON_MODES = ("glass-sppm", "smoke-pm", "cbox-vpl")
 
 
 def chain_pass(scene, pack, dev, mutations):
@@ -130,6 +148,24 @@ def chain_pass(scene, pack, dev, mutations):
         return film, torch.tensor(rays)
 
     rp.state = state
+    return rp
+
+
+def iteration_pass(steps):
+    """A generator of (image, iterations done, stats) (iter_sppm,
+    iter_photonmapper, iter_vpl) as a render pass: fn(film, sample_base,
+    seed) -> (film, rays traced by the iteration) runs one iteration."""
+    import torch
+
+    state = {"rays": 0}
+
+    def rp(film, sample_base, seed):
+        _, _, st = next(steps)
+        torch.cuda.synchronize()
+        rays = int(st["rays"]) - state["rays"]
+        state["rays"] = int(st["rays"])
+        return film, torch.tensor(rays)
+
     return rp
 
 
@@ -220,7 +256,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
-                             "smoke", "glass", "door"))
+                             "smoke", "glass", "door") + PHOTON_MODES)
     ap.add_argument("--hits-only", action="store_true")
     ap.add_argument("--mutations", type=int, default=32,
                     help="door: the mutations per pixel the steps go on to")
@@ -245,10 +281,12 @@ def main():
     from torch_meshes import (
         bunny_scene_xml,
         bunny_standin,
+        cbox_xml,
         dense_standin,
         glass_xml,
         matpreview_const_xml,
         smoke_xml,
+        with_integrator,
         write_ply,
     )
 
@@ -268,6 +306,12 @@ def main():
         scene = mt.load_scene_string(glass_xml(res, res))
     elif args.scene == "door":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "door.xml"))
+    elif args.scene == "glass-sppm":
+        scene = mt.load_scene_string(with_integrator(glass_xml(res, res), "sppm"))
+    elif args.scene == "smoke-pm":
+        scene = mt.load_scene_string(with_integrator(smoke_xml(res, res), "photonmapper"))
+    elif args.scene == "cbox-vpl":
+        scene = mt.load_scene_string(cbox_xml("vpl", res, res))
     elif args.scene == "cbox":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
@@ -292,8 +336,9 @@ def main():
     if not args.hits_only:
         rp = profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
                             counters(pk, pairs, pb), res, spp,
-                            {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES,
-                             "door": BDPT_STAGES}.get(args.scene, STAGES), args.mutations)
+                            {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES, "door": BDPT_STAGES,
+                             **dict.fromkeys(PHOTON_MODES, PHOTON_STAGES)}.get(args.scene, STAGES),
+                            args.mutations)
         if args.scene == "door":
             door_ladder(rp, os.path.join(HERE, "bench_refs", "door_256.npz"))
     if args.scene in ("dense", "bigmesh"):
@@ -314,6 +359,16 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
         rp = bdpt_pass(scene, pack, spp, dev)
     elif scene.integrator.kind == "pssmlt":
         rp = chain_pass(scene, pack, dev, mutations)
+    elif scene.integrator.kind in ("sppm", "photonmapper", "vpl"):
+        from mitsuba_tpu_torch.integrator import photonmapper, sppm, vpl
+
+        if scene.integrator.kind == "vpl":
+            steps = vpl.iter_vpl(scene, pack, 1000, 0, dev)
+        else:
+            iterate = sppm.iter_sppm if scene.integrator.kind == "sppm" else \
+                photonmapper.iter_photonmapper
+            steps = iterate(scene, pack, 1000, 0, None, dev)
+        rp = iteration_pass(steps)
     else:
         rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
     film = new_film(res, res, dev)

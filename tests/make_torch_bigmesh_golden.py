@@ -40,11 +40,19 @@ the matpreview variant.
   seed per pixel, chainLength 20); torch_glass_mlt_manifold_16_8.npy,
   scenes/glass_caustics.xml under mlt with manifoldPerturbation at 16x16,
   maxDepth 6, 8 mutations per pixel (steps 3 and 7 are manifold steps),
-  through the pair pipeline.
+  through the pair pipeline;
+* the photon-mapping slice, seed 0, 4 iterations or passes:
+  torch_cbox_sppm_24_4.npy, scenes/cbox.xml under sppm at 24x24 (2^14
+  photons an iteration); torch_glass_sppm_16_4.npy, glass_caustics under
+  sppm (maxDepth 24) at 16x16 (2^12); torch_homog_photonmapper_32_4.npy,
+  tests/test_photonmapper.py's homogeneous slab (tests/torch_meshes.py
+  `homog_slab_xml`) under the photon mapper at 32x32 (2^12), through the
+  pair pipeline (its cube stands on the floor); torch_cbox_vpl_24_4.npy,
+  scenes/cbox.xml under vpl at 24x24 (64 VPL paths a pass).
 
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
-With no argument all sixteen are written.  Each line the script prints
+With no argument all twenty are written.  Each line the script prints
 gives the golden's render time, XLA's compile included; the last four
 took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
 (the 16-edge program's compile; 16 edges fit, so no smaller cap was
@@ -59,6 +67,12 @@ door_pssmlt and glass_mlt_manifold shared it with other work): cbox_mlt
 s, door_pssmlt 613.7 s, door_mlt 14.5 s, door_erpt 16.7 s:
 
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden cbox_mlt cbox_erpt door_pssmlt_uni glass_mlt_manifold door_pssmlt door_mlt door_erpt
+
+The photon-mapping goldens took, on the same CPU (sharing it with other
+work): cbox_sppm 67.4 s, cbox_vpl 8.0 s, glass_sppm 83.7 s,
+homog_photonmapper 250.8 s:
+
+    JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden cbox_sppm cbox_vpl glass_sppm homog_photonmapper
 """
 
 import contextlib
@@ -75,12 +89,14 @@ from tests.torch_meshes import (
     bunny_scene_xml,
     bunny_standin,
     cbox_chain_xml,
+    cbox_xml,
     cbox_mitchell_xml,
     cbox_ptracer_xml,
     dense_standin,
     door_xml,
     glass_manifold_xml,
     glass_xml,
+    homog_slab_xml,
     matpreview_const_xml,
     smoke_xml,
     two_wall_xml,
@@ -121,7 +137,8 @@ def reference_pair_traversal():
 
 
 # name -> (golden, the scene's XML, [traced through the pair pipeline,
-# [spp]]); 64x64 at 16 spp unless said otherwise
+# [spp, [environment settings for the render]]]); 64x64 at 16 spp unless
+# said otherwise
 GOLDENS = {
     "bigmesh": (os.path.join(ROOT, "tests", "golden", "torch_bigmesh_64_16.npy"),
                 _standin_xml(bunny_standin, os.path.join(ROOT, "build", "bunny_standin.ply"))),
@@ -160,6 +177,16 @@ GOLDENS = {
     "glass_mlt_manifold": (os.path.join(ROOT, "tests", "golden",
                                         "torch_glass_mlt_manifold_16_8.npy"),
                            glass_manifold_xml, True, 8),
+    "cbox_sppm": (os.path.join(ROOT, "tests", "golden", "torch_cbox_sppm_24_4.npy"),
+                  lambda: cbox_xml("sppm", 24, 24), False, 4, {"MTS_SPPM_PHOTONS": "16384"}),
+    "glass_sppm": (os.path.join(ROOT, "tests", "golden", "torch_glass_sppm_16_4.npy"),
+                   lambda: with_integrator(glass_xml(16, 16), "sppm"), False, 4,
+                   {"MTS_SPPM_PHOTONS": "4096"}),
+    "homog_photonmapper": (os.path.join(ROOT, "tests", "golden",
+                                        "torch_homog_photonmapper_32_4.npy"),
+                           homog_slab_xml, True, 4, {"MTS_SPPM_PHOTONS": "4096"}),
+    "cbox_vpl": (os.path.join(ROOT, "tests", "golden", "torch_cbox_vpl_24_4.npy"),
+                 lambda: cbox_xml("vpl", 24, 24), False, 4, {"MTS_VPL_COUNT": "64"}),
 }
 
 
@@ -172,11 +199,20 @@ def main(names):
 
     for name in names:
         golden, make_xml, *rest = GOLDENS[name]
-        pairs, spp = (rest + [False, 16])[:2]
+        pairs, spp, env = (rest + [False, 16, {}][len(rest):])[:3]
         t0 = time.time()
         scene = load_scene_string(make_xml())
-        with reference_pair_traversal() if pairs else contextlib.nullcontext():
-            img = np.asarray(mitsuba_tpu.render(scene, spp=spp, seed=0), np.float32)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            with reference_pair_traversal() if pairs else contextlib.nullcontext():
+                img = np.asarray(mitsuba_tpu.render(scene, spp=spp, seed=0), np.float32)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         np.save(golden, img)
         print(f"wrote {golden}: shape {img.shape}, mean {img.mean():.6f}, "
               f"{time.time() - t0:.1f} s")

@@ -1405,3 +1405,86 @@ def test_manifold_retrace_equal_plain(dev):
     scene = mt.load_scene_string(with_integrator(glass_xml(48, 48), "mlt", max_depth=6))
     manifold_segments(pairs, pb, tmm, tps, scene, pack_scene(scene, dev), dev, [],
                       n_chains=4096)
+
+
+# ---- the photon-mapping slice ----
+
+def _photon_golden(name):
+    """(XML, iterations, photons an iteration) of a photon-mapping golden
+    (tests/make_torch_bigmesh_golden.py)."""
+    from torch_meshes import cbox_xml, glass_xml, homog_slab_xml, with_integrator
+
+    return {
+        "torch_cbox_sppm_24_4.npy": (cbox_xml("sppm", 24, 24), 4, 1 << 14),
+        "torch_glass_sppm_16_4.npy": (with_integrator(glass_xml(16, 16), "sppm"), 4, 1 << 12),
+        "torch_homog_photonmapper_32_4.npy": (homog_slab_xml(), 4, 1 << 12),
+        "torch_cbox_vpl_24_4.npy": (cbox_xml("vpl", 24, 24), 4, None),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "torch_cbox_sppm_24_4.npy", "torch_glass_sppm_16_4.npy", "torch_homog_photonmapper_32_4.npy",
+    "torch_cbox_vpl_24_4.npy"])
+def test_photon_goldens_on_card(dev, name, monkeypatch):
+    """sppm on cbox and glass, the volumetric photon mapper on the slab
+    and vpl on cbox (the JAX package's renders) on the card, through
+    `render`, each at its tests/torch_meshes.py GOLDEN_GATES gate."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import GOLDEN_GATES, ROOT
+
+    xml, spp, photons = _photon_golden(name)
+    if photons:
+        monkeypatch.setenv("MTS_SPPM_PHOTONS", str(photons))
+    img = mt.render(mt.load_scene_string(xml), spp=spp, seed=0)
+    gold = np.load(os.path.join(ROOT, "tests", "golden", name))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert _tm_rmse(img, gold) < GOLDEN_GATES[name], _tm_rmse(img, gold)
+
+
+def test_photon_queries_equal_plain(dev):
+    """K3/K4 (closest) and K7 bit-equal to plain on the first query of an
+    sppm photon walk on glass (64x64, 2^16 photons) and of the volumetric
+    photon mapper's walk on smoke (2^16 photons); K1/K2 on a vpl pass's
+    camera and first shadow batch on cbox at 128x128
+    (chip_smoke.sppm_walk_segments, pm_walk_segments, vpl_brute)."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import pm_walk_segments, sppm_walk_segments, vpl_brute
+    from mitsuba_tpu_torch.integrator import photonmapper as tpm
+    from mitsuba_tpu_torch.integrator import sppm as tsppm
+    from mitsuba_tpu_torch.integrator import vpl as tvpl
+    from torch_meshes import cbox_xml, glass_xml, smoke_xml, with_integrator
+
+    glass = mt.load_scene_string(with_integrator(glass_xml(64, 64), "sppm"))
+    sppm_walk_segments(pairs, pb, tsppm, glass, pack_scene(glass, dev), dev, [],
+                       n_photons=1 << 16)
+    smoke = mt.load_scene_string(with_integrator(smoke_xml(64, 64), "photonmapper"))
+    pm_walk_segments(pairs, pb, tpm, tsppm, smoke, pack_scene(smoke, dev), dev, [],
+                     n_photons=1 << 16)
+    cbox = mt.load_scene_string(cbox_xml("vpl", 128, 128))
+    vpl_brute(pk, tvpl, cbox, pack_scene(cbox, dev), dev, [])
+
+
+@pytest.mark.parametrize("kind", ["sppm", "photonmapper", "vpl"])
+def test_photon_integrators_render_on_card(dev, kind):
+    """`render` on the card by default (no device argument): glass_caustics
+    under sppm, smoke under the photon mapper and cbox under vpl at their
+    own film sizes, 2 iterations or passes; the image is finite and lit,
+    and the scene's kernels launched."""
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import cbox_xml, glass_xml, smoke_xml, with_integrator
+
+    xml = {"sppm": lambda: with_integrator(glass_xml(), kind),
+           "photonmapper": lambda: with_integrator(smoke_xml(), kind),
+           "vpl": lambda: cbox_xml(kind)}[kind]()
+    scene = mt.load_scene_string(xml)
+    wrappers = (pk.closest_hit_v2, pk.any_hit_v2) if kind == "vpl" else (
+        pairs.dense_cull, pairs.pair_hit_closest)
+    for fn in wrappers:
+        fn.launches = 0
+    img = mt.render(scene, spp=2, seed=0)
+    rec = scene.sensor.record.film
+    assert img.shape == (rec.height, rec.width, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.01
+    assert all(fn.launches > 0 for fn in wrappers)

@@ -152,3 +152,19 @@ def test_metropolis_modules_are_checked():
     for fn in (pssmlt.render_pssmlt, pssmlt.iter_pssmlt, mlt.render_mlt, mlt.render_erpt):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__name__
+
+
+def test_photon_mapping_modules_are_checked():
+    """The modules of the photon-mapping slice (sppm and ppm, the
+    volumetric photon mapper, vpl) are among the sources checked above,
+    and their entry points run on the card unless asked otherwise."""
+    from mitsuba_tpu_torch.integrator import photonmapper, sppm, vpl
+
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("integrator/sppm.py", "integrator/photonmapper.py", "integrator/vpl.py",
+                "integrator/plugins.py", "renderer.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+    for fn in (sppm.render_sppm, sppm.iter_sppm, photonmapper.render_photonmapper,
+               photonmapper.iter_photonmapper, vpl.render_vpl, vpl.iter_vpl):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn.__name__

@@ -265,6 +265,21 @@ GOLDEN_GATES = {
     "torch_glass_mlt_manifold_16_8.npy": 1e-5,
     "torch_cbox_mlt_24_8.npy": 5e-2,
     "torch_cbox_erpt_24_1.npy": 2e-2,
+    # the photon-mapping slice (CPU readings: cbox sppm 9.2e-4, glass sppm
+    # 4.8e-7, cbox vpl 5.7e-4, the slab under the photon mapper 1.15e-2).
+    # cbox's photon and light paths diverge on a last-place difference
+    # (ROADMAP C), and a photon that lands elsewhere moves its windows.  The
+    # slab's cube stands on the floor: the floor beneath it and the cube's
+    # null bottom face tie in t, and the two pair pipelines break a few of
+    # those ties apart (with the cube lifted 0.01 the renders agree at
+    # 1.4e-6).  Mutations on the CPU (PERF.md): without count/K scaling
+    # cbox 3.3e-2, glass 1.5e-2; without the radius update cbox 1.1e-2,
+    # glass 2.3e-2; without the beam estimate the slab 7.8e-2; without
+    # the VPL clamp cbox vpl 6.1e-3.
+    "torch_cbox_sppm_24_4.npy": 3e-3,
+    "torch_glass_sppm_16_4.npy": 2e-6,
+    "torch_cbox_vpl_24_4.npy": 2e-3,
+    "torch_homog_photonmapper_32_4.npy": 3e-2,
 }
 
 # the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
@@ -484,3 +499,70 @@ def glass_manifold_xml(width=16, height=16, max_depth=6, luminance_samples=1024)
     xml = with_integrator(glass_xml(width, height), "mlt", max_depth=max_depth)
     return with_properties(xml, f'<integer name="luminanceSamples" value="{luminance_samples}"/>'
                                 '<boolean name="manifoldPerturbation" value="true"/>')
+
+
+# ---- the photon-mapping slice: sppm, ppm, photonmapper, vpl ----
+
+def cbox_xml(kind, width=None, height=None, max_depth=None):
+    """scenes/cbox.xml (maxDepth 16) under the integrator `kind`,
+    optionally at another film size or maxDepth."""
+    with open(CBOX_XML) as f:
+        return _film_size(with_integrator(f.read(), kind, max_depth=max_depth), width, height)
+
+
+# tests/test_photonmapper.py's scene: a homogeneous slab (sigma_s 1.6, 1.5,
+# 1.4; sigma_a 0.12, 0.12, 0.18; hg g = 0.2) in a `null` cube on a diffuse
+# floor, lit by an emissive sphere; maxDepth 6, 32x32
+HOMOG_SLAB_XML = """
+<scene version="0.5.0">
+  <integrator type="{integ}">
+    <integer name="maxDepth" value="6"/>
+  </integrator>
+  <sensor type="perspective">
+    <float name="fov" value="45"/>
+    <transform name="toWorld">
+      <lookat origin="0, 0.6, -2.2" target="0, 0.35, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent"><integer name="sampleCount" value="4"/></sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="32"/><integer name="height" value="32"/>
+      <rfilter type="box"/>
+    </film>
+  </sensor>
+  <shape type="cube">
+    <transform name="toWorld">
+      <scale x="0.45" y="0.45" z="0.45"/><translate y="0.45"/>
+    </transform>
+    <bsdf type="null"/>
+    <medium name="interior" type="homogeneous">
+      <rgb name="sigmaS" value="1.6, 1.5, 1.4"/>
+      <rgb name="sigmaA" value="0.12, 0.12, 0.18"/>
+      <phase type="hg"><float name="g" value="0.2"/></phase>
+    </medium>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <scale value="3"/><rotate x="1" angle="-90"/>
+    </transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.5, 0.45, 0.4"/></bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="1.8" y="2.6" z="-1.2"/>
+    <float name="radius" value="0.35"/>
+    <emitter type="area"><rgb name="radiance" value="60, 58, 52"/></emitter>
+  </shape>
+</scene>
+"""
+
+
+def homog_slab_xml(integrator="photonmapper", media=True, width=None, height=None, lift=0.0):
+    """HOMOG_SLAB_XML under `integrator`; without its medium when media is
+    false (the cube stays, a `null` box), optionally at another film size;
+    with `lift`, the cube raised off the floor by that much (its bottom
+    face otherwise lies in the floor's plane)."""
+    xml = HOMOG_SLAB_XML.format(integ=integrator)
+    if lift:
+        xml = xml.replace('<translate y="0.45"/>', f'<translate y="{0.45 + lift}"/>')
+    if not media:
+        xml = re.sub(r'<medium name="interior".*?</medium>', "", xml, flags=re.S)
+    return _film_size(xml, width, height)
