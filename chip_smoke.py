@@ -1681,6 +1681,158 @@ def photon_throughput(label, iterate, scene, pack, photons, counted, card, ref, 
     print(json.dumps({"photon_mapping": out}), flush=True)
 
 
+def dipole_segments(pairs, pb, tsss, make_render_pass, new_film, scene, pack, ss_scene, ss_pack,
+                    dev, stats):
+    """K3/K4 (closest and any) with K7/K8 on their fallback batches, bit
+    for bit against plain, on the queries of the subsurface slice: the
+    camera rays of scenes/dipole.xml as it stands (512x384), the
+    irradiance pass's NEE shadow rays (640 points x 32 rays), and the
+    first single-scattering segment of a pass of the singlescatter
+    variant at the same size (one sample per pixel): its internal rays
+    to the far boundary, its rays from the internal vertex toward the
+    light, and its shadow rays from the exit point."""
+    import torch
+
+    o, d = camera_rays(scene, dev)
+    queries = [("dipole camera", o, d, torch.full((o.shape[0],), float("inf"), device=dev))]
+    irr = capture_calls(tsss, ("occluded",),
+                        lambda: tsss.compute_sss_irradiance(pack, scene.integrator, 0),
+                        lambda g: len(g) == 1)
+    shadow = [("dipole irradiance NEE", *as_segment(irr[0][1]))]
+    rec = ss_scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    got = capture_calls(tsss, ("intersect", "occluded"), lambda: make_render_pass(
+        ss_pack, ss_scene.integrator, rec, rec.film, rec.sampler, 1, dev)(new_film(h, w, dev), 0, 0),
+                        lambda g: any(c[0] == "occluded" for c in g))
+    segs = [args for name, args in got if name == "intersect"]
+    check(len(segs) == 2, f"single scattering made {len(segs)} closest-hit queries before its "
+                          f"first shadow query, not 2")
+    queries += [("singlescatter internal", *as_segment(segs[0])),
+                ("singlescatter toward the light", *as_segment(segs[1]))]
+    shadow.append(("singlescatter exit shadow", *as_segment(got[-1][1])))
+    for label, o, _, _ in queries[1:] + shadow:
+        print(f"  {label}: {o.shape[0]} rays", flush=True)
+    ran = compare_segments(pairs, pb, pack, queries, stats, retry=True)
+    ran |= compare_segments(pairs, pb, pack, shadow, stats, any_hit=True, retry=True)
+    check(ran == {True, False}, "no dipole query reached K7 and K8 (even at K=1)")
+
+
+def dipole_throughput(tsss, make_render_pass, new_film, scene, pack, counted, card, dev):
+    """scenes/dipole.xml as it stands (512x384, 64 spp, path at maxDepth
+    8) as `render` runs it: the irradiance pass (seconds, points x rays),
+    then its passes of DEFAULT_LANES_PER_PASS lanes' worth of samples
+    (seconds, rays/s and K3/K4/K7/K8 launches of each, the counters set to
+    0 just before the pass), peak device memory, the dipole lanes and
+    points of the dense sum, and one more pass under the profiler (CUDA
+    activity: kernels per pass, busy share).  Returns the launches of the
+    passes and of the irradiance pass, summed."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mitsuba_tpu_torch.film.film import develop
+    from mitsuba_tpu_torch.renderer import DEFAULT_LANES_PER_PASS
+
+    rec = scene.sensor.record
+    w, h, spp = rec.film.width, rec.film.height, rec.sampler.sample_count
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    prepared = tsss.prepare_sss(pack, scene.integrator, 0)
+    torch.cuda.synchronize()
+    irr_s = time.time() - t0
+    total = {k: fn.launches for k, fn in counted.items()}
+    p_cnt, k_irr = pack.sss_p.shape[0], pack.meta["sss_irr_samples"]
+    print(f"phase 4: dipole irradiance pass: {p_cnt} points x {k_irr} rays = {p_cnt * k_irr} "
+          f"lanes in {irr_s:.3f} s, launches {total}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}", flush=True)
+    spp_chunk = max(1, min(spp, DEFAULT_LANES_PER_PASS // (w * h)))
+    n_passes = math.ceil(spp / spp_chunk)
+    rp = make_render_pass(prepared, scene.integrator, rec, rec.film, rec.sampler, spp_chunk, dev)
+    sss_lanes = []
+    inner = tsss.sss_lo
+
+    def counted_lo(pack_, p, cos_o, sid):
+        sss_lanes.append(p.shape[0])
+        return inner(pack_, p, cos_o, sid)
+
+    tsss.sss_lo = counted_lo
+    film, passes = new_film(h, w, dev), []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(n_passes):
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.time()
+            film, n_rays = rp(film, i * spp_chunk, 0)
+            n = int(n_rays)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            launches = {k: fn.launches for k, fn in counted.items()}
+            for k, v in launches.items():
+                total[k] += v
+            passes.append({"seconds": sec, "rays": n, "rays_per_s": n / sec,
+                           "launches": launches})
+            print(f"phase 4: dipole pass {i} ({spp_chunk} spp): {sec:.3f} s, {n} rays = "
+                  f"{n / sec:.6g} rays/s, launches {launches} on {card}", flush=True)
+    finally:
+        tsss.sss_lo = inner
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = (develop(film) * rec.ray_weight).cpu().numpy()
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
+          "the dipole image is not finite")
+    wall, dev_ms, n_k, k3 = profiled_pass(rp, new_film(h, w, dev), n_passes * spp_chunk,
+                                          lambda: counted["dense_cull"].launches)
+    sec = sum(p["seconds"] for p in passes)
+    rays = sum(p["rays"] for p in passes)
+    out = {"scene": "dipole", "width": w, "height": h, "spp": n_passes * spp_chunk,
+           "spp_chunk": spp_chunk, "irradiance_s": irr_s, "irradiance_lanes": p_cnt * k_irr,
+           "points": p_cnt, "passes": passes, "seconds": sec, "rays": rays,
+           "rays_per_s": rays / sec, "peak_gib": peak,
+           "dipole_lanes_per_pass": sum(sss_lanes) / n_passes,
+           "dense_sum_calls_per_pass": len(sss_lanes) / n_passes,
+           "profiled_wall_s": wall, "device_ms": dev_ms, "kernels_per_pass": n_k,
+           "k3_launches_profiled": k3, "busy": dev_ms / 1e3 / wall, "card": card}
+    print(f"phase 4: dipole {w}x{h}, {n_passes} passes x {spp_chunk} spp: {rays} rays in "
+          f"{sec:.3f} s = {rays / sec:.6g} rays/s, image mean {img.mean():.6f}, peak device "
+          f"memory {peak:.3f} GiB; the dense sum: {out['dense_sum_calls_per_pass']:.1f} calls and "
+          f"{out['dipole_lanes_per_pass']:.6g} lanes x {p_cnt} points a pass; profiled pass "
+          f"wall {wall:.4f} s, device {dev_ms:.3f} ms, busy share {out['busy']:.4f}, {n_k} "
+          f"kernels on {card}", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+    return total
+
+
+def meta_throughput(mt, scene, pack, counted, card, dev, label, stats_of, spp):
+    """One render of a meta-integrator on the card (irrcache or adaptive,
+    at the scene's film size, spp samples per pixel): seconds, its stats
+    (stats_of(): the rays it traced, and its records or rounds), rays/s,
+    peak device memory and K1/K2 launches."""
+    import numpy as np
+    import torch
+
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img = mt.render(scene, spp=spp, seed=0, device=dev, pack=pack)
+    sec = time.time() - t0
+    check(bool(np.isfinite(img).all()) and img.mean() > 0, f"the {label} image is not finite")
+    st = stats_of()
+    out = {"scene": label, "width": img.shape[1], "height": img.shape[0], "spp": spp,
+           "seconds": sec, **st,
+           "rays_per_s": st["rays"] / sec,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {k: fn.launches for k, fn in counted.items()}, "card": card}
+    print(f"phase 4: {label} {img.shape[1]}x{img.shape[0]}, {out['spp']} spp: {sec:.3f} s, "
+          f"{st}, {out['rays_per_s']:.6g} rays/s, peak device memory {out['peak_gib']:.3f} GiB, "
+          f"launches {out['launches']} on {card}", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1703,25 +1855,32 @@ def main():
     from mitsuba_tpu_torch.renderer import make_render_pass
     from mitsuba_tpu_torch.scene.builder import pack_scene
     sys.path.append(os.path.join(HERE, "tests"))
+    from mitsuba_tpu_torch.integrator import adaptive as tad
     from mitsuba_tpu_torch.integrator import bdpt as tb
+    from mitsuba_tpu_torch.integrator import irrcache as tic
     from mitsuba_tpu_torch.integrator import mlt as tml
     from mitsuba_tpu_torch.integrator import mut_manifold as tmm
     from mitsuba_tpu_torch.integrator import photonmapper as tpm
     from mitsuba_tpu_torch.integrator import pssmlt as tps
     from mitsuba_tpu_torch.integrator import ptracer as tpt
     from mitsuba_tpu_torch.integrator import sppm as tsppm
+    from mitsuba_tpu_torch.integrator import sss as tsss
     from mitsuba_tpu_torch.integrator import volpath as vp
     from mitsuba_tpu_torch.integrator import vpl as tvpl
     from torch_meshes import (
+        DIPOLE_XML,
         DOOR_XML,
+        NESTED_PATH,
         bdpt_media_xml,
         bunny_scene_xml,
         bunny_standin,
         cbox_chain_xml,
+        cbox_meta_xml,
         cbox_mitchell_xml,
         cbox_ptracer_xml,
         cbox_xml,
         dense_standin,
+        dipole_xml,
         door_xml,
         glass_manifold_xml,
         glass_xml,
@@ -1892,6 +2051,23 @@ def main():
     smoke_pm = mt.load_scene_string(with_integrator(smoke_xml(SMOKE_RES, SMOKE_RES),
                                                     "photonmapper"))
     pm_walk_segments(pairs, pb, tpm, tsppm, smoke_pm, smoke_pack, dev, stats)
+
+    # the subsurface slice: dipole.xml's camera rays, its irradiance pass's
+    # NEE and a singlescatter pass's first segment (K3/K4, K7/K8)
+    print(f"  subsurface {elapsed()}", flush=True)
+    dipole = mt.load_scene(DIPOLE_XML)  # 512x384, 64 spp, path at maxDepth 8
+    dipole_pack = pack_scene(dipole, dev)
+    dm = dipole_pack.meta
+    print(f"  dipole: {dm['n_tris']} triangles in {dm['n_clusters']} clusters, "
+          f"{dm['n_spheres']} analytic sphere(s), {dipole_pack.sss_p.shape[0]} subsurface points "
+          f"x {dm['sss_irr_samples']} irradiance rays", flush=True)
+    check(dm["use_bvh"] and dm["n_tris"] == 1036 and dm["n_spheres"] == 1 and dm["has_sss"]
+          and dipole_pack.sss_p.shape[0] == 640,
+          "scenes/dipole.xml does not pack into 1,036 triangles, one sphere and 640 points")
+    ss = mt.load_scene_string(dipole_xml(kind="singlescatter"))
+    ss_pack = pack_scene(ss, dev)
+    dipole_segments(pairs, pb, tsss, make_render_pass, new_film, dipole, dipole_pack, ss, ss_pack,
+                    dev, stats)
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -2083,6 +2259,30 @@ def main():
             check(got[k] > 0, f"the {label} render never launched {k}")
         for k, n in got.items():
             launches[k] += n
+
+    # the subsurface slice (K3/K4, K7/K8 on overflow), the path family's ao
+    # and field and the meta-integrators on cbox (K1/K2), each against its
+    # golden at its GOLDEN_GATES gate
+    print(f"  subsurface, path family, meta-integrators {elapsed()}", flush=True)
+    uv = '<string name="field" value="uv"/>'
+    for label, xml, golden, names, pk_ in (
+            ("dipole", dipole_xml(32, 24), "torch_dipole_32_4.npy", glass_names, dipole_pack),
+            ("singlescatter", dipole_xml(32, 24, "singlescatter"), "torch_singlescatter_32_4.npy",
+             glass_names, ss_pack),
+            ("cbox ao", cbox_xml("ao", 24, 24), "torch_cbox_ao_24_4.npy", tuple(brute), pack),
+            ("cbox field uv", with_properties(cbox_xml("field", 24, 24), uv),
+             "torch_cbox_field_uv_24_4.npy", ("closest_hit_v2",), pack),
+            ("cbox adaptive", cbox_meta_xml("adaptive", NESTED_PATH),
+             "torch_cbox_adaptive_24_4.npy", tuple(brute), pack),
+            ("cbox irrcache", cbox_meta_xml("irrcache", NESTED_PATH),
+             "torch_cbox_irrcache_24_4.npy", tuple(brute), pack)):
+        got = render_checked(mt, {k: counted[k] for k in names}, mt.load_scene_string(xml),
+                             os.path.join(HERE, "tests", "golden", golden), dev, label, pack=pk_,
+                             spp=4)
+        for k in names[:3]:  # K3 and K4, or K1/K2
+            check(got[k] > 0, f"the {label} render never launched {k}")
+        for k, n in got.items():
+            launches[k] += n
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -2167,6 +2367,21 @@ def main():
         "cbox-vpl", lambda: ((img, done, st["rays"])
                              for img, done, st in tvpl.iter_vpl(cbox_vpl, pack, 4, 0, dev)),
         brute, 512, 512, card, "pass", ref=CBOX_REF_512, vpls=tvpl.vpl_count())
+
+    # the subsurface slice: dipole.xml as it stands (its launches are the
+    # slice's main path: counters set to 0 just before each pass); cbox at
+    # 256x256, 16 spp, under irrcache and adaptive over path at maxDepth 4
+    print(f"phase 4: subsurface {elapsed()}", flush=True)
+    dipole_launches = dipole_throughput(tsss, make_render_pass, new_film, dipole, dipole_pack,
+                                        glass_counted, card, dev)
+    for k in glass_names[:3]:
+        check(dipole_launches[k] > 0, f"dipole.xml never launched {k}")
+    for k in glass_names:
+        launches[k] += dipole_launches[k]
+    for kind, fn in (("irrcache", tic.render_irrcache), ("adaptive", tad.render_adaptive)):
+        meta_throughput(mt, mt.load_scene_string(cbox_meta_xml(kind, NESTED_PATH, 256, 256)),
+                        pack, brute, card, dev, f"cbox-{kind}", lambda fn=fn: dict(fn.last_stats),
+                        16)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

@@ -22,6 +22,7 @@ STREAM_MEDIUM_DIST = 2  # heterogeneous delta tracking (sample_distance)
 STREAM_MEDIUM_TRANS = 3  # shadow-ray ratio tracking (transmittance)
 STREAM_LIGHT = 4  # light-subpath walks (ptracer / bdpt light paths)
 STREAM_MLT = 5  # pssmlt/mlt/erpt chain mutations and control decisions
+STREAM_SSS = 6  # subsurface irradiance points, single scattering, irrcache
 
 
 def _u32(x):

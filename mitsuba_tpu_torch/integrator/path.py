@@ -6,14 +6,21 @@ src/integrators/path/path.cpp:119-300).
 wavefront); in `path_trace_regen` lane i owns a pixel and, when its path
 terminates, starts the pixel's next sample at once.  Both run the same
 bounce (`_bounce`): closest hit, environment radiance on escape and
-emitter hit (both with MIS), next-event estimation with a shadow ray,
-BSDF sampling; then Russian roulette, which reads the relative IOR a
-refraction crossed (`eta`) as the reference does.  A Dirac lobe (smooth
+emitter hit (both with MIS; none at depth 0 under hideEmitters), the
+exitant radiance of subsurface materials (integrator/sss.py), next-event
+estimation with a shadow ray, BSDF sampling; then Russian roulette,
+which reads the relative IOR a refraction crossed (`eta`) as the
+reference does.  strictNormals ends a path where the geometric and the
+shading normal disagree about a direction's side.  A Dirac lobe (smooth
 conductor, dielectric, plastic) carries MIS weight 1 to the emitter it
 hits next, and a `null` crossing carries the previous MIS state.  The
 reference's `lax.while_loop`s become host loops that check their exit
 condition every EXIT_CHECK_EVERY iterations (core/lanes.py); iterations
 in which no lane has work change nothing.
+
+Also the one-bounce integrators of the same machinery: `direct_trace`,
+`ao_trace` (ambient occlusion) and `field_trace` (AOVs; `depth` is the
+`distance` field).
 """
 
 from __future__ import annotations
@@ -25,10 +32,11 @@ import torch
 from mitsuba_tpu_torch.accel.intersect import fill_interaction, intersect, occluded
 from mitsuba_tpu_torch.bsdf.eval import bsdf_eval, bsdf_pdf, bsdf_sample
 from mitsuba_tpu_torch.bsdf.plugins import NULL_BSDF
-from mitsuba_tpu_torch.core import lanes, rng
+from mitsuba_tpu_torch.core import lanes, rng, warp
 from mitsuba_tpu_torch.core import math as mm
 from mitsuba_tpu_torch.core.gather import take_rows
 from mitsuba_tpu_torch.emitter import eval as em
+from mitsuba_tpu_torch.integrator.sss import subsurface_radiance
 from mitsuba_tpu_torch.sampler.plugins import ld_decision4
 from mitsuba_tpu_torch.scene.texture_eval import (
     mip_footprint,
@@ -68,24 +76,25 @@ def _check_integrator(pack, integ):
     # integrator cut to one bounce (direct_trace)
     if integ.kind not in ("path", "volpath", "direct"):
         raise NotImplementedError(f"integrator '{integ.kind}' not yet ported")
-    if integ.strict_normals or integ.hide_emitters:
-        raise NotImplementedError("path options strictNormals/hideEmitters not yet ported")
-    if pack.meta.get("has_sss", False):
-        raise NotImplementedError("subsurface scattering not yet ported")
 
 
-def emitted(pack, d, its, reach, thr, L, prev_pdf, prev_delta):
+def emitted(pack, d, its, reach, thr, L, prev_pdf, prev_delta, hide=None):
     """L plus what the lanes of `reach` (those whose ray ends at the
     surface `its` or escapes) see along d: the environment's radiance
     where the ray escapes, an area emitter's where it hits one, each with
     MIS against the previous sampling event (reference path.cpp:148-150
-    and :255-263)."""
+    and :255-263).  hide (None, a bool or [R] bool): lanes whose emitters
+    are hidden, weight 0 (hideEmitters at depth 0, reference
+    path.py:131, :145)."""
+    hide = None if hide is None else torch.as_tensor(hide, device=d.device)
     if pack.meta.get("has_env", False):
         escape = reach & ~its.valid
         env_l = em.eval_env(pack, d)
         w_env = torch.where(
             prev_delta, 1.0, mi_weight(prev_pdf, em.pdf_direct_env(pack, d))
         )
+        if hide is not None:
+            w_env = torch.where(hide, 0.0, w_env)
         L = L + torch.where(escape[..., None], thr * env_l * w_env[..., None], 0.0)
     if pack.meta["has_area"]:
         cos_l = mm.dot(its.ns, its.wi_world)
@@ -93,32 +102,50 @@ def emitted(pack, d, its, reach, thr, L, prev_pdf, prev_delta):
         le = take_rows(pack.em_rgb, torch.clamp(its.emit, min=0))
         p_direct = em.pdf_direct_area(pack, its.emit, its.t, cos_l)
         w_hit = torch.where(prev_delta, 1.0, mi_weight(prev_pdf, p_direct))
+        if hide is not None:
+            w_hit = torch.where(hide, 0.0, w_hit)
         L = L + torch.where(emissive[..., None], thr * le * w_hit[..., None], 0.0)
     return L
 
 
-def _bounce(pack, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth, u4,
-            nee_nonzero=False):
+def _bounce(pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth,
+            u4, keys, nee_nonzero=False):
     """One bounce of every lane, as both of the reference's loops run it:
-    closest hit, escaped rays and emitter hits with MIS, NEE with a shadow
-    ray, BSDF sampling (the callers drop lanes whose throughput is 0).
-    depth: int or [R] int32; u4(depth, slot) -> [R, 4]
-    decision uniforms.  nee_nonzero adds path_trace's gate on a nonzero
-    emitter value and BSDF value to the NEE contribution.  Returns
-    (L, active, thr, eta, o_bounce, d_bounce, new_pdf, new_delta, u_rr,
-    n_rays): the state after the BSDF sample, the previous MIS state
+    closest hit, escaped rays and emitter hits with MIS, the subsurface
+    exitant radiance, NEE with a shadow ray, BSDF sampling (the callers
+    drop lanes whose throughput is 0), with the integrator's
+    hideEmitters and strictNormals.  depth: int or [R] int32;
+    u4(depth, slot) -> [R, 4] decision uniforms; keys: (lane, sample
+    index, seed) of the single-scattering draws.  nee_nonzero adds
+    path_trace's gate on a nonzero emitter value and BSDF value to the NEE
+    contribution.
+    Returns (L, active, thr, eta, o_bounce, d_bounce, new_pdf, new_delta,
+    u_rr, n_rays): the state after the BSDF sample, the previous MIS state
     carried through null crossings, the NEE draw's 4th uniform (the RR
     draw; None without emitters) and the rays traced."""
     present = pack.meta["present_types"]
     n_rays = active.sum()
     hit = intersect(pack, o, d)
     its = fill_interaction(pack, o, d, hit)
-    L = emitted(pack, d, its, active, thr, L, prev_pdf, prev_delta)
+    L = emitted(pack, d, its, active, thr, L, prev_pdf, prev_delta,
+                hide=(depth == 0) if integ.hide_emitters else None)
     active = its.valid & active
+
+    # subsurface exitant radiance at every surface hit (reference
+    # path.cpp:153-154, its.LoSub)
+    if pack.meta.get("has_sss", False):
+        # the incident directions: d (the reference's regenerating loop
+        # passes -wi, which is d, bit for bit)
+        lane, sidx, seed = keys
+        L = subsurface_radiance(pack, its, active, thr, L, d, lane, sidx, depth, seed)
 
     frame = shading_frame(pack, its)
     wi_l = frame.to_local(its.wi_world)
     sp = shading_params(pack, its.mat, its.uv, mip_footprint(pack, its), its=its)
+    # strict normals: geometric and shading normal must agree about wi's
+    # side (reference path.cpp:165-172)
+    if integ.strict_normals:
+        active = active & (mm.dot(its.wi_world, its.ng) * mm.cos_theta(wi_l) > 0)
 
     # next-event estimation (reference path.cpp:176-198, scene.cpp:828-841)
     u_rr = None  # the 4th NEE component doubles as the RR draw
@@ -151,6 +178,8 @@ def _bounce(pack, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_de
     thr = thr * torch.where(active[..., None], bs.weight, 1.0)
     eta = eta * torch.where(active, bs.eta, 1.0)
     d_bounce = frame.to_world(bs.wo)
+    if integ.strict_normals:
+        active = active & (mm.dot(d_bounce, its.ng) * mm.cos_theta(bs.wo) > 0)
     o_bounce = _offset_ray(its.p, its.ng, d_bounce)
     # a null (index-matched) crossing is not a scattering event
     is_null = sp["type"] == NULL_BSDF
@@ -199,8 +228,8 @@ def path_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
         if depth % lanes.EXIT_CHECK_EVERY == 0 and not bool(active.any()):
             break
         L, active, thr, eta, o_b, d_b, new_pdf, new_delta, u_rr, n = _bounce(
-            pack, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth, u4,
-            nee_nonzero=True,
+            pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth, u4,
+            (lane, sample_idx, seed), nee_nonzero=True,
         )
         n_rays = n_rays + n
         thr_max = thr.amax(dim=-1)
@@ -282,7 +311,8 @@ def path_trace_regen(
 
         # ---- one bounce ----
         L, active, thr, eta, o_bounce, d_bounce, new_pdf, new_delta, u_rr, n = _bounce(
-            pack, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth, u4
+            pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth, u4,
+            (lane, sidx, seed),
         )
         n_rays = n_rays + n
         thr_max = thr.amax(dim=-1)
@@ -312,6 +342,60 @@ def direct_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
     return L
 
 
+def ao_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
+    """Ambient occlusion (reference path.py:575-595, src/integrators/
+    direct/ao.cpp): 1 where a cosine-distributed ray from the first hit
+    meets nothing within rayLength (1e7 when not positive), else 0.  The
+    rays traced (a closest hit and an occlusion ray a lane) are left in
+    ao_trace.last_ray_count."""
+    r = o.shape[0]
+    hit = intersect(pack, o, d)
+    its = fill_interaction(pack, o, d, hit)
+    frame = shading_frame(pack, its)
+    u = rng.rand4(lane, sample_idx, 1, seed)
+    wo = frame.to_world(warp.square_to_cosine_hemisphere(u[..., :2]))
+    length = integ.ray_length if integ.ray_length > 0 else 1e7
+    occ = occluded(pack, _offset_ray(its.p, its.ng, wo), wo,
+                   torch.full((r,), length, dtype=torch.float32, device=o.device))
+    vis = torch.where(its.valid & ~occ, 1.0, 0.0)
+    ao_trace.last_ray_count = torch.tensor(2 * r, dtype=torch.int64, device=o.device)
+    return vis[..., None].expand(r, 3).clone()
+
+
+def field_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
+    """AOV extraction at the first hit (reference path.py:597-626,
+    src/integrators/misc/field.cpp): position, relPosition, distance,
+    geoNormal, shNormal / normal, uv, albedo, primIndex or emission; 0
+    where the ray escapes.  The rays traced (one a lane) are left in
+    field_trace.last_ray_count."""
+    hit = intersect(pack, o, d)
+    its = fill_interaction(pack, o, d, hit)
+    name = integ.field_name
+    if name == "position":
+        v = its.p
+    elif name == "relPosition":
+        v = its.p - o
+    elif name == "distance":
+        v = its.t[..., None].expand(-1, 3)
+    elif name == "geoNormal":
+        v = its.ng
+    elif name in ("shNormal", "normal"):
+        v = its.ns
+    elif name == "uv":
+        v = torch.cat([its.uv, torch.zeros_like(its.uv[..., :1])], dim=-1)
+    elif name == "albedo":
+        v = shading_params(pack, its.mat, its.uv, mip_footprint(pack, its), its=its)["cA"]
+    elif name == "primIndex":
+        v = its.prim[..., None].to(torch.float32).expand(-1, 3)
+    elif name == "emission":
+        le = take_rows(pack.em_rgb, torch.clamp(its.emit, min=0))
+        v = torch.where((its.emit >= 0)[..., None], le, 0.0)
+    else:
+        raise ValueError(f"field: unknown field '{name}'")
+    field_trace.last_ray_count = torch.tensor(o.shape[0], dtype=torch.int64, device=o.device)
+    return torch.where(its.valid[..., None], v, 0.0)
+
+
 # trace functions of the batched wavefront by integrator kind
 # (integrator/volpath.py adds "volpath")
-TRACE_FNS = {"path": path_trace, "direct": direct_trace}
+TRACE_FNS = {"path": path_trace, "direct": direct_trace, "ao": ao_trace, "field": field_trace}

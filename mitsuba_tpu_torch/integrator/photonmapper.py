@@ -469,7 +469,9 @@ def render_photonmapper(scene, spp=None, seed=0, pack=None, photons_per_pass=Non
                         device="cuda"):
     """The volumetric photon mapper on `device`: `spp` iterations of
     photons_per_pass photons (MTS_SPPM_PHOTONS, 2^17 by default); scenes
-    without media are rendered by render_sppm (with its own default).
+    without media are rendered by render_sppm with its own default count,
+    photons_per_pass dropped, as the reference does
+    (photonmapper.py:612-615).
     Returns numpy [H, W, 3]; the last iteration's stats are left in
     render_photonmapper.last_stats."""
     from mitsuba_tpu_torch.scene.builder import pack_scene
@@ -478,8 +480,7 @@ def render_photonmapper(scene, spp=None, seed=0, pack=None, photons_per_pass=Non
     if pack is None:
         pack = pack_scene(scene, device)
     if not pack.meta.get("has_media", False):
-        return _sppm.render_sppm(scene, spp=spp, seed=seed, pack=pack,
-                                 photons_per_pass=photons_per_pass, device=device)
+        return _sppm.render_sppm(scene, spp=spp, seed=seed, pack=pack, device=device)
     sen = scene.sensor.record
     if pack.meta["n_emitters"] == 0:
         return np.zeros((sen.film.height, sen.film.width, 3), np.float32)

@@ -1,8 +1,10 @@
 """Integrator plugins (port of mitsuba_tpu/integrator/plugins.py): `path`,
-`volpath` and `volpath_simple` (both of kind "volpath"), `direct`, `bdpt`,
-`ptracer`, the Metropolis family `pssmlt`, `mlt` and `erpt`, and the
-photon-density and many-light family `photonmapper`, `ppm`, `sppm` and
-`vpl`, which read the reference's property names."""
+`volpath` and `volpath_simple` (both of kind "volpath"), `direct`, `ao`,
+`field` and `depth` (a `field` of distances), `bdpt`, `ptracer`, the
+Metropolis family `pssmlt`, `mlt` and `erpt`, the photon-density and
+many-light family `photonmapper`, `ppm`, `sppm` and `vpl`, and the
+meta-integrators `adaptive`, `irrcache` and `multichannel` over nested
+integrators, which read the reference's property names."""
 
 from __future__ import annotations
 
@@ -18,6 +20,10 @@ class IntegratorRecord:
     rr_depth: int = 5
     strict_normals: bool = False
     hide_emitters: bool = False
+    # ao
+    ray_length: float = -1.0
+    # field
+    field_name: str = "position"
     # pssmlt / mlt / erpt
     direct_samples: int = -1
     bidirectional: bool = False
@@ -25,6 +31,12 @@ class IntegratorRecord:
     p_large: float = 0.3
     chain_length: int = 100
     manifold_perturbation: bool = False
+    # adaptive, irrcache, multichannel: the nested integrators
+    sub_integrator: "IntegratorRecord | None" = None
+    sub_integrators: "list | None" = None  # multichannel's children
+    # adaptive
+    max_error: float = 0.05
+    max_sample_factor: float = 8.0
 
 
 class _IntBase:
@@ -83,6 +95,39 @@ class DirectIntegrator(_IntBase):
         # direct_trace, which reads no sample counts)
         for name in ("shadingSamples", "emitterSamples", "bsdfSamples"):
             _refuse(props, name, 1, props.get_int)
+
+
+@register("integrator", "ao")
+class AOIntegrator(_IntBase):
+    """reference: src/integrators/direct/ao.cpp (path.py ao_trace)."""
+
+    kind = "ao"
+
+    def _finish(self, props):
+        self.record.ray_length = props.get_float("rayLength", -1.0)
+        # one occlusion ray a lane (as the reference's ao_trace, which
+        # reads no sample count)
+        _refuse(props, "shadingSamples", 1, props.get_int)
+
+
+@register("integrator", "field")
+class FieldIntegrator(_IntBase):
+    """reference: src/integrators/misc/field.cpp (path.py field_trace)."""
+
+    kind = "field"
+
+    def _finish(self, props):
+        self.record.field_name = props.get_string("field", "position")
+
+
+@register("integrator", "depth")
+class DepthIntegrator(_IntBase):
+    """The `distance` field (reference plugins.py:121-126)."""
+
+    kind = "field"
+
+    def _finish(self, props):
+        self.record.field_name = "distance"
 
 
 @register("integrator", "bdpt")
@@ -175,3 +220,44 @@ class VPLIntegrator(_IntBase):
         # the geometry term is clamped at (0.1 * scene radius)^2: the
         # reference's vpl pass reads no clamping property
         _refuse(props, "clamping", 0.1, props.get_float)
+
+
+class _MetaIntegrator(_IntBase):
+    """The nested integrators: sub_integrator is the first,
+    sub_integrators all of them (reference plugins.py:240-249)."""
+
+    def _finish(self, props):
+        subs = [child.record for _, child in props.children
+                if isinstance(getattr(child, "record", None), IntegratorRecord)]
+        if subs:
+            self.record.sub_integrator = subs[0]
+        self.record.sub_integrators = subs
+
+
+@register("integrator", "adaptive")
+class AdaptiveIntegrator(_MetaIntegrator):
+    """reference: src/integrators/misc/adaptive.cpp — error-driven
+    refinement over the nested integrator (integrator/adaptive.py)."""
+
+    kind = "adaptive"
+
+    def _finish(self, props):
+        super()._finish(props)
+        self.record.max_error = props.get_float("maxError", 0.05)
+        self.record.max_sample_factor = props.get_float("maxSampleFactor", 8.0)
+
+
+@register("integrator", "irrcache")
+class IrrCacheIntegrator(_MetaIntegrator):
+    """reference: src/integrators/misc/irrcache.cpp (integrator/irrcache.py)."""
+
+    kind = "irrcache"
+
+
+@register("integrator", "multichannel")
+class MultiChannelIntegrator(_MetaIntegrator):
+    """reference: src/integrators/misc/multichannel.cpp: each nested
+    integrator renders with the same pack and seed, and the images stack
+    as [H, W, 3 n] (renderer.py render)."""
+
+    kind = "multichannel"

@@ -6,7 +6,8 @@ diffuse, conductor, dielectric, plastic and null material families
 (smooth and rough) with checkerboard-textured reflectances, area
 emitters, a constant or image-based (`envmap`) environment, and
 homogeneous and heterogeneous media attached to shapes as their
-interior or exterior (`_pack_media`).
+interior or exterior (`_pack_media`), and the subsurface point sets and
+coefficients of dipole and singlescatter shapes (`_pack_sss`).
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -15,6 +16,7 @@ of the same scene are interchangeable.
 
 from __future__ import annotations
 
+import copy
 import os
 from dataclasses import dataclass
 
@@ -48,6 +50,7 @@ from mitsuba_tpu_torch.medium.plugins import (
     MICROFLAKE,
 )
 from mitsuba_tpu_torch.scene.shapes import _apply_transform, _uv_sphere
+from mitsuba_tpu_torch.scene.subsurface import sample_surface_points
 from mitsuba_tpu_torch.scene.texture_eval import material_table
 from mitsuba_tpu_torch.scene.textures import TEX_CONSTANT, TEX_CHECKERBOARD
 
@@ -92,6 +95,15 @@ MEDIA_META = (
     "has_media", "n_media", "hom_strategies", "phase_kinds", "n_het", "het_simpson",
     "het_super_b", "camera_medium",
 )
+# ... the subsurface tables (placeholders in scenes without subsurface) ...
+SSS_ARRAYS = (
+    "mat_sss", "sss_p", "sss_n", "sss_area", "sss_obj", "sss_zr", "sss_zv", "sss_str",
+    "sss_eta", "sss_sigs", "sss_sigt", "sss_g", "sss_kind", "sss_E",
+)
+SSS_META = (
+    "has_sss", "sss_irr_samples", "sss_indirect", "sss_has_single", "sss_has_dipole",
+    "sss_ss_samples", "sss_ss_depth",
+)
 # ... and, for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters
 BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_sup", "cl_mbox", "cl_pad2prim")
 BVH_META = (
@@ -102,7 +114,6 @@ BVH_META = (
 # (key, value meaning "absent", feature name)
 _UNPORTED_FEATURES = (
     ("n_cyls", 0, "analytic cylinders"),
-    ("has_sss", False, "subsurface scattering"),
     ("has_mips", False, "bitmap textures"),
     ("geom_tex_kinds", (), "geometry-driven textures"),
     ("has_bumpmaps", False, "bump/normal maps"),
@@ -438,6 +449,70 @@ def _pack_media(media: list) -> tuple[dict, dict]:
     return a, meta
 
 
+def _pack_sss(n_mat: int, sss_mat_rows: list, sss_objs: list) -> tuple[dict, dict]:
+    """The subsurface tables (reference builder.py:1140-1213): mat_sss,
+    the subsurface object of each material row (-1: none); each object's
+    points, normals, area per point and object id; per object the dipole
+    coefficients (zr, zv, sigma_tr), eta, sigma_s and sigma_t after
+    `scale`, g and its kind (0 dipole, 1 singlescatter); sss_E, the
+    irradiance at each point, zero until the renderer's irradiance pass
+    (integrator/sss.py prepare_sss) fills a copy of the pack.  Scenes
+    without subsurface get the reference's one-row placeholders."""
+    mat_sss = np.full(n_mat, -1, np.int32)
+    for row, sid in sss_mat_rows:
+        mat_sss[row] = sid
+    if not sss_objs:
+        return {
+            "mat_sss": mat_sss,
+            "sss_p": np.zeros((1, 3), np.float32),
+            "sss_n": np.array([[0, 0, 1]], np.float32),
+            "sss_area": np.zeros(1, np.float32),
+            "sss_obj": np.zeros(1, np.int32),
+            "sss_zr": np.ones((1, 3), np.float32),
+            "sss_zv": np.ones((1, 3), np.float32),
+            "sss_str": np.ones((1, 3), np.float32),
+            "sss_eta": np.ones(1, np.float32),
+            "sss_sigs": np.ones((1, 3), np.float32),
+            "sss_sigt": np.ones((1, 3), np.float32),
+            "sss_g": np.zeros(1, np.float32),
+            "sss_kind": np.zeros(1, np.int32),
+            "sss_E": np.zeros((1, 3), np.float32),
+        }, {"has_sss": False}
+    recs = [o[0] for o in sss_objs]
+    coeffs = [r.dipole_coefficients() for r in recs]
+    kinds = [1 if r.kind == "singlescatter" else 0 for r in recs]
+    sss_p = np.concatenate([o[1] for o in sss_objs]).astype(np.float32)
+    arrays = {
+        "mat_sss": mat_sss,
+        "sss_p": sss_p,
+        "sss_n": np.concatenate([o[2] for o in sss_objs]).astype(np.float32),
+        "sss_area": np.concatenate([np.full(len(o[1]), o[3], np.float32) for o in sss_objs]),
+        "sss_obj": np.concatenate(
+            [np.full(len(o[1]), k, np.int32) for k, o in enumerate(sss_objs)]
+        ),
+        "sss_zr": np.stack([c[0] for c in coeffs]),
+        "sss_zv": np.stack([c[1] for c in coeffs]),
+        "sss_str": np.stack([c[2] for c in coeffs]),
+        "sss_eta": np.asarray([r.eta for r in recs], np.float32),
+        "sss_sigs": np.stack([r.sigma_s * r.scale for r in recs]).astype(np.float32),
+        "sss_sigt": np.stack([(r.sigma_s + r.sigma_a) * r.scale for r in recs]).astype(np.float32),
+        "sss_g": np.asarray([r.g for r in recs], np.float32),
+        "sss_kind": np.asarray(kinds, np.int32),
+        "sss_E": np.zeros_like(sss_p),
+    }
+    meta = {
+        "has_sss": True,
+        "sss_irr_samples": max(r.irr_samples for r in recs),
+        "sss_indirect": any(r.indirect for r in recs),
+        # static: which of the path loop's subsurface arms run
+        "sss_has_single": any(kinds),
+        "sss_has_dipole": any(k == 0 for k in kinds),
+        "sss_ss_samples": max(r.ss_samples for r in recs),
+        "sss_ss_depth": max(r.ss_depth for r in recs),
+    }
+    return arrays, meta
+
+
 def _check_clusters(meta: dict):
     """The port renders BVH scenes through the cluster tables (K3-K10).
     The reference packs none past its HBM budget (CLUSTER_HBM_MAX, at
@@ -536,6 +611,9 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         return em_ids[id(rec)]
 
     media, med_ids = [], {}
+    # subsurface shapes: (material row, object id) and (record, points,
+    # normals, area per point) (reference builder.py:370-373)
+    sss_mat_rows, sss_objs = [], []
 
     def add_medium(rec):
         if rec is None:
@@ -550,7 +628,23 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     uv0s, uv1s, uv2s, tmats, temits, tmed_in, tmed_ex = [], [], [], [], [], [], []
     spheres = []  # (SphereData, material id, emitter id, interior, exterior)
     for inst in scene.shapes:
-        mat_id = add_material(inst.bsdf)
+        if inst.subsurface is not None:
+            # a row of its own (mat_sss is per row): a copy of the BSDF
+            # record, or an all-absorbing diffuse where the shape has none
+            # (reference builder.py:477-505, shape.cpp:49-56)
+            mat_id = add_material(
+                copy.copy(inst.bsdf) if inst.bsdf is not None
+                else BSDFRecord(type=DIFFUSE, cA=np.zeros(3, np.float32))
+            )
+            pts, nrm, a_pt, capped = sample_surface_points(inst.meshes, inst.spheres,
+                                                           inst.subsurface)
+            if capped:
+                print(f"[subsurface] point density capped at MTS_SSS_MAX_POINTS for shape "
+                      f"'{inst.id}' (raise it for a denser cache)")
+            sss_mat_rows.append((mat_id, len(sss_objs)))
+            sss_objs.append((inst.subsurface, pts, nrm, a_pt))
+        else:
+            mat_id = add_material(inst.bsdf)
         emit_id = add_emitter(inst.emitter)
         med_in = add_medium(inst.interior_medium)
         med_ex = add_medium(inst.exterior_medium)
@@ -774,6 +868,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     emitter_cdf[-1] = 1.0
     env_arrays, env_meta = _env_table(emitters[env_idx] if env_idx >= 0 else None)
     med_arrays, med_meta = _pack_media(media)
+    sss_arrays, sss_meta = _pack_sss(n_mat, sss_mat_rows, sss_objs)
 
     arrays = {
         **tri,
@@ -796,6 +891,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "emitter_cdf": emitter_cdf,
         **env_arrays,
         **med_arrays,
+        **sss_arrays,
     }
     meta = {
         "n_tris": n_tris,
@@ -818,6 +914,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "scene_center": center,
         "scene_radius": radius,
         **med_meta,
+        **sss_meta,
     }
     check_slice(meta)
     return ScenePack(_to_device(_with_derived(arrays, meta), device), meta)

@@ -68,5 +68,6 @@ def _ensure_loaded():
     import mitsuba_tpu_torch.medium.plugins  # noqa: F401
     import mitsuba_tpu_torch.sampler.plugins  # noqa: F401
     import mitsuba_tpu_torch.scene.shapes  # noqa: F401
+    import mitsuba_tpu_torch.scene.subsurface  # noqa: F401
     import mitsuba_tpu_torch.scene.textures  # noqa: F401
     import mitsuba_tpu_torch.sensor.plugins  # noqa: F401

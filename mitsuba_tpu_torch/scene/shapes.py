@@ -40,6 +40,7 @@ class ShapeInstance:
     emitter = None
     interior_medium = None  # MediumRecord or None (vacuum)
     exterior_medium = None
+    subsurface = None  # SubsurfaceRecord or None
     id: str = ""
 
 

@@ -254,6 +254,7 @@ class SceneLoader:
         from mitsuba_tpu_torch.bsdf.plugins import BSDFRecord
         from mitsuba_tpu_torch.emitter.plugins import EmitterRecord
         from mitsuba_tpu_torch.medium.plugins import MediumRecord
+        from mitsuba_tpu_torch.scene.subsurface import SubsurfaceRecord
 
         inst = shape_obj.instance
         for name, child in shape_obj.props.children:
@@ -262,6 +263,8 @@ class SceneLoader:
                 inst.bsdf = rec
             elif isinstance(rec, EmitterRecord):
                 inst.emitter = rec
+            elif isinstance(rec, SubsurfaceRecord):
+                inst.subsurface = rec
             elif isinstance(rec, MediumRecord):
                 # a nested or referenced medium: "interior" unless named
                 # "exterior" (reference xml_loader.py _attach_shape_children)

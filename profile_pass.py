@@ -2,7 +2,7 @@
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
     python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door|
-                             glass-sppm|smoke-pm|cbox-vpl] [--hits-only] [--mutations N]
+                             glass-sppm|smoke-pm|cbox-vpl|dipole] [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
@@ -23,7 +23,11 @@ photons), smoke-pm (scenes/smoke.xml under the volumetric photon mapper,
 256x256, 2^17 photons) and cbox-vpl (scenes/cbox.xml under vpl, 512x512,
 64 VPL paths), each with its own ranges "stage:eye", "stage:photon_walk",
 "stage:sort", "stage:gather", "stage:bre" and "stage:vpl_shadow"
-(integrator/sppm.py, photonmapper.py, vpl.py) around PHOTON_STAGES:
+(integrator/sppm.py, photonmapper.py, vpl.py) around PHOTON_STAGES; or for
+scenes/dipole.xml as it stands (512x384, path at maxDepth 8, 10 samples
+per pass as `render` chunks its 64), after the irradiance pass (timed),
+with the subsurface arm and the dense dipole sum among the stages
+(SSS_STAGES):
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -117,10 +121,17 @@ PHOTON_STAGES = tuple(
         ("vpl", ("intersect", "occluded", "bsdf_eval", "bsdf_sample")))
 ) + (("mitsuba_tpu_torch.medium.eval", ("sample_distance", "transmittance", "phase_eval")),
      ("mitsuba_tpu_torch.core.rng", ("rand4",)))
+# the bounce loop's stages with the subsurface arm (scenes/dipole.xml):
+# subsurface_radiance holds sss_lo, the dense dipole sum
+SSS_STAGES = STAGES + (
+    ("mitsuba_tpu_torch.integrator.path", ("subsurface_radiance",)),
+    ("mitsuba_tpu_torch.integrator.sss", ("sss_lo", "single_scatter_lo")),
+)
 # film size and samples per pass of each scene (door: one step, one
-# mutation per pixel; the photon mappers: one iteration)
+# mutation per pixel; the photon mappers: one iteration; dipole: its
+# film's width, and render's chunk of its 64 spp)
 RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1), "glass-sppm": (256, 1),
-           "smoke-pm": (256, 1), "cbox-vpl": (512, 1)}
+           "smoke-pm": (256, 1), "cbox-vpl": (512, 1), "dipole": (512, 10)}
 PHOTON_MODES = ("glass-sppm", "smoke-pm", "cbox-vpl")
 
 
@@ -256,7 +267,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
-                             "smoke", "glass", "door") + PHOTON_MODES)
+                             "smoke", "glass", "door", "dipole") + PHOTON_MODES)
     ap.add_argument("--hits-only", action="store_true")
     ap.add_argument("--mutations", type=int, default=32,
                     help="door: the mutations per pixel the steps go on to")
@@ -312,6 +323,8 @@ def main():
         scene = mt.load_scene_string(with_integrator(smoke_xml(res, res), "photonmapper"))
     elif args.scene == "cbox-vpl":
         scene = mt.load_scene_string(cbox_xml("vpl", res, res))
+    elif args.scene == "dipole":
+        scene = mt.load_scene(os.path.join(HERE, "scenes", "dipole.xml"))
     elif args.scene == "cbox":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
@@ -328,15 +341,25 @@ def main():
         scene = mt.load_scene_string(bunny_scene_xml(ply, RES, RES))
     t0 = time.time()
     pack = pack_scene(scene, dev)
-    print(f"{args.scene} {res}x{res}, {spp} spp per pass: packed in "
+    film = scene.sensor.record.film
+    print(f"{args.scene} {film.width}x{film.height}, {spp} spp per pass: packed in "
           f"{time.time() - t0:.3f} s; meta n_clusters={pack.meta.get('n_clusters')} "
           f"n_supers={pack.meta.get('n_supers')} cluster_vmem_ok={pack.meta.get('cluster_vmem_ok')}",
           flush=True)
+    if pack.meta.get("has_sss", False):
+        from mitsuba_tpu_torch.integrator.sss import prepare_sss
+
+        t0 = time.time()
+        pack = prepare_sss(pack, scene.integrator, 0)
+        torch.cuda.synchronize()
+        print(f"irradiance pass: {pack.sss_p.shape[0]} points x {pack.meta['sss_irr_samples']} "
+              f"rays in {time.time() - t0:.3f} s", flush=True)
 
     if not args.hits_only:
         rp = profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
                             counters(pk, pairs, pb), res, spp,
                             {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES, "door": BDPT_STAGES,
+                             "dipole": SSS_STAGES,
                              **dict.fromkeys(PHOTON_MODES, PHOTON_STAGES)}.get(args.scene, STAGES),
                             args.mutations)
         if args.scene == "door":
@@ -371,7 +394,7 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
         rp = iteration_pass(steps)
     else:
         rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
-    film = new_film(res, res, dev)
+    film = new_film(rec.film.height, rec.film.width, dev)
 
     def one_pass(i):
         nonlocal film

@@ -48,11 +48,22 @@ the matpreview variant.
   tests/test_photonmapper.py's homogeneous slab (tests/torch_meshes.py
   `homog_slab_xml`) under the photon mapper at 32x32 (2^12), through the
   pair pipeline (its cube stands on the floor); torch_cbox_vpl_24_4.npy,
-  scenes/cbox.xml under vpl at 24x24 (64 VPL paths a pass).
+  scenes/cbox.xml under vpl at 24x24 (64 VPL paths a pass);
+* the subsurface slice, the path family and the meta-integrators, seed 0,
+  4 spp: torch_dipole_32_4.npy, scenes/dipole.xml as it stands at 32x24
+  (the irradiance pass of 640 points x 32 rays included), and
+  torch_singlescatter_32_4.npy, the same with `singlescatter` in place of
+  `dipole`, both through the JAX package's XLA BVH walk (the scene has no
+  coplanar faces: through its pair pipeline the two renders move by
+  1.3e-8 and 1.7e-8, at 2.5x and 5x the time); at 24x24 on
+  scenes/cbox.xml, torch_cbox_ao_24_4.npy (ao), torch_cbox_field_uv_24_4.npy
+  (the uv field), torch_cbox_adaptive_24_4.npy and
+  torch_cbox_irrcache_24_4.npy (adaptive and irrcache over `path` at
+  maxDepth 4).
 
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
-With no argument all twenty are written.  Each line the script prints
+With no argument all twenty-six are written.  Each line the script prints
 gives the golden's render time, XLA's compile included; the last four
 took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
 (the 16-edge program's compile; 16 edges fit, so no smaller cap was
@@ -89,10 +100,13 @@ from tests.torch_meshes import (
     bunny_scene_xml,
     bunny_standin,
     cbox_chain_xml,
+    NESTED_PATH,
+    cbox_meta_xml,
     cbox_xml,
     cbox_mitchell_xml,
     cbox_ptracer_xml,
     dense_standin,
+    dipole_xml,
     door_xml,
     glass_manifold_xml,
     glass_xml,
@@ -187,6 +201,19 @@ GOLDENS = {
                            homog_slab_xml, True, 4, {"MTS_SPPM_PHOTONS": "4096"}),
     "cbox_vpl": (os.path.join(ROOT, "tests", "golden", "torch_cbox_vpl_24_4.npy"),
                  lambda: cbox_xml("vpl", 24, 24), False, 4, {"MTS_VPL_COUNT": "64"}),
+    "dipole": (os.path.join(ROOT, "tests", "golden", "torch_dipole_32_4.npy"),
+               lambda: dipole_xml(32, 24), False, 4),
+    "singlescatter": (os.path.join(ROOT, "tests", "golden", "torch_singlescatter_32_4.npy"),
+                      lambda: dipole_xml(32, 24, "singlescatter"), False, 4),
+    "cbox_ao": (os.path.join(ROOT, "tests", "golden", "torch_cbox_ao_24_4.npy"),
+                lambda: cbox_xml("ao", 24, 24), False, 4),
+    "cbox_field": (os.path.join(ROOT, "tests", "golden", "torch_cbox_field_uv_24_4.npy"),
+                   lambda: with_properties(cbox_xml("field", 24, 24),
+                                           '<string name="field" value="uv"/>'), False, 4),
+    "cbox_adaptive": (os.path.join(ROOT, "tests", "golden", "torch_cbox_adaptive_24_4.npy"),
+                      lambda: cbox_meta_xml("adaptive", NESTED_PATH), False, 4),
+    "cbox_irrcache": (os.path.join(ROOT, "tests", "golden", "torch_cbox_irrcache_24_4.npy"),
+                      lambda: cbox_meta_xml("irrcache", NESTED_PATH), False, 4),
 }
 
 

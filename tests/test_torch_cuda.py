@@ -1488,3 +1488,151 @@ def test_photon_integrators_render_on_card(dev, kind):
     assert img.shape == (rec.height, rec.width, 3) and np.isfinite(img).all()
     assert img.mean() > 0.01
     assert all(fn.launches > 0 for fn in wrappers)
+
+
+# ---- the subsurface slice, the path family and the meta-integrators ----
+
+def _slice_golden(name):
+    """(XML, spp) of each golden of the subsurface slice, the path family
+    and the meta-integrators (tests/make_torch_bigmesh_golden.py)."""
+    from torch_meshes import NESTED_PATH, cbox_meta_xml, cbox_xml, dipole_xml, with_properties
+
+    return {
+        "torch_dipole_32_4.npy": dipole_xml(32, 24),
+        "torch_singlescatter_32_4.npy": dipole_xml(32, 24, "singlescatter"),
+        "torch_cbox_ao_24_4.npy": cbox_xml("ao", 24, 24),
+        "torch_cbox_field_uv_24_4.npy": with_properties(cbox_xml("field", 24, 24),
+                                                        '<string name="field" value="uv"/>'),
+        "torch_cbox_adaptive_24_4.npy": cbox_meta_xml("adaptive", NESTED_PATH),
+        "torch_cbox_irrcache_24_4.npy": cbox_meta_xml("irrcache", NESTED_PATH),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "torch_dipole_32_4.npy", "torch_singlescatter_32_4.npy", "torch_cbox_ao_24_4.npy",
+    "torch_cbox_field_uv_24_4.npy", "torch_cbox_adaptive_24_4.npy",
+    "torch_cbox_irrcache_24_4.npy"])
+def test_slice_goldens_on_card(dev, name):
+    """dipole.xml (and its singlescatter variant), cbox under ao, the uv
+    field, adaptive and irrcache (the JAX package's renders) on the card,
+    through `render`, each at its tests/torch_meshes.py GOLDEN_GATES gate."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import GOLDEN_GATES, ROOT
+
+    img = mt.render(mt.load_scene_string(_slice_golden(name)), spp=4, seed=0)
+    gold = np.load(os.path.join(ROOT, "tests", "golden", name))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert _tm_rmse(img, gold) < GOLDEN_GATES[name], _tm_rmse(img, gold)
+
+
+def test_dipole_queries_equal_plain(dev):
+    """K3/K4 (closest and any) and K7/K8 bit-equal to plain on dipole.xml's
+    camera rays, its irradiance pass's NEE and a singlescatter pass's first
+    segment, at 128x96 (chip_smoke.dipole_segments)."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import dipole_segments
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.integrator import sss as tsss
+    from mitsuba_tpu_torch.renderer import make_render_pass
+    from torch_meshes import dipole_xml
+
+    scene = mt.load_scene_string(dipole_xml(128, 96))
+    ss = mt.load_scene_string(dipole_xml(128, 96, "singlescatter"))
+    dipole_segments(pairs, pb, tsss, make_render_pass, new_film, scene, pack_scene(scene, dev),
+                    ss, pack_scene(ss, dev), dev, [])
+
+
+def test_dipole_on_card_matches_cpu(dev):
+    """The irradiance pass, the dense dipole sum and one render on the card
+    against the CPU's (plain kernels) on dipole.xml: E at the 640 points,
+    rtol 1e-4, atol 1e-6 on 99 % of the values; sss_lo on 300 random lanes
+    about the sphere with the CPU's E, rtol 1e-5, atol 1e-7 (the sums run
+    in one order; exp and sqrt differ in the last place); a 16x12, 1-spp
+    render on 95 % of the values, its mean within 2 % (a path that a last
+    place sends elsewhere moves its pixel whole: 3 of 192 pixels, measured
+    on NVIDIA H100 80GB HBM3, 700 W)."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.integrator import sss as tsss
+    from torch_meshes import dipole_xml
+
+    scene = mt.load_scene_string(dipole_xml(16, 12))
+    card_pack, cpu_pack = pack_scene(scene, dev), pack_scene(scene, "cpu")
+    e_card = tsss.compute_sss_irradiance(card_pack, scene.integrator, 0).cpu()
+    e_cpu = tsss.compute_sss_irradiance(cpu_pack, scene.integrator, 0)
+    assert np.isclose(e_card.numpy(), e_cpu.numpy(), rtol=1e-4, atol=1e-6).mean() > 0.99
+    r = np.random.default_rng(41)
+    nrm = r.normal(size=(300, 3))
+    p = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True) * r.uniform(0.98, 1.02, (300, 1)))
+    p, cos_o = torch.tensor(p, dtype=torch.float32), torch.tensor(r.uniform(0, 1, 300),
+                                                                   dtype=torch.float32)
+    sid = torch.zeros(300, dtype=torch.int32)
+    lo = []
+    for pk_, device in ((card_pack, dev), (cpu_pack, torch.device("cpu"))):
+        pk_ = type(pk_)({**pk_.arrays, "sss_E": e_cpu.to(device)}, pk_.meta)
+        lo.append(tsss.sss_lo(pk_, p.to(device), cos_o.to(device), sid.to(device)).cpu().numpy())
+    np.testing.assert_allclose(lo[0], lo[1], rtol=1e-5, atol=1e-7)
+    card = mt.render(scene, spp=1, seed=0)
+    cpu = mt.render(scene, spp=1, seed=0, device="cpu")
+    assert np.isclose(card, cpu, rtol=1e-4, atol=1e-6).mean() > 0.95
+    np.testing.assert_allclose(card.mean(), cpu.mean(), rtol=0.02)
+
+
+def test_explicit_photons_without_media_on_card(dev, monkeypatch):
+    """render_photonmapper drops an explicit photon count on a scene
+    without media, as the reference does: the image is sppm's at its own
+    count (MTS_SPPM_PHOTONS), bit for bit on the card."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.integrator import photonmapper as tpm
+    from mitsuba_tpu_torch.integrator import sppm as tsppm
+    from torch_meshes import cbox_xml
+
+    monkeypatch.setenv("MTS_SPPM_PHOTONS", "4096")
+    scene = mt.load_scene_string(cbox_xml("photonmapper", 64, 64))
+    a = tpm.render_photonmapper(scene, spp=2, seed=0, photons_per_pass=1 << 14)
+    b = tsppm.render_sppm(scene, spp=2, seed=0)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_irrcache_trace_on_card_matches_cpu(dev):
+    """irrcache_trace on the card against the CPU's, both fed the records
+    of one overture (made on the CPU) on cbox at 24x24: rtol 1e-4, atol
+    1e-6 on 90 % of the lanes and rtol 3e-2 on 99 % (the hit points' last
+    places move Ward weights, as against the reference:
+    tests/test_torch_irrcache.py)."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.integrator import irrcache as tic
+    from mitsuba_tpu_torch.sensor.plugins import generate_rays
+    from torch_meshes import NESTED_PATH, cbox_meta_xml
+
+    scene = mt.load_scene_string(cbox_meta_xml("irrcache", NESTED_PATH))
+    w = h = 24
+    rec = scene.sensor.record
+    outs = []
+    cache = None
+    for device in (torch.device("cpu"), dev):
+        pack = pack_scene(scene, device)
+        cam = rec.pack(w, h, device)
+
+        def rays(stride, cam=cam, device=device):
+            xs = (torch.arange(w // stride, device=device) * stride + 0.5) / w
+            gx, gy = torch.meshgrid(xs.float(), xs.float(), indexing="xy")
+            pos01 = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+            return generate_rays(cam, pos01, torch.zeros_like(pos01))
+
+        if cache is None:
+            cache, _ = tic.build_cache(pack, scene.integrator, rays, 0)
+        n = w * h
+        r = np.random.default_rng(31)
+        px = np.arange(n)
+        pos01 = torch.tensor(np.stack([(px % w + r.uniform(size=n)) / w,
+                                       (px // w + r.uniform(size=n)) / h], -1),
+                             dtype=torch.float32, device=device)
+        o, d = generate_rays(cam, pos01, torch.zeros_like(pos01))
+        lane = torch.arange(n, device=device)
+        outs.append(tic.irrcache_trace(pack, scene.integrator, o, d, lane, torch.ones_like(lane),
+                                       None, 0, tuple(c.to(device) for c in cache)).cpu().numpy())
+    cpu, card = outs
+    assert np.isclose(card, cpu, rtol=1e-4, atol=1e-6).all(-1).mean() > 0.9
+    assert np.isclose(card, cpu, rtol=3e-2, atol=1e-6).all(-1).mean() > 0.99

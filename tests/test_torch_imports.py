@@ -168,3 +168,19 @@ def test_photon_mapping_modules_are_checked():
                photonmapper.iter_photonmapper, vpl.render_vpl, vpl.iter_vpl):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__name__
+
+
+def test_subsurface_and_meta_modules_are_checked():
+    """The modules of the subsurface slice and of the meta-integrators
+    (subsurface, sss, irrcache, adaptive) are among the sources checked
+    above, and their entry points run on the card unless asked otherwise."""
+    from mitsuba_tpu_torch.integrator import adaptive, irrcache
+
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("scene/subsurface.py", "integrator/sss.py", "integrator/irrcache.py",
+                "integrator/adaptive.py", "integrator/path.py", "integrator/plugins.py",
+                "scene/builder.py", "renderer.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+    for fn in (irrcache.render_irrcache, adaptive.render_adaptive):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn.__name__

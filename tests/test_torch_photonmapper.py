@@ -57,7 +57,7 @@ from mitsuba_tpu.scene.xml_loader import load_scene_string as jload_string
 from mitsuba_tpu_torch.integrator import photonmapper as tpm
 from mitsuba_tpu_torch.integrator import sppm as tsppm
 from mitsuba_tpu_torch.scene.builder import pack_scene
-from tests.torch_meshes import GOLDEN_GATES, ROOT, homog_slab_xml, tm_rmse
+from tests.torch_meshes import GOLDEN_GATES, ROOT, cbox_xml, homog_slab_xml, tm_rmse
 
 torch.set_num_threads(1)
 
@@ -211,14 +211,34 @@ def test_meets_golden(monkeypatch):
     assert st["volume_photons"] > 100 and st["surface_photons"] > 20, st
 
 
-def test_no_media_is_sppm():
-    """Without its medium the slab is sppm's: the same image, bit for bit."""
+def test_no_media_is_sppm(monkeypatch):
+    """Without its medium the slab is sppm's at sppm's own photon count
+    (MTS_SPPM_PHOTONS): the same image, bit for bit."""
+    monkeypatch.setenv("MTS_SPPM_PHOTONS", "4096")
     xml = homog_slab_xml(media=False, width=16, height=16)
     sc = mt.load_scene_string(xml)
     pack = pack_scene(sc, "cpu")
     assert not pack.meta.get("has_media", False)
-    a = tpm.render_photonmapper(sc, spp=2, seed=1, pack=pack, photons_per_pass=4096,
-                                device="cpu")
-    b = tsppm.render_sppm(sc, spp=2, seed=1, pack=pack, photons_per_pass=4096, device="cpu")
+    a = tpm.render_photonmapper(sc, spp=2, seed=1, pack=pack, device="cpu")
+    b = tsppm.render_sppm(sc, spp=2, seed=1, pack=pack, device="cpu")
     np.testing.assert_array_equal(a, b)
     assert a.mean() > 0.01
+
+
+def test_explicit_count_without_media(monkeypatch):
+    """Without media an explicit photons_per_pass is dropped, as the
+    reference drops it (photonmapper.py:612-615): sppm renders with its own
+    count, here MTS_SPPM_PHOTONS = 4,096.  cbox at 16x16, 2 iterations, N =
+    8,192: the two packages agree at cbox sppm's gate (GOLDEN_GATES; 1.9e-8
+    measured), and the image is not sppm's at N (1.4e-2 measured)."""
+    monkeypatch.setenv("MTS_SPPM_PHOTONS", "4096")
+    xml = cbox_xml("photonmapper", 16, 16)
+    n = 1 << 13
+    got = tpm.render_photonmapper(mt.load_scene_string(xml), spp=2, seed=0, photons_per_pass=n,
+                                  device="cpu")
+    ref = np.asarray(jpm.render_photonmapper(jload_string(xml), spp=2, seed=0,
+                                             photons_per_pass=n))
+    assert tm_rmse(got, ref) < GOLDEN_GATES["torch_cbox_sppm_24_4.npy"], tm_rmse(got, ref)
+    at_n = tsppm.render_sppm(mt.load_scene_string(xml), spp=2, seed=0, photons_per_pass=n,
+                             device="cpu")
+    assert tm_rmse(got, at_n) > 10 * tm_rmse(got, ref) + 1e-3

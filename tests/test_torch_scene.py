@@ -141,7 +141,7 @@ def test_unported_pack_features_raise():
     jp = jpack_scene(jload(CBOX))
     # use_bvh without cluster tables: the reference's plain BVH walk is
     # not a ported render path
-    for key, value in (("has_sss", True), ("use_bvh", True), ("present_types", (0, 9))):
+    for key, value in (("n_cyls", 3), ("use_bvh", True), ("present_types", (0, 9))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             pack_from_numpy(_jax_np(jp), {**jp.meta, key: value}, "cpu")
 

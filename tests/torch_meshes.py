@@ -280,6 +280,27 @@ GOLDEN_GATES = {
     "torch_glass_sppm_16_4.npy": 2e-6,
     "torch_cbox_vpl_24_4.npy": 2e-3,
     "torch_homog_photonmapper_32_4.npy": 3e-2,
+    # the subsurface slice, the path family and the meta-integrators (CPU
+    # readings: dipole.xml 1.6e-6, singlescatter 1.5e-6, ao 6.7e-3, the uv
+    # field 3.6e-8, adaptive 7.0e-3, irrcache 1.1e-3).  Fed the same rays,
+    # the two packages' ao agree lane for lane; in the renders 7 of 2,304
+    # occlusion rays, cast 1e-4 off a surface whose hit point moved by a
+    # camera ray's last place, meet that surface in one package only (ROADMAP
+    # C).  adaptive: one NEE shadow ray of the base passes grazes an edge in
+    # one package only, and the refinement rounds, whose pixel picks follow
+    # every pixel's error, spread that over the image.  irrcache: a gather
+    # ray that starts 1e-4 off its record's surface meets it again in one
+    # package only, which moves that record's radius (a harmonic mean of hit
+    # distances) and its gradients; on the card, whose exp, log and trig
+    # differ from the CPU's in the last place, the golden reads 5.3e-3
+    # (NVIDIA H100 80GB HBM3, 700 W): other gather rays flip there, and
+    # with 36 records for 576 pixels each record moves a patch of the image.
+    "torch_dipole_32_4.npy": 1e-5,
+    "torch_singlescatter_32_4.npy": 1e-5,
+    "torch_cbox_ao_24_4.npy": 2e-2,
+    "torch_cbox_field_uv_24_4.npy": 1e-6,
+    "torch_cbox_adaptive_24_4.npy": 3e-2,
+    "torch_cbox_irrcache_24_4.npy": 1.5e-2,
 }
 
 # the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
@@ -566,3 +587,36 @@ def homog_slab_xml(integrator="photonmapper", media=True, width=None, height=Non
     if not media:
         xml = re.sub(r'<medium name="interior".*?</medium>', "", xml, flags=re.S)
     return _film_size(xml, width, height)
+
+
+# ---- the subsurface slice, the path family and the meta-integrators ----
+
+DIPOLE_XML = os.path.join(ROOT, "scenes", "dipole.xml")
+
+
+def dipole_xml(width=None, height=None, kind="dipole", props="", irr_samples=None):
+    """scenes/dipole.xml (path, maxDepth 8; a skimmilk dipole sphere with
+    irrSamples 32 on a diffuse slab, lit by an emissive sphere: 1,036
+    triangles and one analytic sphere), optionally at another film size,
+    with the subsurface plugin `kind` ("dipole" or "singlescatter"),
+    another irrSamples, and `props` (XML property elements) added to it."""
+    with open(DIPOLE_XML) as f:
+        xml = _film_size(f.read(), width, height)
+    if irr_samples is not None:
+        xml = xml.replace('name="irrSamples" value="32"', f'name="irrSamples" value="{irr_samples}"')
+    xml, n = re.subn(r'<subsurface type="dipole">', f'<subsurface type="{kind}">{props}', xml)
+    if n != 1:
+        raise ValueError(f"{DIPOLE_XML} holds {n} dipole elements, expected one")
+    return xml
+
+
+def cbox_meta_xml(kind, nested, width=24, height=24, props=""):
+    """scenes/cbox.xml under the meta-integrator `kind` (adaptive,
+    irrcache or multichannel) over the `nested` integrator elements, with
+    `props` added to it."""
+    return with_properties(cbox_xml(kind, width, height), props + nested)
+
+
+# nested integrators of the meta-integrator tests
+NESTED_PATH = '<integrator type="path"><integer name="maxDepth" value="4"/></integrator>'
+NESTED_DIRECT = '<integrator type="direct"/>'
