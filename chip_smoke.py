@@ -202,6 +202,25 @@ Phases, each of which raises (and exits non-zero) on failure:
    (seconds and K1/K2 launches per pass, RMSE against
    bench_refs/cbox_512.npz).
 
+The hairball slice adds, in phase 2, K3/K4 (closest and any) with K7/K8
+on their fallback batches, bit for bit against plain, on
+scenes/hairball.xml as it stands (68,136 triangles of tessellated fibers
+in 800 clusters): its 196,608 camera rays and a pass's first NEE shadow
+rays, each with the share of rays that overflow K = 3 and take the
+fallback (`hairball_segments`); in phase 3 the hairball at 32x24 (as it
+stands and with exact="true") and the BSDF galleries of
+tests/torch_meshes.py `bsdf_gallery_xml` at 24x24 (glossy, thin, layered;
+thin under bdpt), 4 spp, each against its golden at its GOLDEN_GATES
+gate; in phase 4 the hairball as it stands at 512x384 in render's passes
+of 10 spp toward its 64 (HAIRBALL_BUDGET_S bounds them: the line says how
+many ran): seconds, rays/s, overflow shares and K3/K4/K7/K8 launches of
+each pass (the slice's main path: counters set to 0 just before each),
+peak memory, and a profiled pass's busy share, kernels and the device ms
+of K3, K4 and K7/K8 by kernel name; then its exact mode (7,189 cylinder
+segments) at 512x384, one pass of 4 spp: rays/s, the segment scans'
+share of the pass's device-stream time (CUDA events around accel/cyl.py's
+cyl_closest and cyl_any), busy share and kernels.
+
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -235,6 +254,14 @@ PTRACER_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_cbox_ptracer_64_16
 SPOT_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_spot_bdpt_24_16.npy")
 MEDIA_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_media_bdpt_24_16.npy")
 MITCHELL_GOLDEN = os.path.join(HERE, "tests", "golden", "torch_cbox_mitchell_64_16.npy")
+HAIRBALL_XML = os.path.join(HERE, "scenes", "hairball.xml")
+# the tessellated hairball's timed passes stop once this much has passed
+HAIRBALL_BUDGET_S = 60.0
+# samples per pixel of the exact hairball's pass (one pass)
+HAIRBALL_EXACT_SPP = 4
+# the pair pipeline's kernels by the name of their CUDA function
+# (csrc/cluster_hit.cu)
+PAIR_KERNELS = {"K3": "dense_cull_kernel", "K4": "pair_kernel", "K7/K8": "resident_walk_kernel"}
 STANDIN_PLY = os.path.join(HERE, "build", "bunny_standin.ply")
 DENSE_PLY = os.path.join(HERE, "build", "dense_standin.ply")
 SOURCES = {"brute_tiled": "mitsuba_tpu_torch/csrc/brute_tiled.cu",
@@ -1806,6 +1833,203 @@ def dipole_throughput(tsss, make_render_pass, new_film, scene, pack, counted, ca
     return total
 
 
+def hairball_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack, dev, stats):
+    """K3/K4 (closest and any) with K7/K8 on their fallback batches, bit for
+    bit against plain, on scenes/hairball.xml as it stands (512x384): its
+    196,608 camera rays and the NEE shadow rays of a pass's first bounce
+    (one sample per pixel); beside each, the share of its rays whose
+    cluster lists overflow K and take the fallback."""
+    import torch
+
+    o, d = camera_rays(scene, dev)
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    got = capture_calls(tpath, ("occluded",), lambda: make_render_pass(
+        pack, scene.integrator, rec, rec.film, rec.sampler, 1, dev)(new_film(h, w, dev), 0, 0),
+                        lambda g: len(g) == 1)
+    queries = (("hairball camera", o, d, torch.full((o.shape[0],), float("inf"), device=dev)),
+               ("hairball NEE", *as_segment(got[0][1])))
+    for (label, qo, qd, qt), fn in zip(queries, (pairs.pair_closest, pairs.pair_any)):
+        fn.rays = fn.overflow_rays = 0
+        fn(pack, qo, qd, qt)
+        print(f"  {label}: {fn.overflow_rays} of {fn.rays} rays overflow K={pairs.K} and take the "
+              f"fallback ({fn.overflow_rays / fn.rays:.4%})", flush=True)
+    ran = compare_segments(pairs, pb, pack, queries[:1], stats)
+    ran |= compare_segments(pairs, pb, pack, queries[1:], stats, any_hit=True)
+    check(ran == {True, False}, "no hairball query reached K7 and K8")
+
+
+def kernel_ms(prof, names):
+    """Device ms and launches of the kernels of a finished profile whose
+    names hold each of `names`' values, by the kernel's name with its
+    template arguments."""
+    import re
+
+    import torch
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, name in names.items():
+            m = re.search(rf"{name}(<[^>]*>)?", e.name())
+            if m:
+                ms, n = out.get(f"{label} {m.group(0)}", (0.0, 0))
+                out[f"{label} {m.group(0)}"] = (ms + e.duration_ns() / 1e6, n + 1)
+    return out
+
+
+def hairball_throughput(make_render_pass, new_film, pairs, scene, pack, counted, card, dev):
+    """scenes/hairball.xml as it stands (512x384, 64 spp, path at maxDepth
+    6) in render's passes of DEFAULT_LANES_PER_PASS lanes' worth of samples,
+    each timed with the K3/K4/K7/K8 counters set to 0 just before:
+    seconds, rays/s, launches and the overflow share of each; the passes
+    stop once HAIRBALL_BUDGET_S has passed (the line says how many of the
+    64 spp ran); peak device memory; then one more pass under the profiler
+    (CUDA activity): device time, busy share, kernels, and the device ms
+    per pass of K3, K4 and K7/K8 by kernel name.  Returns the timed
+    passes' launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mitsuba_tpu_torch.film.film import develop
+    from mitsuba_tpu_torch.renderer import DEFAULT_LANES_PER_PASS
+
+    rec = scene.sensor.record
+    w, h, spp = rec.film.width, rec.film.height, rec.sampler.sample_count
+    spp_chunk = max(1, min(spp, DEFAULT_LANES_PER_PASS // (w * h)))
+    n_passes = math.ceil(spp / spp_chunk)
+    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp_chunk, dev)
+    film, passes = new_film(h, w, dev), []
+    total = {k: 0 for k in counted}
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.time()
+    for i in range(n_passes):
+        for fn in counted.values():
+            fn.launches = 0
+        for fn in (pairs.pair_closest, pairs.pair_any):
+            fn.rays = fn.overflow_rays = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        film, n_rays = rp(film, i * spp_chunk, 0)
+        n = int(n_rays)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        for k, v in launches.items():
+            total[k] += v
+        ov = {fn.__name__: fn.overflow_rays / max(fn.rays, 1)
+              for fn in (pairs.pair_closest, pairs.pair_any)}
+        passes.append({"seconds": sec, "rays": n, "rays_per_s": n / sec, "launches": launches,
+                       "overflow": ov})
+        print(f"phase 4: hairball pass {i} ({spp_chunk} spp): {sec:.3f} s, {n} rays = "
+              f"{n / sec:.6g} rays/s, overflow shares {ov}, launches {launches} on {card}",
+              flush=True)
+        if time.time() - t_all > HAIRBALL_BUDGET_S and i + 1 < n_passes:
+            print(f"phase 4: hairball: {i + 1} of {n_passes} passes ran within "
+                  f"{HAIRBALL_BUDGET_S:g} s", flush=True)
+            break
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = (develop(film) * rec.ray_weight).cpu().numpy()
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
+          "the hairball image is not finite")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _, n_rays = rp(new_film(h, w, dev), len(passes) * spp_chunk, 0)
+        int(n_rays)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev_ms, n_k = device_events(prof)
+    per_kernel = kernel_ms(prof, PAIR_KERNELS)
+    sec = sum(p["seconds"] for p in passes)
+    rays = sum(p["rays"] for p in passes)
+    out = {"scene": "hairball", "width": w, "height": h, "spp": len(passes) * spp_chunk,
+           "spp_chunk": spp_chunk, "passes": passes, "seconds": sec, "rays": rays,
+           "rays_per_s": rays / sec, "peak_gib": peak, "profiled_wall_s": wall,
+           "device_ms": dev_ms, "kernels_per_pass": n_k, "busy": dev_ms / 1e3 / wall,
+           "pair_kernels_ms_per_pass": {k: v[0] for k, v in per_kernel.items()},
+           "pair_kernel_launches_per_pass": {k: v[1] for k, v in per_kernel.items()},
+           "card": card}
+    print(f"phase 4: hairball {w}x{h}, {len(passes)} passes x {spp_chunk} spp: {rays} rays in "
+          f"{sec:.3f} s = {rays / sec:.6g} rays/s ({sec / len(passes):.3f} s per pass), image mean "
+          f"{img.mean():.6f}, peak device memory {peak:.3f} GiB; profiled pass wall {wall:.4f} s, "
+          f"device {dev_ms:.3f} ms, busy share {out['busy']:.4f}, {n_k} kernels; the pair "
+          f"pipeline's kernels in it (ms, launches): "
+          f"{({k: (round(v[0], 3), v[1]) for k, v in per_kernel.items()})} on {card}", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+    return total
+
+
+def hairball_exact_throughput(make_render_pass, new_film, tcyl, scene, pack, card, dev):
+    """The exact mode (scenes/hairball.xml with exact="true": 7,189
+    cylinder segments, their scan in plain tensor operations) at 512x384,
+    one pass of HAIRBALL_EXACT_SPP samples per pixel: seconds and rays/s,
+    with CUDA events recorded on the stream around each segment scan
+    (accel/cyl.py cyl_closest, cyl_any) and around the pass, whose
+    intervals give the scans' share of the pass's device-stream time;
+    then the same pass under the profiler (CUDA activity): device time,
+    busy share and kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = scene.sensor.record
+    w, h, spp = rec.film.width, rec.film.height, HAIRBALL_EXACT_SPP
+    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp, dev)
+    saved, spans = {name: getattr(tcyl, name) for name in ("cyl_closest", "cyl_any")}, []
+
+    def timed(fn):
+        def run(*a):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            spans.append(ev)
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(tcyl, name, timed(fn))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        film, n_rays = rp(new_film(h, w, dev), 0, 0)
+        end.record()
+        n = int(n_rays)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(tcyl, name, fn)
+    check(bool(torch.isfinite(film).all()), "the exact hairball's film is not finite")
+    stream_ms = start.elapsed_time(end)
+    scan_ms = sum(a.elapsed_time(b) for a, b in spans)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        _, n_rays = rp(new_film(h, w, dev), spp, 0)
+        int(n_rays)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    dev_ms, n_k = device_events(prof)
+    out = {"scene": "hairball-exact", "width": w, "height": h, "spp": spp, "seconds": sec,
+           "rays": n, "rays_per_s": n / sec, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "stream_ms": stream_ms, "scan_ms": scan_ms, "scan_calls": len(spans),
+           "scan_share": scan_ms / stream_ms, "profiled_wall_s": wall, "device_ms": dev_ms,
+           "kernels": n_k, "busy": dev_ms / 1e3 / wall, "card": card}
+    check(len(spans) > 0 and scan_ms > 0, "the exact pass ran no segment scan")
+    print(f"phase 4: hairball exact {w}x{h}, 1 pass x {spp} spp: {n} rays in {sec:.3f} s = "
+          f"{n / sec:.6g} rays/s, peak device memory {out['peak_gib']:.3f} GiB; the segment scans "
+          f"({len(spans)} calls) {scan_ms:.3f} of the pass's {stream_ms:.3f} stream ms = "
+          f"{out['scan_share']:.4f} (CUDA events); profiled pass wall {wall:.4f} s, device "
+          f"{dev_ms:.3f} ms, busy share {out['busy']:.4f}, {n_k} kernels on {card}", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+
+
 def meta_throughput(mt, scene, pack, counted, card, dev, label, stats_of, spp):
     """One render of a meta-integrator on the card (irrcache or adaptive,
     at the scene's film size, spp samples per pixel): seconds, its stats
@@ -1859,7 +2083,9 @@ def main():
     from mitsuba_tpu_torch.integrator import bdpt as tb
     from mitsuba_tpu_torch.integrator import irrcache as tic
     from mitsuba_tpu_torch.integrator import mlt as tml
+    from mitsuba_tpu_torch.accel import cyl as tcyl
     from mitsuba_tpu_torch.integrator import mut_manifold as tmm
+    from mitsuba_tpu_torch.integrator import path as tpath
     from mitsuba_tpu_torch.integrator import photonmapper as tpm
     from mitsuba_tpu_torch.integrator import pssmlt as tps
     from mitsuba_tpu_torch.integrator import ptracer as tpt
@@ -1872,6 +2098,7 @@ def main():
         DOOR_XML,
         NESTED_PATH,
         bdpt_media_xml,
+        bsdf_gallery_xml,
         bunny_scene_xml,
         bunny_standin,
         cbox_chain_xml,
@@ -1884,6 +2111,7 @@ def main():
         door_xml,
         glass_manifold_xml,
         glass_xml,
+        hairball_xml,
         homog_slab_xml,
         matpreview_const_xml,
         smoke_xml,
@@ -2068,6 +2296,25 @@ def main():
     ss_pack = pack_scene(ss, dev)
     dipole_segments(pairs, pb, tsss, make_render_pass, new_film, dipole, dipole_pack, ss, ss_pack,
                     dev, stats)
+
+    # the hairball slice: scenes/hairball.xml as it stands (68,136
+    # triangles in 800 clusters), its camera rays and NEE (K3/K4, K7/K8)
+    print(f"  hairball {elapsed()}", flush=True)
+    hairball = mt.load_scene(HAIRBALL_XML)  # 512x384, 64 spp, path at maxDepth 6
+    t0 = time.time()
+    hair_pack = pack_scene(hairball, dev)
+    hm = hair_pack.meta
+    print(f"  hairball: {hm['n_tris']} triangles in {hm['n_clusters']} clusters, "
+          f"{hm['n_spheres']} analytic sphere(s), packed in {time.time() - t0:.2f} s", flush=True)
+    check(hm["use_bvh"] and hm["n_tris"] == 68136 and hm["n_clusters"] == 800
+          and hm["present_types"] == (0, 9),
+          "scenes/hairball.xml does not pack into 68,136 triangles in 800 clusters, "
+          "diffuse and phong")
+    hairball_segments(pairs, pb, tpath, make_render_pass, new_film, hairball, hair_pack, dev,
+                      stats)
+    hair_exact = mt.load_scene_string(hairball_xml(exact=True))
+    exact_pack = pack_scene(hair_exact, dev)
+    check(exact_pack.meta["n_cyls"] == 7189, "the exact hairball does not pack 7,189 segments")
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -2283,6 +2530,36 @@ def main():
             check(got[k] > 0, f"the {label} render never launched {k}")
         for k, n in got.items():
             launches[k] += n
+    # the hairball slice (as it stands: K3/K4, most rays through K7/K8;
+    # exact: the emissive sphere's triangles through K3/K4, the segments
+    # in plain tensor operations) and the BSDF galleries (K1/K2), each
+    # against its golden at its GOLDEN_GATES gate
+    print(f"  hairball, BSDF galleries {elapsed()}", flush=True)
+    for label, xml, golden, names, pk_ in (
+            ("hairball", hairball_xml(32, 24), "torch_hairball_32_4.npy", glass_names, hair_pack),
+            ("hairball exact", hairball_xml(32, 24, exact=True), "torch_hairball_exact_32_4.npy",
+             glass_names[:3], exact_pack),
+            ("gallery glossy", bsdf_gallery_xml("glossy", 24, 24), "torch_bsdf_glossy_24_4.npy",
+             tuple(brute), None),
+            ("gallery thin", bsdf_gallery_xml("thin", 24, 24), "torch_bsdf_thin_24_4.npy",
+             tuple(brute), None),
+            ("gallery layered", bsdf_gallery_xml("layered", 24, 24),
+             "torch_bsdf_layered_24_4.npy", tuple(brute), None),
+            ("gallery thin bdpt", bsdf_gallery_xml("thin", 24, 24, "bdpt", 4),
+             "torch_bsdf_thin_bdpt_24_4.npy", tuple(brute), None)):
+        for fn in (pairs.pair_closest, pairs.pair_any):
+            fn.rays = fn.overflow_rays = 0
+        got = render_checked(mt, {k: counted[k] for k in names}, mt.load_scene_string(xml),
+                             os.path.join(HERE, "tests", "golden", golden), dev, label, pack=pk_,
+                             spp=4)
+        if label.startswith("hairball"):
+            print(f"  {label}: {pairs.pair_closest.overflow_rays} of {pairs.pair_closest.rays} "
+                  f"closest-hit and {pairs.pair_any.overflow_rays} of {pairs.pair_any.rays} shadow "
+                  f"rays overflowed (K={pairs.K})", flush=True)
+        for k in names if label == "hairball" else names[:2]:
+            check(got[k] > 0, f"the {label} render never launched {k}")
+        for k, n in got.items():
+            launches[k] += n
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -2382,6 +2659,17 @@ def main():
         meta_throughput(mt, mt.load_scene_string(cbox_meta_xml(kind, NESTED_PATH, 256, 256)),
                         pack, brute, card, dev, f"cbox-{kind}", lambda fn=fn: dict(fn.last_stats),
                         16)
+
+    # the hairball slice: scenes/hairball.xml as it stands (its launches
+    # are the slice's main path: counters set to 0 just before each pass),
+    # and its exact mode at the same size
+    print(f"phase 4: hairball {elapsed()}", flush=True)
+    hair_launches = hairball_throughput(make_render_pass, new_film, pairs, hairball, hair_pack,
+                                        glass_counted, card, dev)
+    for k in glass_names:
+        check(hair_launches[k] > 0, f"hairball.xml never launched {k}")
+        launches[k] += hair_launches[k]
+    hairball_exact_throughput(make_render_pass, new_film, tcyl, hair_exact, exact_pack, card, dev)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

@@ -5,8 +5,9 @@ Scenes of at most 512 triangles go through the K1/K2 wrappers of
 accel/pallas_kernels.py, BVH scenes through the pair pipeline of
 accel/pairs.py (K3/K4, with the K7/K8 fallback): the CUDA kernels for
 tensors on a GPU, their plain versions for tensors on the CPU.  Analytic
-spheres are tested after the triangles with plain tensor operations, as
-the reference tests them with XLA operations.
+spheres, then analytic cylinder segments (accel/cyl.py), are tested after
+the triangles with plain tensor operations, as the reference tests them
+with XLA operations.
 `fill_interaction` also reads the media on either side of a hit.
 `_bvh_traverse` / `_bvh_traverse_any` are the reference's stackless BVH
 walks (the path its intersect takes off the TPU), kept as the references
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from mitsuba_tpu_torch.accel import pairs
+from mitsuba_tpu_torch.accel import cyl, pairs
 from mitsuba_tpu_torch.accel import pallas_kernels as pk
 from mitsuba_tpu_torch.accel.bvh import LEAF_SIZE
 from mitsuba_tpu_torch.core import math as mm
@@ -32,10 +33,13 @@ RAY_EPS = pk.RAY_EPS
 class Hit(NamedTuple):
     valid: torch.Tensor  # [R] bool
     t: torch.Tensor  # [R]
-    prim: torch.Tensor  # [R] int32 triangle or sphere id, -1 on a miss
+    prim: torch.Tensor  # [R] int32 triangle, sphere or segment id, -1 on a miss
     is_sphere: torch.Tensor | None  # [R] bool, prim is a sphere id; None without spheres
     u: torch.Tensor  # [R] barycentric
     v: torch.Tensor  # [R]
+    # [R] bool, prim is a cylinder segment id; None without segments (and
+    # where an integrator builds a Hit of triangles and spheres)
+    is_cyl: torch.Tensor | None = None
 
 
 class SurfaceInteraction(NamedTuple):
@@ -225,7 +229,8 @@ def _intersect_spheres(pack, o, d, best_t):
 
 def intersect(pack, o, d, t_max=math.inf) -> Hit:
     """Closest-hit query (= Scene::rayIntersect, reference scene.h:187):
-    the triangles (K1, or the pair pipeline), then the spheres."""
+    the triangles (K1, or the pair pipeline), then the spheres, then the
+    cylinder segments (reference intersect.py:784-798)."""
     r = o.shape[0]
     if pack.meta.get("n_tris", 1) == 0:
         best_t = _t_max_rays(t_max, o)
@@ -241,12 +246,22 @@ def intersect(pack, o, d, t_max=math.inf) -> Hit:
         is_sphere = sh & (st < best_t)
         best_t = torch.where(is_sphere, st, best_t)
         prim = torch.where(is_sphere, sid, prim)
-    return Hit(valid=prim >= 0, t=best_t, prim=prim, is_sphere=is_sphere, u=u, v=v)
+    is_cyl = None
+    if pack.meta.get("n_cyls", 0) > 0:
+        ch, ct, cid = cyl.cyl_closest(pack, o, d, best_t)
+        is_cyl = ch & (ct < best_t)
+        best_t = torch.where(is_cyl, ct, best_t)
+        prim = torch.where(is_cyl, cid, prim)
+        if is_sphere is not None:  # a segment in front clears the sphere
+            is_sphere = is_sphere & ~is_cyl
+    return Hit(valid=prim >= 0, t=best_t, prim=prim, is_sphere=is_sphere, u=u, v=v,
+               is_cyl=is_cyl)
 
 
 def occluded(pack, o, d, t_max) -> torch.Tensor:
     """Boolean shadow query; t_max is already shortened by the caller.
-    The triangles (K2, or the pair pipeline), ORed with the spheres."""
+    The triangles (K2, or the pair pipeline), ORed with the spheres and
+    the cylinder segments."""
     if pack.meta.get("n_tris", 1) == 0:
         occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     elif pack.meta.get("use_bvh", False):
@@ -256,6 +271,8 @@ def occluded(pack, o, d, t_max) -> torch.Tensor:
     if pack.meta.get("n_spheres", 0) > 0:
         sh, _, _ = _intersect_spheres(pack, o, d, _t_max_rays(t_max, o))
         occ = occ | sh
+    if pack.meta.get("n_cyls", 0) > 0:
+        occ = occ | cyl.cyl_any(pack, o, d, t_max)
     return occ
 
 
@@ -274,14 +291,18 @@ def empty_segments(pack, live, o, d, t):
 
 def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
     """Per-hit surface data (= fillIntersectionRecord, reference
-    records.inl): the triangle branch, and the sphere branch where the
-    hit is a sphere (reference intersect.py:911-928)."""
+    records.inl): the triangle branch, the sphere branch where the hit is
+    a sphere (reference intersect.py:911-928) and the segment branch where
+    it is a cylinder segment (:931-949, :978-980)."""
     has_spheres = pack.meta.get("n_spheres", 0) > 0
+    has_cyls = pack.meta.get("n_cyls", 0) > 0 and hit.is_cyl is not None
     prim = torch.clamp(hit.prim, min=0)
-    # a lane gathers only from its own kind's tables: a sphere id may lie
-    # past the triangle tables and a triangle id past the sphere tables
+    # a lane gathers only from its own kind's tables: a sphere or segment
+    # id may lie past the triangle tables, a triangle id past the others
     # (the reference's one-hot gathers return a row of zeros there)
     tri_id = torch.where(hit.is_sphere, 0, prim) if has_spheres else prim
+    if has_cyls:
+        tri_id = torch.where(hit.is_cyl, 0, tri_id)
     e1, e2, n0, n1, n2, tuv0, tuv1, tuv2, mat, emit = take_fused(
         tri_id, pack.tri_e1, pack.tri_e2, pack.tri_n0, pack.tri_n1,
         pack.tri_n2, pack.tri_uv0, pack.tri_uv1, pack.tri_uv2,
@@ -310,6 +331,23 @@ def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
         uv = torch.where(sphere[:, None], uv_sph, uv)
         mat = torch.where(sphere, mat_s, mat)
         emit = torch.where(sphere, emit_s, emit)
+    if has_cyls:
+        # the radial normal: p - p0 without its part along the axis
+        # (reference hair.cpp fillIntersectionRecord:838-846); uv stays 0
+        # and the segment emits nothing
+        cp0, cp1, cmat, cflip = take_fused(
+            torch.where(hit.is_cyl, prim, 0), pack.cyl_p0, pack.cyl_p1, pack.cyl_mat,
+            pack.cyl_flip,
+        )
+        cax = mm.normalize(cp1 - cp0)
+        rel = p - cp0
+        n_cyl = mm.normalize(rel - mm.dot(rel, cax, keepdim=True) * cax) * cflip[:, None]
+        seg = hit.is_cyl
+        ng = torch.where(seg[:, None], n_cyl, ng)
+        ns = torch.where(seg[:, None], n_cyl, ns)
+        uv = torch.where(seg[:, None], 0.0, uv)
+        mat = torch.where(seg, cmat, mat)
+        emit = torch.where(seg, -1, emit)
     # orient the geometric normal to the shading normal's hemisphere
     ng = torch.where((mm.dot(ng, ns) < 0.0)[:, None], -ng, ng)
     if pack.meta.get("has_media", False):
@@ -322,6 +360,9 @@ def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
             )
             med_in = torch.where(hit.is_sphere, med_in_s, med_in)
             med_ex = torch.where(hit.is_sphere, med_ex_s, med_ex)
+        if has_cyls:  # segments carry no media
+            med_in = torch.where(hit.is_cyl, -1, med_in)
+            med_ex = torch.where(hit.is_cyl, -1, med_ex)
         med_in = torch.where(hit.valid, med_in, -1)
         med_ex = torch.where(hit.valid, med_ex, -1)
     else:

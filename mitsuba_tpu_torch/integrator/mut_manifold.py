@@ -30,7 +30,7 @@ import torch
 
 from mitsuba_tpu_torch.accel.intersect import fill_interaction, intersect
 from mitsuba_tpu_torch.bsdf.eval import bsdf_sample
-from mitsuba_tpu_torch.bsdf.plugins import CONDUCTOR, DIELECTRIC, DIFFUSE
+from mitsuba_tpu_torch.bsdf.plugins import CONDUCTOR, DIELECTRIC, DIFFUSE, ROUGHDIFFUSE
 from mitsuba_tpu_torch.core import math as mm
 from mitsuba_tpu_torch.core import rng, warp
 from mitsuba_tpu_torch.core.gather import take_rows
@@ -39,10 +39,6 @@ from mitsuba_tpu_torch.integrator.path import _offset_ray
 from mitsuba_tpu_torch.integrator.pssmlt import _HEAD, _PER_DEPTH
 from mitsuba_tpu_torch.scene.texture_eval import mip_footprint, shading_frame, shading_params
 from mitsuba_tpu_torch.sensor.plugins import generate_rays
-
-# the reference's id of roughdiffuse (mitsuba_tpu/bsdf/plugins.py:28),
-# compared with as the reference compares; the port does not render it
-ROUGHDIFFUSE = 1
 
 # the longest delta chain the mutation solves (caustic configurations are
 # 1-4 bounces)
@@ -78,7 +74,7 @@ def trace_path_info(pack, integ, cam, w, h, U, dmax):
         rec["valid"].append(found)
         rec["delta"].append(bs.delta & found)
         rec["refract"].append((bs.wo[..., 2] * wi_l[..., 2]) < 0)
-        rec["type"].append(sp["type"])
+        rec["type"].append(_chain_type(sp))
         rec["p"].append(its.p)
         rec["ns"].append(frame.n)
         rec["ng"].append(its.ng)
@@ -100,6 +96,15 @@ def trace_path_info(pack, integ, cam, w, h, U, dmax):
         o = torch.where(active[..., None], o_new, o)
         d = torch.where(active[..., None], d_world, d)
     return {k: torch.stack(v, dim=1) for k, v in rec.items()}
+
+
+def _chain_type(sp):
+    """The lane's material type, -1 on mixture lanes, which sample a
+    component by chance: the deterministic solve and inversion do not
+    apply there (reference mut_manifold.py:107-110)."""
+    if "mix" in sp:
+        return torch.where(sp["mix"]["wb"] > 0, -1, sp["type"])
+    return sp["type"]
 
 
 def _at(x, idx):
@@ -230,7 +235,8 @@ def propose_manifold(pack, integ, cam, w, h, U, k, seed_mlt, lanes, kmax=KMAX):
     o_new, d_new = generate_rays(cam, U_lens[:, 0:2], U_lens[:, 2:4])
     its0 = fill_interaction(pack, o_new, d_new, intersect(pack, o_new, d_new))
     frame0 = shading_frame(pack, its0)
-    typ0 = shading_params(pack, its0.mat, its0.uv, mip_footprint(pack, its0), its=its0)["type"]
+    typ0 = _chain_type(shading_params(pack, its0.mat, its0.uv, mip_footprint(pack, its0),
+                                      its=its0))
     ok_a = its0.valid & ((typ0 == DIFFUSE) | (typ0 == ROUGHDIFFUSE))
 
     # solve the chain from a' to the old endpoint b

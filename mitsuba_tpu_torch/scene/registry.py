@@ -67,6 +67,7 @@ def _ensure_loaded():
     import mitsuba_tpu_torch.integrator.plugins  # noqa: F401
     import mitsuba_tpu_torch.medium.plugins  # noqa: F401
     import mitsuba_tpu_torch.sampler.plugins  # noqa: F401
+    import mitsuba_tpu_torch.scene.hair  # noqa: F401
     import mitsuba_tpu_torch.scene.shapes  # noqa: F401
     import mitsuba_tpu_torch.scene.subsurface  # noqa: F401
     import mitsuba_tpu_torch.scene.textures  # noqa: F401

@@ -7,6 +7,10 @@
 * `sphere`: `center` + `radius` and/or toWorld (reference
   src/shapes/sphere.cpp:73-110), kept analytic; a non-uniform scale
   tessellates it
+* `cylinder`: p0 / p1 / radius, an analytic open cylinder (reference
+  src/shapes/cylinder.cpp) unless `exact` is false or the transform
+  scales unevenly, where it tessellates
+* `hair`: fibers from a .hair file (scene/hair.py)
 
 Other shape plugins are not registered and raise NotImplementedError.
 """
@@ -30,12 +34,28 @@ class SphereData:
 
 
 @dataclass
+class CylData:
+    """A batch of analytic cylinder segments in world space, clipped by
+    miter planes (reference src/shapes/hair.cpp intersect:485-542,
+    src/shapes/cylinder.cpp): a point q of the side wall is kept where
+    (q - p0) . n0 >= 0 and (q - p1) . n1 <= 0."""
+
+    p0: np.ndarray  # [S, 3] segment starts
+    p1: np.ndarray  # [S, 3] segment ends
+    n0: np.ndarray  # [S, 3] the miter plane's normal at p0 (along the fiber)
+    n1: np.ndarray  # [S, 3] the miter plane's normal at p1
+    radius: np.ndarray  # [S]
+    flip_normals: bool = False
+
+
+@dataclass
 class ShapeInstance:
     """A shape plugin's output: world-space meshes, analytic spheres and
-    attachments."""
+    cylinder segments, and attachments."""
 
     meshes: list = field(default_factory=list)  # list[MeshData]
     spheres: list = field(default_factory=list)  # list[SphereData]
+    cylinders: list = field(default_factory=list)  # list[CylData]
     bsdf = None  # set by the XML loader
     emitter = None
     interior_medium = None  # MediumRecord or None (vacuum)
@@ -159,6 +179,71 @@ class SphereShape:
             )
         else:
             self.instance.meshes.append(_apply_transform(_uv_sphere(64, 32), full, flip))
+
+
+def uniform_scale_of(t: Transform):
+    """The uniform scale of t's linear part, or None where it scales
+    unevenly (analytic cylinders survive similarity transforms only)."""
+    lin = np.asarray(t.m, np.float64)[:3, :3]
+    s = np.linalg.norm(lin, axis=0)
+    if np.max(s) - np.min(s) > 1e-5 * max(np.max(s), 1e-12):
+        return None
+    return float(s.mean())
+
+
+@register("shape", "cylinder")
+class CylinderShape:
+    SEGMENTS = 64
+
+    def __init__(self, props):
+        self.props = props
+        self.instance = ShapeInstance(id=props.id)
+        p0 = props.get_point("p0", np.array([0.0, 0.0, 0.0]))
+        p1 = props.get_point("p1", np.array([0.0, 0.0, 1.0]))
+        radius = props.get_float("radius", 1.0)
+        t = props.get_transform("toWorld")
+        flip = props.get_bool("flipNormals", False)
+        scale = uniform_scale_of(t)
+        if props.get_bool("exact", True) and scale is not None:
+            # the analytic open cylinder (cylinder.cpp rayIntersect: the
+            # infinite cylinder's quadratic and an axial clip, no caps);
+            # the clip planes are the discs perpendicular to the axis
+            q0 = t.transform_point_np(p0[None])[0]
+            q1 = t.transform_point_np(p1[None])[0]
+            ax = q1 - q0
+            ln = float(np.linalg.norm(ax))
+            if ln > 1e-9:
+                ax = ax / ln
+                self.instance.cylinders.append(CylData(
+                    p0=q0[None].astype(np.float32), p1=q1[None].astype(np.float32),
+                    n0=ax[None].astype(np.float32), n1=ax[None].astype(np.float32),
+                    radius=np.asarray([radius * scale], np.float32), flip_normals=flip,
+                ))
+                return
+        axis = p1 - p0
+        z = axis / np.linalg.norm(axis)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        if np.linalg.norm(x) < 1e-6:
+            x = np.cross([1.0, 0.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        n = self.SEGMENTS
+        ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+        ring = np.cos(ang)[:, None] * x[None, :] + np.sin(ang)[:, None] * y[None, :]
+        pos = np.concatenate(
+            [p0[None] + radius * ring, p0[None] + axis[None] + radius * ring]
+        ).astype(np.float32)
+        nrm = np.concatenate([ring, ring]).astype(np.float32)
+        uv = np.concatenate([
+            np.stack([ang / (2 * np.pi), np.zeros(n)], -1),
+            np.stack([ang / (2 * np.pi), np.ones(n)], -1),
+        ]).astype(np.float32)
+        idx = []
+        for i in range(n):
+            j = (i + 1) % n
+            idx += [[i, n + i, n + j], [i, n + j, j]]
+        mesh = MeshData(pos, np.asarray(idx, np.uint32), nrm, uv)
+        self.instance.meshes.append(_apply_transform(mesh, t, flip))
 
 
 def _uv_sphere(n_phi, n_theta) -> MeshData:

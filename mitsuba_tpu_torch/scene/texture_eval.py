@@ -1,7 +1,7 @@
 """Per-lane shading parameters, textures and frames (port of
 mitsuba_tpu/scene/texture_eval.py for scenes without mip maps: constant
-and checkerboard textures; bitmaps, mip maps and bump maps are not
-ported yet)."""
+and checkerboard textures, and the row chains of mixtures and coatings;
+bitmaps, mip maps and bump maps are not ported yet)."""
 
 from __future__ import annotations
 
@@ -9,13 +9,21 @@ import numpy as np
 import torch
 
 from mitsuba_tpu_torch.bsdf.plugins import (
+    COATING,
     CONDUCTOR,
     DIELECTRIC,
+    DIFFTRANS,
     DIFFUSE,
+    HK,
+    PHONG_BSDF,
     PLASTIC,
+    ROUGHCOATING,
     ROUGHCONDUCTOR,
     ROUGHDIELECTRIC,
+    ROUGHDIFFUSE,
     ROUGHPLASTIC,
+    THINDIELECTRIC,
+    WARD,
 )
 from mitsuba_tpu_torch.core import math as mm
 from mitsuba_tpu_torch.core.gather import take_fused
@@ -46,7 +54,14 @@ MAT_COLUMNS = (
     ("texA", "mat_texA", 1, True),
     ("rt", "mat_rt", 4, False),
     ("rt_fdr", "mat_rt_fdr", 1, False),
+    # the link of a mixture chain or a coating to its next row (-1: none)
+    # and the two weights (scenes with mixtures only; shading_params
+    # follows the links into sp["mix"])
+    ("mix_b", "mat_mix_b", 1, True),
+    ("mix_wa", "mat_mix_wa", 1, False),
+    ("mix_wb", "mat_mix_wb", 1, False),
 )
+_MIX_KEYS = ("mix_b", "mix_wa", "mix_wb")
 
 _MICROFACET = ("dist", "alpha_u", "alpha_v")
 # the parameters each ported type reads in bsdf/eval.py, beside "type"
@@ -59,6 +74,14 @@ TYPE_KEYS = {
     ROUGHDIELECTRIC: ("eta", "cB", "cC") + _MICROFACET,
     PLASTIC: ("eta", "spec_w", "cA", "cB", "fdr_int", "nonlinear"),
     ROUGHPLASTIC: ("eta", "spec_w", "cA", "cB", "rt", "rt_fdr", "nonlinear") + _MICROFACET,
+    ROUGHDIFFUSE: ("cA", "alpha_u"),
+    THINDIELECTRIC: ("eta", "cB", "cC"),
+    PHONG_BSDF: ("spec_w", "cA", "cB", "exponent"),
+    WARD: ("spec_w", "cA", "cB", "alpha_u", "alpha_v"),
+    DIFFTRANS: ("cA",),
+    HK: ("cB", "cC", "alpha_u", "alpha_v"),
+    COATING: ("eta", "spec_w", "cB", "cD"),
+    ROUGHCOATING: ("eta", "spec_w", "cB", "cD", "rt") + _MICROFACET,
 }
 
 
@@ -71,6 +94,8 @@ def material_columns(meta):
         keys.update(TYPE_KEYS.get(t, ()))
     if meta.get("has_textures", False):
         keys.update(("texA", "cA"))
+    if meta.get("has_mixtures", False):
+        keys.update(_MIX_KEYS)
     return tuple(c for c in MAT_COLUMNS if c[0] in keys)
 
 
@@ -137,12 +162,34 @@ def _gather_params(pack, m, uv):
     return sp
 
 
+def _attach(pack, m, sp, uv, depth):
+    """sp["mix"] of rows m, whose parameters sp holds with their links:
+    the next row's parameters (spB; the row itself where it links to
+    none) and the weights, (1, 0) where there is no link.  `depth` more
+    hops follow (the pack's static mix_depth: N-ary chains)."""
+    mix_b, wa, wb = (sp.pop(k) for k in _MIX_KEYS)
+    has = mix_b >= 0
+    mb = torch.where(has, mix_b, m)
+    spB = _gather_params(pack, mb, uv)
+    if depth > 1:
+        spB["mix"] = _attach(pack, mb, spB, uv, depth - 1)
+    else:
+        for k in _MIX_KEYS:
+            del spB[k]
+    return {"spB": spB, "wa": torch.where(has, wa, 1.0), "wb": torch.where(has, wb, 0.0)}
+
+
 def shading_params(pack, mat_id, uv, fp=None, its=None):
     """Gather and texture-resolve the per-lane material parameters that
-    bsdf/eval.py reads."""
+    bsdf/eval.py reads; in scenes with mixtures or coatings, with the
+    chain of the rows they link to in sp["mix"]."""
     if fp is not None:
         raise NotImplementedError("mip-mapped textures not yet ported")
-    return _gather_params(pack, torch.clamp(mat_id, min=0), uv)
+    m = torch.clamp(mat_id, min=0)
+    sp = _gather_params(pack, m, uv)
+    if pack.meta.get("has_mixtures", False):
+        sp["mix"] = _attach(pack, m, sp, uv, pack.meta.get("mix_depth", 1))
+    return sp
 
 
 def shading_frame(pack, its):

@@ -2,7 +2,8 @@
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
     python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door|
-                             glass-sppm|smoke-pm|cbox-vpl|dipole] [--hits-only] [--mutations N]
+                             glass-sppm|smoke-pm|cbox-vpl|dipole|hairball|hairball-exact]
+                            [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
 triangles, default) or the 69,168-triangle stand-in (tests/torch_meshes.py),
@@ -27,7 +28,10 @@ photons), smoke-pm (scenes/smoke.xml under the volumetric photon mapper,
 scenes/dipole.xml as it stands (512x384, path at maxDepth 8, 10 samples
 per pass as `render` chunks its 64), after the irradiance pass (timed),
 with the subsurface arm and the dense dipole sum among the stages
-(SSS_STAGES):
+(SSS_STAGES); or for scenes/hairball.xml as it stands (512x384, path at
+maxDepth 6, 10 samples per pass as `render` chunks its 64; STAGES), or
+its exact mode (exact="true", 2 samples per pass), with the segment
+scans (accel/cyl.py cyl_closest, cyl_any) among the stages (CYL_STAGES):
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -127,11 +131,15 @@ SSS_STAGES = STAGES + (
     ("mitsuba_tpu_torch.integrator.path", ("subsurface_radiance",)),
     ("mitsuba_tpu_torch.integrator.sss", ("sss_lo", "single_scatter_lo")),
 )
+# the bounce loop's stages with the segment scans (the exact hairball),
+# which nest inside intersect and occluded
+CYL_STAGES = STAGES + (("mitsuba_tpu_torch.accel.cyl", ("cyl_closest", "cyl_any")),)
 # film size and samples per pass of each scene (door: one step, one
 # mutation per pixel; the photon mappers: one iteration; dipole: its
 # film's width, and render's chunk of its 64 spp)
 RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1), "glass-sppm": (256, 1),
-           "smoke-pm": (256, 1), "cbox-vpl": (512, 1), "dipole": (512, 10)}
+           "smoke-pm": (256, 1), "cbox-vpl": (512, 1), "dipole": (512, 10),
+           "hairball": (512, 10), "hairball-exact": (512, 2)}
 PHOTON_MODES = ("glass-sppm", "smoke-pm", "cbox-vpl")
 
 
@@ -267,7 +275,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
-                             "smoke", "glass", "door", "dipole") + PHOTON_MODES)
+                             "smoke", "glass", "door", "dipole", "hairball",
+                             "hairball-exact") + PHOTON_MODES)
     ap.add_argument("--hits-only", action="store_true")
     ap.add_argument("--mutations", type=int, default=32,
                     help="door: the mutations per pixel the steps go on to")
@@ -295,6 +304,7 @@ def main():
         cbox_xml,
         dense_standin,
         glass_xml,
+        hairball_xml,
         matpreview_const_xml,
         smoke_xml,
         with_integrator,
@@ -325,6 +335,8 @@ def main():
         scene = mt.load_scene_string(cbox_xml("vpl", res, res))
     elif args.scene == "dipole":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "dipole.xml"))
+    elif args.scene.startswith("hairball"):
+        scene = mt.load_scene_string(hairball_xml(exact=args.scene == "hairball-exact"))
     elif args.scene == "cbox":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "cbox.xml"))
         scene.sensor.record.film.width = scene.sensor.record.film.height = RES
@@ -359,7 +371,7 @@ def main():
         rp = profile_passes(scene, pack, dev, make_render_pass, new_film, pairs,
                             counters(pk, pairs, pb), res, spp,
                             {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES, "door": BDPT_STAGES,
-                             "dipole": SSS_STAGES,
+                             "dipole": SSS_STAGES, "hairball-exact": CYL_STAGES,
                              **dict.fromkeys(PHOTON_MODES, PHOTON_STAGES)}.get(args.scene, STAGES),
                             args.mutations)
         if args.scene == "door":

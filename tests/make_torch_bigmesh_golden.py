@@ -59,11 +59,27 @@ the matpreview variant.
   scenes/cbox.xml, torch_cbox_ao_24_4.npy (ao), torch_cbox_field_uv_24_4.npy
   (the uv field), torch_cbox_adaptive_24_4.npy and
   torch_cbox_irrcache_24_4.npy (adaptive and irrcache over `path` at
-  maxDepth 4).
+  maxDepth 4);
+* the hairball slice and the rest of the BSDFs, seed 0, 4 spp:
+  torch_hairball_32_4.npy, scenes/hairball.xml as it stands (68,136
+  triangles in 800 clusters: the tessellated fibers and the emissive
+  sphere) at 32x24, through the pair pipeline, which the port's K3/K4/K7/K8
+  follow (RMSE against the port 8.3e-3, against the XLA walk's render
+  9.5e-3); torch_hairball_exact_32_4.npy, the same with exact="true"
+  (7,189 cylinder segments; its 1,024 triangles render alike through
+  either traversal, so through the faster XLA walk); at 24x24, the
+  matpreview variant with its spheres' BSDFs replaced
+  (tests/torch_meshes.py `bsdf_gallery_xml`): torch_bsdf_glossy_24_4.npy
+  (roughdiffuse, phong, a two-sided ward), torch_bsdf_thin_24_4.npy
+  (thindielectric, difftrans, hk with a nested hg phase),
+  torch_bsdf_layered_24_4.npy (a mask over a coating over phong, a
+  rough coating over diffuse, a three-leaf mixture holding a blend), and
+  torch_bsdf_thin_bdpt_24_4.npy (the thin gallery under bdpt at maxDepth
+  4).
 
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
-With no argument all twenty-six are written.  Each line the script prints
+With no argument all thirty-two are written.  Each line the script prints
 gives the golden's render time, XLA's compile included; the last four
 took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
 (the 16-edge program's compile; 16 edges fit, so no smaller cap was
@@ -97,6 +113,7 @@ import numpy as np
 from tests.torch_meshes import (
     ROOT,
     bdpt_media_xml,
+    bsdf_gallery_xml,
     bunny_scene_xml,
     bunny_standin,
     cbox_chain_xml,
@@ -110,6 +127,7 @@ from tests.torch_meshes import (
     door_xml,
     glass_manifold_xml,
     glass_xml,
+    hairball_xml,
     homog_slab_xml,
     matpreview_const_xml,
     smoke_xml,
@@ -214,6 +232,18 @@ GOLDENS = {
                       lambda: cbox_meta_xml("adaptive", NESTED_PATH), False, 4),
     "cbox_irrcache": (os.path.join(ROOT, "tests", "golden", "torch_cbox_irrcache_24_4.npy"),
                       lambda: cbox_meta_xml("irrcache", NESTED_PATH), False, 4),
+    "hairball": (os.path.join(ROOT, "tests", "golden", "torch_hairball_32_4.npy"),
+                 lambda: hairball_xml(32, 24), True, 4),
+    "hairball_exact": (os.path.join(ROOT, "tests", "golden", "torch_hairball_exact_32_4.npy"),
+                       lambda: hairball_xml(32, 24, exact=True), False, 4),
+    "bsdf_glossy": (os.path.join(ROOT, "tests", "golden", "torch_bsdf_glossy_24_4.npy"),
+                    lambda: bsdf_gallery_xml("glossy", 24, 24), False, 4),
+    "bsdf_thin": (os.path.join(ROOT, "tests", "golden", "torch_bsdf_thin_24_4.npy"),
+                  lambda: bsdf_gallery_xml("thin", 24, 24), False, 4),
+    "bsdf_layered": (os.path.join(ROOT, "tests", "golden", "torch_bsdf_layered_24_4.npy"),
+                     lambda: bsdf_gallery_xml("layered", 24, 24), False, 4),
+    "bsdf_thin_bdpt": (os.path.join(ROOT, "tests", "golden", "torch_bsdf_thin_bdpt_24_4.npy"),
+                       lambda: bsdf_gallery_xml("thin", 24, 24, "bdpt", 4), False, 4),
 }
 
 

@@ -1636,3 +1636,75 @@ def test_irrcache_trace_on_card_matches_cpu(dev):
     cpu, card = outs
     assert np.isclose(card, cpu, rtol=1e-4, atol=1e-6).all(-1).mean() > 0.9
     assert np.isclose(card, cpu, rtol=3e-2, atol=1e-6).all(-1).mean() > 0.99
+
+
+def test_hairball_queries_equal_plain(dev):
+    """K3/K4 (closest and any) and K7/K8 bit-equal to plain on
+    scenes/hairball.xml's camera rays and a pass's first NEE, at 128x96
+    (chip_smoke.hairball_segments): most camera rays take the fallback."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import hairball_segments
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.integrator import path as tpath
+    from mitsuba_tpu_torch.renderer import make_render_pass
+    from torch_meshes import hairball_xml
+
+    scene = mt.load_scene_string(hairball_xml(128, 96))
+    hairball_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack_scene(scene, dev),
+                      dev, [])
+
+
+@pytest.mark.parametrize("name", [
+    "torch_hairball_32_4.npy", "torch_hairball_exact_32_4.npy", "torch_bsdf_glossy_24_4.npy",
+    "torch_bsdf_thin_24_4.npy", "torch_bsdf_layered_24_4.npy", "torch_bsdf_thin_bdpt_24_4.npy"])
+def test_hairball_and_gallery_goldens_on_card(dev, name):
+    """The hairball (as it stands and exact) and the BSDF galleries (the
+    JAX package's renders) on the card, through `render`, each at its
+    tests/torch_meshes.py GOLDEN_GATES gate; the hairball's mean within
+    1.5 % of the golden's."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import GOLDEN_GATES, ROOT, bsdf_gallery_xml, hairball_xml
+
+    xml = {
+        "torch_hairball_32_4.npy": hairball_xml(32, 24),
+        "torch_hairball_exact_32_4.npy": hairball_xml(32, 24, exact=True),
+        "torch_bsdf_glossy_24_4.npy": bsdf_gallery_xml("glossy", 24, 24),
+        "torch_bsdf_thin_24_4.npy": bsdf_gallery_xml("thin", 24, 24),
+        "torch_bsdf_layered_24_4.npy": bsdf_gallery_xml("layered", 24, 24),
+        "torch_bsdf_thin_bdpt_24_4.npy": bsdf_gallery_xml("thin", 24, 24, "bdpt", 4),
+    }[name]
+    img = mt.render(mt.load_scene_string(xml), spp=4, seed=0)
+    gold = np.load(os.path.join(ROOT, "tests", "golden", name))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert _tm_rmse(img, gold) < GOLDEN_GATES[name], _tm_rmse(img, gold)
+    if "hairball" in name:
+        np.testing.assert_allclose(img.mean(), gold.mean(), rtol=0.015)
+
+
+def test_cylinder_scan_on_card_matches_cpu(dev):
+    """accel/cyl.py's scan (plain tensor operations) on the card against
+    the CPU's on the exact hairball's 7,189 segments and 20,000 random
+    rays: hits, segment ids and occlusion equal but on at most 1 lane in
+    1,000 (silhouette rays, ties), t within rtol 1e-3 where the ids agree."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.accel import cyl
+    from torch_meshes import hairball_xml
+
+    scene = mt.load_scene_string(hairball_xml(exact=True))
+    card, cpu = pack_scene(scene, dev), pack_scene(scene, "cpu")
+    r = np.random.default_rng(43)
+    o = torch.tensor(r.uniform(-1.3, 1.3, (20_000, 3)), dtype=torch.float32)
+    d = torch.tensor(r.normal(size=(20_000, 3)), dtype=torch.float32)
+    d = d / d.norm(dim=-1, keepdim=True)
+    best = torch.tensor(r.choice([1e30, 0.5, 1.5], 20_000), dtype=torch.float32)
+    hc, tc, ic = (a.cpu() for a in cyl.cyl_closest(card, o.to(dev), d.to(dev), best.to(dev)))
+    h0, t0, i0 = cyl.cyl_closest(cpu, o, d, best)
+    same = ic == i0
+    assert (~same).sum() <= 20 and h0.sum() > 2_000
+    assert torch.equal(hc[same], h0[same])
+    np.testing.assert_allclose(tc[same].numpy(), t0[same].numpy(), rtol=1e-3)
+    t_max = torch.tensor(r.uniform(0.05, 2.0, 20_000), dtype=torch.float32)
+    occ = cyl.cyl_any(card, o.to(dev), d.to(dev), t_max.to(dev)).cpu()
+    assert (occ != cyl.cyl_any(cpu, o, d, t_max)).sum() <= 20

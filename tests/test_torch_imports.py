@@ -184,3 +184,27 @@ def test_subsurface_and_meta_modules_are_checked():
     for fn in (irrcache.render_irrcache, adaptive.render_adaptive):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__name__
+
+
+def test_hairball_modules_are_checked():
+    """The modules of the hairball slice (the hair shape, the cylinder
+    segments and their intersector, the BSDFs) are among the sources
+    checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("scene/hair.py", "accel/cyl.py", "scene/shapes.py", "accel/intersect.py",
+                "bsdf/eval.py", "bsdf/plugins.py", "scene/texture_eval.py", "scene/builder.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+
+
+@pytest.mark.parametrize("mod", ["mitsuba_tpu_torch.scene.hair", "mitsuba_tpu_torch.accel.cyl"])
+def test_hairball_modules_stand_alone(mod):
+    """scene/hair.py and accel/cyl.py import nothing of JAX or of the JAX
+    package, and keep their own copies of the reference's code (the hair
+    loader and frames, the segment test)."""
+    import importlib
+
+    m = importlib.import_module(mod)
+    assert not [r for r, _ in _imported_roots(m.__file__) if r in FORBIDDEN]
+    for name in (("load_hair", "_fiber_frames", "tessellate_fibers", "fibers_to_segments")
+                 if mod.endswith("hair") else ("_seg_test", "cyl_closest", "cyl_any")):
+        assert getattr(m, name).__module__ == mod, name

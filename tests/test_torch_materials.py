@@ -213,12 +213,17 @@ def test_bsdf_sample(typ):
 
 
 def test_bsdf_unported_types_raise():
+    """irawan (type 17) is refused by the functions, and the plugins still
+    unported, bumpmap, normalmap and irawan, by the loader."""
     _, tsp = _sp_pair(DIFFUSE)
-    for present in ((0, 9), (0, 1), (11,)):
+    for present in ((0, 17), (17,)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tbsdf.bsdf_sample(tsp, torch.zeros(N, 3), torch.zeros(N, 2), torch.zeros(N), present)
-    with pytest.raises(NotImplementedError, match="mixture"):
-        tbsdf.bsdf_eval({**tsp, "mix": {}}, torch.zeros(N, 3), torch.zeros(N, 3), (0,))
+    for name in ("bumpmap", "normalmap", "irawan"):
+        with pytest.raises(NotImplementedError, match=f"bsdf '{name}' not yet ported"):
+            load_scene_string(f"""<scene version="0.5.0"><sensor type="perspective"/>
+                <shape type="rectangle"><bsdf type="{name}"><bsdf type="diffuse"/></bsdf></shape>
+                </scene>""")
 
 
 BSDF_XML = """
@@ -297,7 +302,7 @@ def test_shading_params_match_reference(material_packs):
     jsp = jtex.shading_params(jp, jnp.asarray(mat), jnp.asarray(uv))
     tsp = ttex.shading_params(tp, torch.as_tensor(mat), torch.as_tensor(uv))
     # the port gathers what the scene's types read: every key of the
-    # reference but the unported Phong's exponent
+    # reference but Phong's exponent, which no type of this scene reads
     assert set(tsp) == set(jsp) - {"exponent"}
     assert tsp["mf_dists"] == jsp["mf_dists"] == (0, 1, 2)
     for k, v in tsp.items():

@@ -120,9 +120,9 @@ def test_srgb_reflectance_within_one_ulp():
 @pytest.mark.parametrize(
     "snippet",
     [
-        '<bsdf type="phong"/>',
+        '<bsdf type="bumpmap"/>',
         '<emitter type="sky"/>',
-        '<shape type="cylinder"/>',
+        '<shape type="obj"/>',
         '<shape type="rectangle"><bsdf type="diffuse"><texture name="reflectance" type="gridtexture"/></bsdf></shape>',
         '<shape type="rectangle"><transform name="toWorld"><rotate x="1" angle="90"/></transform>'
         '<emitter type="area"><blackbody name="radiance" temperature="3000"/></emitter></shape>',
@@ -141,7 +141,7 @@ def test_unported_pack_features_raise():
     jp = jpack_scene(jload(CBOX))
     # use_bvh without cluster tables: the reference's plain BVH walk is
     # not a ported render path
-    for key, value in (("n_cyls", 3), ("use_bvh", True), ("present_types", (0, 9))):
+    for key, value in (("has_bumpmaps", True), ("use_bvh", True), ("present_types", (0, 17))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             pack_from_numpy(_jax_np(jp), {**jp.meta, key: value}, "cpu")
 

@@ -301,6 +301,24 @@ GOLDEN_GATES = {
     "torch_cbox_field_uv_24_4.npy": 1e-6,
     "torch_cbox_adaptive_24_4.npy": 3e-2,
     "torch_cbox_irrcache_24_4.npy": 1.5e-2,
+    # the hairball slice and the rest of the BSDFs (CPU readings: hairball
+    # 8.3e-3 against the golden of the pair pipeline (9.5e-3 against the XLA
+    # walk's), hairball exact 2.4e-2; the galleries glossy 6.4e-7, thin
+    # 5.0e-7, layered 9.1e-7).  The fibers, 0.012 thick, are chaotic for
+    # both packages: the JAX package's own render moves by 7.7e-3
+    # (tessellated) and 2.5e-2 (exact) when XLA is built without FMA
+    # (--xla_cpu_max_isa=AVX), the exact mode's mean by 0.9 %.  A secondary
+    # ray that leaves a fiber 1e-4 off a hit point whose last places moved
+    # meets that fiber again, or not, and the quadratic of the segment test
+    # cancels |p_perp|^2 against r^2 in float32.  Fed the same rays, the two
+    # packages agree lane for lane (tests/test_torch_hair.py); the golden
+    # tests also hold the mean within 1.5 %.
+    "torch_hairball_32_4.npy": 2.5e-2,
+    "torch_hairball_exact_32_4.npy": 6e-2,
+    "torch_bsdf_glossy_24_4.npy": 1e-5,
+    "torch_bsdf_thin_24_4.npy": 1e-5,
+    "torch_bsdf_layered_24_4.npy": 1e-5,
+    "torch_bsdf_thin_bdpt_24_4.npy": 1e-5,
 }
 
 # the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
@@ -620,3 +638,84 @@ def cbox_meta_xml(kind, nested, width=24, height=24, props=""):
 # nested integrators of the meta-integrator tests
 NESTED_PATH = '<integrator type="path"><integer name="maxDepth" value="4"/></integrator>'
 NESTED_DIRECT = '<integrator type="direct"/>'
+
+
+# ---- the hairball slice and the rest of the BSDFs ----
+
+HAIRBALL_XML = os.path.join(ROOT, "scenes", "hairball.xml")
+
+
+def hairball_xml(width=None, height=None, exact=False):
+    """scenes/hairball.xml (path, maxDepth 6; 1,200 fibers of
+    scenes/assets/hairball.hair at radius 0.012 under phong, a diffuse
+    sphere, a constant environment and an emissive sphere) with the
+    fibers' file name made absolute, optionally at another film size, and
+    with `exact` the fibers as miter-clipped cylinder segments instead of
+    tessellated tubes."""
+    with open(HAIRBALL_XML) as f:
+        xml = f.read()
+    hair = os.path.join(ROOT, "scenes", "assets", "hairball.hair")
+    xml, n = re.subn(r'value="assets/hairball.hair"', f'value="{hair}"', xml)
+    if n != 1:
+        raise ValueError(f"{HAIRBALL_XML} names {n} hairball.hair files, expected one")
+    if exact:
+        xml, n = re.subn(r'(<string name="filename" value="[^"]*hairball.hair"/>)',
+                         r'\1<boolean name="exact" value="true"/>', xml)
+    return _film_size(xml, width, height)
+
+
+# the BSDFs of each gallery golden, one per sphere of scenes/matpreview.xml
+# (left to right: its gold, plastic and copper spheres); every type the
+# materials slice did not port, the wrappers twosided and mask, a coating
+# over phong, a rough coating over diffuse, and an N-ary mixture holding a
+# blend (weights below one: the deficit is absorbed)
+BSDF_GALLERIES = {
+    "glossy": (
+        '<bsdf type="roughdiffuse"><rgb name="reflectance" value="0.7, 0.4, 0.2"/>'
+        '<float name="alpha" value="0.6"/></bsdf>',
+        '<bsdf type="phong"><rgb name="diffuseReflectance" value="0.1, 0.3, 0.5"/>'
+        '<rgb name="specularReflectance" value="0.4"/><float name="exponent" value="40"/></bsdf>',
+        '<bsdf type="twosided"><bsdf type="ward"><float name="alphaU" value="0.08"/>'
+        '<float name="alphaV" value="0.3"/><rgb name="diffuseReflectance" value="0.3, 0.2, 0.1"/>'
+        '<rgb name="specularReflectance" value="0.5"/></bsdf></bsdf>',
+    ),
+    "thin": (
+        '<bsdf type="thindielectric"><float name="intIOR" value="1.6"/></bsdf>',
+        '<bsdf type="difftrans"><rgb name="transmittance" value="0.6, 0.7, 0.4"/></bsdf>',
+        '<bsdf type="hk"><rgb name="sigmaS" value="1.5, 2, 2.5"/><rgb name="sigmaA" value="0.1"/>'
+        '<float name="thickness" value="0.5"/><phase type="hg"><float name="g" value="0.4"/>'
+        '</phase></bsdf>',
+    ),
+    "layered": (
+        '<bsdf type="mask"><rgb name="opacity" value="0.5"/><bsdf type="coating">'
+        '<float name="intIOR" value="1.5"/><rgb name="sigmaA" value="0.2, 0.4, 0.8"/>'
+        '<bsdf type="phong"><rgb name="diffuseReflectance" value="0.6, 0.2, 0.2"/>'
+        '<float name="exponent" value="15"/></bsdf></bsdf></bsdf>',
+        '<bsdf type="roughcoating"><float name="alpha" value="0.2"/>'
+        '<string name="distribution" value="ggx"/>'
+        '<bsdf type="diffuse"><rgb name="reflectance" value="0.2, 0.5, 0.3"/></bsdf></bsdf>',
+        '<bsdf type="mixturebsdf"><string name="weights" value="0.4 0.3 0.2"/>'
+        '<bsdf type="diffuse"><rgb name="reflectance" value="0.8, 0.8, 0.2"/></bsdf>'
+        '<bsdf type="roughconductor"><float name="alpha" value="0.15"/></bsdf>'
+        '<bsdf type="blendbsdf"><float name="weight" value="0.3"/>'
+        '<bsdf type="dielectric"/><bsdf type="roughplastic"><float name="alpha" value="0.3"/>'
+        '</bsdf></bsdf></bsdf>',
+    ),
+}
+
+
+def bsdf_gallery_xml(kind, width=None, height=None, integrator=None, max_depth=None):
+    """`matpreview_const_xml` with its three spheres' BSDFs replaced by
+    BSDF_GALLERIES[kind], optionally at another film size and under
+    another integrator or maxDepth."""
+    xml = matpreview_const_xml(width, height)
+    bsdfs = iter(BSDF_GALLERIES[kind])
+    head, _, spheres = xml.partition("<!-- rough gold sphere -->")
+    spheres, n = re.subn(r'<bsdf type="(roughconductor|roughplastic|conductor)">.*?</bsdf>',
+                         lambda m: next(bsdfs), spheres, flags=re.S)
+    if n != 3:
+        raise ValueError(f"{MATPREVIEW_XML} holds {n} sphere BSDFs, expected three")
+    xml = head + "<!-- rough gold sphere -->" + spheres
+    if integrator is not None or max_depth is not None:
+        xml = with_integrator(xml, integrator or "path", max_depth)
+    return xml
