@@ -207,7 +207,7 @@ on their fallback batches, bit for bit against plain, on
 scenes/hairball.xml as it stands (68,136 triangles of tessellated fibers
 in 800 clusters): its 196,608 camera rays and a pass's first NEE shadow
 rays, each with the share of rays that overflow K = 3 and take the
-fallback (`hairball_segments`); in phase 3 the hairball at 32x24 (as it
+fallback (`pair_segments`); in phase 3 the hairball at 32x24 (as it
 stands and with exact="true") and the BSDF galleries of
 tests/torch_meshes.py `bsdf_gallery_xml` at 24x24 (glossy, thin, layered;
 thin under bdpt), 4 spp, each against its golden at its GOLDEN_GATES
@@ -220,6 +220,24 @@ of K3, K4 and K7/K8 by kernel name; then its exact mode (7,189 cylinder
 segments) at 512x384, one pass of 4 spp: rays/s, the segment scans'
 share of the pass's device-stream time (CUDA events around accel/cyl.py's
 cyl_closest and cyl_any), busy share and kernels.
+
+The texture slice adds, in phase 2, K3/K4 (closest and any) with K7/K8
+on their fallback batches, bit for bit against plain, on TEXTURED
+(tests/torch_meshes.py `textured_xml`, its assets written from seed 0
+into build/feature_assets: 2,758 triangles in 35 clusters, a bitmap floor
+with its mip maps, a bump-mapped wall, a normal-mapped sphere, vertex
+colours, wireframe, curvature and irawan cloth) at 512x512: its 262,144
+camera rays and a pass's first NEE shadow rays, with the overflow shares
+(`pair_segments`); in phase 3 TEXTURED at 32x32 and the feature scenes
+(the bitmap scene under the feline and the ewa filter, the tilted normal
+map, the bump map, vertex colours, wireframe, curvature, the cloth), 4
+spp, each against its golden at its GOLDEN_GATES gate; in phase 4 TEXTURED
+at 512x512, 16 spp, in render's passes (`textured_throughput`: seconds,
+rays/s and K3/K4/K7/K8 launches of each pass, the counters set to 0 just
+before it; peak memory; a profiled pass's busy share and kernels, and
+the device ms of shading_params, shading_frame, eval_texture and
+mip_footprint in a 1-spp pass, profile_pass.py TEX_STAGES), then one pass
+under the ewa filter, timed beside the feline pass.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -1833,12 +1851,13 @@ def dipole_throughput(tsss, make_render_pass, new_film, scene, pack, counted, ca
     return total
 
 
-def hairball_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack, dev, stats):
+def pair_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack, dev, stats, label):
     """K3/K4 (closest and any) with K7/K8 on their fallback batches, bit for
-    bit against plain, on scenes/hairball.xml as it stands (512x384): its
-    196,608 camera rays and the NEE shadow rays of a pass's first bounce
-    (one sample per pixel); beside each, the share of its rays whose
-    cluster lists overflow K and take the fallback."""
+    bit against plain, on a path-traced BVH scene at its film size
+    (scenes/hairball.xml as it stands, 512x384; TEXTURED, 512x512): its
+    camera rays and the NEE shadow rays of a pass's first bounce (one
+    sample per pixel); beside each, the share of its rays whose cluster
+    lists overflow K and take the fallback."""
     import torch
 
     o, d = camera_rays(scene, dev)
@@ -1847,8 +1866,8 @@ def hairball_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack,
     got = capture_calls(tpath, ("occluded",), lambda: make_render_pass(
         pack, scene.integrator, rec, rec.film, rec.sampler, 1, dev)(new_film(h, w, dev), 0, 0),
                         lambda g: len(g) == 1)
-    queries = (("hairball camera", o, d, torch.full((o.shape[0],), float("inf"), device=dev)),
-               ("hairball NEE", *as_segment(got[0][1])))
+    queries = ((f"{label} camera", o, d, torch.full((o.shape[0],), float("inf"), device=dev)),
+               (f"{label} NEE", *as_segment(got[0][1])))
     for (label, qo, qd, qt), fn in zip(queries, (pairs.pair_closest, pairs.pair_any)):
         fn.rays = fn.overflow_rays = 0
         fn(pack, qo, qd, qt)
@@ -1856,7 +1875,7 @@ def hairball_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack,
               f"fallback ({fn.overflow_rays / fn.rays:.4%})", flush=True)
     ran = compare_segments(pairs, pb, pack, queries[:1], stats)
     ran |= compare_segments(pairs, pb, pack, queries[1:], stats, any_hit=True)
-    check(ran == {True, False}, "no hairball query reached K7 and K8")
+    check(ran == {True, False}, f"no {label} query reached K7 and K8")
 
 
 def kernel_ms(prof, names):
@@ -2030,6 +2049,120 @@ def hairball_exact_throughput(make_render_pass, new_film, tcyl, scene, pack, car
     print(json.dumps({"throughput": out}), flush=True)
 
 
+def textured_throughput(make_render_pass, new_film, ttex, scene, pack, counted, card, dev):
+    """TEXTURED at 512x512, 16 spp, in render's passes of
+    DEFAULT_LANES_PER_PASS lanes' worth of samples (8 spp), each timed with
+    the K3/K4/K7/K8 counters set to 0 just before: seconds, rays/s and
+    launches; peak device memory; then one more pass under the profiler
+    (CUDA activity): its wall time, device time, busy share and kernels;
+    a pass of 1 spp under CPU and CUDA activity with profile_pass.py's
+    TEX_STAGES ranges: the device ms and calls of shading_params,
+    shading_frame, eval_texture and mip_footprint (eval_texture nests in
+    the other two); last one pass under the ewa
+    filter (MTS_TEX_FILTER), timed beside the first feline pass.  Returns
+    the timed passes' launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mitsuba_tpu_torch.film.film import develop
+    from mitsuba_tpu_torch.renderer import DEFAULT_LANES_PER_PASS
+    from profile_pass import TEX_STAGES, staged
+
+    rec = scene.sensor.record
+    w, h, spp = rec.film.width, rec.film.height, rec.sampler.sample_count
+    spp_chunk = max(1, min(spp, DEFAULT_LANES_PER_PASS // (w * h)))
+    n_passes = math.ceil(spp / spp_chunk)
+    rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp_chunk, dev)
+    film, passes = new_film(h, w, dev), []
+    total = {k: 0 for k in counted}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_passes):
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        film, n_rays = rp(film, i * spp_chunk, 0)
+        n = int(n_rays)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        for k, v in launches.items():
+            total[k] += v
+        passes.append({"seconds": sec, "rays": n, "rays_per_s": n / sec, "launches": launches})
+        print(f"phase 4: textured pass {i} ({spp_chunk} spp): {sec:.3f} s, {n} rays = "
+              f"{n / sec:.6g} rays/s, launches {launches} on {card}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = (develop(film) * rec.ray_weight).cpu().numpy()
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
+          "the TEXTURED image is not finite")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _, n_rays = rp(new_film(h, w, dev), n_passes * spp_chunk, 0)
+        int(n_rays)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev_ms, n_k = device_events(prof)
+    per_kernel = kernel_ms(prof, PAIR_KERNELS)
+    # the stages' device ms from a pass of 1 spp (262,144 lanes) under CPU
+    # and CUDA activity: sorting a full pass's host events into
+    # key_averages took the profiler ~100 s
+    rp1 = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, 1, dev)
+    unstage = staged(TEX_STAGES)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as sprof:
+            _, n_rays = rp1(new_film(h, w, dev), 0, 0)
+            int(n_rays)
+            torch.cuda.synchronize()
+    finally:
+        unstage()
+    stages = {e.key[6:]: (getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3,
+                          e.count)
+              for e in sprof.key_averages() if e.key.startswith("stage:")
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    texture_stages = {k: stages.get(k, (0.0, 0)) for k in
+                      ("shading_params", "shading_frame", "eval_texture", "mip_footprint")}
+    check(all(n > 0 for _, n in texture_stages.values()),
+          f"the profiled TEXTURED pass missed a texture stage: {texture_stages}")
+    ttex.TEX_FILTER = "ewa"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ewa_film, n_rays = rp(new_film(h, w, dev), 0, 0)
+        n_ewa = int(n_rays)
+        torch.cuda.synchronize()
+        ewa_s = time.time() - t0
+    finally:
+        ttex.TEX_FILTER = "feline"
+    check(bool(torch.isfinite(ewa_film).all()), "the TEXTURED ewa pass's film is not finite")
+    sec = sum(p["seconds"] for p in passes)
+    rays = sum(p["rays"] for p in passes)
+    out = {"scene": "textured", "width": w, "height": h, "spp": spp, "spp_chunk": spp_chunk,
+           "passes": passes, "seconds": sec, "rays": rays, "rays_per_s": rays / sec,
+           "peak_gib": peak, "profiled_wall_s": wall, "device_ms": dev_ms, "kernels_per_pass": n_k,
+           "busy": dev_ms / 1e3 / wall,
+           "texture_stage_device_ms_1spp": {k: v[0] for k, v in texture_stages.items()},
+           "texture_stage_calls_1spp": {k: v[1] for k, v in texture_stages.items()},
+           "pair_kernels_ms_per_pass": {k: v[0] for k, v in per_kernel.items()},
+           "pair_kernel_launches_per_pass": {k: v[1] for k, v in per_kernel.items()},
+           "ewa_pass_s": ewa_s, "ewa_rays": n_ewa, "feline_pass_s": passes[0]["seconds"],
+           "card": card}
+    print(f"phase 4: textured {w}x{h}, {n_passes} passes x {spp_chunk} spp: {rays} rays in "
+          f"{sec:.3f} s = {rays / sec:.6g} rays/s ({sec / n_passes:.3f} s per pass), image mean "
+          f"{img.mean():.6f}, peak device memory {peak:.3f} GiB; profiled pass wall {wall:.4f} s, "
+          f"device {dev_ms:.3f} ms, busy share {out['busy']:.4f}, {n_k} kernels; texture stages "
+          f"of a profiled 1-spp pass (device ms, calls): "
+          f"{({k: (round(v[0], 3), v[1]) for k, v in texture_stages.items()})}; the pair "
+          f"pipeline's kernels (ms, launches): "
+          f"{({k: (round(v[0], 3), v[1]) for k, v in per_kernel.items()})}; one ewa pass "
+          f"{ewa_s:.3f} s ({n_ewa} rays) beside feline's {passes[0]['seconds']:.3f} s on {card}",
+          flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+    return total
+
+
 def meta_throughput(mt, scene, pack, counted, card, dev, label, stats_of, spp):
     """One render of a meta-integrator on the card (irrcache or adaptive,
     at the scene's film size, spp samples per pixel): seconds, its stats
@@ -2093,12 +2226,15 @@ def main():
     from mitsuba_tpu_torch.integrator import sss as tsss
     from mitsuba_tpu_torch.integrator import volpath as vp
     from mitsuba_tpu_torch.integrator import vpl as tvpl
+    from mitsuba_tpu_torch.scene import texture_eval as ttex
     from torch_meshes import (
         DIPOLE_XML,
         DOOR_XML,
         NESTED_PATH,
         bdpt_media_xml,
+        bitmap_xml,
         bsdf_gallery_xml,
+        bump_xml,
         bunny_scene_xml,
         bunny_standin,
         cbox_chain_xml,
@@ -2106,15 +2242,19 @@ def main():
         cbox_mitchell_xml,
         cbox_ptracer_xml,
         cbox_xml,
+        cloth_xml,
         dense_standin,
         dipole_xml,
         door_xml,
+        feature_assets,
+        geom_xml,
         glass_manifold_xml,
         glass_xml,
         hairball_xml,
         homog_slab_xml,
         matpreview_const_xml,
         smoke_xml,
+        textured_xml,
         two_wall_xml,
         with_integrator,
         with_properties,
@@ -2310,11 +2450,30 @@ def main():
           and hm["present_types"] == (0, 9),
           "scenes/hairball.xml does not pack into 68,136 triangles in 800 clusters, "
           "diffuse and phong")
-    hairball_segments(pairs, pb, tpath, make_render_pass, new_film, hairball, hair_pack, dev,
-                      stats)
+    pair_segments(pairs, pb, tpath, make_render_pass, new_film, hairball, hair_pack, dev, stats,
+                  "hairball")
     hair_exact = mt.load_scene_string(hairball_xml(exact=True))
     exact_pack = pack_scene(hair_exact, dev)
     check(exact_pack.meta["n_cyls"] == 7189, "the exact hairball does not pack 7,189 segments")
+
+    # the texture slice: TEXTURED at 512x512 (2,758 triangles in 35
+    # clusters), its camera rays and NEE (K3/K4, K7/K8)
+    print(f"  textured {elapsed()}", flush=True)
+    feat_dir = feature_assets(os.path.join(HERE, "build", "feature_assets"))
+    textured = mt.load_scene_string(textured_xml(feat_dir))  # 512x512, 16 spp
+    t0 = time.time()
+    tex_pack = pack_scene(textured, dev)
+    tm_ = tex_pack.meta
+    print(f"  textured: {tm_['n_tris']} triangles in {tm_['n_clusters']} clusters, atlas "
+          f"{tuple(tex_pack.tex_atlas.shape)}, mip levels {tex_pack.tex_n_lev.tolist()}, packed in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    check(tm_["use_bvh"] and tm_["n_tris"] == 2758 and tm_["present_types"] == (0, 8, 17)
+          and tm_["has_mips"] and tm_["geom_tex_kinds"] == (4, 5, 6) and tm_["has_bumpmaps"]
+          and tm_["has_irawan"],
+          "TEXTURED does not pack into 2,758 triangles with diffuse, roughplastic and irawan, "
+          "mip maps, the geometry kinds and bump maps")
+    pair_segments(pairs, pb, tpath, make_render_pass, new_film, textured, tex_pack, dev, stats,
+                  "textured")
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -2560,6 +2719,43 @@ def main():
             check(got[k] > 0, f"the {label} render never launched {k}")
         for k, n in got.items():
             launches[k] += n
+    # the texture slice: TEXTURED (K3/K4 with K7/K8) and the feature scenes
+    # (K1/K2; the albedo field casts no shadow rays: K1 only, and K3/K4 for
+    # the curvature sphere's 576 triangles), each against
+    # its golden at its GOLDEN_GATES gate, the bitmap scene under both
+    # footprint filters
+    print(f"  textured, texture features {elapsed()}", flush=True)
+    for label, xml, golden, names, checked, filt in (
+            ("textured", textured_xml(feat_dir, 32, 32), "torch_textured_32_4.npy", glass_names,
+             3, "feline"),
+            ("bitmap feline", bitmap_xml(feat_dir), "torch_tex_bitmap_24_4.npy", tuple(brute), 2,
+             "feline"),
+            ("bitmap ewa", bitmap_xml(feat_dir), "torch_tex_bitmap_ewa_24_4.npy", tuple(brute), 2,
+             "ewa"),
+            ("normal map", bump_xml("tilted"), "torch_tex_normalmap_32_4.npy", tuple(brute), 2,
+             "feline"),
+            ("bump map", bump_xml("bump", feat_dir), "torch_tex_bumpmap_32_4.npy", tuple(brute), 2,
+             "feline"),
+            ("vertexcolors", geom_xml("vertexcolors", feat_dir), "torch_tex_vertexcolors_33_4.npy",
+             tuple(brute), 1, "feline"),
+            ("wireframe", geom_xml("wireframe", feat_dir), "torch_tex_wireframe_33_4.npy",
+             tuple(brute), 1, "feline"),
+            ("curvature", geom_xml("curvature", feat_dir), "torch_tex_curvature_33_4.npy",
+             glass_names, 2, "feline"),  # 576 triangles: K3/K4
+            ("irawan cloth", cloth_xml(), "torch_irawan_cloth_24_4.npy", tuple(brute), 2,
+             "feline")):
+        # each scene packs at its own film size: the pack's camera cone
+        # (cam_pix_angle) sets the mip footprints
+        ttex.TEX_FILTER = filt
+        try:
+            got = render_checked(mt, {k: counted[k] for k in names}, mt.load_scene_string(xml),
+                                 os.path.join(HERE, "tests", "golden", golden), dev, label, spp=4)
+        finally:
+            ttex.TEX_FILTER = "feline"
+        for k in names[:checked]:
+            check(got[k] > 0, f"the {label} render never launched {k}")
+        for k, n in got.items():
+            launches[k] += n
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -2670,6 +2866,16 @@ def main():
         check(hair_launches[k] > 0, f"hairball.xml never launched {k}")
         launches[k] += hair_launches[k]
     hairball_exact_throughput(make_render_pass, new_film, tcyl, hair_exact, exact_pack, card, dev)
+
+    # the texture slice: TEXTURED at 512x512, 16 spp (its launches are the
+    # slice's main path: counters set to 0 just before each pass), then a
+    # pass under the ewa filter
+    print(f"phase 4: textured {elapsed()}", flush=True)
+    tex_launches = textured_throughput(make_render_pass, new_film, ttex, textured, tex_pack,
+                                       glass_counted, card, dev)
+    for k in glass_names:
+        check(tex_launches[k] > 0, f"TEXTURED never launched {k}")
+        launches[k] += tex_launches[k]
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

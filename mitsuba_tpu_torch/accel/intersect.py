@@ -8,7 +8,8 @@ tensors on a GPU, their plain versions for tensors on the CPU.  Analytic
 spheres, then analytic cylinder segments (accel/cyl.py), are tested after
 the triangles with plain tensor operations, as the reference tests them
 with XLA operations.
-`fill_interaction` also reads the media on either side of a hit.
+`fill_interaction` also reads the media on either side of a hit, and the
+uv partials where bump maps or mip maps need them.
 `_bvh_traverse` / `_bvh_traverse_any` are the reference's stackless BVH
 walks (the path its intersect takes off the TPU), kept as the references
 the tests hold the pair pipeline to.
@@ -58,6 +59,11 @@ class SurfaceInteraction(NamedTuple):
     # scene without media, where nothing reads them
     med_in: torch.Tensor | None
     med_ex: torch.Tensor | None
+    # [R, 3] uv partials dp/du, dp/dv (bump and normal maps, mip
+    # footprints); zeros in a scene without either, None where an
+    # interaction is built without them
+    dpdu: torch.Tensor | None = None
+    dpdv: torch.Tensor | None = None
 
 
 def _moller_trumbore(o, d, v0, e1, e2, t_max):
@@ -289,6 +295,43 @@ def empty_segments(pack, live, o, d, t):
     return torch.where(l3, o, far), torch.where(l3, d, z_axis), torch.where(live, t, 0.0)
 
 
+# the reference gathers tables of at most this many rows by one-hot
+# products (core/gather.py ONEHOT_MAX_ROWS), which give a row of zeros
+# past the table, and larger ones by indexing, which clamps
+_ONEHOT_MAX_ROWS = 512
+
+
+def _partials(pack, p, hit, prim, tri_id, has_spheres, has_cyls):
+    """(dpdu, dpdv) of each hit (reference intersect.py:985-1029): the
+    triangle's tables; on a sphere the lat-long partials with their true
+    magnitudes, |dp/du| = 2 pi r sin(theta), |dp/dv| = pi r.  A segment
+    lane reads what the reference's gather by its segment id gives: that
+    triangle row, or zeros past a table of at most _ONEHOT_MAX_ROWS rows
+    (ROADMAP C4)."""
+    dpdu, dpdv = take_fused(tri_id, pack.tri_dpdu, pack.tri_dpdv)
+    if has_cyls:
+        rows = pack.tri_dpdu.shape[0]
+        seg_row = torch.clamp(prim, max=rows - 1)
+        keep = (hit.is_cyl & ((prim < rows) | (rows > _ONEHOT_MAX_ROWS)))[:, None]
+        dpdu = torch.where(hit.is_cyl[:, None], torch.where(keep, pack.tri_dpdu[seg_row], 0.0),
+                           dpdu)
+        dpdv = torch.where(hit.is_cyl[:, None], torch.where(keep, pack.tri_dpdv[seg_row], 0.0),
+                           dpdv)
+    if has_spheres:
+        center, radius = take_fused(torch.where(hit.is_sphere, prim, 0), pack.sph_center,
+                                    pack.sph_radius)
+        rel = mm.normalize(p - center)
+        sin_t = torch.sqrt(torch.clamp(1.0 - rel[..., 2] * rel[..., 2], min=1e-12))
+        pc = p - center
+        t_phi = mm.normalize(torch.stack([-pc[..., 1], pc[..., 0], torch.zeros_like(hit.t)],
+                                         dim=-1))
+        t_theta = mm.normalize(mm.cross(t_phi, rel))
+        sph = hit.is_sphere[:, None]
+        dpdu = torch.where(sph, t_phi * (2.0 * math.pi * radius * sin_t)[:, None], dpdu)
+        dpdv = torch.where(sph, t_theta * (math.pi * radius)[:, None], dpdv)
+    return dpdu, dpdv
+
+
 def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
     """Per-hit surface data (= fillIntersectionRecord, reference
     records.inl): the triangle branch, the sphere branch where the hit is
@@ -367,8 +410,13 @@ def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
         med_ex = torch.where(hit.valid, med_ex, -1)
     else:
         med_in = med_ex = None
+    if pack.meta.get("has_bumpmaps", False) or pack.meta.get("has_mips", False):
+        dpdu, dpdv = _partials(pack, p, hit, prim, tri_id, has_spheres, has_cyls)
+    else:
+        dpdu = dpdv = torch.zeros_like(ng)
     return SurfaceInteraction(
         valid=hit.valid, t=hit.t, p=p, ng=ng, ns=ns, uv=uv, mat=mat,
         emit=emit, prim=hit.prim, wi_world=-d,
         bary=torch.stack([hit.u, hit.v], dim=-1), med_in=med_in, med_ex=med_ex,
+        dpdu=dpdu, dpdv=dpdv,
     )

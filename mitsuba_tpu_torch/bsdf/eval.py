@@ -1,5 +1,5 @@
 """BSDF sample / eval / pdf over lanes (port of mitsuba_tpu/bsdf/eval.py:
-every material type of the reference but `irawan`).
+every material type of the reference).
 
 Every type present in the scene is evaluated on all lanes and selected
 by the lane's type, as in the reference.  Conventions as there: `wi`,
@@ -7,8 +7,9 @@ by the lane's type, as in the reference.  Conventions as there: `wi`,
 away from the surface; `bsdf_eval` returns f(wi, wo) * |cos theta_o|
 (0 for Dirac lobes); `bsdf_sample` returns the weight f * |cos| / pdf
 with the lobe-selection probability folded in.  `present` is the static
-tuple of material types in the scene; `irawan` raises
-NotImplementedError.
+tuple of material types in the scene.  `irawan` lanes read their yarn
+parameters from sp["iw"] (scene/texture_eval.py shading_params,
+bsdf/irawan.py).
 
 Mixtures and layers: a lane whose row heads a mixture chain or a coating
 carries its next component's parameters in sp["mix"] ({"spB", "wa",
@@ -26,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from mitsuba_tpu_torch.bsdf import irawan as iw
 from mitsuba_tpu_torch.bsdf import microfacet as mf
 from mitsuba_tpu_torch.bsdf.plugins import (
     COATING,
@@ -34,6 +36,7 @@ from mitsuba_tpu_torch.bsdf.plugins import (
     DIFFTRANS,
     DIFFUSE,
     HK,
+    IRAWAN,
     NULL_BSDF,
     PHONG_BSDF,
     PLASTIC,
@@ -52,7 +55,7 @@ INV_PI = 1.0 / math.pi
 # the material types evaluated here
 PORTED = frozenset((DIFFUSE, ROUGHDIFFUSE, CONDUCTOR, ROUGHCONDUCTOR, DIELECTRIC, THINDIELECTRIC,
                     ROUGHDIELECTRIC, PLASTIC, ROUGHPLASTIC, PHONG_BSDF, WARD, DIFFTRANS,
-                    NULL_BSDF, COATING, HK, ROUGHCOATING))
+                    NULL_BSDF, COATING, HK, ROUGHCOATING, IRAWAN))
 # the types whose every lobe is a Dirac delta
 DELTA_TYPES = (CONDUCTOR, DIELECTRIC, THINDIELECTRIC, NULL_BSDF)
 
@@ -386,6 +389,22 @@ def _hk_pdf(sp, wi, wo):
     return _hk_phase(sp["alpha_u"], wi, wo) * (1.0 - _hk_prob_spec(sp, wi))
 
 
+# ---------------------------------------------------------------------------
+# Irawan-Marschner woven cloth (irawan.cpp); the yarn lookup is sp["iw"]
+# ---------------------------------------------------------------------------
+
+def _irawan_eval(sp, wi, wo):
+    if "iw" not in sp:  # a mixture's or coating's component: not supported
+        return torch.zeros(wi.shape[:-1] + (3,), device=wi.device)
+    return iw.irawan_f(sp["iw"], wi, wo)
+
+
+def _irawan_pdf(sp, wi, wo):
+    """Cosine-hemisphere density, front side only (irawan.cpp pdf:321-334)."""
+    front = (mm.cos_theta(wi) > 0) & (mm.cos_theta(wo) > 0)
+    return torch.where(front, warp.square_to_cosine_hemisphere_pdf(wo), 0.0)
+
+
 _EVAL_FNS = {
     HK: _hk_eval,
     DIFFUSE: _diffuse_eval,
@@ -397,6 +416,7 @@ _EVAL_FNS = {
     PHONG_BSDF: _phong_eval,
     WARD: _ward_eval,
     DIFFTRANS: _difftrans_eval,
+    IRAWAN: _irawan_eval,
 }
 
 _PDF_FNS = {
@@ -410,6 +430,7 @@ _PDF_FNS = {
     PHONG_BSDF: _phong_pdf,
     WARD: _ward_pdf,
     DIFFTRANS: _difftrans_pdf,
+    IRAWAN: _irawan_pdf,
 }
 
 
@@ -749,6 +770,8 @@ def _mix_sample(sp, wi, u2, ulobe, present):
         sub = spB["mix"]
         sp_sel["mix"] = {"spB": sub["spB"], "wa": torch.where(sel_b, sub["wa"], 1.0),
                          "wb": torch.where(sel_b, sub["wb"], 0.0)}
+    if "iw" in sp:
+        sp_sel["iw"] = sp["iw"]
     bs = _sample(sp_sel, wi, u2, ul, present)
     # smooth lobes take the blended f / pdf (delta lobes keep the child's
     # weight: the selection probability cancels); a draw the child rejects
@@ -937,6 +960,15 @@ def _sample(sp, wi, u2, ulobe, present):
             flip_z = torch.stack([torch.ones_like(ci), torch.ones_like(ci), -mm.sign(ci)], dim=-1)
             wo_t = wo_t * flip_z
             put(tm, wo_t, sp["cA"], torch.abs(mm.cos_theta(wo_t)) * INV_PI, False, 1.0)
+        elif t == IRAWAN:
+            # cosine sampling, weight f / pdf (the reference has no better
+            # sampler either, irawan.cpp sample:336-371)
+            wo_t = warp.square_to_cosine_hemisphere(u2)
+            pdf_t = warp.square_to_cosine_hemisphere_pdf(wo_t)
+            ok = (pdf_t > 1e-8) & (ci > 0)
+            put(tm, wo_t, torch.where(ok[..., None], _irawan_eval(sp, wi, wo_t)
+                                      / torch.clamp(pdf_t, min=1e-8)[..., None], 0.0),
+                pdf_t, False, 1.0)
         elif t == NULL_BSDF:
             # straight through: eval and pdf are 0, the sample has weight 1
             put(tm, -wi, torch.ones_like(wi), 1.0, True, 1.0)

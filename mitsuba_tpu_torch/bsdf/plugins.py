@@ -4,11 +4,12 @@
 `ward`, `difftrans`, `hk`, `null` (an index-matched boundary), the
 folded wrappers `twosided` (a flag) and `mask` (an opacity that, as in
 the reference, nothing reads), the mixtures `mixturebsdf` and
-`blendbsdf`, and the layers `coating` and `roughcoating`, with
-reflectances that may be textures (scene/textures.py).  Each parses
-`Properties` into a `BSDFRecord`, which the scene builder packs into the
-material table.  `bumpmap`, `normalmap` and `irawan` are not registered,
-so the registry refuses them by name."""
+`blendbsdf`, the layers `coating` and `roughcoating`, the folded
+perturbations `bumpmap` and `normalmap` (a texture slot of a copy of the
+nested record, read by scene/texture_eval.py shading_frame), and the
+woven cloth `irawan` (bsdf/irawan.py), with reflectances that may be
+textures (scene/textures.py).  Each parses `Properties` into a
+`BSDFRecord`, which the scene builder packs into the material table."""
 
 from __future__ import annotations
 
@@ -67,12 +68,21 @@ class BSDFRecord:
     twosided: bool = False
     opacity: np.ndarray | None = None  # folded <mask>
     tex_opacity: TextureDesc | None = None
+    # folded bumpmap / normalmap: the height or normal texture
+    tex_bump: TextureDesc | None = None
+    bump_is_normalmap: bool = False
     # plastic precompute
     fdr_int: float = 0.0
     spec_sampling_weight: float = 0.5
     # mixtures and layers: the nested records (and a mixture's weights)
     children: list = field(default_factory=list)
     weights: list = field(default_factory=list)
+    # irawan: the parsed weave pattern, its tiling and its specular
+    # normalization
+    weave: object = None
+    repeat_u: float = 1.0
+    repeat_v: float = 1.0
+    iw_norm: float = 0.0
     id: str = ""
 
 
@@ -327,6 +337,31 @@ class Mask(_BSDFBase):
         return rec
 
 
+@register("bsdf", "bumpmap")
+class BumpMap(_BSDFBase):
+    """reference: src/bsdfs/bumpmap.cpp, folded into a height-texture slot
+    of a copy of the nested record (texture_eval.shading_frame perturbs
+    the normal)."""
+
+    def _build(self, props):
+        rec = copy.deepcopy(_first_nested(props, "bumpmap"))
+        for _, child in props.children:
+            if getattr(child, "desc", None) is not None:
+                rec.tex_bump = child.desc
+        return rec
+
+
+@register("bsdf", "normalmap")
+class NormalMap(BumpMap):
+    """reference: src/bsdfs/normalmap.cpp: the slot holds a tangent-space
+    normal texture."""
+
+    def _build(self, props):
+        rec = super()._build(props)
+        rec.bump_is_normalmap = True
+        return rec
+
+
 @register("bsdf", "mixturebsdf")
 class MixtureBSDF(_BSDFBase):
     """reference: src/bsdfs/mixturebsdf.cpp: N components with weights
@@ -420,4 +455,39 @@ class HanrahanKrueger(_BSDFBase):
         rec.alpha_u = g
         rec.alpha_v = props.get_float("thickness", 1.0)
         rec.cA = (sigma_s / np.maximum(sigma_s + sigma_a, 1e-6)).astype(np.float32)
+        return rec
+
+
+@register("bsdf", "irawan")
+class IrawanCloth(_BSDFBase):
+    """reference: src/bsdfs/irawan.{h,cpp}, the Irawan-Marschner woven
+    cloth: a weave-pattern file (`filename`, with `$name` parameters from
+    the plugin's properties) or a built-in `preset`, and the specular
+    normalization Monte-Carlo'd at load time (irawan.cpp configure); the
+    builder packs the pattern into the iw_* tables."""
+
+    def _build(self, props):
+        from mitsuba_tpu_torch.bsdf import irawan_host as iw
+
+        if "filename" in props:
+            with open(props.resolve_path(props.get_string("filename"))) as f:
+                text = f.read()
+        else:
+            preset = props.get_string("preset", "plain")
+            if preset not in iw.PRESETS:
+                raise ValueError(
+                    f"irawan: unknown preset {preset!r} (have {list(iw.PRESETS)}); pass "
+                    "filename= for a weave pattern file")
+            text = iw.PRESETS[preset]
+        pattern = iw.parse_weave(text, props)
+        rec = BSDFRecord(type=IRAWAN, weave=pattern)
+        rec.repeat_u = props.get_float("repeatU", 1.0)
+        rec.repeat_v = props.get_float("repeatV", 1.0)
+        rec.iw_norm = iw.compute_normalization(pattern, rec.repeat_u, rec.repeat_v)
+        if "ksMultiplier" in props or "kdMultiplier" in props:
+            raise ValueError(
+                "irawan: ksMultiplier/kdMultiplier were replaced by the normalization scheme; "
+                "set yarn kd/ks instead (irawan.cpp:115-118)")
+        # the yarns' mean diffuse colour, for users of a flat approximation
+        rec.cA = np.mean([np.asarray(y.kd, np.float32) for y in pattern.yarns], axis=0)
         return rec

@@ -23,6 +23,7 @@ STREAM_MEDIUM_TRANS = 3  # shadow-ray ratio tracking (transmittance)
 STREAM_LIGHT = 4  # light-subpath walks (ptracer / bdpt light paths)
 STREAM_MLT = 5  # pssmlt/mlt/erpt chain mutations and control decisions
 STREAM_SSS = 6  # subsurface irradiance points, single scattering, irrcache
+STREAM_WEAVE = 7  # irawan weave noise: a texture hash keyed on lattice indices
 
 
 def _u32(x):

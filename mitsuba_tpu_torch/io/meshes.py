@@ -2,8 +2,9 @@
 mitsuba_tpu/io/meshes.py; the OBJ and `.serialized` readers are not
 ported yet).
 
-PLY: ascii and binary in both byte orders, with vertex normals and
-texture coordinates when present (reference src/shapes/ply/*).
+PLY: ascii and binary in both byte orders, with vertex normals, texture
+coordinates and colours (`red green blue`, over 255) when present
+(reference src/shapes/ply/*).
 Polygons are fan-triangulated.
 """
 
@@ -20,6 +21,7 @@ class MeshData:
     indices: np.ndarray  # [T, 3] uint32
     normals: np.ndarray | None = None  # [V, 3]
     texcoords: np.ndarray | None = None  # [V, 2]
+    colors: np.ndarray | None = None  # [V, 3], read by the vertexcolors texture
     face_normals: bool = False
     name: str = ""
 
@@ -112,7 +114,7 @@ def _read_binary(f, elements, endian):
 
 def load_ply(path) -> list[MeshData]:
     """Read a PLY file into one MeshData (positions, fan-triangulated
-    faces, and normals / uv when the vertex element has them)."""
+    faces, and normals, uv and colours when the vertex element has them)."""
     with open(path, "rb") as f:
         fmt, elements = _read_header(f, path)
         if fmt == "ascii":
@@ -135,6 +137,7 @@ def load_ply(path) -> list[MeshData]:
         if ukey in v:
             texcoords = stack(ukey, vkey)
             break
+    colors = stack("red", "green", "blue") / 255.0 if "red" in v else None
 
     face_el = data.get("face", data.get("faces"))
     key = "vertex_indices" if "vertex_indices" in face_el else "vertex_index"
@@ -149,5 +152,6 @@ def load_ply(path) -> list[MeshData]:
             indices=np.asarray(tris, np.uint32).reshape(-1, 3),
             normals=normals,
             texcoords=texcoords,
+            colors=colors,
         )
     ]

@@ -3,12 +3,15 @@
 renders: triangle meshes (brute force up to 512 triangles, BVH + cluster
 tables above), analytic spheres (tessellated where they emit) and
 miter-clipped cylinder segments (hair fibers and cylinders), every
-material type of the reference but irawan, with the row chains of
-mixtures and coatings and checkerboard-textured reflectances, area
-emitters, a constant or image-based (`envmap`) environment, and
-homogeneous and heterogeneous media attached to shapes as their
-interior or exterior (`_pack_media`), and the subsurface point sets and
-coefficients of dipole and singlescatter shapes (`_pack_sss`).
+material type of the reference, with the row chains of mixtures and
+coatings, irawan's weave tables, every texture kind (the bitmaps and
+their mip pyramids shelf-packed into one atlas, the geometry kinds'
+per-corner colours and curvatures), bump and normal maps with the
+triangles' uv partials, area emitters, a constant or image-based
+(`envmap`) environment, and homogeneous and heterogeneous media attached
+to shapes as their interior or exterior (`_pack_media`), and the
+subsurface point sets and coefficients of dipole and singlescatter shapes
+(`_pack_sss`).
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -18,6 +21,7 @@ of the same scene are interchangeable.
 from __future__ import annotations
 
 import copy
+import math
 import os
 from dataclasses import dataclass
 
@@ -31,9 +35,11 @@ from mitsuba_tpu_torch.accel.pallas_kernels import (
     pack_triangles_transposed,
 )
 from mitsuba_tpu_torch.bsdf.eval import PORTED as PORTED_TYPES
+from mitsuba_tpu_torch.bsdf.irawan_host import pack_tables, tables_have_noise
 from mitsuba_tpu_torch.bsdf.plugins import (
     COATING,
     DIFFUSE,
+    IRAWAN,
     MIXTURE,
     ROUGHCOATING,
     ROUGHCONDUCTOR,
@@ -56,13 +62,21 @@ from mitsuba_tpu_torch.medium.plugins import (
 from mitsuba_tpu_torch.scene.shapes import _apply_transform, _uv_sphere
 from mitsuba_tpu_torch.scene.subsurface import sample_surface_points
 from mitsuba_tpu_torch.scene.texture_eval import material_table
-from mitsuba_tpu_torch.scene.textures import TEX_CONSTANT, TEX_CHECKERBOARD
+from mitsuba_tpu_torch.scene.textures import (
+    GEOMETRY_KINDS,
+    TEX_BITMAP,
+    TEX_CURVATURE,
+    TEX_VERTEXCOLORS,
+    TEX_WIREFRAME,
+)
 
 # scenes above this many triangles go through the BVH and cluster tables
 BRUTE_FORCE_MAX_TRIS = 512
 
-# the texture kinds the port evaluates
-PORTED_TEXTURES = frozenset((TEX_CONSTANT, TEX_CHECKERBOARD))
+# the texture kinds the port evaluates: every kind of the reference
+PORTED_TEXTURES = frozenset(range(TEX_CURVATURE + 1))
+# mip levels per bitmap: 2048 x 2048 down to 1 x 1
+MAX_MIP_LEVELS = 12
 # BSDF types whose lobes sample a microfacet normal: their distributions
 # make the static mf_dists meta
 _MF_TYPES = (ROUGHCONDUCTOR, ROUGHDIELECTRIC, ROUGHPLASTIC, ROUGHCOATING)
@@ -75,7 +89,9 @@ SLICE_ARRAYS = (
     "mat_alpha_v", "mat_eta", "mat_exponent", "mat_dist", "mat_nonlinear",
     "mat_twosided", "mat_fdr_int", "mat_spec_w", "mat_texA", "mat_rt", "mat_rt_fdr",
     "mat_opacity", "mat_tex_opacity", "mat_mix_b", "mat_mix_wa", "mat_mix_wb",
-    "tex_type", "tex_c0", "tex_c1", "tex_scale", "tex_uv",
+    "mat_tex_bump", "mat_bump_nm", "mat_iw", "tri_dpdu", "tri_dpdv",
+    "tex_type", "tex_c0", "tex_c1", "tex_scale", "tex_uv", "tex_rect", "tex_mip_rect",
+    "tex_n_lev", "tex_lw", "tex_nearest", "tex_atlas",
     "sph_center", "sph_radius", "sph_mat", "sph_emit", "sph_flip",
     "cyl_p0", "cyl_p1", "cyl_n0", "cyl_n1", "cyl_rad", "cyl_mat", "cyl_flip",
     "em_kind", "em_rgb", "em_area", "em_tri_lo", "em_tri_hi", "em_pos", "em_dir",
@@ -88,8 +104,12 @@ SLICE_META = (
     "n_tris", "n_spheres", "n_cyls", "n_emitters", "present_types", "mf_dists", "emitter_kinds",
     "has_mixtures", "mix_depth",
     "use_bvh", "has_area", "has_env", "has_envmap", "env_idx", "env_alias_fused_ok",
-    "has_textures", "has_mips", "has_delta_emitters", "scene_center", "scene_radius",
+    "has_textures", "has_mips", "geom_tex_kinds", "has_bumpmaps", "cam_pix_angle",
+    "has_delta_emitters", "scene_center", "scene_radius",
 )
+# ... for scenes with geometry-driven textures, the per-corner colours
+# (vertexcolors) and curvatures (curvature) ...
+GEOM_TEX_ARRAYS = ("tri_c0", "tri_c1", "tri_c2", "tri_kh", "tri_kg")
 # ... for scenes with media, the medium tables (`_pack_media`) ...
 MEDIA_ARRAYS = (
     "tri_med_in", "tri_med_ex", "sph_med_in", "sph_med_ex",
@@ -120,10 +140,6 @@ BVH_META = (
 # meta flags of reference features the port does not render yet:
 # (key, value meaning "absent", feature name)
 _UNPORTED_FEATURES = (
-    ("has_mips", False, "bitmap textures"),
-    ("geom_tex_kinds", (), "geometry-driven textures"),
-    ("has_bumpmaps", False, "bump/normal maps"),
-    ("has_irawan", False, "bsdf 'irawan'"),
     ("has_instances", False, "instancing"),
     ("anim_ranges", (), "animated shapes"),
     ("deform_ranges", (), "deformable shapes"),
@@ -170,7 +186,7 @@ def check_slice(meta: dict):
 
 def _check_textures(arrays: dict, meta: dict):
     """Raise NotImplementedError for texture kinds the port does not
-    evaluate (scene/texture_eval.py: constant and checkerboard)."""
+    evaluate (scene/texture_eval.py: those of PORTED_TEXTURES)."""
     if not meta.get("has_textures", False):
         return
     kinds = set(np.asarray(arrays["tex_type"]).tolist()) - PORTED_TEXTURES
@@ -178,9 +194,38 @@ def _check_textures(arrays: dict, meta: dict):
         raise NotImplementedError(f"texture kinds {sorted(kinds)} not yet ported")
 
 
+def _downsample2(img):
+    """2 x 2 box average, odd edges repeated (reference mipmap.h resample,
+    builder.py:82-96)."""
+    h, w, c = img.shape
+    if h > 1 and h % 2:
+        img = np.concatenate([img, img[-1:]], axis=0)
+        h += 1
+    if w > 1 and w % 2:
+        img = np.concatenate([img, img[:, -1:]], axis=1)
+        w += 1
+    nh, nw = max(h // 2, 1), max(w // 2, 1)
+    if h > 1:
+        img = img.reshape(nh, 2, w, c).mean(axis=1)
+    if w > 1:
+        img = img.reshape(nh, nw, 2, c).mean(axis=2)
+    return img
+
+
+def _mip_chain(img):
+    """The image and its halvings down to 1 x 1, at most MAX_MIP_LEVELS."""
+    levels = [np.asarray(img, np.float32)]
+    while max(levels[-1].shape[:2]) > 1 and len(levels) < MAX_MIP_LEVELS:
+        levels.append(_downsample2(levels[-1]))
+    return levels
+
+
 def _pack_textures(textures: list) -> dict:
-    """The texture table of the procedural kinds (the reference's
-    _pack_textures without its bitmap atlas)."""
+    """The texture table (reference builder.py:108-186): each texture's
+    kind, colours, scale, uv transform, line width and filter; every
+    bitmap level, tallest first, shelf-packed into one atlas no narrower
+    than 64 texels (a 1 x 1 x 3 atlas without bitmaps), with its rect
+    (x, y, w, h) per level, levels past a pyramid's last repeating it."""
     n = max(len(textures), 1)
     tex = {
         "tex_type": np.zeros(n, np.int32),
@@ -189,14 +234,184 @@ def _pack_textures(textures: list) -> dict:
         "tex_scale": np.ones((n, 3), np.float32),
         # uscale, vscale, uoffset, voffset
         "tex_uv": np.tile(np.array([1.0, 1.0, 0.0, 0.0], np.float32), (n, 1)),
+        "tex_rect": np.zeros((n, 4), np.int32),  # level 0
+        "tex_mip_rect": np.zeros((n, MAX_MIP_LEVELS, 4), np.int32),
+        "tex_n_lev": np.ones(n, np.int32),
+        "tex_lw": np.full(n, 0.01, np.float32),
+        "tex_nearest": np.zeros(n, np.int32),
+        "tex_atlas": np.zeros((1, 1, 3), np.float32),
     }
+    items = [(i, lvl, im) for i, t in enumerate(textures) if t.kind == TEX_BITMAP
+             for lvl, im in enumerate(_mip_chain(t.image))]
+    if items:
+        items.sort(key=lambda it: -it[2].shape[0])  # stable: by height
+        max_w = max(max(im.shape[1] for _, _, im in items), 1)
+        atlas_w = max(1 << int(np.ceil(np.log2(max_w))), 64)
+        x = y = shelf_h = 0
+        places = {}
+        for i, lvl, im in items:
+            h, w = im.shape[:2]
+            if x + w > atlas_w:
+                y, x, shelf_h = y + shelf_h, 0, 0
+            places[(i, lvl)] = (x, y, w, h)
+            shelf_h = max(shelf_h, h)
+            x += w
+        atlas = np.zeros((y + shelf_h, atlas_w, 3), np.float32)
+        for i, lvl, im in items:
+            px, py, w, h = places[(i, lvl)]
+            atlas[py:py + h, px:px + w] = im
+            tex["tex_mip_rect"][i, lvl] = [px, py, w, h]
+            if lvl == 0:
+                tex["tex_rect"][i] = [px, py, w, h]
+            tex["tex_n_lev"][i] = max(tex["tex_n_lev"][i], lvl + 1)
+        for i in {i for i, _, _ in items}:
+            tex["tex_mip_rect"][i, tex["tex_n_lev"][i]:] = tex["tex_mip_rect"][
+                i, tex["tex_n_lev"][i] - 1]
+        tex["tex_atlas"] = atlas
     for i, t in enumerate(textures):
         tex["tex_type"][i] = t.kind
         tex["tex_c0"][i] = t.color0
         tex["tex_c1"][i] = t.color1
         tex["tex_scale"][i] = t.scale
         tex["tex_uv"][i] = [*t.uv_scale, *t.uv_offset]
+        tex["tex_lw"][i] = t.line_width
+        tex["tex_nearest"][i] = int(t.filter_nearest)
     return tex
+
+
+def _cam_pix_angle(scene):
+    """The camera's per-pixel cone angle, 2 tan(xfov / 2) / width (0
+    without a camera): the footprint of mip_footprint (reference
+    builder.py:219-230)."""
+    try:
+        cam = scene.sensor.record
+        return float(2.0 * math.tan(math.radians(cam.xfov_deg) / 2.0) / max(cam.film.width, 1))
+    except (AttributeError, TypeError):
+        return 0.0
+
+
+def _vertex_curvatures(mesh):
+    """Per-vertex (mean H, Gaussian K) curvature estimates on the mesh
+    with its positional duplicates welded (reference builder.py:233-296):
+    the angle deficit over the barycentric vertex area, and half the
+    cotangent Laplacian's length, signed positive where it points
+    against the area-weighted normal."""
+    p_raw = np.asarray(mesh.positions, np.float64)
+    idx_raw = np.asarray(mesh.indices, np.int64)
+    key = np.round(p_raw * 1e6).astype(np.int64)
+    _, uniq_idx, inv = np.unique(key, axis=0, return_index=True, return_inverse=True)
+    inv = inv.reshape(-1)
+    p = p_raw[uniq_idx]
+    idx = inv[idx_raw]
+    nv = len(p)
+    a, b, c = p[idx[:, 0]], p[idx[:, 1]], p[idx[:, 2]]
+    area2 = np.maximum(np.linalg.norm(np.cross(b - a, c - a), axis=-1), 1e-20)  # 2 x area
+    angle_sum = np.zeros(nv)
+    varea = np.zeros(nv)
+    lap = np.zeros((nv, 3))
+
+    def corner(vi, e1, e2, vj, vk):
+        """The angle at vi; its cotangent weights the opposite edge (vj, vk)."""
+        l1 = np.linalg.norm(e1, axis=-1)
+        l2 = np.linalg.norm(e2, axis=-1)
+        cosang = np.clip(np.sum(e1 * e2, axis=-1) / np.maximum(l1 * l2, 1e-20), -1, 1)
+        np.add.at(angle_sum, vi, np.arccos(cosang))
+        cot = cosang / np.maximum(np.sqrt(1.0 - cosang * cosang), 1e-6)
+        np.add.at(lap, vj, 0.5 * cot[:, None] * (p[vk] - p[vj]))
+        np.add.at(lap, vk, 0.5 * cot[:, None] * (p[vj] - p[vk]))
+
+    i0, i1, i2 = idx[:, 0], idx[:, 1], idx[:, 2]
+    corner(i0, b - a, c - a, i1, i2)
+    corner(i1, a - b, c - b, i0, i2)
+    corner(i2, a - c, b - c, i0, i1)
+    third = area2 / 6.0
+    for col in (i0, i1, i2):
+        np.add.at(varea, col, third)
+    varea = np.maximum(varea, 1e-20)
+    kg = (2.0 * np.pi - angle_sum) / varea
+    n = np.zeros((nv, 3))
+    fn = np.cross(b - a, c - a)
+    for col in (i0, i1, i2):
+        np.add.at(n, col, fn)
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+    kh = -np.sign(np.sum(lap * n, axis=-1)) * (0.5 * np.linalg.norm(lap, axis=-1) / varea)
+    return kh[inv].astype(np.float32), kg[inv].astype(np.float32)
+
+
+def _texture_descs(materials):
+    """The texture descriptors of the material records and their nested
+    records."""
+    out, stack = [], list(materials)
+    while stack:
+        rec = stack.pop()
+        out += [t for t in (rec.texA, rec.tex_opacity, rec.tex_bump) if t is not None]
+        stack.extend(rec.children or [])
+    return out
+
+
+def _geometry_tables(descs, meshes, tri):
+    """The per-corner tables of the geometry-driven kinds the textures
+    use (reference builder.py:696-750): vertex colours (white where a
+    mesh has none) and the corners' (mean, Gaussian) curvatures, and the
+    automatic wireframe width, a tenth of the mean edge length, set on
+    the descriptors that ask for it.  Returns (kinds, {name: table})."""
+    kinds = tuple(sorted({t.kind for t in descs if t.kind in GEOMETRY_KINDS}))
+    out = {}
+    def cat(parts):
+        return np.concatenate(parts).astype(np.float32) if parts else np.zeros((0, 3), np.float32)
+
+    if TEX_VERTEXCOLORS in kinds:
+        for k in range(3):
+            out[f"tri_c{k}"] = cat([
+                np.asarray(m.colors, np.float32)[m.indices.astype(np.int64)[:, k]]
+                if m.colors is not None else np.ones((len(m.indices), 3), np.float32)
+                for m in meshes])
+    if TEX_CURVATURE in kinds:
+        curv = [(hg, m.indices.astype(np.int64)) for m in meshes
+                for hg in [_vertex_curvatures(m)]]
+        out["tri_kh"] = cat([h[i] for (h, _), i in curv])
+        out["tri_kg"] = cat([g[i] for (_, g), i in curv])
+    if TEX_WIREFRAME in kinds:
+        e1, e2 = tri["tri_e1"], tri["tri_e2"]
+        el = (np.linalg.norm(e1, axis=-1) + np.linalg.norm(e2, axis=-1)
+              + np.linalg.norm(e2 - e1, axis=-1))
+        auto_lw = 0.1 * float(el.mean()) / 3.0 if len(e1) else 0.01
+        for t in descs:
+            if t.kind == TEX_WIREFRAME and t.line_width <= 0.0:
+                t.line_width = auto_lw
+    return kinds, out
+
+
+def _uv_partials(tri):
+    """dp/du and dp/dv of each triangle from its uv (reference
+    builder.py:872-886; e1 and e2 where the uv are degenerate)."""
+    duv1 = tri["tri_uv1"] - tri["tri_uv0"]
+    duv2 = tri["tri_uv2"] - tri["tri_uv0"]
+    uv_det = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+    safe = np.abs(uv_det) > 1e-12
+    inv_det = np.where(safe, 1.0 / np.where(safe, uv_det, 1.0), 0.0)
+    e1, e2 = tri["tri_e1"], tri["tri_e2"]
+    dpdu = (e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2]) * inv_det[:, None]
+    dpdv = (e2 * duv1[:, 0:1] - e1 * duv2[:, 0:1]) * inv_det[:, None]
+    return (np.where(safe[:, None], dpdu, e1).astype(np.float32),
+            np.where(safe[:, None], dpdv, e2).astype(np.float32))
+
+
+def _irawan_tables(materials, mt):
+    """mat_iw (each irawan row's entry in the weave tables, -1 for other
+    rows) and the iw_* tables with their meta (reference
+    builder.py:1119-1138)."""
+    mt["mat_iw"] = np.full(len(mt["mat_type"]), -1, np.int32)
+    entries = []
+    for i, rec in enumerate(materials):
+        if rec.type == IRAWAN and rec.weave is not None:
+            mt["mat_iw"][i] = len(entries)
+            entries.append((rec.weave, rec.repeat_u, rec.repeat_v, rec.iw_norm))
+    if not entries:
+        return {}, {}
+    tabs = pack_tables(entries)
+    return ({"iw_" + k: v for k, v in tabs.items()},
+            {"has_irawan": True, "iw_noise": tables_have_noise(tabs)})
 
 
 def _emissive_sphere_meshes(spheres):
@@ -507,6 +722,9 @@ def _chain_rows(materials: list, add_material) -> tuple[dict, list, int]:
                 leaves.append((r, w))
 
         flatten(rec, 1.0)
+        if any(r.type == IRAWAN for r, _ in leaves):
+            raise ValueError("irawan cannot be a mixture/blend component (its yarn lookup is "
+                             "keyed on the surface material row)")
         leaves.sort(key=lambda lw: -lw[1])
         depth = max(depth, len(leaves) - 1)
 
@@ -528,6 +746,9 @@ def _chain_rows(materials: list, add_material) -> tuple[dict, list, int]:
         links.append((i, b_id, w_a, w_b))
     for i, rec in enumerate(list(materials)):
         if rec.type in (COATING, ROUGHCOATING) and rec.children:
+            if rec.children[0].type == IRAWAN:
+                raise ValueError("irawan cannot be nested under a coating (its yarn lookup is "
+                                 "keyed on the surface material row)")
             links.append((i, add_material(rec.children[0]), 1.0, 0.0))
     return leaf_a, links, depth
 
@@ -649,6 +870,19 @@ def _with_derived(arrays: dict, meta: dict) -> dict:
     return out
 
 
+def _derived_meta(arrays: dict, meta: dict) -> dict:
+    """meta, plus the port's static keys that the reference's lacks:
+    tex_kinds, the texture kinds the table holds, and tex_nearest_any,
+    whether a texture picks nearest texels (texture_eval.py skips the
+    arms of absent kinds), where it holds the texture table."""
+    if "tex_type" not in arrays:
+        return dict(meta)
+    out = {**meta, "tex_kinds": tuple(sorted(set(np.asarray(arrays["tex_type"]).tolist())))}
+    if "tex_nearest" in arrays:
+        out["tex_nearest_any"] = bool(np.asarray(arrays["tex_nearest"]).any())
+    return out
+
+
 def pack_from_numpy(arrays: dict, meta: dict, device) -> ScenePack:
     """Turn a reference pack ({name: numpy array} plus its meta) into the
     port's pack on `device`, with the port's derived tables.  Raises
@@ -656,7 +890,7 @@ def pack_from_numpy(arrays: dict, meta: dict, device) -> ScenePack:
     render yet."""
     check_slice(meta)
     _check_textures(arrays, meta)
-    return ScenePack(_to_device(_with_derived(arrays, meta), device), dict(meta))
+    return ScenePack(_to_device(_with_derived(arrays, meta), device), _derived_meta(arrays, meta))
 
 
 def pack_scene(scene, device="cuda") -> ScenePack:
@@ -709,6 +943,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     # ---------------- flatten geometry ----------------
     v0s, e1s, e2s, n0s, n1s, n2s = [], [], [], [], [], []
     uv0s, uv1s, uv2s, tmats, temits, tmed_in, tmed_ex = [], [], [], [], [], [], []
+    all_meshes = []  # in triangle order: the geometry-driven textures' tables
     spheres = []  # (SphereData, material id, emitter id, interior, exterior)
     cyls = []  # (CylData, material id)
     for inst in scene.shapes:
@@ -774,6 +1009,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
             temits.append(np.full(len(i), emit_id, np.int32))
             tmed_in.append(np.full(len(i), med_in, np.int32))
             tmed_ex.append(np.full(len(i), med_ex, np.int32))
+            all_meshes.append(mesh)
 
     def cat(parts, shape_tail, dtype=np.float32):
         if parts:
@@ -792,6 +1028,9 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "tri_med_ex": cat(tmed_ex, (), np.int32),
     }
     n_tris = len(tri["tri_v0"])
+    descs = _texture_descs(materials)
+    geom_tex_kinds, geom_tex = _geometry_tables(descs, all_meshes, tri)
+    tri.update(geom_tex)
     use_bvh = n_tris > BRUTE_FORCE_MAX_TRIS
     if use_bvh:
         v0, e1, e2 = tri["tri_v0"], tri["tri_e1"], tri["tri_e2"]
@@ -813,10 +1052,12 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     center, radius = _bounding_sphere(tri, spheres, cyl, n_cyl)
     # pad with LEAF_SIZE far-away rows: index-clamped gathers and the
     # cluster tiles' dummy slots (index n_tris) never leave the tables
-    pad_fill = {"tri_v0": 1e30, "tri_emit": -1, "tri_med_in": -1, "tri_med_ex": -1}
+    pad_fill = {"tri_v0": 1e30, "tri_emit": -1, "tri_med_in": -1, "tri_med_ex": -1,
+                "tri_c0": 1.0, "tri_c1": 1.0, "tri_c2": 1.0}
     for k, a in tri.items():
         pad = np.full((LEAF_SIZE,) + a.shape[1:], pad_fill.get(k, 0), a.dtype)
         tri[k] = np.concatenate([a, pad])
+    tri["tri_dpdu"], tri["tri_dpdv"] = _uv_partials(tri)
 
     bvh_arrays, bvh_meta = {}, {}
     if use_bvh:
@@ -871,6 +1112,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         # a mask's opacity: packed, and read by nothing (ROADMAP C3)
         "mat_opacity": np.ones((n_mat, 3), np.float32),
         "mat_tex_opacity": np.full(n_mat, -1, np.int32),
+        "mat_tex_bump": np.full(n_mat, -1, np.int32),
+        "mat_bump_nm": np.zeros(n_mat, np.float32),  # 1: a normal map
         "mat_mix_b": np.full(n_mat, -1, np.int32),
         "mat_mix_wa": np.ones(n_mat, np.float32),
         "mat_mix_wb": np.zeros(n_mat, np.float32),
@@ -902,6 +1145,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
             mt["mat_opacity"][i] = rec.opacity
         mt["mat_texA"][i] = add_texture(rec.texA)
         mt["mat_tex_opacity"][i] = add_texture(rec.tex_opacity)
+        mt["mat_tex_bump"][i] = add_texture(rec.tex_bump)
+        mt["mat_bump_nm"][i] = float(rec.bump_is_normalmap)
 
     # rough-transmittance fits for roughplastic and roughcoating (reference
     # rtrans.h:44-186): a cubic in cos(theta) of the external
@@ -922,6 +1167,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
             rt_cache[key] = (c_ext, 1.0 - tdiff_int)
         mt["mat_rt"][i] = rt_cache[key][0]
         mt["mat_rt_fdr"][i] = rt_cache[key][1]
+
+    iw_arrays, iw_meta = _irawan_tables(materials, mt)
 
     # ---------------- emitter table ----------------
     n_em = max(len(emitters), 1)
@@ -999,6 +1246,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         **env_arrays,
         **med_arrays,
         **sss_arrays,
+        **iw_arrays,
     }
     meta = {
         "n_tris": n_tris,
@@ -1015,7 +1263,11 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "has_env": env_idx >= 0,
         **env_meta,
         "has_textures": len(textures) > 0,
-        "has_mips": False,
+        "geom_tex_kinds": geom_tex_kinds,
+        "has_mips": any(t.kind == TEX_BITMAP for t in textures)
+        and os.environ.get("MTS_TPU_NO_MIPS", "0") != "1",
+        "cam_pix_angle": _cam_pix_angle(scene),
+        "has_bumpmaps": any(rec.tex_bump is not None for rec in materials),
         "has_mixtures": bool(links),
         # the links shading_params follows (N-ary mixtures)
         "mix_depth": max(mix_depth, 1),
@@ -1026,6 +1278,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "scene_radius": radius,
         **med_meta,
         **sss_meta,
+        **iw_meta,
     }
     check_slice(meta)
-    return ScenePack(_to_device(_with_derived(arrays, meta), device), meta)
+    return ScenePack(_to_device(_with_derived(arrays, meta), device), _derived_meta(arrays, meta))

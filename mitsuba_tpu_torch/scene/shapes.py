@@ -85,6 +85,7 @@ def _apply_transform(mesh: MeshData, t: Transform, flip: bool) -> MeshData:
         indices=np.ascontiguousarray(idx),
         normals=nrm,
         texcoords=mesh.texcoords,
+        colors=mesh.colors,
         face_normals=mesh.face_normals,
         name=mesh.name,
     )

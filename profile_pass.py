@@ -2,7 +2,8 @@
 """Where the time of one render pass of the port goes, on one NVIDIA GPU.
 
     python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door|
-                             glass-sppm|smoke-pm|cbox-vpl|dipole|hairball|hairball-exact]
+                             glass-sppm|smoke-pm|cbox-vpl|dipole|hairball|hairball-exact|
+                             textured]
                             [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
@@ -31,7 +32,11 @@ with the subsurface arm and the dense dipole sum among the stages
 (SSS_STAGES); or for scenes/hairball.xml as it stands (512x384, path at
 maxDepth 6, 10 samples per pass as `render` chunks its 64; STAGES), or
 its exact mode (exact="true", 2 samples per pass), with the segment
-scans (accel/cyl.py cyl_closest, cyl_any) among the stages (CYL_STAGES):
+scans (accel/cyl.py cyl_closest, cyl_any) among the stages (CYL_STAGES);
+or for TEXTURED (tests/torch_meshes.py `textured_xml`, its assets written
+from seed 0 into build/feature_assets; 512x512, 16 samples per pass),
+with the texture lookups among the stages (TEX_STAGES: mip_footprint, and
+eval_texture inside shading_params and shading_frame):
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -134,6 +139,10 @@ SSS_STAGES = STAGES + (
 # the bounce loop's stages with the segment scans (the exact hairball),
 # which nest inside intersect and occluded
 CYL_STAGES = STAGES + (("mitsuba_tpu_torch.accel.cyl", ("cyl_closest", "cyl_any")),)
+# the bounce loop's stages with the texture lookups (TEXTURED): eval_texture
+# nests inside shading_params and shading_frame
+TEX_STAGES = STAGES + (("mitsuba_tpu_torch.integrator.path", ("mip_footprint",)),
+                       ("mitsuba_tpu_torch.scene.texture_eval", ("eval_texture",)))
 # film size and samples per pass of each scene (door: one step, one
 # mutation per pixel; the photon mappers: one iteration; dipole: its
 # film's width, and render's chunk of its 64 spp)
@@ -276,7 +285,7 @@ def main():
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
                              "smoke", "glass", "door", "dipole", "hairball",
-                             "hairball-exact") + PHOTON_MODES)
+                             "hairball-exact", "textured") + PHOTON_MODES)
     ap.add_argument("--hits-only", action="store_true")
     ap.add_argument("--mutations", type=int, default=32,
                     help="door: the mutations per pixel the steps go on to")
@@ -303,10 +312,12 @@ def main():
         bunny_standin,
         cbox_xml,
         dense_standin,
+        feature_assets,
         glass_xml,
         hairball_xml,
         matpreview_const_xml,
         smoke_xml,
+        textured_xml,
         with_integrator,
         write_ply,
     )
@@ -335,6 +346,9 @@ def main():
         scene = mt.load_scene_string(cbox_xml("vpl", res, res))
     elif args.scene == "dipole":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "dipole.xml"))
+    elif args.scene == "textured":
+        scene = mt.load_scene_string(textured_xml(
+            feature_assets(os.path.join(HERE, "build", "feature_assets")), RES, RES, SPP))
     elif args.scene.startswith("hairball"):
         scene = mt.load_scene_string(hairball_xml(exact=args.scene == "hairball-exact"))
     elif args.scene == "cbox":
@@ -372,6 +386,7 @@ def main():
                             counters(pk, pairs, pb), res, spp,
                             {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES, "door": BDPT_STAGES,
                              "dipole": SSS_STAGES, "hairball-exact": CYL_STAGES,
+                             "textured": TEX_STAGES,
                              **dict.fromkeys(PHOTON_MODES, PHOTON_STAGES)}.get(args.scene, STAGES),
                             args.mutations)
         if args.scene == "door":

@@ -77,9 +77,20 @@ the matpreview variant.
   torch_bsdf_thin_bdpt_24_4.npy (the thin gallery under bdpt at maxDepth
   4).
 
+* the texture slice, seed 0, over the assets that tests/torch_meshes.py
+  `feature_assets` writes from seed 0 into build/feature_assets:
+  torch_textured_32_4.npy, `textured_xml` (TEXTURED: 2,758 triangles in 35
+  clusters, through the pair pipeline) at 32x32, 4 spp;
+  torch_tex_bitmap_24_4.npy and torch_tex_bitmap_ewa_24_4.npy,
+  `bitmap_xml` under the feline and the ewa filter (MTS_TEX_FILTER);
+  torch_tex_normalmap_32_4.npy and torch_tex_bumpmap_32_4.npy,
+  `bump_xml("tilted")` and `bump_xml("bump")`; torch_tex_vertexcolors_33_4.npy,
+  torch_tex_wireframe_33_4.npy and torch_tex_curvature_33_4.npy,
+  `geom_xml`; torch_irawan_cloth_24_4.npy, `cloth_xml`.
+
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
-With no argument all thirty-two are written.  Each line the script prints
+With no argument all forty-one are written.  Each line the script prints
 gives the golden's render time, XLA's compile included; the last four
 took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
 (the 16-edge program's compile; 16 edges fit, so no smaller cap was
@@ -113,7 +124,9 @@ import numpy as np
 from tests.torch_meshes import (
     ROOT,
     bdpt_media_xml,
+    bitmap_xml,
     bsdf_gallery_xml,
+    bump_xml,
     bunny_scene_xml,
     bunny_standin,
     cbox_chain_xml,
@@ -122,15 +135,19 @@ from tests.torch_meshes import (
     cbox_xml,
     cbox_mitchell_xml,
     cbox_ptracer_xml,
+    cloth_xml,
     dense_standin,
     dipole_xml,
     door_xml,
+    feature_assets,
+    geom_xml,
     glass_manifold_xml,
     glass_xml,
     hairball_xml,
     homog_slab_xml,
     matpreview_const_xml,
     smoke_xml,
+    textured_xml,
     two_wall_xml,
     with_integrator,
     with_properties,
@@ -144,6 +161,29 @@ def _standin_xml(mesh, ply):
         write_ply(ply, *mesh(seed=0))
         return bunny_scene_xml(ply, 64, 64)
     return make
+
+
+FEATURE_ASSETS = os.path.join(ROOT, "build", "feature_assets")
+
+
+def _feature(make):
+    """An XML maker over the feature assets, written first."""
+    def xml():
+        return make(feature_assets(FEATURE_ASSETS))
+    return xml
+
+
+@contextlib.contextmanager
+def texture_filter(name):
+    """Within the block the JAX package filters texture footprints with
+    `name` (its MTS_TEX_FILTER, which it reads at import)."""
+    from mitsuba_tpu.scene import texture_eval as jte
+
+    saved, jte.TEX_FILTER = jte.TEX_FILTER, name
+    try:
+        yield
+    finally:
+        jte.TEX_FILTER = saved
 
 
 @contextlib.contextmanager
@@ -244,6 +284,24 @@ GOLDENS = {
                      lambda: bsdf_gallery_xml("layered", 24, 24), False, 4),
     "bsdf_thin_bdpt": (os.path.join(ROOT, "tests", "golden", "torch_bsdf_thin_bdpt_24_4.npy"),
                        lambda: bsdf_gallery_xml("thin", 24, 24, "bdpt", 4), False, 4),
+    "textured": (os.path.join(ROOT, "tests", "golden", "torch_textured_32_4.npy"),
+                 _feature(lambda d: textured_xml(d, 32, 32)), True, 4),
+    "tex_bitmap": (os.path.join(ROOT, "tests", "golden", "torch_tex_bitmap_24_4.npy"),
+                   _feature(bitmap_xml), False, 4),
+    "tex_bitmap_ewa": (os.path.join(ROOT, "tests", "golden", "torch_tex_bitmap_ewa_24_4.npy"),
+                       _feature(bitmap_xml), False, 4, {"MTS_TEX_FILTER": "ewa"}),
+    "tex_normalmap": (os.path.join(ROOT, "tests", "golden", "torch_tex_normalmap_32_4.npy"),
+                      lambda: bump_xml("tilted"), False, 4),
+    "tex_bumpmap": (os.path.join(ROOT, "tests", "golden", "torch_tex_bumpmap_32_4.npy"),
+                    _feature(lambda d: bump_xml("bump", d)), False, 4),
+    "tex_vertexcolors": (os.path.join(ROOT, "tests", "golden", "torch_tex_vertexcolors_33_4.npy"),
+                         _feature(lambda d: geom_xml("vertexcolors", d)), False, 4),
+    "tex_wireframe": (os.path.join(ROOT, "tests", "golden", "torch_tex_wireframe_33_4.npy"),
+                      _feature(lambda d: geom_xml("wireframe", d)), False, 4),
+    "tex_curvature": (os.path.join(ROOT, "tests", "golden", "torch_tex_curvature_33_4.npy"),
+                      _feature(lambda d: geom_xml("curvature", d)), False, 4),
+    "irawan_cloth": (os.path.join(ROOT, "tests", "golden", "torch_irawan_cloth_24_4.npy"),
+                     cloth_xml, False, 4),
 }
 
 
@@ -262,7 +320,8 @@ def main(names):
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
-            with reference_pair_traversal() if pairs else contextlib.nullcontext():
+            with reference_pair_traversal() if pairs else contextlib.nullcontext(), \
+                    texture_filter(env.get("MTS_TEX_FILTER", "feline")):
                 img = np.asarray(mitsuba_tpu.render(scene, spp=spp, seed=0), np.float32)
         finally:
             for k, v in saved.items():

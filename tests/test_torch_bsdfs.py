@@ -255,8 +255,15 @@ def test_gallery_golden(golden, kind, integrator):
 
 
 def test_unported_plugins_refused():
-    """bumpmap, normalmap and irawan stay unregistered."""
-    for name in ("bumpmap", "normalmap", "irawan"):
-        with pytest.raises(NotImplementedError, match=f"bsdf '{name}' not yet ported"):
-            _record(f'<bsdf type="{name}"><bsdf type="diffuse"/></bsdf>', mt.load_scene_string)
-    assert tplug.IRAWAN not in tbsdf.PORTED
+    """Every BSDF plugin of the reference is registered (bumpmap,
+    normalmap and irawan since the texture slice) and every type
+    evaluated; the registry still refuses a plugin it does not hold, by
+    name."""
+    for name in ("bumpmap", "normalmap"):
+        rec = _record(f'<bsdf type="{name}"><texture type="checkerboard"/>'
+                      '<bsdf type="diffuse"/></bsdf>', mt.load_scene_string)
+        assert rec.tex_bump is not None and rec.bump_is_normalmap == (name == "normalmap")
+    assert _record('<bsdf type="irawan"/>', mt.load_scene_string).type == tplug.IRAWAN
+    assert tplug.IRAWAN in tbsdf.PORTED
+    with pytest.raises(NotImplementedError, match="bsdf 'velvet' not yet ported"):
+        _record('<bsdf type="velvet"/>', mt.load_scene_string)

@@ -20,7 +20,16 @@ from mitsuba_tpu_torch.accel import pallas_bvh as pb
 from mitsuba_tpu_torch.accel import pallas_kernels as pk
 from mitsuba_tpu_torch.scene.builder import pack_scene
 from mitsuba_tpu_torch.scene.xml_loader import load_scene_string
-from torch_meshes import bunny_scene_xml, bunny_standin, write_ply
+from torch_meshes import (
+    bitmap_xml,
+    bump_xml,
+    bunny_scene_xml,
+    bunny_standin,
+    cloth_xml,
+    geom_xml,
+    textured_xml,
+    write_ply,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1641,17 +1650,17 @@ def test_irrcache_trace_on_card_matches_cpu(dev):
 def test_hairball_queries_equal_plain(dev):
     """K3/K4 (closest and any) and K7/K8 bit-equal to plain on
     scenes/hairball.xml's camera rays and a pass's first NEE, at 128x96
-    (chip_smoke.hairball_segments): most camera rays take the fallback."""
+    (chip_smoke.pair_segments): most camera rays take the fallback."""
     import mitsuba_tpu_torch as mt
-    from chip_smoke import hairball_segments
+    from chip_smoke import pair_segments
     from mitsuba_tpu_torch.film.film import new_film
     from mitsuba_tpu_torch.integrator import path as tpath
     from mitsuba_tpu_torch.renderer import make_render_pass
     from torch_meshes import hairball_xml
 
     scene = mt.load_scene_string(hairball_xml(128, 96))
-    hairball_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack_scene(scene, dev),
-                      dev, [])
+    pair_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack_scene(scene, dev), dev,
+                  [], "hairball")
 
 
 @pytest.mark.parametrize("name", [
@@ -1708,3 +1717,93 @@ def test_cylinder_scan_on_card_matches_cpu(dev):
     t_max = torch.tensor(r.uniform(0.05, 2.0, 20_000), dtype=torch.float32)
     occ = cyl.cyl_any(card, o.to(dev), d.to(dev), t_max.to(dev)).cpu()
     assert (occ != cyl.cyl_any(cpu, o, d, t_max)).sum() <= 20
+
+
+@pytest.fixture(scope="module")
+def feature_dir(tmp_path_factory):
+    from torch_meshes import feature_assets
+
+    return feature_assets(str(tmp_path_factory.mktemp("feature_assets")))
+
+
+def test_textured_queries_equal_plain(dev, feature_dir):
+    """K3/K4 (closest and any) and K7/K8 bit-equal to plain on TEXTURED's
+    camera rays and a pass's first NEE at 256x256 (chip_smoke.pair_segments)."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import pair_segments
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.integrator import path as tpath
+    from mitsuba_tpu_torch.renderer import make_render_pass
+
+    scene = mt.load_scene_string(textured_xml(feature_dir, 256, 256))
+    pair_segments(pairs, pb, tpath, make_render_pass, new_film, scene, pack_scene(scene, dev), dev,
+                  [], "textured")
+
+
+TEXTURE_GOLDENS = {
+    "torch_textured_32_4.npy": lambda d: textured_xml(d, 32, 32),
+    "torch_tex_bitmap_24_4.npy": bitmap_xml,
+    "torch_tex_bitmap_ewa_24_4.npy": bitmap_xml,
+    "torch_tex_normalmap_32_4.npy": lambda d: bump_xml("tilted"),
+    "torch_tex_bumpmap_32_4.npy": lambda d: bump_xml("bump", d),
+    "torch_tex_vertexcolors_33_4.npy": lambda d: geom_xml("vertexcolors", d),
+    "torch_tex_wireframe_33_4.npy": lambda d: geom_xml("wireframe", d),
+    "torch_tex_curvature_33_4.npy": lambda d: geom_xml("curvature", d),
+    "torch_irawan_cloth_24_4.npy": lambda d: cloth_xml(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TEXTURE_GOLDENS))
+def test_texture_goldens_on_card(dev, feature_dir, name, monkeypatch):
+    """TEXTURED and the texture slice's feature scenes (the JAX package's
+    renders) on the card, through `render` with its default device, each
+    at its tests/torch_meshes.py GOLDEN_GATES gate."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.scene import texture_eval
+    from torch_meshes import GOLDEN_GATES, ROOT
+
+    if "ewa" in name:
+        monkeypatch.setattr(texture_eval, "TEX_FILTER", "ewa")
+    img = mt.render(mt.load_scene_string(TEXTURE_GOLDENS[name](feature_dir)), spp=4, seed=0)
+    gold = np.load(os.path.join(ROOT, "tests", "golden", name))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert _tm_rmse(img, gold) < GOLDEN_GATES[name], _tm_rmse(img, gold)
+
+
+@pytest.mark.parametrize("fp_kind", ["none", "scalar", "feline", "ewa"])
+def test_eval_texture_on_card_matches_cpu(dev, feature_dir, fp_kind, monkeypatch):
+    """eval_texture on TEXTURED's seven textures, 100,000 lanes of random
+    ids, uv, footprints and triangles, the card against the CPU: within
+    atol 1e-5, rtol 1e-4 (the card's log2 and exp differ from the CPU's in
+    the last place)."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.scene import texture_eval
+
+    if fp_kind == "ewa":
+        monkeypatch.setattr(texture_eval, "TEX_FILTER", "ewa")
+    scene = mt.load_scene_string(textured_xml(feature_dir, 32, 32))
+    card, cpu = pack_scene(scene, dev), pack_scene(scene, "cpu")
+    r = np.random.default_rng(5)
+    n = 100_000
+    tid = torch.tensor(r.integers(-1, 7, n), dtype=torch.int32)
+    uv = torch.tensor(r.uniform(-2, 3, (n, 2)), dtype=torch.float32)
+    default = torch.tensor(r.random((n, 3)), dtype=torch.float32)
+    prim = torch.tensor(r.integers(0, 2758, n), dtype=torch.int32)
+    bary = torch.tensor(r.random((n, 2)) * 0.5, dtype=torch.float32)
+    fp = None
+    if fp_kind == "scalar":
+        fp = torch.tensor(10.0 ** r.uniform(-4, 0, n), dtype=torch.float32)
+    elif fp_kind in ("feline", "ewa"):
+        fp = (torch.tensor(r.normal(size=(n, 2)) * 1e-3, dtype=torch.float32),
+              torch.tensor(r.normal(size=(n, 2)) * 1e-2, dtype=torch.float32))
+
+    def to(x):
+        return None if x is None else tuple(t.to(dev) for t in x) if isinstance(x, tuple) \
+            else x.to(dev)
+
+    out = texture_eval.eval_texture(card, tid.to(dev), uv.to(dev), default.to(dev), to(fp),
+                                    (prim.to(dev), bary.to(dev))).cpu().numpy()
+    ref = texture_eval.eval_texture(cpu, tid, uv, default, fp, (prim, bary)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)

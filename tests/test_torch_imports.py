@@ -208,3 +208,41 @@ def test_hairball_modules_stand_alone(mod):
     for name in (("load_hair", "_fiber_frames", "tessellate_fibers", "fibers_to_segments")
                  if mod.endswith("hair") else ("_seg_test", "cyl_closest", "cyl_any")):
         assert getattr(m, name).__module__ == mod, name
+
+
+def test_texture_modules_are_checked():
+    """The modules of the texture slice (the texture plugins and their
+    evaluation, the bump frames, irawan's device and host halves, the
+    PLY colours, the weave stream) are among the sources checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("scene/textures.py", "scene/texture_eval.py", "scene/builder.py",
+                "accel/intersect.py", "bsdf/irawan.py", "bsdf/irawan_host.py", "bsdf/eval.py",
+                "bsdf/plugins.py", "io/meshes.py", "core/rng.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("mitsuba_tpu_torch.bsdf.irawan_host",
+     ("parse_weave", "pack_tables", "tables_have_noise", "compute_normalization", "lane_params",
+      "irawan_f", "tea_float_np")),
+    ("mitsuba_tpu_torch.bsdf.irawan",
+     ("lane_params", "irawan_f", "filament_integrand", "staple_integrand", "perlin1")),
+    ("mitsuba_tpu_torch.scene.builder",
+     ("_mip_chain", "_downsample2", "_pack_textures", "_vertex_curvatures", "_uv_partials")),
+    ("mitsuba_tpu_torch.scene.texture_eval",
+     ("eval_texture", "mip_footprint", "shading_params", "shading_frame")),
+    ("mitsuba_tpu_torch.scene.textures", ("TextureDesc", "as_texture_or_spectrum")),
+])
+def test_texture_modules_stand_alone(mod, names):
+    """The texture slice's modules import nothing of JAX or of the JAX
+    package and keep their own copies of the reference's code (the weave
+    parser, presets, tables and normalization; the mip chain and the
+    curvature estimate; the lookups)."""
+    import importlib
+
+    m = importlib.import_module(mod)
+    assert not [r for r, _ in _imported_roots(m.__file__) if r in FORBIDDEN]
+    for name in names:
+        assert getattr(m, name).__module__ == mod, name
+    if mod.endswith("irawan_host"):
+        assert "plain" in m.PRESETS

@@ -213,17 +213,19 @@ def test_bsdf_sample(typ):
 
 
 def test_bsdf_unported_types_raise():
-    """irawan (type 17) is refused by the functions, and the plugins still
-    unported, bumpmap, normalmap and irawan, by the loader."""
+    """A type number the functions do not evaluate is refused: 13, the
+    mixture's, which no row holds (a mixture's row holds its first leaf's
+    type; irawan, 17, is evaluated since the texture slice); and the
+    loader refuses a plugin it does not hold, by name."""
     _, tsp = _sp_pair(DIFFUSE)
-    for present in ((0, 17), (17,)):
+    for present in ((0, 13), (13,)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tbsdf.bsdf_sample(tsp, torch.zeros(N, 3), torch.zeros(N, 2), torch.zeros(N), present)
-    for name in ("bumpmap", "normalmap", "irawan"):
-        with pytest.raises(NotImplementedError, match=f"bsdf '{name}' not yet ported"):
-            load_scene_string(f"""<scene version="0.5.0"><sensor type="perspective"/>
-                <shape type="rectangle"><bsdf type="{name}"><bsdf type="diffuse"/></bsdf></shape>
-                </scene>""")
+    assert 17 in tbsdf.PORTED
+    with pytest.raises(NotImplementedError, match="bsdf 'velvet' not yet ported"):
+        load_scene_string("""<scene version="0.5.0"><sensor type="perspective"/>
+            <shape type="rectangle"><bsdf type="velvet"><bsdf type="diffuse"/></bsdf></shape>
+            </scene>""")
 
 
 BSDF_XML = """

@@ -120,10 +120,10 @@ def test_srgb_reflectance_within_one_ulp():
 @pytest.mark.parametrize(
     "snippet",
     [
-        '<bsdf type="bumpmap"/>',
+        '<sensor type="thinlens"/>',
         '<emitter type="sky"/>',
         '<shape type="obj"/>',
-        '<shape type="rectangle"><bsdf type="diffuse"><texture name="reflectance" type="gridtexture"/></bsdf></shape>',
+        '<shape type="serialized"/>',
         '<shape type="rectangle"><transform name="toWorld"><rotate x="1" angle="90"/></transform>'
         '<emitter type="area"><blackbody name="radiance" temperature="3000"/></emitter></shape>',
     ],
@@ -141,7 +141,7 @@ def test_unported_pack_features_raise():
     jp = jpack_scene(jload(CBOX))
     # use_bvh without cluster tables: the reference's plain BVH walk is
     # not a ported render path
-    for key, value in (("has_bumpmaps", True), ("use_bvh", True), ("present_types", (0, 17))):
+    for key, value in (("has_instances", True), ("use_bvh", True), ("present_types", (0, 13))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             pack_from_numpy(_jax_np(jp), {**jp.meta, key: value}, "cpu")
 
@@ -171,12 +171,15 @@ def test_large_scene_raises(monkeypatch):
 
 
 def test_unported_texture_kinds_raise():
-    """A reference pack with a bitmap texture (kind 1) is refused, with or
-    without its mip maps; the ported kinds (constant, checkerboard) pass."""
+    """A reference pack with a texture kind past the reference's seven is
+    refused; every kind of the reference passes (the bitmap, kind 1, with
+    or without its mip maps, since the texture slice)."""
     jp = jpack_scene(jload_string(matpreview_const_xml(16, 16)))
     arrays = _jax_np(jp)
     assert pack_from_numpy(arrays, jp.meta, "cpu").meta["has_textures"]
     bitmap = {**arrays, "tex_type": np.ones_like(arrays["tex_type"])}
     for meta in (jp.meta, {**jp.meta, "has_mips": True}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            pack_from_numpy(bitmap, meta, "cpu")
+        assert pack_from_numpy(bitmap, meta, "cpu").meta["tex_kinds"] == (1,)
+    unknown = {**arrays, "tex_type": np.full_like(arrays["tex_type"], 7)}
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        pack_from_numpy(unknown, jp.meta, "cpu")

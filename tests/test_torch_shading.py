@@ -163,7 +163,9 @@ def test_twosided_flip_matches_reference(packs):
 def test_unported_bsdf_type_raises(packs):
     present, _, tsp = _sp_pair(packs, 16)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbsdf.bsdf_eval(tsp, torch.zeros(N, 3), torch.zeros(N, 3), (0, 17))  # irawan
+        # 13, the mixture's type number, which no row holds (irawan, 17, is
+        # evaluated since the texture slice)
+        tbsdf.bsdf_eval(tsp, torch.zeros(N, 3), torch.zeros(N, 3), (0, 13))
 
 
 def test_sample_direct_area(packs):

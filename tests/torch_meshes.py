@@ -99,9 +99,10 @@ def dense_standin(seed=0):
 
 
 def write_ply(path, positions, indices, normals=None, texcoords=None,
-              fmt="binary_little_endian"):
-    """PLY writer: float vertex properties (x y z [nx ny nz] [u v]) and
-    uchar-counted int face lists; fmt is "ascii" or a binary format."""
+              fmt="binary_little_endian", colors=None):
+    """PLY writer: float vertex properties (x y z [nx ny nz] [u v]), then
+    uchar colours (red green blue) where given, and uchar-counted int
+    face lists; fmt is "ascii" or a binary format."""
     cols = [positions]
     props = ["x", "y", "z"]
     if normals is not None:
@@ -111,23 +112,33 @@ def write_ply(path, positions, indices, normals=None, texcoords=None,
         cols.append(texcoords)
         props += ["u", "v"]
     verts = np.concatenate(cols, axis=1).astype(np.float32)
+    cprops = ["red", "green", "blue"] if colors is not None else []
     header = (
         f"ply\nformat {fmt} 1.0\ncomment seeded test mesh\n"
         f"element vertex {len(verts)}\n"
         + "".join(f"property float {p}\n" for p in props)
+        + "".join(f"property uchar {p}\n" for p in cprops)
         + f"element face {len(indices)}\n"
         "property list uchar int vertex_indices\nend_header\n"
     )
     with open(path, "wb") as f:
         f.write(header.encode("ascii"))
         if fmt == "ascii":
-            for row in verts:
-                f.write((" ".join(repr(float(x)) for x in row) + "\n").encode())
+            for k, row in enumerate(verts):
+                vals = [repr(float(x)) for x in row]
+                vals += [str(int(c)) for c in colors[k]] if colors is not None else []
+                f.write((" ".join(vals) + "\n").encode())
             for tri in indices:
                 f.write(("3 " + " ".join(str(int(i)) for i in tri) + "\n").encode())
             return
         end = {"binary_little_endian": "<", "binary_big_endian": ">"}[fmt]
-        f.write(verts.astype(end + "f4").tobytes())
+        if colors is None:
+            f.write(verts.astype(end + "f4").tobytes())
+        else:
+            rec = np.zeros(len(verts), np.dtype([("p", end + "f4", verts.shape[1]),
+                                                 ("c", "u1", 3)]))
+            rec["p"], rec["c"] = verts, colors
+            f.write(rec.tobytes())
         faces = np.zeros(len(indices), np.dtype([("n", "u1"), ("i", end + "i4", 3)]))
         faces["n"] = 3
         faces["i"] = indices
@@ -319,6 +330,25 @@ GOLDEN_GATES = {
     "torch_bsdf_thin_24_4.npy": 1e-5,
     "torch_bsdf_layered_24_4.npy": 1e-5,
     "torch_bsdf_thin_bdpt_24_4.npy": 1e-5,
+    # the texture slice (CPU readings: TEXTURED 1.4e-3, the bitmap scene
+    # 6.9e-6 under feline and 3.4e-6 under ewa, the tilted normal map 0, the
+    # bump map 1.8e-6, vertex colours 1.5e-8, wireframe 1.9e-7, curvature
+    # 5.5e-9, the cloth 3.1e-7).  TEXTURED's reading is three pixels of
+    # 1,024 (32 x 32, 4 spp) whose paths part: a last-place difference at
+    # one bounce (a hit point, a footprint's log2, a bump frame) sends a
+    # sample elsewhere, and at 4 spp it moves its pixel by up to 7e-2.
+    # Fed the same inputs, the two packages' textures, footprints and
+    # frames agree to ~1e-6 (tests/test_torch_textures.py,
+    # tests/test_torch_bumpmap.py).
+    "torch_textured_32_4.npy": 5e-3,
+    "torch_tex_bitmap_24_4.npy": 1e-5,
+    "torch_tex_bitmap_ewa_24_4.npy": 1e-5,
+    "torch_tex_normalmap_32_4.npy": 1e-5,
+    "torch_tex_bumpmap_32_4.npy": 1e-5,
+    "torch_tex_vertexcolors_33_4.npy": 1e-6,
+    "torch_tex_wireframe_33_4.npy": 1e-6,
+    "torch_tex_curvature_33_4.npy": 1e-6,
+    "torch_irawan_cloth_24_4.npy": 1e-5,
 }
 
 # the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
@@ -719,3 +749,333 @@ def bsdf_gallery_xml(kind, width=None, height=None, integrator=None, max_depth=N
     if integrator is not None or max_depth is not None:
         xml = with_integrator(xml, integrator or "path", max_depth)
     return xml
+
+
+# ---- the texture slice: bitmaps with mip maps, the procedural and
+# geometry-driven textures, bump and normal maps, and the irawan cloth ----
+
+SKY_EXR = os.path.join(ROOT, "scenes", "assets", "sky.exr")
+
+
+def write_pfm(path, img):
+    """A float32 PFM ("PF", little-endian) of an [H, W, 3] image, top row
+    first in `img` (PFM stores the bottom row first)."""
+    img = np.ascontiguousarray(np.asarray(img, np.float32)[::-1])
+    with open(path, "wb") as f:
+        f.write(f"PF\n{img.shape[1]} {img.shape[0]}\n-1.0\n".encode("ascii"))
+        f.write(img.astype("<f4").tobytes())
+
+
+def lat_long_sphere(n_phi, n_theta):
+    """A unit sphere of (n_theta + 1) x (n_phi + 1) vertices, with uv, as
+    the renderers tessellate one (2 n_phi n_theta triangles, those at the
+    poles degenerate).  Returns (positions, indices, uv)."""
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi + 1)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    pos = np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp), np.cos(tt)],
+                   axis=-1).reshape(-1, 3)
+    uv = np.stack([pp / (2 * np.pi), 1.0 - tt / np.pi], axis=-1).reshape(-1, 2)
+    idx = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a = i * (n_phi + 1) + j
+            b = a + n_phi + 1
+            idx += [[a, b, a + 1], [a + 1, b, b + 1]]
+    return pos.astype(np.float32), np.asarray(idx, np.uint32), uv.astype(np.float32)
+
+
+def textured_assets(directory, seed=0):
+    """Write TEXTURED's assets, drawn from np.random.default_rng(seed),
+    into `directory`: height.pfm (64 x 64, heights in [0, 0.01)),
+    normal.pfm (128 x 128, tangent-space normals tilted by up to ~17
+    degrees, encoded as (n + 1) / 2) and ball.ply (the 24 x 12 sphere,
+    576 triangles, with per-vertex colours).  Returns the directory."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    write_pfm(os.path.join(directory, "height.pfm"),
+              np.repeat(0.01 * rng.random((64, 64, 1)), 3, axis=-1))
+    n = np.concatenate([0.3 * rng.uniform(-1, 1, (128, 128, 2)), np.ones((128, 128, 1))], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    write_pfm(os.path.join(directory, "normal.pfm"), 0.5 * (n + 1.0))
+    pos, idx, uv = lat_long_sphere(24, 12)
+    colors = rng.integers(0, 256, (len(pos), 3)).astype(np.uint8)
+    write_ply(os.path.join(directory, "ball.ply"), pos, idx, normals=pos, texcoords=uv,
+              colors=colors)
+    return directory
+
+
+def _ball(asset_dir, x, texture):
+    return f"""
+  <shape type="ply">
+    <string name="filename" value="{os.path.join(asset_dir, 'ball.ply')}"/>
+    <transform name="toWorld"><scale value="0.35"/><translate x="{x}" y="0.35" z="-0.4"/>
+    </transform>
+    <bsdf type="diffuse">{texture}</bsdf>
+  </shape>"""
+
+
+def textured_xml(asset_dir, width=None, height=None, spp=16):
+    """TEXTURED, the texture slice's scene (path, maxDepth 6, independent
+    sampler, gaussian filter, 512 x 512 unless given), over the assets of
+    `textured_assets`:
+
+    * the floor, an 8 x 8 rectangle under diffuse, its reflectance a
+      `scale` (0.002) over a `bitmap` of scenes/assets/sky.exr (512 x 256,
+      HDR) repeated 4 x 4: seen at grazing angles, the mip levels and the
+      anisotropic probes;
+    * the back wall, a `bumpmap` of height.pfm over roughplastic;
+    * an analytic sphere, a `normalmap` of normal.pfm over diffuse with a
+      `gridtexture` reflectance;
+    * three PLY spheres (576 triangles each, vertex colours) under
+      `vertexcolors`, `wireframe` (automatic line width) and `curvature`
+      (mean);
+    * the cloth, a rectangle under twosided irawan (preset "plain",
+      repeatU = repeatV = 8);
+    * an emissive sphere (tessellated: 1,024 triangles) and a constant
+      environment.
+    """
+    xml = f"""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="6"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="45"/>
+    <transform name="toWorld"><lookat origin="0, 1.3, -4.6" target="0, 0.55, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="512"/><integer name="height" value="512"/>
+      <rfilter type="gaussian"/></film>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="4"/><rotate x="1" angle="-90"/></transform>
+    <bsdf type="diffuse">
+      <texture name="reflectance" type="scale">
+        <spectrum name="scale" value="0.002"/>
+        <texture type="bitmap">
+          <string name="filename" value="{SKY_EXR}"/>
+          <float name="uscale" value="4"/><float name="vscale" value="4"/>
+        </texture>
+      </texture>
+    </bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale x="4" y="2.5" z="1"/><rotate y="1" angle="180"/>
+      <translate y="2.5" z="2"/></transform>
+    <bsdf type="bumpmap">
+      <texture type="bitmap">
+        <string name="filename" value="{os.path.join(asset_dir, 'height.pfm')}"/>
+        <float name="uscale" value="3"/><float name="vscale" value="2"/>
+      </texture>
+      <bsdf type="roughplastic">
+        <float name="alpha" value="0.2"/>
+        <rgb name="diffuseReflectance" value="0.55, 0.45, 0.35"/>
+      </bsdf>
+    </bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="-1.45" y="0.6" z="0.2"/><float name="radius" value="0.6"/>
+    <bsdf type="normalmap">
+      <texture type="bitmap">
+        <string name="filename" value="{os.path.join(asset_dir, 'normal.pfm')}"/>
+      </texture>
+      <bsdf type="diffuse">
+        <texture name="reflectance" type="gridtexture">
+          <rgb name="color0" value="0.7, 0.6, 0.2"/><rgb name="color1" value="0.1, 0.1, 0.3"/>
+          <float name="lineWidth" value="0.05"/>
+          <float name="uscale" value="6"/><float name="vscale" value="3"/>
+        </texture>
+      </bsdf>
+    </bsdf>
+  </shape>
+  {_ball(asset_dir, -0.45, '<texture name="reflectance" type="vertexcolors"/>')}
+  {_ball(asset_dir, 0.35, '<texture name="reflectance" type="wireframe"/>')}
+  {_ball(asset_dir, 1.15, '<texture name="reflectance" type="curvature"><float name="scale" value="0.3"/></texture>')}
+  <shape type="rectangle">
+    <transform name="toWorld"><scale x="0.7" y="0.9" z="1"/><rotate y="1" angle="150"/>
+      <translate x="2.1" y="0.9" z="0.6"/></transform>
+    <bsdf type="twosided">
+      <bsdf type="irawan">
+        <string name="preset" value="plain"/>
+        <float name="repeatU" value="8"/><float name="repeatV" value="8"/>
+      </bsdf>
+    </bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="0.3" y="3.3" z="-1.2"/><float name="radius" value="0.4"/>
+    <emitter type="area"><rgb name="radiance" value="18, 16, 13"/></emitter>
+  </shape>
+  <emitter type="constant"><rgb name="radiance" value="0.25, 0.27, 0.3"/></emitter>
+</scene>"""
+    return _film_size(xml, width, height)
+
+
+def write_png(path, img):
+    """An 8-bit RGB PNG of an [H, W, 3] image in [0, 1] (no gamma:
+    the values are stored as they are)."""
+    import struct
+    import zlib
+
+    a = np.clip(np.round(np.asarray(img, np.float64) * 255.0), 0, 255).astype(np.uint8)
+    raw = b"".join(b"\x00" + row.tobytes() for row in a)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", a.shape[1], a.shape[0], 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw)))
+        f.write(chunk(b"IEND", b""))
+
+
+def feature_assets(directory, seed=0):
+    """TEXTURED's assets (`textured_assets`) and those of the feature
+    scenes: checker.png (a 64 x 64 two-texel checker, LDR), quad.ply
+    (tests/test_geom_textures.py's quad with red, green, blue and white
+    corners) and sphere.ply (the 24 x 12 sphere without colours).
+    Returns the directory."""
+    textured_assets(directory, seed)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = (((xx // 2) + (yy // 2)) % 2).astype(np.float32)
+    write_png(os.path.join(directory, "checker.png"),
+              np.stack([checker, 0.3 + 0.5 * checker, 1.0 - checker], axis=-1))
+    quad = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    write_ply(os.path.join(directory, "quad.ply"), quad, np.array([[0, 1, 2], [0, 2, 3]]),
+              fmt="ascii", colors=np.array([[255, 0, 0], [0, 255, 0], [0, 0, 255],
+                                            [255, 255, 255]], np.uint8))
+    pos, idx, _ = lat_long_sphere(24, 12)
+    write_ply(os.path.join(directory, "sphere.ply"), pos, idx)
+    return directory
+
+
+def bitmap_xml(asset_dir, width=24, height=24, spp=4):
+    """The bitmap feature scene (path, maxDepth 3, 24 x 24): a floor
+    seen at grazing angles under checker.png (sRGB-linearized) repeated
+    8 x 8, a wall under a `scale` of normal.pfm picked by nearest texels,
+    a sphere under the same PFM with gamma ignored for HDR files, and a
+    constant environment.  MTS_TEX_FILTER chooses the footprint's filter
+    ("feline" or "ewa")."""
+    nm = os.path.join(asset_dir, "normal.pfm")
+    xml = f"""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="3"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="50"/>
+    <transform name="toWorld"><lookat origin="0, 0.6, -4" target="0, 0.2, 2" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="24"/><integer name="height" value="24"/>
+      <rfilter type="box"/></film>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="6"/><rotate x="1" angle="-90"/></transform>
+    <bsdf type="diffuse"><texture name="reflectance" type="bitmap">
+      <string name="filename" value="{os.path.join(asset_dir, 'checker.png')}"/>
+      <float name="uscale" value="8"/><float name="vscale" value="8"/>
+    </texture></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="2"/><rotate y="1" angle="180"/>
+      <translate x="1.5" y="1.5" z="4"/></transform>
+    <bsdf type="diffuse"><texture name="reflectance" type="scale">
+      <rgb name="scale" value="0.9, 0.7, 0.5"/>
+      <texture type="bitmap"><string name="filename" value="{nm}"/>
+        <string name="filterType" value="nearest"/><float name="uscale" value="2"/>
+      </texture>
+    </texture></bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="-1.2" y="0.7" z="1"/><float name="radius" value="0.7"/>
+    <bsdf type="roughplastic"><texture name="diffuseReflectance" type="bitmap">
+      <string name="filename" value="{nm}"/><float name="gamma" value="2.2"/>
+      <float name="uoffset" value="0.25"/>
+    </texture></bsdf>
+  </shape>
+  <emitter type="constant"><rgb name="radiance" value="1, 1, 1"/></emitter>
+</scene>"""
+    return _film_size(xml, width, height)
+
+
+def bump_xml(kind, asset_dir=None, width=32, height=32, spp=4):
+    """tests/test_bumpmap.py's scene (path, maxDepth 2, a rectangle seen
+    head-on at 32 x 32) under its oblique directional light, the rectangle
+    under `kind`: "plain" (diffuse), "flat" (a normal map of a constant
+    (0.5, 0.5, 1) checkerboard), "tilted" (its tilted checkerboard) or
+    "bump" (a bumpmap of height.pfm in `asset_dir`, repeated 4 x 4)."""
+    bsdfs = {
+        "plain": '<bsdf type="diffuse"/>',
+        "flat": """<bsdf type="normalmap"><texture type="checkerboard">
+          <rgb name="color0" value="0.5,0.5,1"/><rgb name="color1" value="0.5,0.5,1"/>
+          </texture><bsdf type="diffuse"/></bsdf>""",
+        "tilted": """<bsdf type="normalmap"><texture type="checkerboard">
+          <rgb name="color0" value="0.9,0.5,0.6"/><rgb name="color1" value="0.1,0.5,0.6"/>
+          </texture><bsdf type="diffuse"/></bsdf>""",
+    }
+    if kind == "bump":
+        bsdfs["bump"] = f"""<bsdf type="bumpmap"><texture type="scale">
+          <float name="scale" value="4"/><texture type="bitmap">
+          <string name="filename" value="{os.path.join(asset_dir or '', 'height.pfm')}"/>
+          <float name="uscale" value="4"/><float name="vscale" value="4"/></texture>
+          </texture><bsdf type="diffuse"/></bsdf>"""
+    return f"""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="2"/></integrator>
+  <sensor type="perspective">
+    <transform name="toWorld"><lookat origin="0,0,4" target="0,0,0" up="0,1,0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{width}"/>
+      <integer name="height" value="{height}"/></film>
+  </sensor>
+  <emitter type="directional"><vector name="direction" x="0.6" y="-0.5" z="-0.8"/>
+    <spectrum name="irradiance" value="2"/></emitter>
+  <shape type="rectangle">{bsdfs[kind]}</shape>
+</scene>"""
+
+
+def geom_xml(kind, asset_dir, width=33, height=33, spp=4):
+    """tests/test_geom_textures.py's scenes under the `field` integrator's
+    albedo: quad.ply under `vertexcolors` or `wireframe` (edges black,
+    lineWidth 0.08), or sphere.ply under `curvature` (mean, scale 0.5)."""
+    tex = {
+        "vertexcolors": '<texture name="reflectance" type="vertexcolors"/>',
+        "wireframe": """<texture name="reflectance" type="wireframe">
+          <rgb name="interiorColor" value="0.9, 0.9, 0.9"/><rgb name="edgeColor" value="0, 0, 0"/>
+          <float name="lineWidth" value="0.08"/></texture>""",
+        "curvature": """<texture name="reflectance" type="curvature">
+          <string name="curvature" value="mean"/><float name="scale" value="0.5"/></texture>""",
+    }[kind]
+    mesh = os.path.join(asset_dir, "sphere.ply" if kind == "curvature" else "quad.ply")
+    return f"""<scene version="0.5.0">
+  <integrator type="field"><string name="field" value="albedo"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="40"/>
+    <transform name="toWorld"><lookat origin="0,0,-4" target="0,0,0" up="0,1,0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{width}"/>
+      <integer name="height" value="{height}"/><rfilter type="box"/></film>
+  </sensor>
+  <shape type="ply"><string name="filename" value="{mesh}"/>
+    <bsdf type="diffuse">{tex}</bsdf></shape>
+</scene>"""
+
+
+def cloth_xml(width=24, height=24, spp=16):
+    """tests/test_irawan.py's cloth (test_render_cloth): a rectangle under
+    twosided irawan (preset "plain", repeatU = repeatV = 8) under a
+    constant environment, path at maxDepth 4."""
+    return f"""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="4"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="45"/>
+    <transform name="toWorld"><lookat origin="0,0,-4" target="0,0,0" up="0,1,0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{width}"/>
+      <integer name="height" value="{height}"/><rfilter type="box"/></film>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="1.5"/></transform>
+    <bsdf type="twosided"><bsdf type="irawan">
+      <string name="preset" value="plain"/>
+      <float name="repeatU" value="8"/><float name="repeatV" value="8"/>
+    </bsdf></bsdf>
+  </shape>
+  <emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter>
+</scene>"""
