@@ -184,7 +184,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    Metropolis slice (`generator_throughput` again): scenes/door.xml as it
    stands (pssmlt, bidirectional, 8 edges; 256x256, 65,536 chains) at 32
    mutations per pixel, then the same with `bidirectional` false, then
-   glass_caustics under pssmlt (16 edges, 256x256) for about 60 s: the
+   glass_caustics under pssmlt (16 edges, 256x256) for about 30 s: the
    bootstrap's seconds, seconds per step, rays/s, kernels per step and
    busy share (one profiled step of a second run), K3/K4/K7/K8 launches per step (door's
    run is the slice's main path: its counters are set to 0 just before
@@ -238,6 +238,29 @@ before it; peak memory; a profiled pass's busy share and kernels, and
 the device ms of shading_params, shading_frame, eval_texture and
 mip_footprint in a 1-spp pass, profile_pass.py TEX_STAGES), then one pass
 under the ewa filter, timed beside the feline pass.
+
+The sensors, the daylight emitters and spectral mode add, in phase 1,
+the numpy version beside torch's and CUDA's (spectral mode's bin tables
+are host numpy); in phase 2 K1/K2 bit for bit against plain on the 2
+triangles of DAYLIGHT (tests/torch_meshes.py `daylight_xml`:
+scenes/matpreview.xml under a Hosek-Wilkie sunsky through a thinlens
+camera) at 512x512, its 262,144 camera rays through the lens and their
+first NEE shadow rays, on the spherical sensor's 131,072 camera rays
+(`sensor_xml("spherical")` at 512x256) and on scenes/dispersion.xml's
+65,536 camera rays and their first NEE shadow rays; in phase 3
+dispersion.xml at 32x32 in RGB mode and with 9 bins, DAYLIGHT, a
+Preetham sky with a separate sun and the sensor gallery (orthographic,
+telecentric, spherical, thinlens, perspective_rdist), 4 spp, each against
+its golden at its GOLDEN_GATES gate, and the meters (fluencemeter,
+radiancemeter, irradiancemeter on a sphere and on a rectangle) against
+their exact 1 and pi; in phase 4 scenes/dispersion.xml as it stands
+(256x256, 256 spp, path at maxDepth 8) through `render` with its default
+device, in RGB mode and with 9 bins (rays/s, peak memory, K1/K2
+launches: the slice's main path, counters set to 0 just before each
+render; then the seconds of each bin group and of each
+apply_spectral_pack, timed here over the groups), and
+DAYLIGHT at 512x512, 16 spp, in render's passes of 8 spp (seconds,
+rays/s, a profiled pass's busy share and kernels).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -1125,12 +1148,12 @@ def counters(pk, pairs, pb):
             if hasattr(mod, name)}
 
 
-def render_checked(mt, counted, scene, golden_path, dev, label, pack=None, spp=16):
+def render_checked(mt, counted, scene, golden_path, dev, label, pack=None, spp=16, bins=None):
     """Render at the scene's film size (64x64 unless said otherwise), spp
-    samples per pixel, seed 0 with the given launch counters set to 0 just
-    before; check finiteness and the golden's gate (tests/torch_meshes.py
-    GOLDEN_GATES, else tests/test_golden.py's 5e-3).  Returns the
-    launches."""
+    samples per pixel, seed 0 (with `bins` spectral bins, else in RGB
+    mode) with the given launch counters set to 0 just before; check
+    finiteness and the golden's gate (tests/torch_meshes.py GOLDEN_GATES,
+    else tests/test_golden.py's 5e-3).  Returns the launches."""
     import numpy as np
     import torch
     from torch_meshes import GOLDEN_GATES, tm_rmse
@@ -1141,7 +1164,7 @@ def render_checked(mt, counted, scene, golden_path, dev, label, pack=None, spp=1
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    img = mt.render(scene, spp=spp, seed=0, device=dev, pack=pack)
+    img = mt.render(scene, spp=spp, seed=0, device=dev, pack=pack, spectral_bins=bins)
     render_s = time.time() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
     print(f"  {label}: peak device memory of the render "
@@ -1223,7 +1246,9 @@ def throughput(make_render_pass, new_film, pack, scene, dev, label, card,
 
 
 def camera_rays(scene, dev):
-    """One ray through each pixel centre of the scene's sensor."""
+    """One ray through each pixel centre of the scene's sensor, through the
+    lens point of the sampler's lens draw for sample 0 where the camera
+    reads one (a thinlens, a telecentric camera with an aperture)."""
     import torch
 
     from mitsuba_tpu_torch.sensor.plugins import generate_rays
@@ -1236,7 +1261,10 @@ def camera_rays(scene, dev):
         torch.arange(w, device=dev, dtype=torch.float32), indexing="ij",
     )
     pos01 = torch.stack([(xs.reshape(-1) + 0.5) / w, (ys.reshape(-1) + 0.5) / h], -1)
-    o, d = generate_rays(cam, pos01, torch.zeros_like(pos01))
+    lane = torch.arange(w * h, device=dev)
+    u_lens = (rec.sampler.lens_sample(lane, torch.zeros_like(lane)) if cam["use_lens"]
+              else torch.zeros_like(pos01))
+    o, d = generate_rays(cam, pos01, u_lens)
     return o.contiguous(), d.contiguous()
 
 
@@ -1268,20 +1296,29 @@ def matpreview_rays(scene, pack, dev, seed=0):
     return (o, d), (o_sh[keep].contiguous(), ds.d[keep].contiguous(), t_sh[keep].contiguous())
 
 
-def matpreview_brute(pk, scene, pack, dev, stats, label):
-    """K1/K2 on a matpreview scene's tri_s (its ground's two triangles)
-    against their plain versions, bit for bit, on its camera rays (t_max
-    1e30, as the renderer calls them) and on its shadow rays."""
+def matpreview_brute(pk, scene, pack, dev, stats, label, shadow=True):
+    """K1/K2 on a scene's tri_s of two triangles (matpreview's ground, a
+    rectangle) against their plain versions, bit for bit, on its camera
+    rays (t_max 1e30, as the renderer calls them) and, unless `shadow` is
+    false (a scene without emitters), on their first NEE shadow rays."""
     import torch
 
-    (o, d), (o_s, d_s, t_s) = matpreview_rays(scene, pack, dev)
+    if shadow:
+        (o, d), (o_s, d_s, t_s) = matpreview_rays(scene, pack, dev)
+    else:
+        o, d = camera_rays(scene, dev)
     n_tri = int((pack.tri_s[0] < FAR_V0).sum())
     check(n_tri == 2, f"{label}'s tri_s holds {n_tri} triangles, expected 2")
     t_far = torch.full((o.shape[0],), 1e30, device=dev)
-    print(f"  {label}: {o.shape[0]} camera rays, {o_s.shape[0]} shadow rays "
-          f"(t_max {float(t_s.min()):g}..{float(t_s.max()):g}), tri_s {tuple(pack.tri_s.shape)}",
-          flush=True)
-    for rays, tm in (((o, d), t_far), ((o_s, d_s), t_s)):
+    batches = [((o, d), t_far)]
+    if shadow:
+        batches.append(((o_s, d_s), t_s))
+        print(f"  {label}: {o.shape[0]} camera rays, {o_s.shape[0]} shadow rays "
+              f"(t_max {float(t_s.min()):g}..{float(t_s.max()):g}), tri_s "
+              f"{tuple(pack.tri_s.shape)}", flush=True)
+    else:
+        print(f"  {label}: {o.shape[0]} camera rays, tri_s {tuple(pack.tri_s.shape)}", flush=True)
+    for rays, tm in batches:
         for name in ("closest_hit_v2", "any_hit_v2"):
             compare_brute(pk, name, *rays, tm, pack.tri_s, n_tri, stats, exact=True)
             brute_beside(pk, stats[-1], *rays, tm, pack.tri_s, False)
@@ -2163,6 +2200,76 @@ def textured_throughput(make_render_pass, new_film, ttex, scene, pack, counted, 
     return total
 
 
+def dispersion_throughput(mt, scene, counted, card, dev):
+    """scenes/dispersion.xml as it stands through `render` (the scene's own
+    256 spp, packed by render itself), once in RGB mode and once with 9
+    spectral bins, the launch counters set to 0 just before each render:
+    seconds, rays/s, peak device memory and launches of each.  Then the
+    9-bin render again as its bin groups, timed here: each group's
+    apply_spectral_pack and its render on that pack, whose projected sum
+    must give the entry point's image.  Returns the launches of the two
+    entry-point renders."""
+    import numpy as np
+    import torch
+
+    from mitsuba_tpu_torch.core.spectral import make_bins
+    from mitsuba_tpu_torch.core.spectrum import _XYZ_TO_RGB
+    from mitsuba_tpu_torch.scene.builder import apply_spectral_pack, pack_scene
+
+    rec = scene.sensor.record
+    total = {k: 0 for k in counted}
+    for bins in (None, 9):
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        img = mt.render(scene, spectral_bins=bins)  # the default device: the card
+        secs = time.time() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        check(img.shape == (rec.film.height, rec.film.width, 3) and bool(np.isfinite(img).all())
+              and img.mean() > 0, f"dispersion.xml ({bins} bins): the image is not finite")
+        rays = mt.render.last_ray_count
+        out = {"scene": "dispersion", "bins": bins or 3, "width": rec.film.width,
+               "height": rec.film.height, "spp": rec.sampler.sample_count, "seconds": secs,
+               "rays": rays, "rays_per_s": rays / secs,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+               "mean": float(img.mean()), "card": card}
+        if bins:
+            sb = make_bins(bins)
+            pack = pack_scene(scene, dev)
+            xyz, group_s, pack_s = 0.0, [], []
+            for g in range(sb.n_groups):
+                t0 = time.time()
+                pack_g = apply_spectral_pack(pack, sb, g)
+                torch.cuda.synchronize()
+                pack_s.append(time.time() - t0)
+                t0 = time.time()
+                img_g = mt.render(scene, device=dev, pack=pack_g, _spectral_inner=True)
+                group_s.append(time.time() - t0)
+                xyz = xyz + img_g @ np.asarray(sb.group(g)[0], np.float32).T
+            img_groups = np.maximum(xyz @ _XYZ_TO_RGB.T, 0.0)
+            diff = float(np.abs(img_groups - img).max())
+            out.update(group_s=group_s, pack_s=pack_s, groups_max_abs_diff=diff)
+            # the film's index_add_ lands in any order on the card, so the
+            # two renders' sums may part in their last places
+            check(abs(float(img_groups.mean()) - out["mean"]) <= 1e-4 * out["mean"],
+                  f"dispersion.xml: the bin groups' mean {img_groups.mean()} is not the "
+                  f"entry point's {out['mean']}")
+        print(f"phase 4: dispersion.xml {rec.film.width}x{rec.film.height}, "
+              f"{rec.sampler.sample_count} spp, {f'{bins} bins' if bins else 'RGB mode'}: {rays} "
+              f"rays in {secs:.3f} s = {rays / secs:.6g} rays/s"
+              + (f" (bin groups rendered alone {['%.3f' % x for x in out['group_s']]} s, "
+                 f"apply_spectral_pack {['%.4f' % x for x in out['pack_s']]} s, their image "
+                 f"within {out['groups_max_abs_diff']:.3g} of the entry point's)" if bins else "")
+              + f", peak device memory {out['peak_gib']:.3f} GiB, mean {out['mean']:.6f}, "
+              f"launches {launches} on {card}", flush=True)
+        print(json.dumps({"throughput": out}), flush=True)
+        for k, n in launches.items():
+            total[k] += n
+    return total
+
+
 def meta_throughput(mt, scene, pack, counted, card, dev, label, stats_of, spp):
     """One render of a meta-integrator on the card (irrcache or adaptive,
     at the scene's film size, spp samples per pixel): seconds, its stats
@@ -2229,7 +2336,9 @@ def main():
     from mitsuba_tpu_torch.scene import texture_eval as ttex
     from torch_meshes import (
         DIPOLE_XML,
+        DISPERSION_XML,
         DOOR_XML,
+        METERS,
         NESTED_PATH,
         bdpt_media_xml,
         bitmap_xml,
@@ -2243,8 +2352,10 @@ def main():
         cbox_ptracer_xml,
         cbox_xml,
         cloth_xml,
+        daylight_xml,
         dense_standin,
         dipole_xml,
+        dispersion_xml,
         door_xml,
         feature_assets,
         geom_xml,
@@ -2253,6 +2364,9 @@ def main():
         hairball_xml,
         homog_slab_xml,
         matpreview_const_xml,
+        meter_xml,
+        sensor_xml,
+        sky_sun_xml,
         smoke_xml,
         textured_xml,
         two_wall_xml,
@@ -2269,7 +2383,7 @@ def main():
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} numpy {np.__version__} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # ---- phase 1: build (one nvcc per source, in parallel) ----
@@ -2474,6 +2588,36 @@ def main():
           "mip maps, the geometry kinds and bump maps")
     pair_segments(pairs, pb, tpath, make_render_pass, new_film, textured, tex_pack, dev, stats,
                   "textured")
+
+    # the sensors, the daylight emitters and spectral mode (K1/K2): DAYLIGHT's
+    # camera rays through the thinlens and their first NEE, the spherical
+    # sensor's camera rays, dispersion.xml's camera rays and first NEE
+    print(f"  sensors, daylight, spectral {elapsed()}", flush=True)
+    daylight = mt.load_scene_string(daylight_xml())  # 512x512, sobol
+    t0 = time.time()
+    day_pack = pack_scene(daylight, dev)
+    dm = day_pack.meta
+    print(f"  DAYLIGHT: sunsky baked and packed in {time.time() - t0:.2f} s, env "
+          f"{tuple(day_pack.env_image.shape)}, emitter kinds {dm['emitter_kinds']}", flush=True)
+    check(dm["has_envmap"] and dm["emitter_kinds"] == (6,)
+          and daylight.sensor.record.pack(8, 8, dev)["use_lens"],
+          "DAYLIGHT does not pack its sunsky as an envmap behind a thinlens camera")
+    matpreview_brute(pk, daylight, day_pack, dev, stats, "DAYLIGHT")
+    spherical = mt.load_scene_string(sensor_xml("spherical", 512, 256))
+    matpreview_brute(pk, spherical, pack_scene(spherical, dev), dev, stats, "spherical sensor",
+                     shadow=False)
+    dispersion = mt.load_scene(DISPERSION_XML)  # 256x256, 256 spp, path at maxDepth 8
+    disp_pack = pack_scene(dispersion, dev)
+    dm = disp_pack.meta
+    print(f"  dispersion: {dm['n_tris']} triangles, {dm['n_spheres']} analytic sphere(s), "
+          f"emitter kinds {dm['emitter_kinds']}, types {dm['present_types']}, mat_disp "
+          f"{disp_pack.mat_disp.tolist()}", flush=True)
+    check(not dm["use_bvh"] and dm["n_tris"] == 2 and dm["n_spheres"] == 1
+          and dm["emitter_kinds"] == (2, 5) and dm["present_types"] == (0, 4)
+          and abs(float(disp_pack.mat_disp.max()) - 0.0042) < 1e-7,
+          "scenes/dispersion.xml does not pack into 2 triangles, a dispersive glass sphere, "
+          "a spot and a constant environment")
+    matpreview_brute(pk, dispersion, disp_pack, dev, stats, "dispersion")
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -2756,6 +2900,33 @@ def main():
             check(got[k] > 0, f"the {label} render never launched {k}")
         for k, n in got.items():
             launches[k] += n
+    # the sensors, the daylight emitters and spectral mode (K1/K2; the
+    # gallery's albedo field casts no shadow rays: K1 only), each against
+    # its golden at its GOLDEN_GATES gate, and the meters against their
+    # exact values
+    print(f"  sensors, daylight, spectral {elapsed()}", flush=True)
+    for label, xml, golden, checked, bins in (
+            ("dispersion", dispersion_xml(32, 32), "torch_dispersion_32_4.npy", 2, None),
+            ("dispersion 9 bins", dispersion_xml(32, 32), "torch_dispersion_spectral9_32_4.npy",
+             2, 9),
+            ("DAYLIGHT", daylight_xml(32, 32), "torch_daylight_32_4.npy", 2, None),
+            ("preetham sky and sun", sky_sun_xml(32, 32), "torch_sky_sun_32_4.npy", 2, None),
+            *((f"sensor {name}", sensor_xml(name), f"torch_sensor_{name}_24_4.npy", 1, None)
+              for name in ("orthographic", "telecentric", "spherical", "thinlens", "rdist"))):
+        got = render_checked(mt, brute, mt.load_scene_string(xml),
+                             os.path.join(HERE, "tests", "golden", golden), dev, label, spp=4,
+                             bins=bins)
+        for k in list(brute)[:checked]:
+            check(got[k] > 0, f"the {label} render never launched {k}")
+        for k, n in got.items():
+            launches[k] += n
+    for name, (body, exact) in sorted(METERS.items()):
+        img = mt.render(mt.load_scene_string(meter_xml(body)), seed=3, device=dev)
+        err = float(abs(img - exact).max() / exact)
+        print(f"phase 3: {name} in a unit constant environment: {img.reshape(-1).tolist()} "
+              f"(exact {exact:.7g}, relative error {err:.3g})", flush=True)
+        check(img.shape == (1, 1, 3) and err < (1e-5 if exact == 1.0 else 1e-3),
+              f"{name}: {img.reshape(-1).tolist()} is not {exact}")
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -2798,7 +2969,7 @@ def main():
 
     # the Metropolis slice: door as it stands (pssmlt, bidirectional, 8
     # edges; 65,536 chains) at 32 mutations per pixel, and unidirectional;
-    # glass_caustics under pssmlt (16 edges) for about 60 s
+    # glass_caustics under pssmlt (16 edges) for about 30 s
     print(f"phase 4: Metropolis {elapsed()}", flush=True)
     door_counted = {k: counted[k] for k in glass_names}
 
@@ -2822,7 +2993,7 @@ def main():
         note="; the reference's TPU run: 0.0728")
     generator_throughput(
         "glass-pssmlt", pssmlt_steps(glass_pssmlt, glass_pack), door_counted, 256, 256, card,
-        "step", budget_s=60.0, ref=GLASS_REF_256, setup=True, chains=65_536,
+        "step", budget_s=30.0, ref=GLASS_REF_256, setup=True, chains=65_536,
         note="; never measured on the TPU")
 
     # the photon-mapping slice: glass under sppm (maxDepth 24, 2^18
@@ -2876,6 +3047,18 @@ def main():
     for k in glass_names:
         check(tex_launches[k] > 0, f"TEXTURED never launched {k}")
         launches[k] += tex_launches[k]
+
+    # the sensors, the daylight emitters and spectral mode: dispersion.xml
+    # as it stands in RGB mode and with 9 bins (its launches are the
+    # slice's main path: counters set to 0 just before each render), then
+    # DAYLIGHT at 512x512, 16 spp, in render's passes
+    print(f"phase 4: sensors, daylight, spectral {elapsed()}", flush=True)
+    disp_launches = dispersion_throughput(mt, dispersion, brute, card, dev)
+    for k in brute:
+        check(disp_launches[k] > 0, f"dispersion.xml never launched {k}")
+        launches[k] += disp_launches[k]
+    throughput(make_render_pass, new_film, day_pack, daylight, dev, "daylight", card, spp=8,
+               iterations=lambda: pk.closest_hit_v2.launches)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

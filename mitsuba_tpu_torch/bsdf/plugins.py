@@ -62,6 +62,7 @@ class BSDFRecord:
     alpha_u: float = 0.1
     alpha_v: float = 0.1
     eta: float = 1.5046  # int_ior / ext_ior
+    dispersion: float = 0.0  # Cauchy B [um^2]; spectral mode only
     exponent: float = 30.0
     dist: int = BECKMANN
     nonlinear: bool = False
@@ -193,6 +194,9 @@ class Dielectric(_BSDFBase):
     def _build(self, props):
         rec = BSDFRecord(type=DIELECTRIC)
         rec.eta = _ior_pair(props)
+        # wavelength-dependent IOR for N-bin spectral renders
+        # (core/spectral.py cauchy_eta); ignored in RGB mode
+        rec.dispersion = props.get_float("dispersion", 0.0)
         rec.cB = as_texture_or_spectrum(props, "specularReflectance", _gray(1.0)).average()
         rec.cC = as_texture_or_spectrum(props, "specularTransmittance", _gray(1.0)).average()
         return rec

@@ -1,7 +1,7 @@
 """Emitter plugins (port of mitsuba_tpu/emitter/plugins.py): `area`,
-`point`, `spot`, `directional`, `collimated`, `constant` and `envmap`.
-The sky family (`sky`, `sunsky`, `sun`) is not ported: the registry
-refuses it by name."""
+`point`, `spot`, `directional`, `collimated`, `constant`, `envmap`, and
+the daylight family baked on the host (emitter/sky.py): `sky` and
+`sunsky` become lat-long `envmap` records, `sun` a `directional` one."""
 
 from __future__ import annotations
 
@@ -175,3 +175,84 @@ class EnvMapEmitter:
             env_image=np.asarray(img[..., :3], np.float32),
             scale=props.get_float("scale", 1.0),
         )
+
+
+def _sun_direction(props):
+    """sunDirection property, or computed from date, time and location
+    as the reference does (src/emitters/sunsky/sun.cpp configure)."""
+    from mitsuba_tpu_torch.emitter.sky import sun_direction_from_time
+
+    d = props.get_vector("sunDirection", None)
+    if d is not None:
+        d = np.asarray(d, np.float64)
+        return d / np.linalg.norm(d)
+    return sun_direction_from_time(
+        int(props.get_int("year", 2010)),
+        int(props.get_int("month", 7)),
+        int(props.get_int("day", 10)),
+        props.get_float("hour", 15.0) + props.get_float("minute", 0.0) / 60.0,
+        props.get_float("latitude", 35.6894),
+        props.get_float("longitude", 139.6917),
+        props.get_float("timezone", 9.0),
+    )
+
+
+class _SkyBase:
+    """A daylight model baked to a lat-long env map (= reference sky.cpp,
+    which also rasterizes to a bitmap for sampling).  The default model
+    is the Hosek-Wilkie dataset fit; `model="preetham"` selects the older
+    analytic model."""
+
+    with_sun = False
+
+    def __init__(self, props):
+        from mitsuba_tpu_torch.emitter.sky import hosek_sky_image, preetham_sky_image
+
+        self.props = props
+        model = props.get_string("model", "hosek").lower()
+        bake = preetham_sky_image if model == "preetham" else hosek_sky_image
+        scale = props.get_float("scale", 1.0)
+        env_image = bake(
+            props.get_float("turbidity", 3.0),
+            _sun_direction(props),
+            resolution=int(props.get_int("resolution", 512)) // 2,
+            sky_scale=props.get_float("skyScale", 1.0) * scale,
+            sun_scale=props.get_float("sunScale", 1.0) * scale,
+            with_sun=self.with_sun,
+            ground_albedo=float(np.mean(
+                props.get_spectrum("groundAlbedo", np.full(3, 0.15, np.float32)))),
+        )
+        self.record = _record(props, ENVMAP, env_image=env_image)
+
+
+@register("emitter", "sky")
+class SkyEmitter(_SkyBase):
+    """reference: src/emitters/sunsky/sky.cpp"""
+
+
+@register("emitter", "sunsky")
+class SunSkyEmitter(_SkyBase):
+    """reference: src/emitters/sunsky/sunsky.cpp, the sky and the solar
+    disk baked into the same map (its luminance table samples both)."""
+
+    with_sun = True
+
+
+@register("emitter", "sun")
+class SunEmitter:
+    """reference: src/emitters/sunsky/sun.cpp, a directional sun with
+    Preetham atmospheric transmittance."""
+
+    def __init__(self, props):
+        from mitsuba_tpu_torch.emitter.sky import sun_irradiance_rgb
+
+        self.props = props
+        scale = props.get_float("scale", 1.0) * props.get_float("sunScale", 1.0)
+        sun_dir = _sun_direction(props)
+        irradiance = (
+            sun_irradiance_rgb(sun_dir[1], props.get_float("turbidity", 3.0))
+            * max(sun_dir[1], 0.0)  # irradiance on the ground plane
+            * scale
+        ).astype(np.float32)
+        self.record = _record(props, DIRECTIONAL, irradiance=irradiance,
+                              direction=(-sun_dir).astype(np.float32))

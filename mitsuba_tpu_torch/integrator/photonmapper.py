@@ -310,7 +310,8 @@ def make_eye_pass(pack, integ, sen, w, h, seed, meta, device):
     def eye_pass(lane_px, it, vol, surf, r2, n_shot, cell_s):
         n = lane_px.shape[0]
         sidx = torch.full_like(lane_px, it)
-        o, d = _sppm.camera_rays(sen, cam, w, h, lane_px, sidx)
+        o, d = _sppm.camera_rays(sen, cam, w, h, lane_px, sidx,
+                                 _sppm.eye_lens_draw(sen.sampler, lane_px, sidx))
         L = torch.zeros(n, 3, dtype=torch.float32, device=device)
         thr = torch.ones(n, 3, dtype=torch.float32, device=device)
         active = torch.ones(n, dtype=torch.bool, device=device)

@@ -123,14 +123,23 @@ def max_depth_of(integ):
     return integ.max_depth if integ.max_depth > 0 else 12
 
 
-def camera_rays(sen, cam, w, h, lane_px, sidx):
+def eye_lens_draw(sampler, lane_px, sidx):
+    """The eye pass's lens draw of sppm and the photon mapper (reference
+    sppm.py:111-113, photonmapper.py:426-428): slot 1009 of the
+    sampler's counter stream, whatever the sampler."""
+    return sampler.next2d(lane_px, sidx, 1009)
+
+
+def camera_rays(sen, cam, w, h, lane_px, sidx, u_lens):
     """One camera ray per pixel lane (sample index sidx), jittered by the
-    sampler's pixel sample (the pinhole reads no lens sample)."""
+    sampler's pixel sample, through the lens point u_lens [n, 2] (each
+    caller passes the reference's draw: eye_lens_draw, or vpl's
+    lens_sample)."""
     jitter = sen.sampler.pixel_sample(lane_px, sidx, sen.sampler.sample_count)
     x = (lane_px % w).to(torch.float32) + jitter[..., 0]
     y = (lane_px // w).to(torch.float32) + jitter[..., 1]
     pos01 = torch.stack([x / w, y / h], dim=-1)
-    return generate_rays(cam, pos01, torch.zeros_like(jitter))
+    return generate_rays(cam, pos01, u_lens)
 
 
 def make_sppm_passes(pack, integ, sen, w, h, seed, device):
@@ -158,7 +167,8 @@ def make_sppm_passes(pack, integ, sen, w, h, seed, device):
         n = lane_px.shape[0]
         with torch.profiler.record_function("stage:eye"):
             sidx = torch.full_like(lane_px, it)
-            o, d = camera_rays(sen, cam, w, h, lane_px, sidx)
+            o, d = camera_rays(sen, cam, w, h, lane_px, sidx,
+                               eye_lens_draw(sen.sampler, lane_px, sidx))
             z3 = torch.zeros(n, 3, dtype=torch.float32, device=device)
             L, thr = z3, torch.ones_like(z3)
             active = torch.ones(n, dtype=torch.bool, device=device)

@@ -115,7 +115,8 @@ def make_vpl_pass(pack, integ, sen, w, h, seed, device):
     def eye_walk(pass_i):
         """The connectible points: (L, ok, p, ns, ng, wi, mat, uv, thr)."""
         sidx = torch.full_like(lane_px, pass_i)
-        o, d = _sppm.camera_rays(sen, cam, w, h, lane_px, sidx)
+        o, d = _sppm.camera_rays(sen, cam, w, h, lane_px, sidx,
+                                 sen.sampler.lens_sample(lane_px, sidx))
         z3 = torch.zeros(n_px, 3, dtype=torch.float32, device=device)
         L, thr = z3, torch.ones_like(z3)
         active = torch.ones(n_px, dtype=torch.bool, device=device)

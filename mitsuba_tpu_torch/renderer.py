@@ -17,20 +17,23 @@ loop on the host.  Two strategies, chosen as the reference chooses them
 The lane -> (pixel, sample index) mapping is the reference's, so the port
 draws the reference's random numbers.  A scene with subsurface materials
 first runs the irradiance pass on a copy of its pack (integrator/sss.py
-prepare_sss).  The meta-integrators: `adaptive` and `irrcache` have their
-own orchestration, `multichannel` renders each nested integrator and
-stacks the images, and a render pass of a meta-integrator is one of its
-nested integrator.  In the batched branch a lane's
-result depends only on its (pixel, sample index), so the reference's
-media lane budget and row bands (sized for its TPU's execution limits)
-would change only the order of the film's float sums; the port renders
-the frame whole.
+prepare_sss).  Spectral mode (`spectral_bins`) wraps all of this: it
+renders each bin group on its own copy of the pack and projects the
+groups through CIE XYZ.  The meta-integrators: `adaptive` and `irrcache`
+have their own orchestration, `multichannel` renders each nested
+integrator and stacks the images, and a render pass of a
+meta-integrator is one of its nested integrator.  In the batched branch
+a lane's result depends only on its (pixel, sample index), so the
+reference's media lane budget and row bands (sized for its TPU's
+execution limits) would change only the order of the film's float sums;
+the port renders the frame whole.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
 
 import numpy as np
 import torch
@@ -147,16 +150,30 @@ def _batched_pass(pack, integ, cam, film_rec, sampler_rec, spp_chunk, device):
     return render_pass
 
 
-def render(scene, spp=None, seed=0, *, device="cuda", pack=None):
+def render(scene, spp=None, seed=0, *, device="cuda", pack=None, spectral_bins=None,
+           _spectral_inner=False):
     """Render a SceneDescription on `device` (the card unless the caller
     asks for another, e.g. "cpu"); returns the linear HDR image as numpy
     [H, W, 3], [H, W, 3 n] for a multichannel integrator of n nested ones
     (= RenderJob::run, reference src/librender/renderjob.cpp:87-113).
-    `pack` is not changed: the irradiance pass of a subsurface scene fills
-    a copy."""
+    `pack` is not changed: the irradiance pass of a subsurface scene and
+    spectral mode fill copies.
+
+    spectral_bins: render with N wavelength bins (a multiple of 3; also
+    read from MTS_SPECTRAL_BINS) as N/3 bin-group renders of the 3-channel
+    machinery, each with the shared seed, projected through CIE XYZ
+    (reference renderer.py:231-262, core/spectral.py).
+
+    render.last_ray_count: the rays that the last render traced through
+    the pass loop below, over all bin groups in spectral mode (None after
+    an integrator with its own orchestration)."""
+    render.last_ray_count = None
     device = torch.device(device)
     if pack is None:
         pack = pack_scene(scene, device)
+    n_spec = spectral_bins or int(os.environ.get("MTS_SPECTRAL_BINS", "0"))
+    if n_spec and not _spectral_inner:
+        return _render_spectral(scene, spp, seed, device, pack, n_spec)
     integ = scene.integrator
     if pack.meta.get("has_sss", False):
         # the dipole preprocess (reference renderer.py:267-272,
@@ -229,7 +246,36 @@ def render(scene, spp=None, seed=0, *, device="cuda", pack=None):
         device,
     )
     film = new_film(h, w, device)
+    rays = torch.zeros((), dtype=torch.int64, device=device)
     for i in range(n_passes):
-        film, _ = render_pass(film, i * spp_chunk, seed)
+        film, n_rays = render_pass(film, i * spp_chunk, seed)
+        rays = rays + n_rays
     img = develop(film) * sensor_rec.ray_weight
+    render.last_ray_count = int(rays)
     return img.cpu().numpy()
+
+
+def _render_spectral(scene, spp, seed, device, pack, n_spec):
+    """The spectral branch of `render`: every integrator renders each bin
+    group on that group's pack (scene/builder.py apply_spectral_pack) with
+    the same seed, so the groups share their noise; the developed images
+    go to CIE XYZ through each group's slice of the binned matching
+    functions, and the sum back to linear RGB, clamped at 0.
+    render.last_ray_count is left at the rays of all groups (None where
+    the integrator does not count them)."""
+    from mitsuba_tpu_torch.core.spectral import make_bins
+    from mitsuba_tpu_torch.core.spectrum import _XYZ_TO_RGB
+    from mitsuba_tpu_torch.scene.builder import apply_spectral_pack
+
+    bins = make_bins(n_spec)
+    xyz, rays = None, 0
+    for g in range(bins.n_groups):
+        img_g = np.asarray(render(scene, spp=spp, seed=seed, device=device,
+                                  pack=apply_spectral_pack(pack, bins, g), _spectral_inner=True))
+        n = render.last_ray_count
+        rays = None if n is None or rays is None else rays + n
+        m3, _ = bins.group(g)
+        contrib = img_g @ np.asarray(m3, np.float32).T
+        xyz = contrib if xyz is None else xyz + contrib
+    render.last_ray_count = rays
+    return np.maximum(xyz @ _XYZ_TO_RGB.T, 0.0)

@@ -95,6 +95,9 @@ class SamplerRecord:
             return sobol.sobol_01(sample_idx, (2, 3), scr[..., :2])
         return rng.rand2(lane, sample_idx, 1009, self._seed())
 
+    def next2d(self, lane, sample_idx, slot):
+        return rng.rand2(lane, sample_idx, slot, self._seed())
+
 
 def ld_decision4(sampler, lane, sample_idx, dslot, fallback, seed):
     """Integrator decision draw.  The low-discrepancy samplers map

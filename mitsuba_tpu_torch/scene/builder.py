@@ -11,7 +11,8 @@ triangles' uv partials, area emitters, a constant or image-based
 (`envmap`) environment, and homogeneous and heterogeneous media attached
 to shapes as their interior or exterior (`_pack_media`), and the
 subsurface point sets and coefficients of dipole and singlescatter shapes
-(`_pack_sss`).
+(`_pack_sss`).  `apply_spectral_pack` makes the pack of one bin group of
+spectral mode.
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -86,7 +87,7 @@ SLICE_ARRAYS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
     "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat", "tri_emit", "tri_s", "tri_t",
     "mat_type", "mat_cA", "mat_cB", "mat_cC", "mat_cD", "mat_alpha_u",
-    "mat_alpha_v", "mat_eta", "mat_exponent", "mat_dist", "mat_nonlinear",
+    "mat_alpha_v", "mat_eta", "mat_disp", "mat_exponent", "mat_dist", "mat_nonlinear",
     "mat_twosided", "mat_fdr_int", "mat_spec_w", "mat_texA", "mat_rt", "mat_rt_fdr",
     "mat_opacity", "mat_tex_opacity", "mat_mix_b", "mat_mix_wa", "mat_mix_wb",
     "mat_tex_bump", "mat_bump_nm", "mat_iw", "tri_dpdu", "tri_dpdv",
@@ -1102,6 +1103,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "mat_alpha_u": np.full(n_mat, 0.1, np.float32),
         "mat_alpha_v": np.full(n_mat, 0.1, np.float32),
         "mat_eta": np.full(n_mat, 1.5046, np.float32),
+        "mat_disp": np.zeros(n_mat, np.float32),  # Cauchy B [um^2]
         "mat_exponent": np.full(n_mat, 30.0, np.float32),
         "mat_dist": np.zeros(n_mat, np.int32),
         "mat_nonlinear": np.zeros(n_mat, np.float32),
@@ -1135,6 +1137,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         mt["mat_alpha_u"][i] = rec.alpha_u
         mt["mat_alpha_v"][i] = rec.alpha_v
         mt["mat_eta"][i] = rec.eta
+        mt["mat_disp"][i] = rec.dispersion
         mt["mat_exponent"][i] = rec.exponent
         mt["mat_dist"][i] = rec.dist
         mt["mat_nonlinear"][i] = float(rec.nonlinear)
@@ -1282,3 +1285,91 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     }
     check_slice(meta)
     return ScenePack(_to_device(_with_derived(arrays, meta), device), _derived_meta(arrays, meta))
+
+
+# ---------------- N-bin spectral repacking ----------------
+
+# Pack leaves holding colour quantities (trailing dim 3), re-expressed per
+# bin group in spectral mode (reference builder.py:1776-1788).  Positions,
+# normals and data textures (bump and opacity, restored from the original
+# atlas below) are not listed; the dipole tables hold distances and keep
+# their RGB channels.
+_SPECTRAL_LEAVES = (
+    "tex_c0", "tex_c1", "tex_scale",
+    "mat_cA", "mat_cB", "mat_cC", "mat_cD",
+    "mat_mix_wa", "mat_mix_wb",
+    "med_sigma_s", "med_sigma_a", "het_albedo",
+    "med_ph_ks", "med_ph_kd",
+    "tri_c0", "tri_c1", "tri_c2",
+    "iw_y_kd", "iw_y_ks",
+)
+
+# emission leaves carry D65-shaped illuminant spectra, so that their RGB
+# projects back exactly (core/spectral.py upsample_illum)
+_EMISSION_LEAVES = ("em_rgb", "env_image")
+
+
+def apply_spectral_pack(pack: ScenePack, bins, g: int) -> ScenePack:
+    """The pack of spectral bin group `g` (reference builder.py:1791-1848):
+    each colour leaf's RGB upsampled to a smooth spectrum and sliced to the
+    group's three bins, and dielectric IORs moved to the group's hero
+    wavelength by the Cauchy model.  The rewrite runs in host numpy, the
+    reference's own code, so that every leaf is bit-equal to the
+    reference's; the new leaves go back to the pack's device.  The meta,
+    the sampling tables (env_density, the alias table, emitter_pmf and
+    emitter_cdf, built from the RGB luminance) and every other tensor are
+    the caller's, so each group draws the same samples; `pack` is not
+    changed.  The port's material table (mat_params) is rebuilt from the
+    new material columns."""
+    from mitsuba_tpu_torch.core.spectral import cauchy_eta, upsample_illum, upsample_rgb
+
+    sl = slice(3 * g, 3 * g + 3)
+    _, lam_mid = bins.group(g)
+    arrays = dict(pack.arrays)
+
+    def host(name):
+        return pack.arrays[name].cpu().numpy()
+
+    def put(name, a):
+        arrays[name] = torch.tensor(np.ascontiguousarray(a), device=pack.arrays[name].device)
+
+    def xform(a, up=upsample_rgb):
+        return np.maximum(up(np.asarray(a, np.float32), bins)[..., sl], 0.0)
+
+    def colour(name):
+        return name in arrays and arrays[name].ndim and arrays[name].shape[-1] == 3
+
+    for name in _SPECTRAL_LEAVES:
+        if colour(name):
+            put(name, xform(host(name)))
+    for name in _EMISSION_LEAVES:
+        if colour(name):
+            put(name, xform(host(name), upsample_illum))
+
+    if "tex_atlas" in arrays and not bins.identity:
+        atlas0 = host("tex_atlas")
+        atlas = xform(atlas0)
+        # bump and opacity entries store data, not colours: restore them
+        data_tex = set()
+        for leaf in ("mat_tex_bump", "mat_tex_opacity"):
+            data_tex |= {int(t) for t in host(leaf) if int(t) >= 0}
+        if data_tex:
+            mip = host("tex_mip_rect")
+            nlev = host("tex_n_lev")
+            for t in data_tex:
+                for lvl in range(int(nlev[t])):
+                    x, y, w, h = (int(v) for v in mip[t, lvl])
+                    atlas[y:y + h, x:x + w] = atlas0[y:y + h, x:x + w]
+        put("tex_atlas", atlas)
+
+    # hero-wavelength dispersion for dielectrics (Cauchy, eta given at
+    # the d-line)
+    disp = host("mat_disp")
+    if (disp != 0.0).any():
+        put("mat_eta", cauchy_eta(host("mat_eta"), disp, lam_mid).astype(np.float32))
+    if "mat_params" in arrays:
+        cols = {k: v.cpu().numpy() for k, v in arrays.items() if k.startswith("mat_")}
+        params, iparams = material_table(cols, pack.meta)
+        put("mat_params", params)
+        put("mat_iparams", iparams)
+    return ScenePack(arrays, pack.meta)

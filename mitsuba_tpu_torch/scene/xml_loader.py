@@ -76,19 +76,39 @@ def _parse_rgb(value: str):
     return np.asarray(vals[:3], np.float32)
 
 
-def _parse_spectrum(value: str):
-    """<spectrum> values: a uniform value or three components; tabulated
-    'lambda:value' pairs and .spd files are not ported yet."""
+def _parse_spectrum(value: str, search_paths):
+    """<spectrum> values: uniform, 'lambda:value, ...' pairs, or a .spd
+    filename on the search paths (reference: doc/format.tex spectrum
+    section)."""
     value = value.strip()
+    if ":" in value and os.path.sep not in value:
+        lam, val = [], []
+        for p in (p for p in re.split(r"[,\s]+", value) if p):
+            a, b = p.split(":")
+            lam.append(float(a))
+            val.append(float(b))
+        return interpolated_spectrum_to_rgb(np.array(lam), np.array(val))
     try:
         vals = _parse_float_list(value)
-    except ValueError:
-        vals = None
-    if vals and ":" not in value:
         if len(vals) == 1:
             return np.full(3, vals[0], np.float32)
         return np.asarray(vals[:3], np.float32)
-    return interpolated_spectrum_to_rgb(None, None)
+    except ValueError:
+        pass
+    for base in search_paths + ["."]:
+        cand = os.path.join(base, value)
+        if os.path.exists(cand):
+            lam, val = [], []
+            with open(cand) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line or line.startswith("#"):
+                        continue
+                    parts = line.split()
+                    lam.append(float(parts[0]))
+                    val.append(float(parts[1]))
+            return interpolated_spectrum_to_rgb(np.array(lam), np.array(val))
+    raise ValueError(f"cannot parse spectrum '{value}'")
 
 
 def _xyz_attrs(el, default=0.0):
@@ -226,6 +246,7 @@ class SceneLoader:
         elif cat == "shape":
             self._attach_shape_children(obj)
             scene.shapes.append(obj.instance)
+            self._attach_nested_sensor(scene, obj)
         elif cat == "emitter":
             scene.emitters.append(obj.record)
         elif cat == "medium":
@@ -250,11 +271,25 @@ class SceneLoader:
             sensor_obj.record.film.width, sensor_obj.record.film.height
         )
 
+    def _attach_nested_sensor(self, scene, shape_obj):
+        """A sensor nested in a shape is attached to it: the
+        irradiancemeter inherits its parent shape (reference
+        src/sensors/irradiancemeter.cpp:80-83)."""
+        from mitsuba_tpu_torch.sensor.plugins import SensorRecord
+
+        for _, child in shape_obj.props.children:
+            rec = getattr(child, "record", None)
+            if isinstance(rec, SensorRecord):
+                rec.parent_shape = shape_obj.instance
+                self._finalize_sensor(child)
+                scene.sensor = child
+
     def _attach_shape_children(self, shape_obj):
         from mitsuba_tpu_torch.bsdf.plugins import BSDFRecord
         from mitsuba_tpu_torch.emitter.plugins import EmitterRecord
         from mitsuba_tpu_torch.medium.plugins import MediumRecord
         from mitsuba_tpu_torch.scene.subsurface import SubsurfaceRecord
+        from mitsuba_tpu_torch.sensor.plugins import SensorRecord
 
         inst = shape_obj.instance
         for name, child in shape_obj.props.children:
@@ -272,7 +307,7 @@ class SceneLoader:
                     inst.interior_medium = rec
                 elif name == "exterior":
                     inst.exterior_medium = rec
-            else:
+            elif not isinstance(rec, SensorRecord):  # sensors: _attach_nested_sensor
                 raise NotImplementedError(
                     f"shape child {type(child).__name__} not yet ported"
                 )
@@ -321,9 +356,10 @@ class SceneLoader:
             elif tag == "srgb":
                 props.set(name, srgb_degamma(_parse_rgb(self._attr(child, "value"))))
             elif tag == "spectrum":
-                props.set(name, _parse_spectrum(self._attr(child, "value")))
+                props.set(name, _parse_spectrum(self._attr(child, "value"), self.search_paths))
             elif tag == "blackbody":
-                props.set(name, blackbody_rgb(float(self._attr(child, "temperature"))))
+                t = float(self._attr(child, "temperature"))
+                props.set(name, blackbody_rgb(t) * float(child.get("scale", 1.0)))
             elif tag == "transform":
                 props.set(name or "toWorld", _parse_transform(child))
             elif tag == "animation":

@@ -3,7 +3,7 @@
 
     python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door|
                              glass-sppm|smoke-pm|cbox-vpl|dipole|hairball|hairball-exact|
-                             textured]
+                             textured|dispersion]
                             [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
@@ -36,7 +36,12 @@ scans (accel/cyl.py cyl_closest, cyl_any) among the stages (CYL_STAGES);
 or for TEXTURED (tests/torch_meshes.py `textured_xml`, its assets written
 from seed 0 into build/feature_assets; 512x512, 16 samples per pass),
 with the texture lookups among the stages (TEX_STAGES: mip_footprint, and
-eval_texture inside shading_params and shading_frame):
+eval_texture inside shading_params and shading_frame); or for
+scenes/dispersion.xml as it stands (256x256, path at maxDepth 8, 32
+samples per pass as `render` chunks its 256) in spectral mode, one bin
+group of 9 bins: the group of 595 nm (group 1), whose pack
+(scene/builder.py apply_spectral_pack, timed) moves the glass's eta,
+with STAGES:
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -148,7 +153,7 @@ TEX_STAGES = STAGES + (("mitsuba_tpu_torch.integrator.path", ("mip_footprint",))
 # film's width, and render's chunk of its 64 spp)
 RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1), "glass-sppm": (256, 1),
            "smoke-pm": (256, 1), "cbox-vpl": (512, 1), "dipole": (512, 10),
-           "hairball": (512, 10), "hairball-exact": (512, 2)}
+           "hairball": (512, 10), "hairball-exact": (512, 2), "dispersion": (256, 32)}
 PHOTON_MODES = ("glass-sppm", "smoke-pm", "cbox-vpl")
 
 
@@ -285,7 +290,7 @@ def main():
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
                              "smoke", "glass", "door", "dipole", "hairball",
-                             "hairball-exact", "textured") + PHOTON_MODES)
+                             "hairball-exact", "textured", "dispersion") + PHOTON_MODES)
     ap.add_argument("--hits-only", action="store_true")
     ap.add_argument("--mutations", type=int, default=32,
                     help="door: the mutations per pixel the steps go on to")
@@ -346,6 +351,8 @@ def main():
         scene = mt.load_scene_string(cbox_xml("vpl", res, res))
     elif args.scene == "dipole":
         scene = mt.load_scene(os.path.join(HERE, "scenes", "dipole.xml"))
+    elif args.scene == "dispersion":
+        scene = mt.load_scene(os.path.join(HERE, "scenes", "dispersion.xml"))
     elif args.scene == "textured":
         scene = mt.load_scene_string(textured_xml(
             feature_assets(os.path.join(HERE, "build", "feature_assets")), RES, RES, SPP))
@@ -372,6 +379,16 @@ def main():
           f"{time.time() - t0:.3f} s; meta n_clusters={pack.meta.get('n_clusters')} "
           f"n_supers={pack.meta.get('n_supers')} cluster_vmem_ok={pack.meta.get('cluster_vmem_ok')}",
           flush=True)
+    if args.scene == "dispersion":
+        from mitsuba_tpu_torch.core.spectral import make_bins
+        from mitsuba_tpu_torch.scene.builder import apply_spectral_pack
+
+        t0 = time.time()
+        base_eta = pack.mat_eta.tolist()
+        pack = apply_spectral_pack(pack, make_bins(9), 1)
+        torch.cuda.synchronize()
+        print(f"apply_spectral_pack (9 bins, group 1): {time.time() - t0:.4f} s; mat_eta "
+              f"{base_eta} -> {pack.mat_eta.tolist()}", flush=True)
     if pack.meta.get("has_sss", False):
         from mitsuba_tpu_torch.integrator.sss import prepare_sss
 

@@ -88,9 +88,19 @@ the matpreview variant.
   torch_tex_wireframe_33_4.npy and torch_tex_curvature_33_4.npy,
   `geom_xml`; torch_irawan_cloth_24_4.npy, `cloth_xml`.
 
+* the sensors, the daylight emitters and spectral mode, seed 0, 4 spp:
+  torch_dispersion_32_4.npy and torch_dispersion_spectral9_32_4.npy,
+  scenes/dispersion.xml at 32x32 in RGB mode and with 9 spectral bins
+  (MTS_SPECTRAL_BINS); torch_daylight_32_4.npy, DAYLIGHT
+  (`daylight_xml`: matpreview under a Hosek-Wilkie sunsky through a
+  thinlens camera) at 32x32; torch_sky_sun_32_4.npy, `sky_sun_xml`
+  (a Preetham sky and a separate sun) at 32x32; the sensor gallery at
+  24x24 (`sensor_xml`): torch_sensor_{orthographic, telecentric,
+  spherical, thinlens, rdist}_24_4.npy.
+
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
-With no argument all forty-one are written.  Each line the script prints
+With no argument all fifty are written.  Each line the script prints
 gives the golden's render time, XLA's compile included; the last four
 took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
 (the 16-edge program's compile; 16 edges fit, so no smaller cap was
@@ -136,8 +146,10 @@ from tests.torch_meshes import (
     cbox_mitchell_xml,
     cbox_ptracer_xml,
     cloth_xml,
+    daylight_xml,
     dense_standin,
     dipole_xml,
+    dispersion_xml,
     door_xml,
     feature_assets,
     geom_xml,
@@ -146,6 +158,8 @@ from tests.torch_meshes import (
     hairball_xml,
     homog_slab_xml,
     matpreview_const_xml,
+    sensor_xml,
+    sky_sun_xml,
     smoke_xml,
     textured_xml,
     two_wall_xml,
@@ -302,6 +316,19 @@ GOLDENS = {
                       _feature(lambda d: geom_xml("curvature", d)), False, 4),
     "irawan_cloth": (os.path.join(ROOT, "tests", "golden", "torch_irawan_cloth_24_4.npy"),
                      cloth_xml, False, 4),
+    "dispersion": (os.path.join(ROOT, "tests", "golden", "torch_dispersion_32_4.npy"),
+                   lambda: dispersion_xml(32, 32), False, 4),
+    "dispersion_spectral9": (os.path.join(ROOT, "tests", "golden",
+                                          "torch_dispersion_spectral9_32_4.npy"),
+                             lambda: dispersion_xml(32, 32), False, 4,
+                             {"MTS_SPECTRAL_BINS": "9"}),
+    "daylight": (os.path.join(ROOT, "tests", "golden", "torch_daylight_32_4.npy"),
+                 lambda: daylight_xml(32, 32), False, 4),
+    "sky_sun": (os.path.join(ROOT, "tests", "golden", "torch_sky_sun_32_4.npy"),
+                lambda: sky_sun_xml(32, 32), False, 4),
+    **{f"sensor_{name}": (os.path.join(ROOT, "tests", "golden", f"torch_sensor_{name}_24_4.npy"),
+                          lambda name=name: sensor_xml(name), False, 4)
+       for name in ("orthographic", "telecentric", "spherical", "thinlens", "rdist")},
 }
 
 

@@ -1807,3 +1807,103 @@ def test_eval_texture_on_card_matches_cpu(dev, feature_dir, fp_kind, monkeypatch
                                     (prim.to(dev), bary.to(dev))).cpu().numpy()
     ref = texture_eval.eval_texture(cpu, tid, uv, default, fp, (prim, bary)).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)
+
+
+# ---- the sensors, the daylight emitters and spectral mode ----
+
+def _a7a8_golden(name):
+    from torch_meshes import daylight_xml, dispersion_xml, sensor_xml, sky_sun_xml
+
+    if name.startswith("torch_sensor_"):
+        return sensor_xml(name[len("torch_sensor_"):-len("_24_4.npy")]), None
+    return {"torch_dispersion_32_4.npy": (dispersion_xml(32, 32), None),
+            "torch_dispersion_spectral9_32_4.npy": (dispersion_xml(32, 32), 9),
+            "torch_daylight_32_4.npy": (daylight_xml(32, 32), None),
+            "torch_sky_sun_32_4.npy": (sky_sun_xml(32, 32), None)}[name]
+
+
+@pytest.mark.parametrize("name", [
+    "torch_dispersion_32_4.npy", "torch_dispersion_spectral9_32_4.npy", "torch_daylight_32_4.npy",
+    "torch_sky_sun_32_4.npy", *(f"torch_sensor_{n}_24_4.npy" for n in (
+        "orthographic", "telecentric", "spherical", "thinlens", "rdist"))])
+def test_sensor_daylight_spectral_goldens_on_card(dev, name):
+    """dispersion.xml in RGB mode and with 9 bins, DAYLIGHT, the Preetham
+    sky with its sun and the sensor gallery (the JAX package's renders) on
+    the card, through `render` with its default device, each at its
+    tests/torch_meshes.py GOLDEN_GATES gate."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import GOLDEN_GATES, ROOT
+
+    xml, bins = _a7a8_golden(name)
+    img = mt.render(mt.load_scene_string(xml), spp=4, seed=0, spectral_bins=bins)
+    gold = np.load(os.path.join(ROOT, "tests", "golden", name))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert _tm_rmse(img, gold) < GOLDEN_GATES[name], _tm_rmse(img, gold)
+
+
+@pytest.mark.parametrize("name", ["fluencemeter", "radiancemeter", "irradiancemeter_sphere",
+                                  "irradiancemeter_mesh"])
+def test_meters_on_card(dev, name):
+    """The meters in a unit constant environment on the card: 1 and pi
+    (tests/test_sensors.py's tolerances)."""
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import METERS, meter_xml
+
+    body, exact = METERS[name]
+    img = mt.render(mt.load_scene_string(meter_xml(body)), seed=3)
+    np.testing.assert_allclose(img, exact, rtol=1e-5 if exact == 1.0 else 1e-3)
+
+
+@pytest.mark.parametrize("name", ["daylight", "spherical", "dispersion"])
+def test_lens_and_spectral_queries_equal_plain(dev, name):
+    """K1/K2 bit-equal to plain on DAYLIGHT's camera rays through the
+    thinlens and their first NEE, the spherical sensor's camera rays and
+    dispersion.xml's camera rays and first NEE, at 128x128
+    (chip_smoke.matpreview_brute)."""
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import matpreview_brute
+    from torch_meshes import daylight_xml, dispersion_xml, sensor_xml
+
+    xml = {"daylight": daylight_xml(128, 128), "spherical": sensor_xml("spherical", 128, 64),
+           "dispersion": dispersion_xml(128, 128)}[name]
+    scene = mt.load_scene_string(xml)
+    matpreview_brute(pk, scene, pack_scene(scene, dev), dev, [], name,
+                     shadow=name != "spherical")
+
+
+def test_spectral_pack_on_card_matches_cpu(dev, feature_dir):
+    """apply_spectral_pack on a pack on the card: every tensor equal to the
+    CPU pack's rewrite (the rewrite is host numpy), on the card's device."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.core.spectral import make_bins
+    from mitsuba_tpu_torch.scene.builder import apply_spectral_pack
+
+    scene = mt.load_scene_string(textured_xml(feature_dir, 32, 32))
+    card, cpu = pack_scene(scene, dev), pack_scene(scene, "cpu")
+    bins = make_bins(9)
+    for g in range(3):
+        got, ref = apply_spectral_pack(card, bins, g), apply_spectral_pack(cpu, bins, g)
+        for k, v in ref.arrays.items():
+            assert got.arrays[k].device.type == "cuda", k
+            assert torch.equal(got.arrays[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("name", ["thinlens", "telecentric", "spherical", "rdist"])
+def test_generate_rays_on_card_matches_cpu(dev, name):
+    """generate_rays of the gallery's cameras on 100,000 seeded film
+    positions and lens samples, the card against the CPU: within atol
+    2e-6 (sin, cos and rsqrt differ in the last place)."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.sensor.plugins import generate_rays
+    from torch_meshes import sensor_xml
+
+    rec = mt.load_scene_string(sensor_xml(name)).sensor.record
+    r = np.random.default_rng(11)
+    pos01 = torch.tensor(r.random((100_000, 2)), dtype=torch.float32)
+    u = torch.tensor(r.random((100_000, 2)), dtype=torch.float32)
+    o, d = generate_rays(rec.pack(24, 24, dev), pos01.to(dev), u.to(dev))
+    o_ref, d_ref = generate_rays(rec.pack(24, 24, torch.device("cpu")), pos01, u)
+    np.testing.assert_allclose(o.cpu().numpy(), o_ref.numpy(), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(d.cpu().numpy(), d_ref.numpy(), rtol=0, atol=2e-6)

@@ -47,6 +47,7 @@ from mitsuba_tpu.scene.xml_loader import load_scene_string as jload_string
 import mitsuba_tpu_torch as mt
 from mitsuba_tpu_torch.core import distribution as tdist
 from mitsuba_tpu_torch.emitter import eval as tem
+from mitsuba_tpu_torch.emitter.plugins import DIRECTIONAL, ENVMAP
 from mitsuba_tpu_torch.io.exr import read_exr
 from mitsuba_tpu_torch.scene.builder import pack_from_numpy, pack_scene
 from tests.torch_meshes import MATPREVIEW_XML, ROOT
@@ -300,10 +301,14 @@ def test_envmap_reads_the_exr_once_scaled(rotated):
 
 
 def test_unported_emitters_raise():
-    for kind in ("sky", "sunsky", "sun"):
-        xml = f'<scene version="0.5.0"><sensor type="perspective"/><emitter type="{kind}"/></scene>'
-        with pytest.raises(NotImplementedError, match=f"emitter '{kind}' not yet ported"):
-            mt.load_scene_string(xml)
+    """The daylight plugins (sky, sunsky, sun), once refused by name, load
+    and pack: sky and sunsky as an envmap, sun as a directional emitter."""
+    for kind, kinds in (("sky", (ENVMAP,)), ("sunsky", (ENVMAP,)), ("sun", (DIRECTIONAL,))):
+        xml = (f'<scene version="0.5.0"><sensor type="perspective"/><emitter type="{kind}">'
+               '<integer name="resolution" value="32"/></emitter></scene>')
+        tp = pack_scene(mt.load_scene_string(xml), "cpu")
+        assert tp.meta["emitter_kinds"] == kinds, kind
+        assert tp.meta["has_envmap"] == (kind != "sun"), kind
 
 
 # ---- renders ----

@@ -246,3 +246,49 @@ def test_texture_modules_stand_alone(mod, names):
         assert getattr(m, name).__module__ == mod, name
     if mod.endswith("irawan_host"):
         assert "plain" in m.PRESETS
+
+
+def test_sensor_daylight_spectral_modules_are_checked():
+    """The modules of the sensors, the daylight emitters and spectral mode
+    are among the sources checked above, and the port reads its own copy
+    of the Hosek-Wilkie dataset."""
+    from mitsuba_tpu_torch.emitter import sky
+
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("sensor/plugins.py", "emitter/sky.py", "emitter/plugins.py", "core/spectral.py",
+                "core/spectrum.py", "scene/xml_loader.py", "scene/builder.py",
+                "sampler/plugins.py", "integrator/sppm.py", "renderer.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+    data = os.path.join(ROOT, "mitsuba_tpu_torch", "data", "hosek_rgb.npz")
+    assert os.path.isfile(data)
+    assert os.path.realpath(os.path.dirname(sky.__file__)).startswith(
+        os.path.realpath(os.path.join(ROOT, "mitsuba_tpu_torch")))
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("mitsuba_tpu_torch.sensor.plugins",
+     ("SensorRecord", "generate_rays", "_resolve_xfov", "ThinLens", "Orthographic",
+      "Telecentric", "Spherical", "RadianceMeter", "FluenceMeter", "IrradianceMeter",
+      "PerspectiveRDist")),
+    ("mitsuba_tpu_torch.emitter.sky",
+     ("_perez", "sun_direction_from_time", "sun_irradiance_rgb", "_hosek_dataset",
+      "_hosek_config", "hosek_sky_image", "preetham_sky_image")),
+    ("mitsuba_tpu_torch.emitter.plugins", ("_sun_direction", "_SkyBase", "SkyEmitter",
+                                           "SunSkyEmitter", "SunEmitter")),
+    ("mitsuba_tpu_torch.core.spectral",
+     ("_cie_fine", "SpectralBins", "make_bins", "upsample_rgb", "upsample_illum", "spd_to_bins",
+      "cauchy_eta")),
+    ("mitsuba_tpu_torch.core.spectrum",
+     ("blackbody_rgb", "interpolated_spectrum_to_rgb", "rgb_to_xyz", "xyz_to_rgb")),
+    ("mitsuba_tpu_torch.scene.builder", ("apply_spectral_pack",)),
+])
+def test_sensor_daylight_spectral_modules_stand_alone(mod, names):
+    """The slice's modules import nothing of JAX or of the JAX package,
+    not even its numpy-only modules (emitter/sky.py, core/spectral.py),
+    and keep their own copies of the reference's code."""
+    import importlib
+
+    m = importlib.import_module(mod)
+    assert not [r for r, _ in _imported_roots(m.__file__) if r in FORBIDDEN]
+    for name in names:
+        assert getattr(m, name).__module__ == mod, name

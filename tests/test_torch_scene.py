@@ -120,12 +120,11 @@ def test_srgb_reflectance_within_one_ulp():
 @pytest.mark.parametrize(
     "snippet",
     [
-        '<sensor type="thinlens"/>',
-        '<emitter type="sky"/>',
+        '<shape type="disk"/>',
+        '<shape type="heightfield"/>',
         '<shape type="obj"/>',
         '<shape type="serialized"/>',
-        '<shape type="rectangle"><transform name="toWorld"><rotate x="1" angle="90"/></transform>'
-        '<emitter type="area"><blackbody name="radiance" temperature="3000"/></emitter></shape>',
+        '<shape type="shapegroup"/>',
     ],
 )
 def test_unported_features_raise(snippet):

@@ -16,7 +16,10 @@ of sobol, the materials slice's scene.  `EMISSIVE_SPHERE_XML` and
 `cbox_sphere_xml` hold analytic spheres beside more triangles than
 spheres.  `smoke_xml` is scenes/smoke.xml (the media slice's scene) and
 `cbox_mitchell_xml` scenes/cbox.xml under the mitchell filter, each
-optionally at another film size.
+optionally at another film size.  The sensors, daylight and spectral
+slice's scenes are at the end: `dispersion_xml`, DAYLIGHT
+(`daylight_xml`), `sky_sun_xml`, the sensor gallery (`sensor_xml`), the
+meters (`METERS`, `meter_xml`) and `with_thinlens`.
 """
 
 import os
@@ -349,6 +352,24 @@ GOLDEN_GATES = {
     "torch_tex_wireframe_33_4.npy": 1e-6,
     "torch_tex_curvature_33_4.npy": 1e-6,
     "torch_irawan_cloth_24_4.npy": 1e-5,
+    # the sensors, the daylight emitters and spectral mode (CPU readings:
+    # dispersion 9.4e-7 in RGB mode and 9.5e-7 with 9 bins, DAYLIGHT
+    # 4.5e-4, the Preetham sky with its sun 7.3e-6, the sensor gallery 0;
+    # on an NVIDIA H100 80GB HBM3 at 700 W: dispersion 5.2e-7 in both
+    # modes, DAYLIGHT 4.5e-4, the sky with its sun 4.1e-6, the sensors 0).
+    # Each gate is 2-3x its larger reading.  DAYLIGHT's reading is its sun:
+    # the sunsky bakes the solar disk into a few texels of ~1e5 radiance,
+    # so a sample that meets one of them after a last-place difference
+    # moves its pixel by ~1.7 before the tone map.
+    "torch_dispersion_32_4.npy": 3e-6,
+    "torch_dispersion_spectral9_32_4.npy": 3e-6,
+    "torch_daylight_32_4.npy": 1.5e-3,
+    "torch_sky_sun_32_4.npy": 2e-5,
+    "torch_sensor_orthographic_24_4.npy": 1e-6,
+    "torch_sensor_telecentric_24_4.npy": 1e-6,
+    "torch_sensor_spherical_24_4.npy": 1e-6,
+    "torch_sensor_thinlens_24_4.npy": 1e-6,
+    "torch_sensor_rdist_24_4.npy": 1e-6,
 }
 
 # the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
@@ -1079,3 +1100,130 @@ def cloth_xml(width=24, height=24, spp=16):
   </shape>
   <emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter>
 </scene>"""
+
+
+# ---- the sensors, the daylight emitters and spectral mode ----
+
+DISPERSION_XML = os.path.join(ROOT, "scenes", "dispersion.xml")
+
+
+def dispersion_xml(width=None, height=None):
+    """scenes/dispersion.xml (a dispersive glass sphere over a diffuse
+    floor, lit by a spot and a dim constant environment), optionally at
+    another film size."""
+    with open(DISPERSION_XML) as f:
+        return _film_size(f.read(), width, height)
+
+
+def with_thinlens(xml, aperture, focus):
+    """`xml` with its perspective camera made a thinlens one of aperture
+    radius `aperture`, focused at `focus`."""
+    lens = (f'<sensor type="thinlens"><float name="apertureRadius" value="{aperture}"/>'
+            f'<float name="focusDistance" value="{focus}"/>')
+    xml, n = re.subn(r'<sensor type="perspective">', lens, xml)
+    if n != 1:
+        raise ValueError(f"{n} perspective sensors, expected one")
+    return xml
+
+
+DAYLIGHT_SUNSKY = ('<emitter type="sunsky"><vector name="sunDirection" x="0.4" y="0.6" z="-0.5"/>'
+                   '<float name="turbidity" value="3"/></emitter>')
+
+
+def daylight_xml(width=None, height=None):
+    """DAYLIGHT: scenes/matpreview.xml with a Hosek-Wilkie `sunsky` (sun
+    direction (0.4, 0.6, -0.5), turbidity 3) in place of its envmap and a
+    `thinlens` camera (aperture radius 0.05, focused at 4.5) in place of
+    its perspective one; its sobol sampler and 128 spp stay."""
+    with open(MATPREVIEW_XML) as f:
+        xml = f.read()
+    xml, n_env = re.subn(r'<emitter type="envmap">.*?</emitter>', DAYLIGHT_SUNSKY, xml, flags=re.S)
+    if n_env != 1:
+        raise ValueError(f"{MATPREVIEW_XML}: {n_env} envmaps, expected one")
+    return _film_size(with_thinlens(xml, 0.05, 4.5), width, height)
+
+
+def sky_sun_xml(width=None, height=None):
+    """scenes/matpreview.xml lit by a Preetham `sky` (without its sun) and
+    a separate `sun` emitter at the same direction, a lower sun than
+    DAYLIGHT's and turbidity 4, with the independent sampler."""
+    with open(MATPREVIEW_XML) as f:
+        xml = f.read()
+    sun = '<vector name="sunDirection" x="-0.5" y="0.35" z="-0.6"/><float name="turbidity" value="4"/>'
+    sky = (f'<emitter type="sky"><string name="model" value="preetham"/>{sun}'
+           '<integer name="resolution" value="256"/></emitter>'
+           f'<emitter type="sun">{sun}<float name="scale" value="0.05"/></emitter>')
+    xml, n_env = re.subn(r'<emitter type="envmap">.*?</emitter>', sky, xml, flags=re.S)
+    xml, n_smp = re.subn(r'<sampler type="sobol">', '<sampler type="independent">', xml)
+    if (n_env, n_smp) != (1, 1):
+        raise ValueError(f"{MATPREVIEW_XML}: {n_env} envmaps and {n_smp} sobol samplers, "
+                         "expected one of each")
+    return _film_size(xml, width, height)
+
+
+# the sensor gallery: tests/test_sensors.py's checkerboard (the albedo
+# field of a 6 x 6 black-and-white checkerboard rectangle), each camera at
+# its own settings
+SENSOR_GALLERY = {
+    "orthographic": ("orthographic", "", False),
+    "telecentric": ("telecentric", '<float name="apertureRadius" value="0.4"/>'
+                    '<float name="focusDistance" value="0.5"/>', False),
+    "spherical": ("spherical", "", False),
+    "thinlens": ("thinlens", '<float name="apertureRadius" value="0.3"/>'
+                 '<float name="focusDistance" value="2.5"/>', True),
+    "rdist": ("perspective_rdist", '<string name="kc" value="-0.3, 0.05"/>', True),
+    "perspective": ("perspective", "", True),
+}
+
+
+def sensor_xml(name, width=24, height=24, spp=4):
+    """tests/test_sensors.py's checkerboard scene under the camera
+    SENSOR_GALLERY[name] (looking at the board from z = -3)."""
+    kind, extra, fov = SENSOR_GALLERY[name]
+    fov_xml = '<float name="fov" value="45"/>' if fov else ""
+    return f"""<scene version="0.5.0">
+  <integrator type="field"><string name="field" value="albedo"/></integrator>
+  <sensor type="{kind}">{fov_xml}
+    <transform name="toWorld"><lookat origin="0,0,-3" target="0,0,0" up="0,1,0"/></transform>
+    {extra}
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{width}"/>
+      <integer name="height" value="{height}"/><rfilter type="box"/></film>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="3"/></transform>
+    <bsdf type="diffuse">
+      <texture name="reflectance" type="checkerboard">
+        <rgb name="color0" value="1, 1, 1"/><rgb name="color1" value="0, 0, 0"/>
+        <float name="uscale" value="6"/><float name="vscale" value="6"/>
+      </texture>
+    </bsdf>
+  </shape>
+</scene>"""
+
+
+METER_FILM = ('<sampler type="independent"><integer name="sampleCount" value="64"/></sampler>'
+              '<film type="hdrfilm"><integer name="width" value="1"/>'
+              '<integer name="height" value="1"/><rfilter type="box"/></film>')
+# the meters of tests/test_sensors.py in a unit constant environment:
+# (body, the exact value: the average radiance 1, the irradiance pi)
+METERS = {
+    "fluencemeter": ('<sensor type="fluencemeter"><transform name="toWorld">'
+                     f'<translate x="0.3" y="0" z="0"/></transform>{METER_FILM}</sensor>', 1.0),
+    "radiancemeter": ('<sensor type="radiancemeter"><transform name="toWorld">'
+                      f'<translate x="0.3" y="0" z="0"/></transform>{METER_FILM}</sensor>', 1.0),
+    "irradiancemeter_sphere": ('<shape type="sphere"><float name="radius" value="0.7"/>'
+                               f'<bsdf type="diffuse"/><sensor type="irradiancemeter">{METER_FILM}'
+                               '</sensor></shape>', float(np.pi)),
+    "irradiancemeter_mesh": ('<shape type="rectangle"><bsdf type="diffuse"/>'
+                             f'<sensor type="irradiancemeter">{METER_FILM}</sensor></shape>',
+                             float(np.pi)),
+}
+
+
+def meter_xml(body, integrator="path"):
+    """tests/test_sensors.py's meter scene: `body` (a sensor, or a shape
+    holding one) in a unit constant environment, path at maxDepth 2."""
+    return (f'<scene version="0.5.0"><integrator type="{integrator}">'
+            f'<integer name="maxDepth" value="2"/></integrator>{body}'
+            '<emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter></scene>')
