@@ -184,7 +184,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    Metropolis slice (`generator_throughput` again): scenes/door.xml as it
    stands (pssmlt, bidirectional, 8 edges; 256x256, 65,536 chains) at 32
    mutations per pixel, then the same with `bidirectional` false, then
-   glass_caustics under pssmlt (16 edges, 256x256) for about 30 s: the
+   glass_caustics under pssmlt (16 edges, 256x256) for about 15 s: the
    bootstrap's seconds, seconds per step, rays/s, kernels per step and
    busy share (one profiled step of a second run), K3/K4/K7/K8 launches per step (door's
    run is the slice's main path: its counters are set to 0 just before
@@ -193,8 +193,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    bidirectional, 0.0728 unidirectional) or
    bench_refs/glass_caustics_256.npz (no gate); last the photon-mapping
    slice: glass_caustics under sppm (maxDepth 24, 256x256, 2^18 photons
-   an iteration) for about 30 s and smoke under the volumetric photon
-   mapper (256x256, 2^17 photons) for about 20 s (`photon_throughput`:
+   an iteration) for about 15 s and smoke under the volumetric photon
+   mapper (256x256, 2^17 photons) for about 10 s (`photon_throughput`:
    seconds per iteration and the eye and photon passes' means, photons
    stored, the gather's overflow share, kernels and busy share of a
    profiled iteration, peak memory, launches per iteration, RMSE against
@@ -261,6 +261,30 @@ render; then the seconds of each bin group and of each
 apply_spectral_pack, timed here over the groups), and
 DAYLIGHT at 512x512, 16 spp, in render's passes of 8 spp (seconds,
 rays/s, a profiled pass's busy share and kernels).
+
+The motion slice and the fiber media add, in phase 2, K1/K2 bit for bit
+against plain on MOTION (tests/torch_meshes.py `motion_xml`: cbox with an
+animated short block and a deformable card; its tri_s holds exactly its
+24 static columns) at 512x512, its camera rays and their first NEE
+shadow rays, and K3/K4 with K7/K8 on MOTION_BIG (`motion_big_xml`: the
+69,168-triangle stand-in beside an animated cube; its clusters cover the
+static prefix alone, the dummy slot stays n_tris); in phase 3 MOTION,
+the deformable card, MOTION_BIG's 43 cubes, FIBER kkay and microflake
+(`fiber_xml`), the fiber slab under bdpt and the photon mapper, each
+against its golden at its GOLDEN_GATES gate, the motion vectors ("d" on
+MOTION, "ttd" through the glass slab) within their gate's pixels (a card
+gate in CARD_GOLDEN_GATES where one is set), each pixel off by more than
+1e-4 rendered again on the card and on the CPU with the manifold walk's
+chain traces recorded per Newton step (`walk_probes`: such a pixel must
+be one whose walk lost a chain trace on the card alone), and the moving
+cards' blur against their shutter coverage; in phase 4 MOTION and
+MOTION_BIG at 512x512, 16 spp, and FIBER kkay and microflake at 256x256,
+one 32-spp pass, through `render` (`slice_throughput`: seconds, rays/s,
+peak memory, launches with the counters set to 0 just before; FIBER's
+medium events; for MOTION and FIBER a profiled pass's busy share and
+kernels, and in a 1-spp pass the device ms of the moving arms or of the
+phase functions, `_orient_at` and the fiber arms, profile_pass.py
+MOTION_STAGES and FIBER_STAGES).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -1296,11 +1320,12 @@ def matpreview_rays(scene, pack, dev, seed=0):
     return (o, d), (o_sh[keep].contiguous(), ds.d[keep].contiguous(), t_sh[keep].contiguous())
 
 
-def matpreview_brute(pk, scene, pack, dev, stats, label, shadow=True):
-    """K1/K2 on a scene's tri_s of two triangles (matpreview's ground, a
-    rectangle) against their plain versions, bit for bit, on its camera
-    rays (t_max 1e30, as the renderer calls them) and, unless `shadow` is
-    false (a scene without emitters), on their first NEE shadow rays."""
+def matpreview_brute(pk, scene, pack, dev, stats, label, shadow=True, n_expected=2):
+    """K1/K2 on a scene's tri_s of n_expected triangles (matpreview's
+    ground, a rectangle; MOTION's static prefix) against their plain
+    versions, bit for bit, on its camera rays (t_max 1e30, as the renderer
+    calls them) and, unless `shadow` is false (a scene without emitters),
+    on their first NEE shadow rays."""
     import torch
 
     if shadow:
@@ -1308,7 +1333,7 @@ def matpreview_brute(pk, scene, pack, dev, stats, label, shadow=True):
     else:
         o, d = camera_rays(scene, dev)
     n_tri = int((pack.tri_s[0] < FAR_V0).sum())
-    check(n_tri == 2, f"{label}'s tri_s holds {n_tri} triangles, expected 2")
+    check(n_tri == n_expected, f"{label}'s tri_s holds {n_tri} triangles, expected {n_expected}")
     t_far = torch.full((o.shape[0],), 1e30, device=dev)
     batches = [((o, d), t_far)]
     if shadow:
@@ -1535,11 +1560,11 @@ def capture_calls(mod, names, run, stop):
     inner, got = {n: getattr(mod, n) for n in names}, []
 
     def make(name):
-        def spy(*args):
+        def spy(*args, **kwargs):
             got.append((name, args))
             if stop(got):
                 raise _Enough
-            return inner[name](*args)
+            return inner[name](*args, **kwargs)
         spy.launches = 0
         return spy
 
@@ -2106,7 +2131,7 @@ def textured_throughput(make_render_pass, new_film, ttex, scene, pack, counted, 
 
     from mitsuba_tpu_torch.film.film import develop
     from mitsuba_tpu_torch.renderer import DEFAULT_LANES_PER_PASS
-    from profile_pass import TEX_STAGES, staged
+    from profile_pass import TEX_STAGES
 
     rec = scene.sensor.record
     w, h, spp = rec.film.width, rec.film.height, rec.sampler.sample_count
@@ -2143,22 +2168,9 @@ def textured_throughput(make_render_pass, new_film, ttex, scene, pack, counted, 
         wall = time.time() - t0
     dev_ms, n_k = device_events(prof)
     per_kernel = kernel_ms(prof, PAIR_KERNELS)
-    # the stages' device ms from a pass of 1 spp (262,144 lanes) under CPU
-    # and CUDA activity: sorting a full pass's host events into
-    # key_averages took the profiler ~100 s
+    # the stages' device ms from a pass of 1 spp (262,144 lanes)
     rp1 = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, 1, dev)
-    unstage = staged(TEX_STAGES)
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as sprof:
-            _, n_rays = rp1(new_film(h, w, dev), 0, 0)
-            int(n_rays)
-            torch.cuda.synchronize()
-    finally:
-        unstage()
-    stages = {e.key[6:]: (getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3,
-                          e.count)
-              for e in sprof.key_averages() if e.key.startswith("stage:")
-              and e.device_type == torch.autograd.DeviceType.CPU}
+    stages, _, _ = stage_device_ms(rp1, new_film(h, w, dev), TEX_STAGES)
     texture_stages = {k: stages.get(k, (0.0, 0)) for k in
                       ("shading_params", "shading_frame", "eval_texture", "mip_footprint")}
     check(all(n > 0 for _, n in texture_stages.values()),
@@ -2297,6 +2309,159 @@ def meta_throughput(mt, scene, pack, counted, card, dev, label, stats_of, spp):
     print(json.dumps({"throughput": out}), flush=True)
 
 
+def stage_device_ms(rp, film, stages):
+    """One pass of rp under CPU and CUDA activity with the functions of
+    `stages` (profile_pass.py) in record_function ranges: ({stage: (device
+    ms, calls)}, the pass's device ms, its device events).  A device event
+    counts toward a stage when the runtime call that launched it (matched
+    by correlation id) lies inside one of the stage's ranges, read from the
+    profile's raw events: key_averages() took 60-115 s on a FIBER pass.
+    Fails where fewer than 90 % of the device events find their launch."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_pass import staged
+
+    unstage = staged(stages)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, n_rays = rp(film, 0, 0)
+            int(n_rays)
+            torch.cuda.synchronize()
+    finally:
+        unstage()
+    dev_ms, n_k = device_events(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, launch, kern = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                kern.append((e.correlation_id(), e.duration_ns()))
+        elif e.name().startswith("stage:"):
+            ranges.setdefault(e.name()[6:], []).append((e.start_ns(),
+                                                        e.start_ns() + e.duration_ns()))
+        elif e.name().startswith("cu"):  # runtime and driver calls
+            launch[e.correlation_id()] = e.start_ns()
+    ts = np.array([launch.get(c, -1) for c, _ in kern], np.int64)
+    dur = np.array([d for _, d in kern], np.float64)
+    matched = float((ts >= 0).mean()) if len(kern) else 0.0
+    check(matched >= 0.9, f"stage_device_ms: only {matched:.3f} of the device events matched "
+          f"the runtime call that launched them")
+    out = {}
+    for name, iv in ranges.items():
+        iv = np.array(sorted(iv), np.int64)
+        i = np.searchsorted(iv[:, 0], ts, side="right") - 1
+        inside = (ts >= 0) & (i >= 0) & (ts <= iv[np.maximum(i, 0), 1])
+        out[name] = (float(dur[inside].sum()) / 1e6, len(iv))
+    return out, dev_ms, n_k
+
+
+def walk_probes(mt, xml, dev, lanes):
+    """Render xml (1 spp, seed 0) on dev with the manifold walk's
+    newton_step spied on: (the image, {lane: per Newton step, whether each
+    of its four chain traces reached its end: at x, the two
+    forward-difference probes, the trial point}) for each of `lanes`
+    (pixel y * width + x at 1 spp)."""
+    from mitsuba_tpu_torch.integrator import manifold as mf
+
+    steps = {lane: [] for lane in lanes}
+    step = mf.newton_step
+
+    def spy(res, x, eps):
+        oks = []
+
+        def res_seen(xx):
+            e, ok = res(xx)
+            oks.append(ok[lanes].tolist())
+            return e, ok
+
+        x1 = step(res_seen, x, eps)
+        for j, lane in enumerate(lanes):
+            steps[lane].append([o[j] for o in oks])
+        return x1
+
+    mf.newton_step = spy
+    try:
+        img = mt.render(mt.load_scene_string(xml), spp=1, seed=0, device=dev)
+    finally:
+        mf.newton_step = step
+    return img, steps
+
+
+def slice_throughput(mt, make_render_pass, new_film, scene, pack, counted, card, dev, label,
+                     stages=None, arms=(), nested=(), extra=None):
+    """A scene of the motion slice or of the fiber media through `render`
+    with its default device, in render's passes of DEFAULT_LANES_PER_PASS
+    lanes' worth of samples (MOTION and MOTION_BIG: 512x512 as 2 passes
+    of 8 spp; FIBER: 256x256 as one pass of 32), the launch counters set
+    to 0 just before: seconds, rays/s, peak device memory, launches, and
+    extra()'s counts (each must be above 0).  With `stages`
+    (profile_pass.py), one more pass under the profiler (CUDA activity):
+    busy share and kernels per pass; and a pass of 1 spp under CPU and
+    CUDA activity with the stages' ranges: the device ms and calls of
+    `arms` and of `nested` (stages inside the arms), each of which must
+    run, and the arms' share of that pass's device time.  Returns the
+    render's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mitsuba_tpu_torch.renderer import DEFAULT_LANES_PER_PASS
+
+    rec = scene.sensor.record
+    w, h, spp = rec.film.width, rec.film.height, rec.sampler.sample_count
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img = mt.render(scene, pack=pack)  # the default device: the card
+    sec = time.time() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    rays = int(mt.render.last_ray_count)
+    counts = extra() if extra else {}
+    counts_s = "".join(f"{n} {k.replace('_', ' ')}, " for k, n in counts.items())
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0
+          and all(n > 0 for n in counts.values()),
+          f"the {label} image is not finite, or a count is 0: {counts}")
+    spp_chunk = max(1, min(spp, DEFAULT_LANES_PER_PASS // (w * h)))
+    out = {"scene": label, "width": w, "height": h, "spp": spp, "spp_chunk": spp_chunk,
+           "seconds": sec, "rays": rays, "rays_per_s": rays / sec, **counts,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+           "mean": float(img.mean()), "card": card}
+    line = (f"phase 4: {label} {w}x{h}, {spp} spp in passes of {spp_chunk}: {rays} rays in "
+            f"{sec:.3f} s = {rays / sec:.6g} rays/s, {counts_s}peak device memory "
+            f"{out['peak_gib']:.3f} GiB, launches {launches}")
+    if stages is not None:
+        rp = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, spp_chunk, dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            _, n_rays = rp(new_film(h, w, dev), spp, 0)
+            int(n_rays)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        dev_ms, n_k = device_events(prof)
+        rp1 = make_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, 1, dev)
+        st, dev1_ms, _ = stage_device_ms(rp1, new_film(h, w, dev), stages)
+        named = {k: st.get(k, (0.0, 0)) for k in arms + nested}
+        check(all(n > 0 for _, n in named.values()),
+              f"{label}: the profiled pass missed a stage: {named}")
+        share = sum(named[k][0] for k in arms) / max(dev1_ms, 1e-9)
+        out.update(profiled_wall_s=wall, device_ms=dev_ms, kernels_per_pass=n_k,
+                   busy=dev_ms / 1e3 / wall, device_ms_1spp=dev1_ms,
+                   stage_device_ms_1spp={k: v[0] for k, v in named.items()},
+                   stage_calls_1spp={k: v[1] for k, v in named.items()}, arms_share=share)
+        line += (f"; a profiled pass of {spp_chunk} spp: wall {wall:.4f} s, device {dev_ms:.3f} "
+                 f"ms, busy share {out['busy']:.4f}, {n_k} kernels; in a profiled 1-spp pass "
+                 f"(device {dev1_ms:.3f} ms) the stages (device ms, calls) "
+                 f"{({k: (round(v[0], 3), v[1]) for k, v in named.items()})}: {', '.join(arms)} "
+                 f"take {share:.4f} of its device time")
+    print(line + f" on {card}", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -2357,14 +2522,23 @@ def main():
         dipole_xml,
         dispersion_xml,
         door_xml,
+        card_coverage,
         feature_assets,
+        fiber_assets,
+        fiber_slab_xml,
+        fiber_xml,
         geom_xml,
         glass_manifold_xml,
+        glass_slab_motion_xml,
         glass_xml,
         hairball_xml,
         homog_slab_xml,
         matpreview_const_xml,
         meter_xml,
+        motion_big_xml,
+        motion_vectors_xml,
+        motion_xml,
+        moving_card_xml,
         sensor_xml,
         sky_sun_xml,
         smoke_xml,
@@ -2618,6 +2792,36 @@ def main():
           "scenes/dispersion.xml does not pack into 2 triangles, a dispersive glass sphere, "
           "a spot and a constant environment")
     matpreview_brute(pk, dispersion, disp_pack, dev, stats, "dispersion")
+
+    # the motion slice: MOTION's camera rays and first NEE through K1/K2 on
+    # its static prefix alone (24 of its 38 rows), MOTION_BIG's through
+    # K3/K4 with K7/K8 on the 69k stand-in's static prefix
+    print(f"  motion {elapsed()}", flush=True)
+    motion = mt.load_scene_string(motion_xml())  # 512x512, 16 spp
+    motion_pack = pack_scene(motion, dev)
+    mm_ = motion_pack.meta
+    print(f"  MOTION: {mm_['n_tris']} triangles, {mm_['n_static_tris']} static, animated "
+          f"{mm_['anim_ranges']}, deformable {mm_['deform_ranges']}, shutter "
+          f"[{mm_['shutter_open']}, {mm_['shutter_close']}]", flush=True)
+    check(mm_["n_tris"] == 38 and mm_["n_static_tris"] == 24 and mm_["anim_ranges"] == ((24, 12),)
+          and mm_["deform_ranges"] == ((36, 2, (0.0, 0.5, 1.0)),) and not mm_["use_bvh"],
+          "MOTION does not pack into 24 static, 12 animated and 2 deformable rows")
+    check(pk.live_columns(motion_pack.tri_s).tolist() == list(range(24)),
+          "MOTION's tri_s does not hold exactly its 24 static columns")
+    matpreview_brute(pk, motion, motion_pack, dev, stats, "MOTION", n_expected=24)
+    motion_big = mt.load_scene_string(motion_big_xml(STANDIN_PLY))  # 512x512, 16 spp
+    t0 = time.time()
+    mb_pack = pack_scene(motion_big, dev)
+    mb = mb_pack.meta
+    print(f"  MOTION_BIG: {mb['n_tris']} triangles, {mb['n_static_tris']} static in "
+          f"{mb['n_clusters']} clusters, animated {mb['anim_ranges']}, packed in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    check(mb["use_bvh"] and mb["n_static_tris"] == 69168 and mb["anim_ranges"] == ((69168, 12),)
+          and int(mb_pack.cl_pad2prim.max()) == mb["n_tris"]
+          and int(mb_pack.cl_pad2prim[mb_pack.cl_pad2prim < mb["n_tris"]].max()) < 69168,
+          "MOTION_BIG's clusters do not cover its static prefix alone, dummy slot n_tris")
+    pair_segments(pairs, pb, tpath, make_render_pass, new_film, motion_big, mb_pack, dev, stats,
+                  "MOTION_BIG")
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -2927,6 +3131,81 @@ def main():
               f"(exact {exact:.7g}, relative error {err:.3g})", flush=True)
         check(img.shape == (1, 1, 3) and err < (1e-5 if exact == 1.0 else 1e-3),
               f"{name}: {img.reshape(-1).tolist()} is not {exact}")
+    # the motion slice and the remaining media, each against its golden at
+    # its GOLDEN_GATES gate: MOTION (K1/K2), the deformable card (no static
+    # rows), MOTION_BIG's 43 cubes and FIBER's media (K3/K4, K7/K8 on
+    # overflow); the motion vectors within their gate's pixels; the moving
+    # card's blur against its analytic shutter coverage
+    print(f"  motion and fiber media {elapsed()}", flush=True)
+    fiber_dir = fiber_assets(os.path.join(HERE, "build", "fiber_assets"))
+    for label, xml, golden, names, photons in (
+            ("MOTION", motion_xml(32, 32, 4), "torch_motion_32_4.npy", tuple(brute), None),
+            ("deformable card", moving_card_xml("deformable", 3, spp=4, width=32, height=32),
+             "torch_deform_card3_32_4.npy", (), None),
+            ("MOTION_BIG 43 cubes", motion_big_xml(None, 32, 32, 4), "torch_motion_big_32_4.npy",
+             glass_names, None),
+            ("FIBER kkay", fiber_xml("kkay", fiber_dir, "grid", 24, 24),
+             "torch_fiber_kkay_24_4.npy", smoke_names, None),
+            ("FIBER microflake", fiber_xml("microflake", fiber_dir, "grid", 24, 24),
+             "torch_fiber_microflake_24_4.npy", smoke_names, None),
+            ("fiber slab bdpt", fiber_slab_xml("bdpt", fiber_dir),
+             "torch_fiber_slab_bdpt_16_4.npy", glass_names, None),
+            ("fiber slab photonmapper", fiber_slab_xml("photonmapper", fiber_dir),
+             "torch_fiber_slab_photonmapper_16_4.npy", glass_names, 1 << 12)):
+        with photon_env(photons):
+            got = render_checked(mt, {k: counted[k] for k in names}, mt.load_scene_string(xml),
+                                 os.path.join(HERE, "tests", "golden", golden), dev, label,
+                                 spp=4)
+        for k in names[:2]:  # K1/K2, or K3 and K4's closest hit
+            check(got[k] > 0, f"the {label} render never launched {k}")
+        for k, n in got.items():
+            launches[k] += n
+    from torch_meshes import CARD_GOLDEN_GATES, GOLDEN_GATES, MOTION_VECTOR_SHARE
+
+    for golden, xml in (("torch_motion_vectors_d_32_1.npy", motion_vectors_xml("d")),
+                        ("torch_motion_vectors_ttd_32_1.npy", glass_slab_motion_xml("ttd"))):
+        gate = CARD_GOLDEN_GATES.get(golden, GOLDEN_GATES[golden])
+        gold = np.load(os.path.join(HERE, "tests", "golden", golden))
+        img = mt.render(mt.load_scene_string(xml), spp=1, seed=0, device=dev)
+        check(img.shape == gold.shape, f"{golden}: image shape {img.shape} != {gold.shape}")
+        diff = np.abs(img - gold).max(-1)
+        off = float((diff > 1e-4).mean())
+        print(f"phase 3: motion vectors {golden}: largest difference {float(diff.max()):.6g} "
+              f"pixels (gate {gate:g}), {off:.4f} of the pixels off by more than 1e-4 (gate "
+              f"{MOTION_VECTOR_SHARE}), largest motion {float(np.abs(gold).max()):.4f} pixels",
+              flush=True)
+        check(float(diff.max()) < gate and off <= MOTION_VECTOR_SHARE,
+              f"{golden}: the motion vectors differ by {float(diff.max())} pixels")
+        # each pixel off by more than 1e-4: its walk on the card and on the
+        # CPU, step by step; on the card a chain trace of the walk must have
+        # missed where the CPU's reached its end
+        for y, x in np.argwhere(diff > 1e-4):
+            lanes = [int(y) * img.shape[1] + int(x)]
+            card_img, card_steps = walk_probes(mt, xml, dev, lanes)
+            cpu_img, cpu_steps = walk_probes(mt, xml, "cpu", lanes)
+            missed = [i for i, s in enumerate(card_steps[lanes[0]]) if not all(s)]
+            print(f"  pixel ({y}, {x}): {diff[y, x]:.6g} pixels off (again on the card "
+                  f"{float(np.abs(card_img[y, x] - gold[y, x]).max()):.6g}, the port on the CPU "
+                  f"{float(np.abs(cpu_img[y, x] - gold[y, x]).max()):.6g}); the walk's chain "
+                  f"traces that reached their end (at x, the two probes, the trial point) "
+                  f"per Newton step on the card {card_steps[lanes[0]]}, on the CPU "
+                  f"{cpu_steps[lanes[0]]}", flush=True)
+            check(missed and all(all(s) for s in cpu_steps[lanes[0]]),
+                  f"{golden}: pixel ({y}, {x}) is off, but not by a chain trace that missed "
+                  f"on the card alone")
+    for kind, frames in (("animated", 2), ("deformable", 3)):
+        img = mt.render(mt.load_scene_string(moving_card_xml(kind, frames, spp=256)), spp=256,
+                        seed=0, device=dev)
+        row = img[img.shape[0] // 2].mean(axis=-1)
+        expect = card_coverage(np.abs(1.0 - 2.0 * (np.arange(img.shape[1]) + 0.5)
+                                      / img.shape[1]))
+        sel = expect > 0.02
+        err = float(np.abs(row - expect)[sel].max())
+        energy = abs(float(row.sum() - expect.sum())) / float(expect.sum())
+        print(f"phase 3: the {kind} card's blur ({frames} keyframes, 64x64, 256 spp) against "
+              f"its shutter coverage: largest error {err:.4f} (gate 0.12), energy "
+              f"{energy:.4f} (gate 0.03)", flush=True)
+        check(err < 0.12 and energy < 0.03, f"the {kind} card's blur misses its coverage")
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -2969,7 +3248,7 @@ def main():
 
     # the Metropolis slice: door as it stands (pssmlt, bidirectional, 8
     # edges; 65,536 chains) at 32 mutations per pixel, and unidirectional;
-    # glass_caustics under pssmlt (16 edges) for about 30 s
+    # glass_caustics under pssmlt (16 edges) for about 15 s
     print(f"phase 4: Metropolis {elapsed()}", flush=True)
     door_counted = {k: counted[k] for k in glass_names}
 
@@ -2993,19 +3272,19 @@ def main():
         note="; the reference's TPU run: 0.0728")
     generator_throughput(
         "glass-pssmlt", pssmlt_steps(glass_pssmlt, glass_pack), door_counted, 256, 256, card,
-        "step", budget_s=30.0, ref=GLASS_REF_256, setup=True, chains=65_536,
+        "step", budget_s=15.0, ref=GLASS_REF_256, setup=True, chains=65_536,
         note="; never measured on the TPU")
 
     # the photon-mapping slice: glass under sppm (maxDepth 24, 2^18
-    # photons an iteration) for about 30 s, smoke under the volumetric
-    # photon mapper (2^17 photons) for about 20 s, both at 256x256, and
+    # photons an iteration) for about 15 s, smoke under the volumetric
+    # photon mapper (2^17 photons) for about 10 s, both at 256x256, and
     # cbox under vpl at 512x512, 4 passes of 64 VPL paths
     print(f"phase 4: photon mapping {elapsed()}", flush=True)
     photon_throughput("glass_caustics-sppm", tsppm.iter_sppm, glass_sppm, glass_pack, 1 << 18,
-                      glass_counted, card, GLASS_REF_256, 30.0, dev,
+                      glass_counted, card, GLASS_REF_256, 15.0, dev,
                       note="; bdpt's 0.0634 at 32 spp")
     photon_throughput("smoke-photonmapper", tpm.iter_photonmapper, smoke_pm, smoke_pack,
-                      1 << 17, {k: counted[k] for k in smoke_names}, card, SMOKE_REF_256, 20.0,
+                      1 << 17, {k: counted[k] for k in smoke_names}, card, SMOKE_REF_256, 10.0,
                       dev)
     generator_throughput(
         "cbox-vpl", lambda: ((img, done, st["rays"])
@@ -3059,6 +3338,35 @@ def main():
         launches[k] += disp_launches[k]
     throughput(make_render_pass, new_film, day_pack, daylight, dev, "daylight", card, spp=8,
                iterations=lambda: pk.closest_hit_v2.launches)
+
+    # the motion slice and the remaining media: MOTION at 512x512, 16 spp
+    # in render's passes of 8, MOTION_BIG the same, FIBER kkay and
+    # microflake at 256x256, one 32-spp pass (each render's launches are the
+    # slice's main path: counters set to 0 just before it)
+    print(f"phase 4: motion and fiber media {elapsed()}", flush=True)
+    from profile_pass import FIBER_STAGES, MOTION_STAGES
+
+    mot_launches = slice_throughput(
+        mt, make_render_pass, new_film, motion, motion_pack, brute, card, dev, "MOTION",
+        MOTION_STAGES, ("_anim_closest", "_anim_any", "_deform_closest", "_deform_any"))
+    big_launches = slice_throughput(mt, make_render_pass, new_film, motion_big, mb_pack,
+                                    glass_counted, card, dev, "MOTION_BIG")
+    for k in brute:
+        check(mot_launches[k] > 0, f"MOTION never launched {k}")
+    for k in glass_names[:3]:
+        check(big_launches[k] > 0, f"MOTION_BIG never launched {k}")
+    for k, n in {**mot_launches, **big_launches}.items():
+        launches[k] += n
+    for phase in ("kkay", "microflake"):
+        fiber = mt.load_scene_string(fiber_xml(phase, fiber_dir, "grid", 256, 256))
+        fib_launches = slice_throughput(
+            mt, make_render_pass, new_film, fiber, pack_scene(fiber, dev),
+            {k: counted[k] for k in smoke_names}, card, dev, f"FIBER {phase}", FIBER_STAGES,
+            ("phase_sample", "phase_eval", "phase_pdf"), ("_orient_at", f"_{phase}_eval"),
+            lambda: {"medium_events": int(vp.volpath_trace.last_medium_events)})
+        for k in smoke_names[:2]:
+            check(fib_launches[k] > 0, f"FIBER {phase} never launched {k}")
+            launches[k] += fib_launches[k]
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

@@ -1,5 +1,6 @@
-"""Ray-scene intersection (port of mitsuba_tpu/accel/intersect.py, the
-triangle and sphere branches of `intersect` / `occluded`).
+"""Ray-scene intersection (port of mitsuba_tpu/accel/intersect.py: the
+triangle, animated, deformable, sphere and segment arms of `intersect` /
+`occluded`).
 
 Scenes of at most 512 triangles go through the K1/K2 wrappers of
 accel/pallas_kernels.py, BVH scenes through the pair pipeline of
@@ -233,12 +234,204 @@ def _intersect_spheres(pack, o, d, best_t):
     return tmin < best_t, tmin, torch.clamp(sid, max=t.shape[0] - 1)
 
 
-def intersect(pack, o, d, t_max=math.inf) -> Hit:
+# ---- animated and deformable shapes (reference intersect.py:471-695) ----
+# Their triangle rows follow the static prefix (meta n_static_tris), which
+# alone the accelerators and K1/K2 cover; each range is tested here with
+# plain tensor operations, as the reference tests it with XLA operations,
+# in tiles of TRI_TILE rows (a range of fewer rows is one tile of its own
+# width: rows past a range are never hit).
+TRI_TILE = 128
+
+
+def _static_tris(pack):
+    return pack.meta.get("n_static_tris", pack.meta.get("n_tris", 1))
+
+
+def _shutter(time, o):
+    """[R] float32 shutter times; None is the shutter midpoint 0.5."""
+    if time is None:
+        return torch.full((o.shape[0],), 0.5, dtype=torch.float32, device=o.device)
+    return torch.as_tensor(time, dtype=torch.float32, device=o.device).expand(o.shape[0])
+
+
+def _tiles(count):
+    """(tile width, rows padded to whole tiles)."""
+    tw = min(TRI_TILE, max(count, 1))
+    return tw, -(-count // tw) * tw
+
+
+def _pad_rows(a, n, fill):
+    if a.shape[0] >= n:
+        return a[:n]
+    return torch.cat([a, torch.full((n - a.shape[0],) + a.shape[1:], fill, dtype=a.dtype,
+                                    device=a.device)])
+
+
+def _anim_ray(o, d, m1, tt):
+    """World rays into an animated shape's keyframe-0 frame: M(t) = I + t
+    (M1 - I) lerped per lane and inverted in closed form by its adjugate
+    (reference intersect.py:471-504, AnimatedTransform::eval).  d2 is not
+    normalized, so t stays the world ray's t."""
+    eye = torch.eye(3, dtype=torch.float32, device=o.device)
+    l1 = m1[:9].reshape(3, 3)
+    b1 = m1[9:12]
+    tt3 = tt[..., None]
+    a = eye + tt3[..., None] * (l1 - eye)[None]  # [R, 3, 3]
+    b = tt3 * b1[None]
+    a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
+    a10, a11, a12 = a[..., 1, 0], a[..., 1, 1], a[..., 1, 2]
+    a20, a21, a22 = a[..., 2, 0], a[..., 2, 1], a[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+
+    def apply_inv(v):
+        x = c00 * v[..., 0] + c01 * v[..., 1] + c02 * v[..., 2]
+        y = c10 * v[..., 0] + c11 * v[..., 1] + c12 * v[..., 2]
+        z = c20 * v[..., 0] + c21 * v[..., 1] + c22 * v[..., 2]
+        return torch.stack([x, y, z], dim=-1) * inv_det[..., None]
+
+    return apply_inv(o - b), apply_inv(d)
+
+
+def _tile_closest(o, d, v0, e1, e2, first, best_t, best_prim, best_u, best_v):
+    """Fold one tile's nearest hit below best_t into the running closest
+    hit; a tie keeps the earlier row, as jnp.argmin does."""
+    hit, t, u, v = _moller_trumbore(o[:, None], d[:, None], v0, e1, e2, best_t[:, None])
+    t = torch.where(hit, t, torch.inf)
+    tk = t.amin(dim=-1)
+    cols = torch.arange(t.shape[1], dtype=torch.int64, device=t.device)[None]
+    k = torch.where(t == tk[:, None], cols, t.shape[1]).amin(dim=-1, keepdim=True)
+    better = tk < best_t
+    best_prim = torch.where(better, first + k[:, 0].to(torch.int32), best_prim)
+    best_u = torch.where(better, u.gather(1, k)[:, 0], best_u)
+    best_v = torch.where(better, v.gather(1, k)[:, 0], best_v)
+    return torch.minimum(best_t, tk), best_prim, best_u, best_v
+
+
+def _anim_rows(pack, first, count):
+    tw, pad_to = _tiles(count)
+    rows = [
+        _pad_rows(a[first:first + count], pad_to, fill)
+        for a, fill in ((pack.tri_v0, 1e30), (pack.tri_e1, 0.0), (pack.tri_e2, 0.0))
+    ]
+    return tw, pad_to, rows
+
+
+def _anim_closest(pack, o, d, time, best_t, best_prim, best_u, best_v):
+    """Animated shapes (reference intersect.py:507-552): each range's rays
+    in its keyframe-0 frame at the lane's time, then brute force over its
+    rows."""
+    tt = _shutter(time, o)
+    for a, (first, count) in enumerate(pack.meta["anim_ranges"]):
+        o2, d2 = _anim_ray(o, d, pack.anim_m1[a], tt)
+        tw, pad_to, (v0, e1, e2) = _anim_rows(pack, first, count)
+        for t0 in range(0, pad_to, tw):
+            sl = slice(t0, t0 + tw)
+            best_t, best_prim, best_u, best_v = _tile_closest(
+                o2, d2, v0[None, sl], e1[None, sl], e2[None, sl], first + t0,
+                best_t, best_prim, best_u, best_v)
+    return best_t, best_prim, best_u, best_v
+
+
+def _anim_any(pack, o, d, time, t_max):
+    """Any hit on the animated shapes below t_max (reference
+    intersect.py:555-578)."""
+    tt = _shutter(time, o)
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    tm = _t_max_rays(t_max, o)[:, None]
+    for a, (first, count) in enumerate(pack.meta["anim_ranges"]):
+        o2, d2 = _anim_ray(o, d, pack.anim_m1[a], tt)
+        tw, pad_to, (v0, e1, e2) = _anim_rows(pack, first, count)
+        for t0 in range(0, pad_to, tw):
+            sl = slice(t0, t0 + tw)
+            hit, _, _, _ = _moller_trumbore(o2[:, None], d2[:, None], v0[None, sl],
+                                            e1[None, sl], e2[None, sl], tm)
+            occ = occ | hit.any(dim=-1)
+    return occ
+
+
+def _deform_frames(pack, rr_, count, times, tt):
+    """The keyframe pair of each lane's time for deformable range rr_
+    (reference intersect.py:581-633): seg clamped to [0, k - 2], w to [0,
+    1] over the segment (its length floored at 1e-9).  The reference's
+    one-hot [R, K] x [K, tile * 9] contraction becomes plain indexing of
+    the lane's two frames; with k == 2 there is nothing to select.
+    Returns (fetch(slice) -> lerped [R, tile, 9] rows, rows padded to
+    whole tiles, v0 = 1e30 past the range)."""
+    frames = pack.arrays[f"deform_tri9_{rr_}"]  # [K, T, 9]
+    k = len(times)
+    _, pad_to = _tiles(count)
+    fp = frames
+    if pad_to > count:
+        pad = torch.zeros((k, pad_to - count, 9), dtype=frames.dtype, device=frames.device)
+        pad[..., 0:3] = 1e30
+        fp = torch.cat([frames, pad], dim=1)
+    tgrid = torch.tensor(times, dtype=torch.float32, device=tt.device)
+    seg = torch.clamp(torch.searchsorted(tgrid, tt.contiguous(), right=True) - 1, 0, k - 2)
+    t0 = tgrid[seg]
+    t1 = tgrid[torch.clamp(seg + 1, max=k - 1)]
+    w = torch.clamp((tt - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)[:, None, None]
+    if k == 2:
+        def fetch(sl):
+            a, b = fp[0, sl], fp[1, sl]
+            return a[None] + w * (b - a)[None]
+    else:
+        def fetch(sl):
+            a, b = fp[seg, sl], fp[seg + 1, sl]
+            return a + w * (b - a)
+    return fetch, pad_to
+
+
+def _deform_closest(pack, o, d, time, best_t, best_prim, best_u, best_v):
+    """Deformable shapes (reference intersect.py:636-672,
+    deformable.cpp): each lane's rows lerped between the keyframes of its
+    time, then brute force."""
+    tt = _shutter(time, o)
+    for rr_, (first, count, times) in enumerate(pack.meta["deform_ranges"]):
+        fetch, pad_to = _deform_frames(pack, rr_, count, times, tt)
+        tw = _tiles(count)[0]
+        for t0 in range(0, pad_to, tw):
+            tri = fetch(slice(t0, t0 + tw))
+            best_t, best_prim, best_u, best_v = _tile_closest(
+                o, d, tri[..., 0:3], tri[..., 3:6], tri[..., 6:9], first + t0,
+                best_t, best_prim, best_u, best_v)
+    return best_t, best_prim, best_u, best_v
+
+
+def _deform_any(pack, o, d, time, t_max):
+    """Any hit on the deformable shapes below t_max (reference
+    intersect.py:675-695)."""
+    tt = _shutter(time, o)
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    tm = _t_max_rays(t_max, o)[:, None]
+    for rr_, (first, count, times) in enumerate(pack.meta["deform_ranges"]):
+        fetch, pad_to = _deform_frames(pack, rr_, count, times, tt)
+        tw = _tiles(count)[0]
+        for t0 in range(0, pad_to, tw):
+            tri = fetch(slice(t0, t0 + tw))
+            hit, _, _, _ = _moller_trumbore(o[:, None], d[:, None], tri[..., 0:3],
+                                            tri[..., 3:6], tri[..., 6:9], tm)
+            occ = occ | hit.any(dim=-1)
+    return occ
+
+
+def intersect(pack, o, d, t_max=math.inf, time=None) -> Hit:
     """Closest-hit query (= Scene::rayIntersect, reference scene.h:187):
-    the triangles (K1, or the pair pipeline), then the spheres, then the
-    cylinder segments (reference intersect.py:784-798)."""
+    the static triangles (K1, or the pair pipeline), the animated, then
+    the deformable shapes at the lanes' shutter `time` ([R], or None for
+    the midpoint), then the spheres, then the cylinder segments
+    (reference intersect.py:698-798)."""
     r = o.shape[0]
-    if pack.meta.get("n_tris", 1) == 0:
+    if _static_tris(pack) == 0:
         best_t = _t_max_rays(t_max, o)
         prim = torch.full((r,), -1, dtype=torch.int32, device=o.device)
         u = v = torch.zeros(r, dtype=torch.float32, device=o.device)
@@ -246,6 +439,10 @@ def intersect(pack, o, d, t_max=math.inf) -> Hit:
         best_t, prim, u, v = pairs.pair_closest(pack, o, d, t_max)
     else:
         best_t, prim, u, v = _closest(pack, o, d, t_max, pk.closest_hit_v2)
+    if pack.meta.get("anim_ranges", ()):
+        best_t, prim, u, v = _anim_closest(pack, o, d, time, best_t, prim, u, v)
+    if pack.meta.get("deform_ranges", ()):
+        best_t, prim, u, v = _deform_closest(pack, o, d, time, best_t, prim, u, v)
     is_sphere = None
     if pack.meta.get("n_spheres", 0) > 0:
         sh, st, sid = _intersect_spheres(pack, o, d, best_t)
@@ -264,13 +461,15 @@ def intersect(pack, o, d, t_max=math.inf) -> Hit:
                is_cyl=is_cyl)
 
 
-def occluded(pack, o, d, t_max) -> torch.Tensor:
+def occluded(pack, o, d, t_max, time=None) -> torch.Tensor:
     """Boolean shadow query; t_max is already shortened by the caller.
-    The triangles (K2, or the pair pipeline), ORed with the spheres and
-    the cylinder segments."""
-    if pack.meta.get("n_tris", 1) == 0:
-        occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    elif pack.meta.get("use_bvh", False):
+    The static triangles (K2, or the pair pipeline), ORed with the
+    spheres, the cylinder segments, then the animated and deformable
+    shapes at `time`.  Without static triangles it is intersect's hit
+    (reference intersect.py:801-854)."""
+    if _static_tris(pack) == 0:
+        return intersect(pack, o, d, t_max, time=time).valid
+    if pack.meta.get("use_bvh", False):
         occ = pairs.pair_any(pack, o, d, t_max)
     else:
         occ = pk.any_hit_v2(o, d, t_max, pack.tri_s)
@@ -279,6 +478,10 @@ def occluded(pack, o, d, t_max) -> torch.Tensor:
         occ = occ | sh
     if pack.meta.get("n_cyls", 0) > 0:
         occ = occ | cyl.cyl_any(pack, o, d, t_max)
+    if pack.meta.get("anim_ranges", ()):
+        occ = occ | _anim_any(pack, o, d, time, t_max)
+    if pack.meta.get("deform_ranges", ()):
+        occ = occ | _deform_any(pack, o, d, time, t_max)
     return occ
 
 

@@ -232,7 +232,7 @@ def _walk(pack, o0, d0, beta0, pdf_w0, lane, sidx, seed, n_steps, present, delta
         bs = bsdf_sample(sp, wi_l, u_b[..., :2], u_b[..., 2], present)
         d_surf = frame.to_world(bs.wo)
         if has_media:
-            d_ph, ph_pdf, ph_w = med_eval.phase_sample(pack, cur_med, d, u_b[..., :2])
+            d_ph, ph_pdf, ph_w = med_eval.phase_sample(pack, cur_med, d, u_b[..., :2], p=p_v)
             d_new = torch.where(medium_evt[..., None], d_ph, d_surf)
             step_pdf_w = torch.where(medium_evt, ph_pdf, bs.pdf)
             step_delta = torch.where(medium_evt, False, bs.delta)
@@ -253,7 +253,7 @@ def _walk(pack, o0, d0, beta0, pdf_w0, lane, sidx, seed, n_steps, present, delta
         rev_w = torch.where(bs.delta, 0.0, bsdf_pdf(sp, bs.wo, wi_l, present))
         if has_media:
             rev_w = torch.where(
-                medium_evt, med_eval.phase_pdf(pack, cur_med, d_new, its.wi_world), rev_w
+                medium_evt, med_eval.phase_pdf(pack, cur_med, d_new, its.wi_world, p=p_v), rev_w
             )
         if k > 0:
             prev = verts[k - 1]
@@ -510,7 +510,7 @@ def _v_f(pack, v, wo_w, present):
     fr = _vertex_frame(v)
     f_s = bsdf_eval(v["sp"], fr.to_local(v["wi"]), fr.to_local(wo_w), present)
     if pack.meta.get("has_media", False):
-        f_m = med_eval.phase_eval(pack, v["med"], -v["wi"], wo_w)
+        f_m = med_eval.phase_eval(pack, v["med"], -v["wi"], wo_w, p=v["p"])
         return torch.where(v["is_medium"][..., None], f_m[..., None].expand(-1, 3), f_s)
     return f_s
 
@@ -521,7 +521,7 @@ def _v_pdf(pack, v, wi_w, wo_w, present):
     fr = _vertex_frame(v)
     p_s = bsdf_pdf(v["sp"], fr.to_local(wi_w), fr.to_local(wo_w), present)
     if pack.meta.get("has_media", False):
-        p_m = med_eval.phase_pdf(pack, v["med"], -wi_w, wo_w)
+        p_m = med_eval.phase_pdf(pack, v["med"], -wi_w, wo_w, p=v["p"])
         return torch.where(v["is_medium"], p_m, p_s)
     return p_s
 

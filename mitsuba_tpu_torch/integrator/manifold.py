@@ -8,8 +8,10 @@ As in the reference port, the unknown is the 2D start direction and the
 whole chain is re-traced per Newton iteration (a few batched `intersect`
 calls); the 2x2 Jacobian comes from two forward-difference traces.  Every
 walk runs a fixed number of iterations over all lanes; failures flag out.
-The chain signature (reflect or refract per bounce) is static.  Animated
-shapes are refused by the port's pack, so no shutter time is taken.
+The chain signature (reflect or refract per bounce) is static.  A walk
+may run at a shutter `time` (the motion integrator re-solves a chain at
+its target time); without one, animated and deformable shapes sit at the
+shutter midpoint.
 """
 
 from __future__ import annotations
@@ -45,14 +47,14 @@ def _norm2(e):
     return torch.sqrt(e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1])
 
 
-def chain_trace(pack, o, d, signature):
+def chain_trace(pack, o, d, signature, time=None):
     """Trace the start ray (o, d) deterministically through `signature`
     (a static tuple of REFLECT / REFRACT) specular bounces, then one more
-    segment to the receiving surface.  Returns (p_end [R, 3], n_end [R, 3],
-    ok [R])."""
+    segment to the receiving surface, at the shutter `time` ([R] or None).
+    Returns (p_end [R, 3], n_end [R, 3], ok [R])."""
     ok = torch.ones(o.shape[:1], dtype=torch.bool, device=o.device)
     for s in signature:
-        its = fill_interaction(pack, o, d, intersect(pack, o, d))
+        its = fill_interaction(pack, o, d, intersect(pack, o, d, time=time))
         ok = ok & its.valid
         n = its.ns
         if s == REFLECT:
@@ -62,7 +64,7 @@ def chain_trace(pack, o, d, signature):
             d, tir = _refract_world(d, n, eta_rel)
             ok = ok & ~tir
         o = _offset_ray(its.p, its.ng, d)
-    its = fill_interaction(pack, o, d, intersect(pack, o, d))
+    its = fill_interaction(pack, o, d, intersect(pack, o, d, time=time))
     return its.p, its.ns, ok & its.valid
 
 
@@ -90,7 +92,8 @@ def newton_step(res, x, eps):
     return torch.where(worse[..., None], x + torch.where(ok, 0.5 * dx, 0.0), x1)
 
 
-def manifold_walk(pack, p_start, d0, signature, p_target, n_target, iters=16, fd_eps=1e-4):
+def manifold_walk(pack, p_start, d0, signature, p_target, n_target, iters=16, fd_eps=1e-4,
+                  time=None):
     """Newton walk: adjust the start direction until the specular chain's
     endpoint lands on p_target (measured in the target's tangent plane).
     Returns (d_solved [R, 3], err [R] the final tangent-plane distance,
@@ -100,7 +103,7 @@ def manifold_walk(pack, p_start, d0, signature, p_target, n_target, iters=16, fd
 
     def residual(x):
         d = mm.normalize(d0 + x[..., 0:1] * fr_d.s + x[..., 1:2] * fr_d.t)
-        p_end, _, ok = chain_trace(pack, p_start, d, signature)
+        p_end, _, ok = chain_trace(pack, p_start, d, signature, time=time)
         dp = p_end - p_target
         return torch.stack([mm.dot(dp, fr_t.s), mm.dot(dp, fr_t.t)], dim=-1), ok
 

@@ -18,13 +18,17 @@ reference's `lax.while_loop`s become host loops that check their exit
 condition every EXIT_CHECK_EVERY iterations (core/lanes.py); iterations
 in which no lane has work change nothing.
 
+Animated and deformable shapes are met at each lane's shutter time
+(`shutter_time`), drawn anew for every sample.
+
 Also the one-bounce integrators of the same machinery: `direct_trace`,
 `ao_trace` (ambient occlusion) and `field_trace` (AOVs; `depth` is the
-`distance` field).
+`distance` field), and `motion_trace` (screen-space motion vectors).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 
 import torch
@@ -70,6 +74,16 @@ def _offset_ray(p, n, d):
     return p + n * s * 1e-4
 
 
+def shutter_time(pack, lane, sample_idx, seed=0):
+    """Each lane's shutter time in [0, 1], or None in a scene without
+    animated or deformable shapes (= Sensor::sampleTime, reference
+    path.py:61-72): the first uniform of slot 911 of the camera stream,
+    whatever the sensor's shutter interval (ROADMAP C6)."""
+    if not pack.meta.get("anim_ranges", ()) and not pack.meta.get("deform_ranges", ()):
+        return None
+    return rng.rand4(lane, sample_idx, 911, rng.stream_seed(seed, rng.STREAM_CAMERA))[..., 0]
+
+
 def _check_integrator(pack, integ):
     # volpath on a scene without media is the path integrator (reference
     # integrator/volpath.py:95-99, renderer.py:78-92); direct is the path
@@ -109,14 +123,15 @@ def emitted(pack, d, its, reach, thr, L, prev_pdf, prev_delta, hide=None):
 
 
 def _bounce(pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth,
-            u4, keys, nee_nonzero=False):
+            u4, keys, time, nee_nonzero=False):
     """One bounce of every lane, as both of the reference's loops run it:
     closest hit, escaped rays and emitter hits with MIS, the subsurface
     exitant radiance, NEE with a shadow ray, BSDF sampling (the callers
     drop lanes whose throughput is 0), with the integrator's
     hideEmitters and strictNormals.  depth: int or [R] int32;
     u4(depth, slot) -> [R, 4] decision uniforms; keys: (lane, sample
-    index, seed) of the single-scattering draws.  nee_nonzero adds
+    index, seed) of the single-scattering draws; time: the lanes' shutter
+    times (shutter_time) of both rays.  nee_nonzero adds
     path_trace's gate on a nonzero emitter value and BSDF value to the NEE
     contribution.
     Returns (L, active, thr, eta, o_bounce, d_bounce, new_pdf, new_delta,
@@ -125,7 +140,7 @@ def _bounce(pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth,
     draw; None without emitters) and the rays traced."""
     present = pack.meta["present_types"]
     n_rays = active.sum()
-    hit = intersect(pack, o, d)
+    hit = intersect(pack, o, d, time=time)
     its = fill_interaction(pack, o, d, hit)
     L = emitted(pack, d, its, active, thr, L, prev_pdf, prev_delta,
                 hide=(depth == 0) if integ.hide_emitters else None)
@@ -160,7 +175,7 @@ def _bounce(pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth,
         shadow_t = torch.where(
             ds.dist >= em.ENV_DIST, 1e7, ds.dist * (1.0 - SHADOW_EPS)
         )
-        occ = occluded(pack, o_sh, ds.d, shadow_t)
+        occ = occluded(pack, o_sh, ds.d, shadow_t, time=time)
         b_pdf = torch.where(ds.delta, 0.0, bsdf_pdf(sp, wi_l, wo_l, present))
         w_nee = torch.where(ds.delta, 1.0, mi_weight(ds.pdf, b_pdf))
         # NEE makes a (depth + 2)-edge path: the reference's maxDepth
@@ -209,6 +224,7 @@ def path_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
     _check_integrator(pack, integ)
     r = o.shape[0]
     device = o.device
+    time = shutter_time(pack, lane, sample_idx, seed)
     max_depth = integ.max_depth if integ.max_depth > 0 else MAX_BOUNCES_CAP
     rr_depth = max(integ.rr_depth, 1)
 
@@ -229,7 +245,7 @@ def path_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
             break
         L, active, thr, eta, o_b, d_b, new_pdf, new_delta, u_rr, n = _bounce(
             pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth, u4,
-            (lane, sample_idx, seed), nee_nonzero=True,
+            (lane, sample_idx, seed), time, nee_nonzero=True,
         )
         n_rays = n_rays + n
         thr_max = thr.amax(dim=-1)
@@ -303,6 +319,7 @@ def path_trace_regen(
         active = active | regen
         # global sample index: includes the pass / layer offset
         sidx = sidx_off + torch.clamp(sample_i - 1, min=0).to(torch.int64)
+        time = shutter_time(pack, lane, sidx, seed)  # drawn anew for each sample
 
         def u4(depth, slot, sidx=sidx):
             dslot = depth * _SLOTS_PER_BOUNCE + slot
@@ -312,7 +329,7 @@ def path_trace_regen(
         # ---- one bounce ----
         L, active, thr, eta, o_bounce, d_bounce, new_pdf, new_delta, u_rr, n = _bounce(
             pack, integ, o, d, active, thr, eta, L, prev_pdf, prev_delta, depth, max_depth, u4,
-            (lane, sidx, seed),
+            (lane, sidx, seed), time,
         )
         n_rays = n_rays + n
         thr_max = thr.amax(dim=-1)
@@ -396,6 +413,114 @@ def field_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
     return torch.where(its.valid[..., None], v, 0.0)
 
 
+def _motion_advance(pack, prim, p0, uu, vv, tri_hit, t_target):
+    """Surface points p0 moved to the target time through their shape's
+    motion (reference path.py:629-670): on an animated shape's rows by
+    M(t) = I + t (M1 - I); on a deformable's, the hit's barycentrics on
+    the triangle lerped between the keyframes around the target time.
+    Other lanes keep p0."""
+    p1 = p0
+    for a, (first, count) in enumerate(pack.meta.get("anim_ranges", ())):
+        in_r = tri_hit & (prim >= first) & (prim < first + count)
+        m1 = pack.anim_m1[a]
+        l1, b1 = m1[:9].reshape(3, 3), m1[9:12]
+        pt = p0 + t_target * ((p0 @ l1.T + b1[None]) - p0)
+        p1 = torch.where(in_r[..., None], pt, p1)
+    for rr_, (first, count, times) in enumerate(pack.meta.get("deform_ranges", ())):
+        frames = pack.arrays[f"deform_tri9_{rr_}"]  # [K, T, 9]
+        seg = max(0, min(bisect.bisect_right(times, t_target) - 1, len(times) - 2))
+        w = (t_target - times[seg]) / max(times[seg + 1] - times[seg], 1e-9)
+        row = torch.clamp(prim - first, 0, count - 1)
+        a0, a1 = frames[seg][row], frames[seg + 1][row]
+        tri = a0 + w * (a1 - a0)
+        pt = tri[..., 0:3] + uu[..., None] * tri[..., 3:6] + vv[..., None] * tri[..., 6:9]
+        in_r = tri_hit & (prim >= first) & (prim < first + count)
+        p1 = torch.where(in_r[..., None], pt, p1)
+    return p1
+
+
+def _triangle_hit(its, hit):
+    """Lanes whose hit is a triangle (not a sphere or a segment)."""
+    out = its.valid
+    if hit.is_sphere is not None:
+        out = out & ~hit.is_sphere
+    if hit.is_cyl is not None:
+        out = out & ~hit.is_cyl
+    return out
+
+
+def motion_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
+    """Screen-space motion vectors (reference path.py:672-790,
+    src/integrators/misc/motion.cpp): (dx, dy) in pixels, and 0, from the
+    first hit at time 0 to the target time (integ.motion_time).  Config
+    "d" moves the primary hit through its shape's motion; a chain config
+    ("rd", "ttd", ...) traces its reflections and refractions at time 0,
+    moves the end vertex, and re-solves the chain against it at the
+    target time with the manifold walk.  The intersect calls' rays are
+    left in motion_trace.last_ray_count."""
+    from mitsuba_tpu_torch.integrator import manifold as mf
+    from mitsuba_tpu_torch.sensor.plugins import ORTHOGRAPHIC, TELECENTRIC
+
+    t_target = float(integ.motion_time)
+    config = (integ.motion_config or "d").lower()
+    r = o.shape[0]
+    time0 = torch.zeros(r, dtype=torch.float32, device=o.device)
+    hit = intersect(pack, o, d, time=time0)
+    its = fill_interaction(pack, o, d, hit)
+    n_traced = len(config) * r
+    p0 = its.p
+    if len(config) == 1:
+        p1 = _motion_advance(pack, its.prim, p0, hit.u, hit.v, _triangle_hit(its, hit), t_target)
+    else:
+        # the reference also checks each vertex's material and the walk's
+        # convergence, and applies neither to its output (ROADMAP C6):
+        # neither is computed here
+        sig = tuple(mf.REFLECT if ch == "r" else mf.REFRACT for ch in config[:-1])
+        o_cur, d_cur = o, d
+        for i, ch in enumerate(config):
+            h = hit if i == 0 else intersect(pack, o_cur, d_cur, time=time0)
+            it2 = its if i == 0 else fill_interaction(pack, o_cur, d_cur, h)
+            if ch == "d":
+                p_end, n_end = it2.p, it2.ns
+                prim_end, u_end, v_end, tri_end = it2.prim, h.u, h.v, _triangle_hit(it2, h)
+            elif ch == "r":
+                n = it2.ns
+                d_cur = mm.normalize(d_cur - 2.0 * mm.dot(d_cur, n)[..., None] * n)
+                o_cur = _offset_ray(it2.p, it2.ng, d_cur)
+            else:  # "t"
+                eta_rel = take_rows(pack.mat_eta, torch.clamp(it2.mat, min=0))
+                d_cur, _ = mf._refract_world(d_cur, it2.ns, eta_rel)
+                o_cur = _offset_ray(it2.p, it2.ng, d_cur)
+        # move the end vertex, then re-solve the chain at the target time
+        p_end1 = _motion_advance(pack, prim_end, p_end, u_end, v_end, tri_end, t_target)
+        t1 = torch.full((r,), t_target, dtype=torch.float32, device=o.device)
+        iters = 10
+        d_sol, _, _ = mf.manifold_walk(pack, o, d, sig, p_end1, n_end, iters=iters, time=t1)
+        p1 = fill_interaction(pack, o, d_sol, intersect(pack, o, d_sol, time=t1)).p
+        # a walk traces its chain 4 times a step and once at the end
+        n_traced += (4 * iters + 1) * len(config) * r + r
+
+    w2c = pack.cam_w2c
+    th = pack.meta.get("cam_tan_half", 0.0) or 1.0
+    fw, fh = pack.meta.get("cam_film", (1, 1))
+    aspect = fw / max(fh, 1)
+    ortho = pack.meta.get("cam_kind", 0) in (ORTHOGRAPHIC, TELECENTRIC)
+
+    def project(p):
+        v = p @ w2c[:3, :3].T + w2c[:3, 3]
+        if ortho:  # extent [-1, 1] x aspect (sensor/plugins.py ORTHOGRAPHIC)
+            return 0.5 * (1.0 - v[..., 0]), 0.5 * (1.0 - v[..., 1] * aspect)
+        z = torch.clamp(v[..., 2], min=1e-6)
+        return 0.5 * (1.0 - v[..., 0] / z / th), 0.5 * (1.0 - v[..., 1] * aspect / z / th)
+
+    sx0, sy0 = project(p0)
+    sx1, sy1 = project(p1)
+    out = torch.stack([(sx1 - sx0) * fw, (sy1 - sy0) * fh, torch.zeros_like(sx0)], dim=-1)
+    motion_trace.last_ray_count = torch.tensor(n_traced, dtype=torch.int64, device=o.device)
+    return torch.where(its.valid[..., None], out, 0.0)
+
+
 # trace functions of the batched wavefront by integrator kind
 # (integrator/volpath.py adds "volpath")
-TRACE_FNS = {"path": path_trace, "direct": direct_trace, "ao": ao_trace, "field": field_trace}
+TRACE_FNS = {"path": path_trace, "direct": direct_trace, "ao": ao_trace, "field": field_trace,
+             "motion": motion_trace}

@@ -173,7 +173,7 @@ def make_photon_pass(pack, max_depth, seed, device):
             surf.append((g, its.p, d, beta, surf_evt & ~is_null & (n_real >= 1)))
 
             u_p = rng.rand4(lane, sidx, ev * _PH_SLOTS + 3, seed_l)
-            d_phase, _, ph_w = med_eval.phase_sample(pack, med, d, u_p[..., :2])
+            d_phase, _, ph_w = med_eval.phase_sample(pack, med, d, u_p[..., :2], p=p_med)
             frame = shading_frame(pack, its)
             wi_l = frame.to_local(its.wi_world)
             sp = shading_params(pack, its.mat, its.uv, its=its)
@@ -291,7 +291,7 @@ def _bre_segment(pack, meta, vol, med, o, d, t_end, in_med, lane, sidx, ev, seed
             r2 = pr * pr
             sel = (in_w & (t_proj > 0.0) & (t_proj < tendf) & (d2 < r2)
                    & (torch.abs(t_proj - tsf) < pr))
-            ph = med_eval.phase_eval(pack, medf, pd, -df)
+            ph = med_eval.phase_eval(pack, medf, pd, -df, p=xf)
             w = (_k2(d2 / torch.clamp(r2, min=1e-20)) / torch.clamp(r2, min=1e-20)
                  * tendf / (2.0 * torch.clamp(pr, min=1e-20) * S) * scale)
             contrib = pw * (ph * w)[..., None] * trf

@@ -1,6 +1,6 @@
 """Integrator plugins (port of mitsuba_tpu/integrator/plugins.py): `path`,
 `volpath` and `volpath_simple` (both of kind "volpath"), `direct`, `ao`,
-`field` and `depth` (a `field` of distances), `bdpt`, `ptracer`, the
+`field` and `depth` (a `field` of distances), `motion`, `bdpt`, `ptracer`, the
 Metropolis family `pssmlt`, `mlt` and `erpt`, the photon-density and
 many-light family `photonmapper`, `ppm`, `sppm` and `vpl`, and the
 meta-integrators `adaptive`, `irrcache` and `multichannel` over nested
@@ -24,6 +24,9 @@ class IntegratorRecord:
     ray_length: float = -1.0
     # field
     field_name: str = "position"
+    # motion: the target time and the chain configuration
+    motion_time: float = 1.0
+    motion_config: str = "d"
     # pssmlt / mlt / erpt
     direct_samples: int = -1
     bidirectional: bool = False
@@ -128,6 +131,24 @@ class DepthIntegrator(_IntBase):
 
     def _finish(self, props):
         self.record.field_name = "distance"
+
+
+@register("integrator", "motion")
+class MotionIntegrator(_IntBase):
+    """reference: src/integrators/misc/motion.cpp: screen-space motion
+    vectors to the target `time`.  config "d" is the first hit; a chain
+    config of [rt]*d form ("rd", "ttd", ...) follows reflections and
+    refractions and re-solves the chain at the target time with the
+    manifold walk (integrator/path.py motion_trace)."""
+
+    kind = "motion"
+
+    def _finish(self, props):
+        self.record.motion_time = props.get_float("time", 1.0)
+        cfg = props.get_string("config", "d").lower()
+        if not cfg or cfg[-1] != "d" or any(ch not in "rtd" for ch in cfg):
+            raise ValueError("motion: config must be of [rt]*d form, got %r" % cfg)
+        self.record.motion_config = cfg
 
 
 @register("integrator", "bdpt")

@@ -158,7 +158,7 @@ def volpath_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
 
         # medium event: phase sampling
         p_med = o + d * ms.t[..., None]
-        d_phase, ph_pdf, ph_w = med_eval.phase_sample(pack, med, d, u[:, _SLOT_PHASE, :2])
+        d_phase, ph_pdf, ph_w = med_eval.phase_sample(pack, med, d, u[:, _SLOT_PHASE, :2], p=p_med)
 
         # surface event
         frame = shading_frame(pack, its)
@@ -171,7 +171,7 @@ def volpath_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
             m3 = medium_evt[..., None]
             nee_origin = torch.where(m3, p_med, _path._offset_ray(its.p, its.ng, its.wi_world))
             ds = em.sample_direct(pack, nee_origin, u[:, _SLOT_NEE, :3])
-            ph = med_eval.phase_eval(pack, med, d, ds.d)
+            ph = med_eval.phase_eval(pack, med, d, ds.d, p=p_med)
             wo_l = frame.to_local(ds.d)
             f = torch.where(m3, ph[..., None].expand(-1, 3),
                             bsdf_eval(sp, wi_l, wo_l, present))
@@ -185,7 +185,7 @@ def volpath_trace(pack, integ, o, d, lane, sample_idx, sampler, seed=0):
             tr, crossed = _attenuated_visibility(pack, nee_origin, ds.d, ds.dist, med_sh, lane,
                                                  sample_idx, event, seed)
             n_crossed = n_crossed + crossed
-            other_pdf = torch.where(medium_evt, med_eval.phase_pdf(pack, med, d, ds.d),
+            other_pdf = torch.where(medium_evt, med_eval.phase_pdf(pack, med, d, ds.d, p=p_med),
                                     bsdf_pdf(sp, wi_l, wo_l, present))
             other_pdf = torch.where(ds.delta, 0.0, other_pdf)
             w_nee = torch.where(ds.delta, 1.0, _path.mi_weight(ds.pdf, other_pdf))

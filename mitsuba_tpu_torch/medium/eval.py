@@ -1,6 +1,7 @@
-"""Medium sampling over lanes (port of mitsuba_tpu/medium/eval.py without
-the fiber-phase arms, whose packs are refused): distance sampling,
-transmittance and the phase functions.
+"""Medium sampling over lanes (port of mitsuba_tpu/medium/eval.py):
+distance sampling, transmittance and the phase functions, the fiber
+phases (kkay, microflake) among them, which read the orientation volume
+at the event's position.
 
 Homogeneous media sample free paths in closed form (reference
 src/medium/homogeneous.cpp:149-330: channel balance, a fixed density,
@@ -31,7 +32,7 @@ from mitsuba_tpu_torch.core import lanes, rng, warp
 from mitsuba_tpu_torch.core import math as mm
 from mitsuba_tpu_torch.core.lanes import LiveLanes
 from mitsuba_tpu_torch.core.gather import take_fused
-from mitsuba_tpu_torch.medium.plugins import HG, RAYLEIGH
+from mitsuba_tpu_torch.medium.plugins import HG, KKAY, MICROFLAKE, RAYLEIGH
 
 INV_FOURPI = 0.25 / math.pi
 MAX_TRACKING_STEPS = 256  # total tentative collisions (RNG slot space)
@@ -411,16 +412,133 @@ def _phase_eval_dot(pack, med, cos):
     return out
 
 
-def phase_eval(pack, med, d_in, d_out):
+# --- fiber phases (kkay, microflake) on orientation volumes ---------------
+
+def _has_fiber_phases(pack):
+    pk = pack.meta.get("phase_kinds", ())
+    return KKAY in pk or MICROFLAKE in pk
+
+
+def _orient_at(pack, med, p):
+    """The unit fiber axis at world position p from the medium's
+    corner-packed orientation grid: trilinear, normalized after the
+    interpolation (reference eval.py:563-601, gridvolume lookupVector).
+    The cell is clamped into het_ocorners.  Returns (axis [R, 3], valid
+    [R]: a heterogeneous medium with an orientation volume and a nonzero
+    vector there)."""
+    hp = _het_params(pack, med)
+    slot = torch.clamp(hp["slot"], min=0)
+    obase = pack.het_obase[slot]
+    odims = pack.het_odims[slot].to(torch.float32)
+    q = _to_grid(hp, p)
+    d_, h_, w_ = odims[..., 0], odims[..., 1], odims[..., 2]
+    fx = q[..., 0] * w_ - 0.5
+    fy = q[..., 1] * h_ - 0.5
+    fz = q[..., 2] * d_ - 0.5
+    x0, y0, z0 = torch.floor(fx), torch.floor(fy), torch.floor(fz)
+    ax, ay, az = fx - x0, fy - y0, fz - z0
+    xi = torch.clamp(torch.minimum(x0, w_ - 1.0), min=-1.0) + 1.0
+    yi = torch.clamp(torch.minimum(y0, h_ - 1.0), min=-1.0) + 1.0
+    zi = torch.clamp(torch.minimum(z0, d_ - 1.0), min=-1.0) + 1.0
+    cell = obase + ((zi * (h_ + 1.0) + yi) * (w_ + 1.0) + xi).to(torch.int32)
+    n = pack.het_ocorners.shape[0]
+    c = pack.het_ocorners[torch.clamp(cell, 0, n - 1)]  # [R, 24]
+    c = c.reshape(c.shape[:-1] + (8, 3))
+    bx, by = ax[..., None, None], ay[..., None, None]
+    cy = c[..., 0::2, :] * (1 - bx) + c[..., 1::2, :] * bx  # [R, 4, 3]
+    cz = cy[..., 0::2, :] * (1 - by) + cy[..., 1::2, :] * by  # [R, 2, 3]
+    v = cz[..., 0, :] * (1 - az)[..., None] + cz[..., 1, :] * az[..., None]
+    ln = torch.linalg.vector_norm(v, dim=-1)
+    valid = (obase >= 0) & (ln > 1e-6) & (hp["slot"] >= 0)
+    return v / torch.clamp(ln, min=1e-12)[..., None], valid
+
+
+def _flake_d(pack, m, c):
+    """The gaussian fiber's flake-normal density D(cos) on the sphere."""
+    s = pack.med_flake_stddev[m]
+    return pack.med_flake_norm[m] * torch.exp(-c * c / (2.0 * s * s))
+
+
+def _flake_sigt(pack, m, cos_w):
+    """sigma_t(|cos theta_w|), linear in the medium's table."""
+    lut = pack.med_flake_sigt[m]  # [R, FLAKE_LUT]
+    n = lut.shape[-1]
+    x = torch.clamp(torch.abs(cos_w), 0.0, 1.0) * (n - 1)
+    i0 = torch.clamp(torch.floor(x).to(torch.int64), 0, n - 2)
+    fr = x - i0.to(torch.float32)
+    a = lut.gather(-1, i0[..., None])[..., 0]
+    b = lut.gather(-1, (i0 + 1)[..., None])[..., 0]
+    return a * (1.0 - fr) + b * fr
+
+
+def _kkay_eval(pack, m, axis, valid, wi, wo):
+    """Kajiya-Kay (reference eval.py:627-646, kkay.cpp eval): kd / 4 pi +
+    ks norm max(0, cos of the cone angle)^exponent, the cone mirrored
+    about the fiber's plane; its dot is zR zo + sqrt((1 - zR^2)(1 - zo^2))
+    since R shares wo's azimuth about the fiber.  Without an axis, the
+    diffuse part alone."""
+    zr = -mm.dot(wi, axis)
+    zo = mm.dot(wo, axis)
+    cone = zr * zo + torch.sqrt(torch.clamp((1.0 - zr * zr) * (1.0 - zo * zo), min=0.0))
+    spec = (torch.clamp(cone, min=0.0) ** pack.med_ph_exp[m]
+            * pack.med_ph_knorm[m] * pack.med_ph_ks[m])
+    diff = pack.med_ph_kd[m] * INV_FOURPI
+    return torch.where(valid, spec + diff, diff)
+
+
+def _microflake_eval(pack, m, axis, valid, wi, wo):
+    """Specular microflakes (reference eval.py:649-660, microflake.cpp
+    eval): 0.5 D(cos theta_h) / sigma_t(cos theta_wi) in the fiber's
+    frame; 0 without an axis."""
+    h = wi + wo
+    hl = torch.linalg.vector_norm(h, dim=-1)
+    ch = mm.dot(h, axis) / torch.clamp(hl, min=1e-9)
+    val = 0.5 * _flake_d(pack, m, ch) / torch.clamp(_flake_sigt(pack, m, mm.dot(wi, axis)),
+                                                    min=1e-9)
+    return torch.where(valid & (hl > 1e-9), val, 0.0)
+
+
+def phase_eval(pack, med, d_in, d_out, p=None):
     """Phase value; d_in = propagation direction into the event, d_out =
-    the outgoing direction."""
-    return _phase_eval_dot(pack, med, mm.dot(d_out, d_in))
+    the outgoing direction, p = the event's position, where the fiber
+    phases read the orientation volume (without p they evaluate as the
+    scalar kinds' table, as in the reference)."""
+    out = _phase_eval_dot(pack, med, mm.dot(d_out, d_in))
+    if _has_fiber_phases(pack) and p is not None:
+        m = torch.clamp(med, min=0)
+        axis, valid = _orient_at(pack, med, p)
+        kind = pack.med_phase[m]
+        pk = pack.meta.get("phase_kinds", ())
+        if KKAY in pk:
+            out = torch.where(kind == KKAY, _kkay_eval(pack, m, axis, valid, -d_in, d_out), out)
+        if MICROFLAKE in pk:
+            out = torch.where(kind == MICROFLAKE,
+                              _microflake_eval(pack, m, axis, valid, -d_in, d_out), out)
+    return out
 
 
-def phase_pdf(pack, med, d_in, d_out):
+def phase_pdf(pack, med, d_in, d_out, p=None):
     """Directional density of phase_sample (for MIS): phase_eval for the
-    ported kinds, which are sampled exactly."""
-    return _phase_eval_dot(pack, med, mm.dot(d_out, d_in))
+    kinds sampled exactly; kkay samples uniformly; microflake samples
+    flake normals from D, and both normals +-m mirror wi onto one wo, so
+    the density is D / (2 |wi . h|) (reference eval.py:684-713)."""
+    out = _phase_eval_dot(pack, med, mm.dot(d_out, d_in))
+    if _has_fiber_phases(pack) and p is not None:
+        m = torch.clamp(med, min=0)
+        axis, valid = _orient_at(pack, med, p)
+        wi = -d_in
+        kind = pack.med_phase[m]
+        pk = pack.meta.get("phase_kinds", ())
+        if KKAY in pk:
+            out = torch.where(kind == KKAY, INV_FOURPI, out)
+        if MICROFLAKE in pk:
+            h = wi + d_out
+            hl = torch.clamp(torch.linalg.vector_norm(h, dim=-1), min=1e-9)
+            hn = h / hl[..., None]
+            pdf_m = _flake_d(pack, m, mm.dot(hn, axis)) / torch.clamp(
+                2.0 * torch.abs(mm.dot(wi, hn)), min=1e-6)
+            out = torch.where(kind == MICROFLAKE, torch.where(valid, pdf_m, 0.0), out)
+    return out
 
 
 def _rayleigh_sample_cos(u):
@@ -443,11 +561,15 @@ def _phase_local_dir(kind, g, u2):
     return torch.where((kind == RAYLEIGH)[..., None], local_r, local)
 
 
-def phase_sample(pack, med, d_in, u2):
+def phase_sample(pack, med, d_in, u2, p=None):
     """Sample an outgoing direction: (d_out, pdf, weight), weight = phase /
-    pdf = 1 for the ported kinds.  A mixture picks a leaf over its weight
-    CDF with the first uniform, remapped to stay uniform within the leaf;
-    the pdf is the blended density of the drawn direction."""
+    pdf (reference eval.py:729-820): 1 for the scalar kinds, where a
+    mixture picks a leaf over its weight CDF with the first uniform,
+    remapped to stay uniform within the leaf, and the pdf is the blended
+    density of the drawn direction.  At p, kkay samples the sphere
+    uniformly (weight 4 pi eval); microflake draws a flake normal from D
+    by erf / erfinv inversion and mirrors wi about it (weight 2 |wi . m| /
+    sigma_t, as pdf times 2 |wi . m| / D)."""
     m = torch.clamp(med, min=0)
     kinds, gs, ws = pack.med_ph_kinds[m], pack.med_ph_gs[m], pack.med_ph_ws[m]  # [R, C]
     cum = _cumsum(ws)
@@ -463,4 +585,37 @@ def phase_sample(pack, med, d_in, u2):
     # a frame around the propagation direction (+z = forward scattering)
     d_out = mm.Frame.from_normal(d_in).to_world(_phase_local_dir(kind_sel, g_sel, u2r))
     pdf = _phase_eval_dot(pack, med, mm.dot(d_out, d_in))
-    return d_out, pdf, torch.ones_like(pdf)
+    weight = torch.ones_like(pdf)
+    if _has_fiber_phases(pack) and p is not None:
+        axis, valid = _orient_at(pack, med, p)
+        wi = -d_in
+        kind = pack.med_phase[m]
+        pk = pack.meta.get("phase_kinds", ())
+        if KKAY in pk:
+            d_uni = warp.square_to_uniform_sphere(u2)
+            is_k = kind == KKAY
+            d_out = torch.where(is_k[..., None], d_uni, d_out)
+            pdf = torch.where(is_k, INV_FOURPI, pdf)
+            weight = torch.where(is_k, _kkay_eval(pack, m, axis, valid, wi, d_uni)
+                                 * (4.0 * math.pi), weight)
+        if MICROFLAKE in pk:
+            s_ = pack.med_flake_stddev[m]
+            t = 2.0 * u2[..., 0] - 1.0
+            c = math.sqrt(2.0) * s_ * torch.erfinv(
+                torch.clamp(t, -mm.ONE_MINUS_EPS, mm.ONE_MINUS_EPS)
+                * torch.erf(1.0 / (math.sqrt(2.0) * s_)))
+            c = torch.clamp(c, -mm.ONE_MINUS_EPS, mm.ONE_MINUS_EPS)
+            st = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
+            phi = 2.0 * math.pi * u2[..., 1]
+            m_fl = mm.Frame.from_normal(axis).to_world(
+                torch.stack([st * torch.cos(phi), st * torch.sin(phi), c], dim=-1))
+            dwm = mm.dot(wi, m_fl)
+            wo_f = 2.0 * dwm[..., None] * m_fl - wi
+            pdf_f = _flake_d(pack, m, c) / torch.clamp(2.0 * torch.abs(dwm), min=1e-6)
+            w_f = torch.abs(dwm) / torch.clamp(_flake_sigt(pack, m, mm.dot(wi, axis)), min=1e-9)
+            is_f = kind == MICROFLAKE
+            ok_f = valid & (torch.abs(dwm) > 1e-6)
+            d_out = torch.where(is_f[..., None], wo_f, d_out)
+            pdf = torch.where(is_f, torch.where(ok_f, pdf_f, 0.0), pdf)
+            weight = torch.where(is_f, torch.where(ok_f, w_f, 0.0), weight)
+    return d_out, pdf, weight

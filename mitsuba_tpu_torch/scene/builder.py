@@ -1,15 +1,19 @@
 """Scene packing: host scene description -> flat device tensors
 (`ScenePack`); the port of mitsuba_tpu/scene/builder.py for the slice it
 renders: triangle meshes (brute force up to 512 triangles, BVH + cluster
-tables above), analytic spheres (tessellated where they emit) and
+tables above, over the static triangles: the rows of animated and
+deformable shapes follow them, with their relative motions and keyframe
+stacks), analytic spheres (tessellated where they emit) and
 miter-clipped cylinder segments (hair fibers and cylinders), every
 material type of the reference, with the row chains of mixtures and
 coatings, irawan's weave tables, every texture kind (the bitmaps and
 their mip pyramids shelf-packed into one atlas, the geometry kinds'
 per-corner colours and curvatures), bump and normal maps with the
 triangles' uv partials, area emitters, a constant or image-based
-(`envmap`) environment, and homogeneous and heterogeneous media attached
-to shapes as their interior or exterior (`_pack_media`), and the
+(`envmap`) environment, homogeneous and heterogeneous media attached
+to shapes as their interior or exterior, fiber phases and orientation
+volumes among them (`_pack_media`), the camera of the motion integrator,
+and the
 subsurface point sets and coefficients of dipole and singlescatter shapes
 (`_pack_sss`).  `apply_spectral_pack` makes the pack of one bin group of
 spectral mode.
@@ -24,6 +28,7 @@ from __future__ import annotations
 import copy
 import math
 import os
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,6 +59,7 @@ from mitsuba_tpu_torch.core.transform import Transform
 from mitsuba_tpu_torch.emitter.eval import PORTED_KINDS
 from mitsuba_tpu_torch.emitter.plugins import AREA, CONSTANT, DIRECTIONAL, ENVMAP
 from mitsuba_tpu_torch.medium.plugins import (
+    FLAKE_LUT,
     HETEROGENEOUS,
     HG,
     KKAY,
@@ -108,16 +114,26 @@ SLICE_META = (
     "has_textures", "has_mips", "geom_tex_kinds", "has_bumpmaps", "cam_pix_angle",
     "has_delta_emitters", "scene_center", "scene_radius",
 )
+# ... the static prefix, the animated and deformable ranges (their
+# keyframe stacks deform_tri9_{r} besides) and the camera of the motion
+# integrator ...
+MOTION_ARRAYS = ("anim_m1", "cam_w2c")
+MOTION_META = (
+    "n_static_tris", "anim_ranges", "deform_ranges", "shutter_open", "shutter_close",
+    "cam_tan_half", "cam_film", "cam_kind",
+)
 # ... for scenes with geometry-driven textures, the per-corner colours
 # (vertexcolors) and curvatures (curvature) ...
 GEOM_TEX_ARRAYS = ("tri_c0", "tri_c1", "tri_c2", "tri_kh", "tri_kg")
 # ... for scenes with media, the medium tables (`_pack_media`) ...
 MEDIA_ARRAYS = (
     "tri_med_in", "tri_med_ex", "sph_med_in", "sph_med_ex",
-    "med_sigma_s", "med_sigma_a", "med_ph_kinds", "med_ph_gs", "med_ph_ws", "med_sampling_w",
-    "med_strategy", "med_density", "med_mx_sigma", "med_mx_istart", "med_mx_cdf",
-    "med_mx_norm", "med_het_slot", "het_corners", "het_super", "het_w2g", "het_albedo",
-    "het_dims", "het_sdims", "het_cbase", "het_sbase",
+    "med_sigma_s", "med_sigma_a", "med_phase", "med_ph_kinds", "med_ph_gs", "med_ph_ws",
+    "med_sampling_w", "med_strategy", "med_density", "med_mx_sigma", "med_mx_istart",
+    "med_mx_cdf", "med_mx_norm", "med_het_slot", "het_corners", "het_super", "het_w2g",
+    "het_albedo", "het_dims", "het_sdims", "het_cbase", "het_sbase",
+    "med_ph_ks", "med_ph_kd", "med_ph_exp", "med_ph_knorm", "med_flake_norm",
+    "med_flake_stddev", "med_flake_sigt", "het_ocorners", "het_obase", "het_odims",
 )
 MEDIA_META = (
     "has_media", "n_media", "hom_strategies", "phase_kinds", "n_het", "het_simpson",
@@ -142,8 +158,6 @@ BVH_META = (
 # (key, value meaning "absent", feature name)
 _UNPORTED_FEATURES = (
     ("has_instances", False, "instancing"),
-    ("anim_ranges", (), "animated shapes"),
-    ("deform_ranges", (), "deformable shapes"),
 )
 
 
@@ -172,10 +186,6 @@ def check_slice(meta: dict):
         raise NotImplementedError(
             f"bsdf types {sorted(types - PORTED_TYPES)} not yet ported"
         )
-    fiber = {KKAY: "kkay", MICROFLAKE: "microflake"}
-    for kind in meta.get("phase_kinds", ()):
-        if kind in fiber:
-            raise NotImplementedError(f"phase '{fiber[kind]}' not yet ported")
     kinds = set(meta.get("emitter_kinds", ()))
     if kinds - PORTED_KINDS:
         raise NotImplementedError(
@@ -289,6 +299,21 @@ def _cam_pix_angle(scene):
         return float(2.0 * math.tan(math.radians(cam.xfov_deg) / 2.0) / max(cam.film.width, 1))
     except (AttributeError, TypeError):
         return 0.0
+
+
+def _cam_motion(scene) -> tuple[np.ndarray, dict]:
+    """The camera's world-to-camera matrix and its tan(xfov / 2), film
+    size and kind: the motion integrator's screen projection (reference
+    builder.py:189-215, :1728-1733)."""
+    if scene.sensor is None:
+        return np.eye(4, dtype=np.float32), {"cam_tan_half": 0.0, "cam_film": (1, 1),
+                                             "cam_kind": 0}
+    rec = scene.sensor.record
+    return np.asarray(rec.to_world.inv, np.float32), {
+        "cam_tan_half": float(math.tan(math.radians(rec.xfov_deg) / 2.0)),
+        "cam_film": (int(rec.film.width), int(rec.film.height)),
+        "cam_kind": int(rec.kind),
+    }
 
 
 def _vertex_curvatures(mesh):
@@ -434,13 +459,16 @@ def _emissive_sphere_meshes(spheres):
     return out
 
 
-def _bounding_sphere(tri, spheres, cyl, n_cyl):
+def _bounding_sphere(tri, spheres, cyl, n_cyl, deform_stacks=()):
     """(center, radius) of the scene's bounds, in float32 as the reference
     computes them (reference builder.py:1658-1682): the triangles'
-    corners, the analytic spheres' boxes and the segments' ends, each
-    +- its radius."""
+    corners, every keyframe's corners of the deformable shapes, the
+    analytic spheres' boxes and the segments' ends, each +- its radius."""
     v = tri["tri_v0"]
     pts = [v, v + tri["tri_e1"], v + tri["tri_e2"]] if len(v) else []
+    for stack in deform_stacks:
+        f = stack.reshape(-1, 9)
+        pts += [f[:, 0:3], f[:, 0:3] + f[:, 3:6], f[:, 0:3] + f[:, 6:9]]
     if spheres:
         c = np.array([s[0].center for s in spheres], np.float32)
         r = np.array([s[0].radius for s in spheres], np.float32)
@@ -455,6 +483,46 @@ def _bounding_sphere(tri, spheres, cyl, n_cyl):
     lo, hi = allp.min(axis=0), allp.max(axis=0)
     center = 0.5 * (lo + hi)
     return tuple(float(x) for x in center), float(np.linalg.norm(hi - center)) + 1e-6
+
+
+def _relative_motion(inst, emit_id):
+    """An animated shape's relative motion M1 = A(t_end) A(t_0)^-1 from its
+    first and last keyframes, as 9 linear entries (row-major) and 3
+    translation entries (reference builder.py:602-633); its rows hold
+    keyframe 0, and the intersector lerps I -> M1 over the shutter."""
+    kf = inst.animation
+    t0_m = np.asarray(kf[0][1].m, np.float64)
+    t1_m = np.asarray(kf[-1][1].m, np.float64)
+    m_rel = (t1_m @ np.linalg.inv(t0_m))[:3, :]
+    rot = m_rel[:3, :3] - np.eye(3)
+    if np.abs(rot - np.diag(np.diag(rot))).max() > 1e-5:
+        warnings.warn(f"animated shape '{inst.id}': rotation keyframes use chordal matrix "
+                      "interpolation and frame-0 shading normals (translation/scale are exact)")
+    if emit_id >= 0:
+        warnings.warn(f"animated shape '{inst.id}': area emission is sampled at keyframe 0")
+    return np.concatenate([m_rel[:, :3].reshape(-1), m_rel[:, 3]]).astype(np.float32)
+
+
+def _deform_tables(deform_marks) -> dict:
+    """deform_tri9_{r}: each deformable shape's keyframes as a [K, T, 9]
+    stack of (v0, e1, e2) rows (reference builder.py:660-694)."""
+    out = {}
+    for r, (inst, _, _) in enumerate(deform_marks):
+        stack = []
+        for meshes in inst.deform_frames:
+            rows = []
+            for mesh in meshes:
+                p = mesh.positions
+                i = mesh.indices.astype(np.int64)
+                a, b, c = p[i[:, 0]], p[i[:, 1]], p[i[:, 2]]
+                rows.append((a, b - a, c - a))
+            stack.append(np.concatenate(
+                [np.concatenate([x[j] for x in rows]) for j in range(3)], axis=-1
+            ).astype(np.float32))
+        out[f"deform_tri9_{r}"] = np.stack(stack)
+        if inst.emitter is not None:
+            warnings.warn(f"deformable '{inst.id}': area emission is sampled at keyframe 0")
+    return out
 
 
 def _luminance(rgb):
@@ -571,15 +639,36 @@ def _het_grid(m, bf16):
     return corners.reshape(-1, 8), sup.reshape(-1), [d_, h_, w_], sd, w2g
 
 
+def _orientation_corners(vol):
+    """An orientation volume's 3-channel grid, zero-padded by one voxel and
+    packed as one [24] row of its 8 corners' vectors per cell, corner dz *
+    4 + dy * 2 + dx (reference builder.py:1484-1510): ([cells, 24], [D, H,
+    W])."""
+    og = np.ascontiguousarray(vol.grid[..., :3], np.float32)
+    d_, h_, w_ = og.shape[:3]
+    ogp = np.zeros((d_ + 2, h_ + 2, w_ + 2, 3), np.float32)
+    ogp[1:-1, 1:-1, 1:-1] = og
+    oc = np.empty((d_ + 1, h_ + 1, w_ + 1, 8, 3), np.float32)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                oc[..., dz * 4 + dy * 2 + dx, :] = ogp[dz:dz + d_ + 1, dy:dy + h_ + 1,
+                                                        dx:dx + w_ + 1]
+    return oc.reshape(-1, 24), [d_, h_, w_]
+
+
 def _pack_media(media: list) -> tuple[dict, dict]:
-    """The medium table (reference builder.py:1335-1620, meta :1738-1761)
-    without the fiber-phase tables: per medium its homogeneous
-    coefficients, free-path strategy (0 balance, 1 a fixed density for
-    single/manual, 2 maximum) and sampling weight, its phase as up to
-    MAX_PHASE_COMPONENTS (kind, g, weight) leaves (kind -1: empty), and
-    for heterogeneous media a slot in the grid tables.  The corner rows
-    are stored as bfloat16 when the grid was quantized (the same values,
-    one 16-byte row per lookup)."""
+    """The medium table (reference builder.py:1335-1620, meta :1738-1761):
+    per medium its homogeneous coefficients, free-path strategy (0
+    balance, 1 a fixed density for single/manual, 2 maximum) and sampling
+    weight, its phase (med_phase) and the phase as up to
+    MAX_PHASE_COMPONENTS (kind, g, weight) leaves (kind -1: empty), the
+    fiber phases' parameters (kkay's ks, kd, exponent and normalization;
+    microflake's normalization, deviation and sigma_t table), and for
+    heterogeneous media a slot in the grid tables, with the corner rows
+    of its orientation volume where it has one (het_obase -1 where not).
+    The density corner rows are stored as bfloat16 when the grid was
+    quantized (the same values, one 16-byte row per lookup)."""
     n_med = max(len(media), 1)
     a = {
         "med_sigma_s": np.zeros((n_med, 3), np.float32),
@@ -595,13 +684,30 @@ def _pack_media(media: list) -> tuple[dict, dict]:
         "med_mx_cdf": np.zeros((n_med, 4), np.float32),
         "med_mx_norm": np.ones(n_med, np.float32),
         "med_het_slot": np.full(n_med, -1, np.int32),
+        "med_phase": np.zeros(n_med, np.int32),
+        "med_ph_ks": np.zeros(n_med, np.float32),
+        "med_ph_kd": np.zeros(n_med, np.float32),
+        "med_ph_exp": np.ones(n_med, np.float32),
+        "med_ph_knorm": np.zeros(n_med, np.float32),
+        "med_flake_norm": np.zeros(n_med, np.float32),
+        "med_flake_stddev": np.full(n_med, 0.1, np.float32),
+        "med_flake_sigt": np.ones((n_med, FLAKE_LUT), np.float32),
     }
     # the reference's knob: bfloat16 densities (the default) or float32
     bf16 = os.environ.get("MTS_HET_BF16", "1") != "0"
     a["med_ph_kinds"][:, 0] = 0
     a["med_ph_ws"][:, 0] = 1.0
     corners, sup, dims, sdims, w2g, albedo, cbase, sbase = [], [], [], [], [], [], [], []
+    ocorners, obase, odims = [], [], []
     for i, m in enumerate(media):
+        ph = m.phase
+        a["med_phase"][i] = ph.kind
+        if ph.kind == KKAY:
+            a["med_ph_ks"][i], a["med_ph_kd"][i] = ph.ks, ph.kd
+            a["med_ph_exp"][i], a["med_ph_knorm"][i] = ph.exponent, ph.knorm
+        elif ph.kind == MICROFLAKE:
+            a["med_flake_norm"][i], a["med_flake_stddev"][i] = ph.flake_norm, ph.stddev
+            a["med_flake_sigt"][i] = ph.flake_sigt
         comps = m.phase.components or [(m.phase.kind, m.phase.g, 1.0)]
         for ci, (k_, g_, w_) in enumerate(comps):
             a["med_ph_kinds"][i, ci] = k_
@@ -620,6 +726,15 @@ def _pack_media(media: list) -> tuple[dict, dict]:
             albedo.append(np.asarray(m.albedo.constant, np.float32)
                           if m.albedo is not None and m.albedo.constant is not None
                           else np.full(3, 0.9, np.float32))
+            ov = m.orientation
+            if ov is not None and ov.grid is not None and ov.grid.ndim == 4:
+                oc, od = _orientation_corners(ov)
+                obase.append(sum(p.shape[0] for p in ocorners))
+                ocorners.append(oc)
+                odims.append(od)
+            else:
+                obase.append(-1)
+                odims.append([1, 1, 1])
             continue
         a["med_sigma_s"][i] = m.sigma_s
         a["med_sigma_a"][i] = m.sigma_a
@@ -643,6 +758,7 @@ def _pack_media(media: list) -> tuple[dict, dict]:
         dims, sdims, cbase, sbase = [[1, 1, 1]], [[1, 1, 1]], [0], [0]
         w2g = [np.eye(4, dtype=np.float32)[:3].reshape(-1)]
         albedo = [np.full(3, 0.9, np.float32)]
+        obase, odims = [-1], [[1, 1, 1]]
     het_corners = np.concatenate(corners)
     a.update({
         # a torch tensor: numpy has no bfloat16 (_to_device keeps it)
@@ -655,6 +771,9 @@ def _pack_media(media: list) -> tuple[dict, dict]:
         "het_sdims": np.asarray(sdims, np.int32),
         "het_cbase": np.asarray(cbase, np.int32),
         "het_sbase": np.asarray(sbase, np.int32),
+        "het_ocorners": np.concatenate(ocorners or [np.zeros((1, 24), np.float32)]),
+        "het_obase": np.asarray(obase, np.int32),
+        "het_odims": np.asarray(odims, np.int32),
     })
     meta = {
         "has_media": len(media) > 0,
@@ -947,7 +1066,17 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     all_meshes = []  # in triangle order: the geometry-driven textures' tables
     spheres = []  # (SphereData, material id, emitter id, interior, exterior)
     cyls = []  # (CylData, material id)
-    for inst in scene.shapes:
+    # the triangle rows of static shapes first, then of animated shapes
+    # (two keyframes or more), then of deformable ones: the accelerators
+    # cover the static prefix only (reference builder.py:375-399)
+    deform_i = [i for i in scene.shapes if i.deform_frames]
+    anim_i = [i for i in scene.shapes
+              if not i.deform_frames and i.animation and len(i.animation) >= 2]
+    moving = {id(i) for i in deform_i + anim_i}
+    row = 0
+    anim_ranges, anim_m1, deform_marks = [], [], []
+    for inst in [i for i in scene.shapes if id(i) not in moving] + anim_i + deform_i:
+        start = row
         if inst.subsurface is not None:
             # a row of its own (mat_sss is per row): a copy of the BSDF
             # record, or an all-absorbing diffuse where the shape has none
@@ -1011,6 +1140,12 @@ def pack_scene(scene, device="cuda") -> ScenePack:
             tmed_in.append(np.full(len(i), med_in, np.int32))
             tmed_ex.append(np.full(len(i), med_ex, np.int32))
             all_meshes.append(mesh)
+            row += len(i)
+        if inst.deform_frames:
+            deform_marks.append((inst, start, row))
+        elif id(inst) in moving:
+            anim_ranges.append((start, row - start))
+            anim_m1.append(_relative_motion(inst, emit_id))
 
     def cat(parts, shape_tail, dtype=np.float32):
         if parts:
@@ -1029,28 +1164,33 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "tri_med_ex": cat(tmed_ex, (), np.int32),
     }
     n_tris = len(tri["tri_v0"])
+    n_static = n_tris - sum(c for _, c in anim_ranges) - sum(e - b for _, b, e in deform_marks)
     descs = _texture_descs(materials)
     geom_tex_kinds, geom_tex = _geometry_tables(descs, all_meshes, tri)
     tri.update(geom_tex)
-    use_bvh = n_tris > BRUTE_FORCE_MAX_TRIS
+    use_bvh = n_static > BRUTE_FORCE_MAX_TRIS
     if use_bvh:
-        v0, e1, e2 = tri["tri_v0"], tri["tri_e1"], tri["tri_e2"]
+        v0, e1, e2 = (tri[k][:n_static] for k in ("tri_v0", "tri_e1", "tri_e2"))
         lo = np.minimum(v0, np.minimum(v0 + e1, v0 + e2))
         hi = np.maximum(v0, np.maximum(v0 + e1, v0 + e2))
         bvh = build_bvh(v0 + (e1 + e2) / 3.0, lo, hi)
-        tri = {k: a[bvh.order] for k, a in tri.items()}
+        # every per-row table: the static prefix permuted, the moving rows
+        # kept in place
+        tri = {k: np.concatenate([a[:n_static][bvh.order], a[n_static:]])
+               for k, a in tri.items()}
     tri_s = pack_triangles_sublane(
-        tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris
+        tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_static
     )
     tri_t = pack_triangles_transposed(
-        tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris
+        tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_static
     )
+    deform = _deform_tables(deform_marks)
     tri_area = 0.5 * np.linalg.norm(
         np.cross(tri["tri_e1"], tri["tri_e2"]), axis=-1
     )
     tri_emit = tri["tri_emit"]
     cyl, n_cyl = _pack_cylinders(cyls)
-    center, radius = _bounding_sphere(tri, spheres, cyl, n_cyl)
+    center, radius = _bounding_sphere(tri, spheres, cyl, n_cyl, deform.values())
     # pad with LEAF_SIZE far-away rows: index-clamped gathers and the
     # cluster tiles' dummy slots (index n_tris) never leave the tables
     pad_fill = {"tri_v0": 1e30, "tri_emit": -1, "tri_med_in": -1, "tri_med_ex": -1,
@@ -1066,6 +1206,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         tri9 = np.concatenate(
             [tri["tri_v0"], tri["tri_e1"], tri["tri_e2"]], axis=1
         ).astype(np.float32)
+        # the tiles' dummy slot is row n_tris (padding), past every moving
+        # row, as in the reference (builder.py:846-851)
         cl = pack_clusters(bvh, tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_tris)
         cl_arrays, cl_meta = cl if cl is not None else ({}, {})
         bvh_arrays = {"bvh_nodes": bvh_nodes, "tri9": tri9, **cl_arrays}
@@ -1230,6 +1372,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         **tri,
         "tri_s": tri_s,
         "tri_t": tri_t,
+        "anim_m1": np.stack(anim_m1) if anim_m1 else np.zeros((1, 12), np.float32),
+        **deform,
         **bvh_arrays,
         **sph,
         **cyl,
@@ -1251,8 +1395,15 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         **sss_arrays,
         **iw_arrays,
     }
+    arrays["cam_w2c"], cam_meta = _cam_motion(scene)
+    sensor = scene.sensor.record if scene.sensor is not None else None
     meta = {
         "n_tris": n_tris,
+        "n_static_tris": int(n_static),
+        "anim_ranges": tuple(anim_ranges),
+        "deform_ranges": tuple((b, e - b, inst.deform_times) for inst, b, e in deform_marks),
+        "shutter_open": float(getattr(sensor, "shutter_open", 0.0)),
+        "shutter_close": float(getattr(sensor, "shutter_close", 0.0)),
         "n_spheres": n_sph,
         "n_cyls": n_cyl,
         "n_emitters": len(emitters),
@@ -1270,6 +1421,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "has_mips": any(t.kind == TEX_BITMAP for t in textures)
         and os.environ.get("MTS_TPU_NO_MIPS", "0") != "1",
         "cam_pix_angle": _cam_pix_angle(scene),
+        **cam_meta,
         "has_bumpmaps": any(rec.tex_bump is not None for rec in materials),
         "has_mixtures": bool(links),
         # the links shading_params follows (N-ary mixtures)

@@ -245,6 +245,7 @@ class HairShape:
         if not fibers:
             raise ValueError(f"hair: no fibers in {path}")
         scale = uniform_scale_of(t)
+        self.instance.animation = props.get_animation("toWorld")
         if props.get_bool("exact", False) and scale is not None:
             cyl = fibers_to_segments(fibers, radius)
             cyl.p0 = t.transform_point_np(cyl.p0).astype(np.float32)

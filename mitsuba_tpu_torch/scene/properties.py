@@ -116,8 +116,19 @@ class Properties:
         def cast(v):
             if isinstance(v, Transform):
                 return v
+            if isinstance(v, (list, tuple)) and v and isinstance(v[0], tuple):
+                # an animated track: the static value is keyframe 0
+                return v[0][1]
             return Transform(np.asarray(v))
 
         if default is None:
             default = Transform.identity()
         return self._get(name, default, "transform", cast)
+
+    def get_animation(self, name):
+        """The keyframes [(time, Transform), ...] of an animated
+        transform, or None."""
+        v = self._values.get(name)
+        if isinstance(v, (list, tuple)) and v and isinstance(v[0], tuple):
+            return list(v)
+        return None

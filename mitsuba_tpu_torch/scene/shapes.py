@@ -11,12 +11,19 @@
   src/shapes/cylinder.cpp) unless `exact` is false or the transform
   scales unevenly, where it tessellates
 * `hair`: fibers from a .hair file (scene/hair.py)
+* `deformable`: per-vertex keyframes from nested shapes of one topology
+  (reference src/shapes/deformable.cpp)
+
+Every shape keeps its `toWorld` animation track (`<animation>`): its
+geometry is keyframe 0, and the builder turns a track of two keyframes
+or more into a relative motion (scene/builder.py).
 
 Other shape plugins are not registered and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -61,6 +68,9 @@ class ShapeInstance:
     interior_medium = None  # MediumRecord or None (vacuum)
     exterior_medium = None
     subsurface = None  # SubsurfaceRecord or None
+    animation = None  # [(time, Transform), ...] rigid keyframes
+    deform_frames = None  # [[MeshData, ...] per keyframe] (deformable)
+    deform_times = None  # tuple of keyframe times
     id: str = ""
 
 
@@ -99,6 +109,7 @@ class _ShapeBase:
         flip = props.get_bool("flipNormals", False)
         for mesh in self._meshes():
             self.instance.meshes.append(_apply_transform(mesh, t, flip))
+        self.instance.animation = props.get_animation("toWorld")
 
     def _meshes(self) -> list[MeshData]:
         return [self._mesh()]
@@ -180,6 +191,7 @@ class SphereShape:
             )
         else:
             self.instance.meshes.append(_apply_transform(_uv_sphere(64, 32), full, flip))
+        self.instance.animation = props.get_animation("toWorld")
 
 
 def uniform_scale_of(t: Transform):
@@ -205,6 +217,7 @@ class CylinderShape:
         t = props.get_transform("toWorld")
         flip = props.get_bool("flipNormals", False)
         scale = uniform_scale_of(t)
+        self.instance.animation = props.get_animation("toWorld")
         if props.get_bool("exact", True) and scale is not None:
             # the analytic open cylinder (cylinder.cpp rayIntersect: the
             # infinite cylinder's quadratic and an axial clip, no caps);
@@ -269,3 +282,34 @@ def _uv_sphere(n_phi, n_theta) -> MeshData:
         pos.astype(np.float32),
         uv.astype(np.float32),
     )
+
+
+@register("shape", "deformable")
+class DeformableShape:
+    """Per-vertex keyframe animation (reference src/shapes/deformable.cpp,
+    mitsuba_tpu/scene/shapes.py:378-423): the nested shapes are the
+    keyframes, of one topology, at the `times` given (evenly spaced over
+    [0, 1] when absent).  Its geometry and shading normals are keyframe
+    0's; the intersector lerps each lane's rows between the keyframes of
+    its time (accel/intersect.py)."""
+
+    def __init__(self, props):
+        self.props = props
+        self.instance = ShapeInstance(id=props.id)
+        frames = [child.instance.meshes for _, child in props.children
+                  if getattr(child, "instance", None) is not None and child.instance.meshes]
+        if len(frames) < 2:
+            raise ValueError("deformable: needs >=2 nested keyframe shapes")
+        times_str = props.get_string("times", "").strip()
+        if times_str:
+            times = [float(x) for x in re.split(r"[,;\s]+", times_str) if x]
+        else:
+            times = np.linspace(0.0, 1.0, len(frames)).tolist()
+        if len(times) != len(frames):
+            raise ValueError("deformable: times count must match keyframe count")
+        if len({tuple(len(m.indices) for m in fs) for fs in frames}) != 1:
+            raise ValueError("deformable: keyframes must share topology")
+        self.instance.meshes = frames[0]
+        self.instance.deform_frames = frames
+        self.instance.deform_times = tuple(float(t) for t in times)
+        self.instance.animation = props.get_animation("toWorld")

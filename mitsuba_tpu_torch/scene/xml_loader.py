@@ -2,8 +2,8 @@
 
 Builds nested `Properties`, instantiates plugins through the registry,
 and supports `$param` substitution, `<default>`, `<ref>`, `<include>`,
-`<alias>` and transform chains.  Animated transforms, shape groups and
-instances are not ported yet and raise NotImplementedError.
+`<alias>`, transform chains and `<animation>` keyframe tracks.  Shape
+groups and instances are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -307,6 +307,8 @@ class SceneLoader:
                     inst.interior_medium = rec
                 elif name == "exterior":
                     inst.exterior_medium = rec
+            elif inst.deform_frames and getattr(child, "instance", None) is not None:
+                continue  # a deformable's keyframe shapes
             elif not isinstance(rec, SensorRecord):  # sensors: _attach_nested_sensor
                 raise NotImplementedError(
                     f"shape child {type(child).__name__} not yet ported"
@@ -363,7 +365,17 @@ class SceneLoader:
             elif tag == "transform":
                 props.set(name or "toWorld", _parse_transform(child))
             elif tag == "animation":
-                raise NotImplementedError("animated transforms not yet ported")
+                # keyframes [(time, Transform), ...] sorted by time;
+                # get_transform evaluates keyframe 0, get_animation
+                # returns the track
+                frames = [
+                    (float(c.get("time", i)), _parse_transform(c))
+                    for i, c in enumerate(child)
+                    if c.tag == "transform"
+                ]
+                if frames:
+                    frames.sort(key=lambda f: f[0])
+                    props.set(name or "toWorld", frames)
             elif tag == "ref" or tag in _PLUGIN_TAGS:
                 props.children.append((name, self._plugin(child)))
             elif tag == "default":

@@ -7,8 +7,10 @@ Ray generation reproduces the reference's sample->camera mapping
 (reference perspective.cpp:145-157):
     d_cam ∝ ((1-2sx)·tan(xfov/2), (1-2sy)/aspect·tan(xfov/2), 1)
 camera space is left-handed with +z the viewing direction and +x
-pointing left on screen.  The shutter (motion blur) is not ported: a
-sensor whose shutter opens raises NotImplementedError.
+pointing left on screen.  The record keeps the shutter interval
+(shutterOpen, shutterClose) for the pack's meta; as in the reference, the
+path integrator draws a lane's time in [0, 1] whatever the interval
+(ROADMAP C6).
 """
 
 from __future__ import annotations
@@ -174,8 +176,6 @@ class _SensorBase:
             shutter_open=props.get_float("shutterOpen", 0.0),
             shutter_close=props.get_float("shutterClose", 0.0),
         )
-        if self.record.shutter_close > self.record.shutter_open:
-            raise NotImplementedError("motion blur (shutter) not yet ported")
         self._finish(props)
 
     def _finish(self, props):

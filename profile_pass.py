@@ -3,7 +3,7 @@
 
     python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door|
                              glass-sppm|smoke-pm|cbox-vpl|dipole|hairball|hairball-exact|
-                             textured|dispersion]
+                             textured|dispersion|motion|fiber|fiber-microflake]
                             [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
@@ -41,7 +41,14 @@ scenes/dispersion.xml as it stands (256x256, path at maxDepth 8, 32
 samples per pass as `render` chunks its 256) in spectral mode, one bin
 group of 9 bins: the group of 595 nm (group 1), whose pack
 (scene/builder.py apply_spectral_pack, timed) moves the glass's eta,
-with STAGES:
+with STAGES; or for MOTION (tests/torch_meshes.py `motion_xml`: cbox with
+its short block animated and a deformable card, 512x512, 8 samples per
+pass as `render` chunks its 16), with the animated and deformable arms
+among the stages (MOTION_STAGES); or for FIBER (`fiber_xml`: scenes/
+smoke.xml's medium with the kkay, or for fiber-microflake the microflake,
+phase on the orientation volume that `fiber_assets` writes into
+build/fiber_assets; 256x256, 32 samples per pass), with the orientation
+lookup and the fiber arms among the stages (FIBER_STAGES):
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -148,12 +155,25 @@ CYL_STAGES = STAGES + (("mitsuba_tpu_torch.accel.cyl", ("cyl_closest", "cyl_any"
 # nests inside shading_params and shading_frame
 TEX_STAGES = STAGES + (("mitsuba_tpu_torch.integrator.path", ("mip_footprint",)),
                        ("mitsuba_tpu_torch.scene.texture_eval", ("eval_texture",)))
+# the bounce loop's stages with the animated and deformable arms (MOTION),
+# which nest inside intersect and occluded
+MOTION_STAGES = STAGES + (
+    ("mitsuba_tpu_torch.accel.intersect",
+     ("_anim_closest", "_anim_any", "_deform_closest", "_deform_any")),
+)
+# the volumetric event loop's stages with the fiber phases' orientation
+# lookup and arms (FIBER), which nest inside phase_sample, phase_eval and
+# phase_pdf
+FIBER_STAGES = SMOKE_STAGES + (
+    ("mitsuba_tpu_torch.medium.eval", ("_orient_at", "_kkay_eval", "_microflake_eval")),
+)
 # film size and samples per pass of each scene (door: one step, one
 # mutation per pixel; the photon mappers: one iteration; dipole: its
 # film's width, and render's chunk of its 64 spp)
 RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1), "glass-sppm": (256, 1),
            "smoke-pm": (256, 1), "cbox-vpl": (512, 1), "dipole": (512, 10),
-           "hairball": (512, 10), "hairball-exact": (512, 2), "dispersion": (256, 32)}
+           "hairball": (512, 10), "hairball-exact": (512, 2), "dispersion": (256, 32),
+           "motion": (512, 8), "fiber": (256, 32), "fiber-microflake": (256, 32)}
 PHOTON_MODES = ("glass-sppm", "smoke-pm", "cbox-vpl")
 
 
@@ -290,7 +310,8 @@ def main():
     ap.add_argument("scene", nargs="?", default="dense",
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
                              "smoke", "glass", "door", "dipole", "hairball",
-                             "hairball-exact", "textured", "dispersion") + PHOTON_MODES)
+                             "hairball-exact", "textured", "dispersion", "motion", "fiber",
+                             "fiber-microflake") + PHOTON_MODES)
     ap.add_argument("--hits-only", action="store_true")
     ap.add_argument("--mutations", type=int, default=32,
                     help="door: the mutations per pixel the steps go on to")
@@ -318,9 +339,12 @@ def main():
         cbox_xml,
         dense_standin,
         feature_assets,
+        fiber_assets,
+        fiber_xml,
         glass_xml,
         hairball_xml,
         matpreview_const_xml,
+        motion_xml,
         smoke_xml,
         textured_xml,
         with_integrator,
@@ -356,6 +380,12 @@ def main():
     elif args.scene == "textured":
         scene = mt.load_scene_string(textured_xml(
             feature_assets(os.path.join(HERE, "build", "feature_assets")), RES, RES, SPP))
+    elif args.scene == "motion":
+        scene = mt.load_scene_string(motion_xml(res, res, 16))
+    elif args.scene.startswith("fiber"):
+        scene = mt.load_scene_string(fiber_xml(
+            "microflake" if args.scene == "fiber-microflake" else "kkay",
+            fiber_assets(os.path.join(HERE, "build", "fiber_assets")), "grid", res, res))
     elif args.scene.startswith("hairball"):
         scene = mt.load_scene_string(hairball_xml(exact=args.scene == "hairball-exact"))
     elif args.scene == "cbox":
@@ -403,7 +433,8 @@ def main():
                             counters(pk, pairs, pb), res, spp,
                             {"smoke": SMOKE_STAGES, "glass": BDPT_STAGES, "door": BDPT_STAGES,
                              "dipole": SSS_STAGES, "hairball-exact": CYL_STAGES,
-                             "textured": TEX_STAGES,
+                             "textured": TEX_STAGES, "motion": MOTION_STAGES,
+                             "fiber": FIBER_STAGES, "fiber-microflake": FIBER_STAGES,
                              **dict.fromkeys(PHOTON_MODES, PHOTON_STAGES)}.get(args.scene, STAGES),
                             args.mutations)
         if args.scene == "door":

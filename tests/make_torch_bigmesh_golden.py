@@ -98,9 +98,26 @@ the matpreview variant.
   24x24 (`sensor_xml`): torch_sensor_{orthographic, telecentric,
   spherical, thinlens, rdist}_24_4.npy.
 
+* the motion slice and the remaining media, seed 0: torch_motion_32_4.npy,
+  MOTION (`motion_xml`: cbox with its short block animated, a deformable
+  card of three keyframes, a shutter open over [0, 1]) at 32x32, 4 spp;
+  torch_deform_card3_32_4.npy, tests/test_deformable.py's card of three
+  keyframes (`moving_card_xml("deformable", 3)`); torch_motion_big_32_4.npy,
+  MOTION_BIG with 43 seeded cubes (516 static triangles) in place of the
+  stand-in, through the pair pipeline; torch_motion_vectors_d_32_1.npy
+  and torch_motion_vectors_ttd_32_1.npy, the motion integrator on MOTION
+  (config "d") and on tests/test_motion.py's glass slab (config "ttd"),
+  1 spp; torch_fiber_kkay_24_4.npy and torch_fiber_microflake_24_4.npy,
+  FIBER (`fiber_xml`: scenes/smoke.xml with a fiber phase on the
+  orientation volume `fiber_assets` writes into build/fiber_assets) at
+  24x24, 4 spp, through the pair pipeline; torch_fiber_slab_bdpt_16_4.npy
+  and torch_fiber_slab_photonmapper_16_4.npy, the fiber slab
+  (`fiber_slab_xml`) under bdpt and the photon mapper (2^12 photons) at
+  16x16, maxDepth 4.
+
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
-With no argument all fifty are written.  Each line the script prints
+With no argument all fifty-nine are written.  Each line the script prints
 gives the golden's render time, XLA's compile included; the last four
 took, on 8 cores of an Intel Xeon CPU: glass_bdpt 1,283.1 s
 (the 16-edge program's compile; 16 edges fit, so no smaller cap was
@@ -152,12 +169,20 @@ from tests.torch_meshes import (
     dispersion_xml,
     door_xml,
     feature_assets,
+    fiber_assets,
+    fiber_slab_xml,
+    fiber_xml,
     geom_xml,
+    glass_slab_motion_xml,
     glass_manifold_xml,
     glass_xml,
     hairball_xml,
     homog_slab_xml,
     matpreview_const_xml,
+    motion_big_xml,
+    motion_vectors_xml,
+    motion_xml,
+    moving_card_xml,
     sensor_xml,
     sky_sun_xml,
     smoke_xml,
@@ -178,6 +203,16 @@ def _standin_xml(mesh, ply):
 
 
 FEATURE_ASSETS = os.path.join(ROOT, "build", "feature_assets")
+
+
+FIBER_ASSETS = os.path.join(ROOT, "build", "fiber_assets")
+
+
+def _fiber(make):
+    """An XML maker over FIBER's volumes, written first."""
+    def xml():
+        return make(fiber_assets(FIBER_ASSETS))
+    return xml
 
 
 def _feature(make):
@@ -329,6 +364,28 @@ GOLDENS = {
     **{f"sensor_{name}": (os.path.join(ROOT, "tests", "golden", f"torch_sensor_{name}_24_4.npy"),
                           lambda name=name: sensor_xml(name), False, 4)
        for name in ("orthographic", "telecentric", "spherical", "thinlens", "rdist")},
+    "motion": (os.path.join(ROOT, "tests", "golden", "torch_motion_32_4.npy"),
+               lambda: motion_xml(32, 32, 4), False, 4),
+    "deform_card3": (os.path.join(ROOT, "tests", "golden", "torch_deform_card3_32_4.npy"),
+                     lambda: moving_card_xml("deformable", 3, spp=4, width=32, height=32),
+                     False, 4),
+    "motion_big": (os.path.join(ROOT, "tests", "golden", "torch_motion_big_32_4.npy"),
+                   lambda: motion_big_xml(None, 32, 32, 4), True, 4),
+    "motion_vectors_d": (os.path.join(ROOT, "tests", "golden", "torch_motion_vectors_d_32_1.npy"),
+                         lambda: motion_vectors_xml("d"), False, 1),
+    "motion_vectors_ttd": (os.path.join(ROOT, "tests", "golden",
+                                        "torch_motion_vectors_ttd_32_1.npy"),
+                           lambda: glass_slab_motion_xml("ttd"), False, 1),
+    "fiber_kkay": (os.path.join(ROOT, "tests", "golden", "torch_fiber_kkay_24_4.npy"),
+                   _fiber(lambda d: fiber_xml("kkay", d, "grid", 24, 24)), True, 4),
+    "fiber_microflake": (os.path.join(ROOT, "tests", "golden", "torch_fiber_microflake_24_4.npy"),
+                         _fiber(lambda d: fiber_xml("microflake", d, "grid", 24, 24)), True, 4),
+    "fiber_slab_bdpt": (os.path.join(ROOT, "tests", "golden", "torch_fiber_slab_bdpt_16_4.npy"),
+                        _fiber(lambda d: fiber_slab_xml("bdpt", d)), True, 4),
+    "fiber_slab_photonmapper": (os.path.join(ROOT, "tests", "golden",
+                                             "torch_fiber_slab_photonmapper_16_4.npy"),
+                                _fiber(lambda d: fiber_slab_xml("photonmapper", d)), True, 4,
+                                {"MTS_SPPM_PHOTONS": "4096"}),
 }
 
 

@@ -292,3 +292,71 @@ def test_sensor_daylight_spectral_modules_stand_alone(mod, names):
     assert not [r for r, _ in _imported_roots(m.__file__) if r in FORBIDDEN]
     for name in names:
         assert getattr(m, name).__module__ == mod, name
+
+
+def test_motion_and_media_modules_are_checked():
+    """The modules of the motion slice (animated and deformable shapes,
+    the shutter, the motion integrator) and of the remaining media are
+    among the sources checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("scene/xml_loader.py", "scene/properties.py", "scene/shapes.py",
+                "scene/builder.py", "sensor/plugins.py", "accel/intersect.py",
+                "integrator/path.py", "integrator/manifold.py", "integrator/plugins.py",
+                "medium/plugins.py", "medium/eval.py", "integrator/volpath.py",
+                "integrator/photonmapper.py", "integrator/bdpt.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("mitsuba_tpu_torch.scene.properties", ("Properties",)),
+    ("mitsuba_tpu_torch.scene.shapes", ("ShapeInstance", "DeformableShape")),
+    ("mitsuba_tpu_torch.scene.builder", ("_relative_motion", "_deform_tables",
+                                         "_orientation_corners", "_cam_motion")),
+    ("mitsuba_tpu_torch.accel.intersect",
+     ("_anim_ray", "_anim_closest", "_anim_any", "_deform_frames", "_deform_closest",
+      "_deform_any", "intersect", "occluded")),
+    ("mitsuba_tpu_torch.integrator.path", ("shutter_time", "_motion_advance", "motion_trace")),
+    ("mitsuba_tpu_torch.integrator.manifold", ("chain_trace", "manifold_walk")),
+    ("mitsuba_tpu_torch.integrator.plugins", ("MotionIntegrator",)),
+    ("mitsuba_tpu_torch.medium.plugins",
+     ("_kkay_normalization", "_flake_tables", "KajiyaKayPhase", "MicroflakePhase",
+      "HGridVolume", "VolCache")),
+    ("mitsuba_tpu_torch.medium.eval",
+     ("_orient_at", "_flake_d", "_flake_sigt", "_kkay_eval", "_microflake_eval",
+      "phase_eval", "phase_pdf", "phase_sample")),
+])
+def test_motion_and_media_modules_stand_alone(mod, names):
+    """The slice's modules import nothing of JAX or of the JAX package
+    and keep their own copies of the reference's code."""
+    import importlib
+
+    m = importlib.import_module(mod)
+    assert not [r for r, _ in _imported_roots(m.__file__) if r in FORBIDDEN]
+    for name in names:
+        assert getattr(m, name).__module__ == mod, name
+
+
+@pytest.mark.parametrize("category,name", [
+    ("shape", "deformable"), ("integrator", "motion"), ("phase", "kkay"),
+    ("phase", "microflake"), ("volume", "hgridvolume"), ("volume", "volcache"),
+])
+def test_motion_and_media_plugins_registered(category, name):
+    """The slice's plugins are registered in the port as in the reference."""
+    from mitsuba_tpu_torch.scene import registry as treg
+
+    assert name in treg.names(category)
+
+
+def test_animation_element_loads():
+    """An <animation> loads: get_transform is keyframe 0, get_animation
+    the track, sorted by time."""
+    from mitsuba_tpu_torch.scene.xml_loader import load_scene_string
+
+    scene = load_scene_string(
+        '<scene version="0.5.0"><sensor type="perspective"/><shape type="cube">'
+        '<animation name="toWorld"><transform time="1"><translate x="2"/></transform>'
+        '<transform time="0"><translate x="1"/></transform></animation></shape></scene>')
+    track = scene.shapes[0].animation
+    assert [t for t, _ in track] == [0.0, 1.0]
+    assert track[0][1].m[0, 3] == 1.0 and track[1][1].m[0, 3] == 2.0
+    assert scene.shapes[0].meshes[0].positions[:, 0].min() == 0.0  # keyframe 0: x + 1

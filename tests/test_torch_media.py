@@ -1,6 +1,7 @@
 """The port's media against the reference on the same seeded numpy inputs:
 the `.vol` reader, the medium tables of the pack, the phase functions,
-transmittance and distance sampling, and the plugins the port refuses.
+transmittance and distance sampling, and the fiber phases and volumes
+the port once refused (tests/test_torch_fiber.py holds their functions).
 
 Tolerances:
 
@@ -167,18 +168,57 @@ def test_het_bf16_knob(monkeypatch):
     '<volume type="hgridvolume"/>',
     '<volume type="volcache"/>',
 ])
-def test_unported_medium_plugins_raise(xml):
+def test_unported_medium_plugins_raise(xml, tmp_path):
+    """The plugins the port refused before the fiber phases and volumes
+    were ported now load, as the reference loads them: each phase (its
+    defaults) in a homogeneous medium, each volume as a heterogeneous
+    medium's density (hgridvolume over smoke.vol split into 2 x 2 x 2
+    blocks, volcache around smoke.vol's gridvolume)."""
+    from tests.torch_meshes import fiber_assets
+
     name = xml.split('"')[1]
-    with pytest.raises(NotImplementedError, match=f"'{name}' not yet ported"):
-        load_scene_string(f'<scene version="0.5.0"><sensor type="perspective"/>{xml}</scene>')
+    if xml.startswith("<phase"):
+        medium = f'<medium name="interior" type="homogeneous">{xml}</medium>'
+    else:
+        d = fiber_assets(str(tmp_path))
+        inner = {
+            "hgridvolume": f'<string name="filename" value="{d}/smoke.hgrid"/>'
+                           '<string name="prefix" value="smoke_"/>'
+                           '<string name="postfix" value=".vol"/>',
+            "volcache": f'<volume type="gridvolume"><string name="filename" value="{VOL}"/>'
+                        '</volume>',
+        }[name]
+        medium = (f'<medium name="interior" type="heterogeneous"><volume name="density" '
+                  f'type="{name}">{inner}</volume></medium>')
+    text = (f'<scene version="0.5.0"><sensor type="perspective"/><shape type="cube">'
+            f'<bsdf type="null"/>{medium}</shape></scene>')
+    t = load_scene_string(text).shapes[0].interior_medium
+    j = jload_string(text).shapes[0].interior_medium
+    for f in ("kind", "ks", "kd", "exponent", "knorm", "stddev", "flake_norm"):
+        assert getattr(t.phase, f) == getattr(j.phase, f), f
+    np.testing.assert_array_equal(t.phase.flake_sigt, j.phase.flake_sigt)
+    if xml.startswith("<volume"):
+        np.testing.assert_array_equal(t.density.grid, j.density.grid)
+        np.testing.assert_array_equal(t.density.aabb_min, j.density.aabb_min)
+        np.testing.assert_array_equal(t.density.aabb_max, j.density.aabb_max)
+    else:
+        assert t.phase.kind == {"kkay": KKAY, "microflake": MICROFLAKE}[name]
 
 
 @pytest.mark.parametrize("kind,name", [(KKAY, "kkay"), (MICROFLAKE, "microflake")])
-def test_fiber_phase_packs_refused(smoke_packs, kind, name):
-    jp, _ = smoke_packs
-    with pytest.raises(NotImplementedError, match=f"phase '{name}' not yet ported"):
-        pack_from_numpy({k: np.asarray(v) for k, v in jp.arrays.items()},
-                        {**jp.meta, "phase_kinds": (HG, kind)}, "cpu")
+def test_fiber_phase_packs_refused(smoke_packs, kind, name, tmp_path):
+    """A reference pack with a fiber phase, refused before the fiber
+    phases were ported, converts, and its medium tables equal the port's
+    own pack of the same scene (FIBER's medium on its orientation
+    volume)."""
+    from tests.torch_meshes import fiber_assets, fiber_xml
+
+    xml = fiber_xml(name, fiber_assets(str(tmp_path)), "grid", 8, 8)
+    jp, tp = _packs(xml)
+    assert jp.meta["phase_kinds"] == (kind,)
+    conv = pack_from_numpy({k: np.asarray(v) for k, v in jp.arrays.items()}, jp.meta, "cpu")
+    for k in MEDIA_ARRAYS:
+        np.testing.assert_array_equal(_tnp(conv.arrays[k]), _tnp(tp.arrays[k]), err_msg=k)
 
 
 def test_media_loaded_and_attached():

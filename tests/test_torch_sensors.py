@@ -167,13 +167,22 @@ def test_irradiancemeter_refusals():
 
 
 def test_shutter_refused():
-    """The shutter (motion blur) is not ported: a sensor whose shutter
-    opens is refused by name."""
+    """A sensor whose shutter opens, refused before the motion slice was
+    ported, loads; its interval reaches the pack's meta as in the
+    reference (which draws a lane's time in [0, 1] whatever the interval:
+    ROADMAP C6, tests/test_torch_motion.py)."""
+    from mitsuba_tpu.scene.builder import pack_scene as jpack_scene
+    from mitsuba_tpu_torch.scene.builder import pack_scene
+
     xml = KINDS["thinlens"].replace(
         "<sampler", '<float name="shutterOpen" value="0"/><float name="shutterClose" '
         'value="0.5"/><sampler', 1)
-    with pytest.raises(NotImplementedError, match="shutter"):
-        mt.load_scene_string(xml)
+    scene = mt.load_scene_string(xml)
+    assert (scene.sensor.record.shutter_open, scene.sensor.record.shutter_close) == (0.0, 0.5)
+    tp = pack_scene(scene, "cpu")
+    jp = jpack_scene(jload_string(xml))
+    for k in ("shutter_open", "shutter_close"):
+        assert tp.meta[k] == jp.meta[k], k
 
 
 @pytest.mark.parametrize("name", [n for n in SENSOR_GALLERY if n != "perspective"])

@@ -17,9 +17,14 @@ of sobol, the materials slice's scene.  `EMISSIVE_SPHERE_XML` and
 spheres.  `smoke_xml` is scenes/smoke.xml (the media slice's scene) and
 `cbox_mitchell_xml` scenes/cbox.xml under the mitchell filter, each
 optionally at another film size.  The sensors, daylight and spectral
-slice's scenes are at the end: `dispersion_xml`, DAYLIGHT
+slice's scenes follow: `dispersion_xml`, DAYLIGHT
 (`daylight_xml`), `sky_sun_xml`, the sensor gallery (`sensor_xml`), the
-meters (`METERS`, `meter_xml`) and `with_thinlens`.
+meters (`METERS`, `meter_xml`) and `with_thinlens`.  The motion and fiber
+slice's are at the end: MOTION (`motion_xml`), MOTION_BIG
+(`motion_big_xml`), the motion-vector scenes (`motion_vectors_xml`,
+`glass_slab_motion_xml`), the reference tests' moving cards
+(`moving_card_xml`), FIBER (`fiber_xml` over the volumes `fiber_assets`
+writes) and the fiber slab (`fiber_slab_xml`).
 """
 
 import os
@@ -370,7 +375,44 @@ GOLDEN_GATES = {
     "torch_sensor_spherical_24_4.npy": 1e-6,
     "torch_sensor_thinlens_24_4.npy": 1e-6,
     "torch_sensor_rdist_24_4.npy": 1e-6,
+    # the motion slice and the remaining media (CPU readings: MOTION
+    # 2.2e-3, cbox's own last-place divergence through the moving rows
+    # (scenes/cbox.xml sits at 1.8e-3 at this size); the deformable card
+    # 0; MOTION_BIG with 43 cubes 1.2e-8; FIBER kkay 1.4e-7, microflake
+    # 1.0e-3 (torch.erfinv and XLA's erfinv differ in the last places, and
+    # a flake normal that moves redirects its path); the fiber slab under
+    # bdpt 8.4e-8, under the photon mapper 1.9e-7; on an NVIDIA H100 80GB
+    # HBM3 at 700 W: MOTION 1.1e-3, the card 0, MOTION_BIG 1.4e-8, kkay
+    # 1.1e-7, microflake 3.5e-4, the slab 1.1e-7 and 3.1e-7).  Each gate is
+    # 2-3x its larger reading.  The motion vectors' gates are the largest
+    # difference in pixels, not a tone-mapped RMSE, beside a bound on the
+    # share of the pixels off by more than 1e-4 (MOTION_VECTOR_SHARE).
+    # Readings: "d" 1.9e-6 (CPU) and 3.8e-6 (card); "ttd" 6.2e-6 on the CPU
+    # (its gate here), and on the card 0.078 on one pixel of 1,024, the
+    # rest within 1e-5 (CARD_GOLDEN_GATES): that pixel's manifold walk
+    # stops after its first Newton step, because a forward-difference
+    # probe (fd_eps 1e-4) passes within a last place of the moving card's
+    # edge and misses it there (ok false, so no later step moves it); its
+    # first step's residual is 0.0779 pixels on the CPU too.
+    "torch_motion_32_4.npy": 5e-3,
+    "torch_deform_card3_32_4.npy": 1e-6,
+    "torch_motion_big_32_4.npy": 3e-8,
+    "torch_motion_vectors_d_32_1.npy": 1e-5,
+    "torch_motion_vectors_ttd_32_1.npy": 1.5e-5,
+    "torch_fiber_kkay_24_4.npy": 4e-7,
+    "torch_fiber_microflake_24_4.npy": 2.5e-3,
+    "torch_fiber_slab_bdpt_16_4.npy": 2.5e-7,
+    "torch_fiber_slab_photonmapper_16_4.npy": 8e-7,
 }
+
+# the gates on the card where its reading lies far above the CPU's (see
+# GOLDEN_GATES): 2-3x the card's reading
+CARD_GOLDEN_GATES = {"torch_motion_vectors_ttd_32_1.npy": 0.2}
+
+# the share of a motion-vector golden's pixels that may differ by more than
+# 1e-4 pixels (GOLDEN_GATES bounds the largest difference): 3 of 1,024, 3x
+# the card's one pixel on "ttd"
+MOTION_VECTOR_SHARE = 0.003
 
 # the delta lights of tests/test_bdpt.py's two-wall scene, and a collimated
 # beam aimed at its floor
@@ -1227,3 +1269,288 @@ def meter_xml(body, integrator="path"):
     return (f'<scene version="0.5.0"><integrator type="{integrator}">'
             f'<integer name="maxDepth" value="2"/></integrator>{body}'
             '<emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter></scene>')
+
+
+# ---- the motion slice: animated and deformable shapes, the shutter ----
+
+def _animation(before, after, x_shift):
+    """An <animation> of keyframes at times 0 and 1: the transform
+    `before` + `after`, then a translation by x_shift at time 1."""
+    return (f'<animation name="toWorld"><transform time="0">{before}{after}</transform>'
+            f'<transform time="1">{before}{after}<translate x="{x_shift}"/></transform>'
+            '</animation>')
+
+
+# the deformable card of MOTION: three keyframe rectangles at times 0, 0.5
+# and 1 on a bent path (a straight one would hide the segment select)
+_DEFORM_CARD = """
+  <shape type="deformable">
+    <string name="times" value="0, 0.5, 1"/>
+    {frames}
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.2, 0.3, 0.8"/></bsdf>
+  </shape>"""
+_CARD_FRAMES = ((150.0, 330.0), (290.0, 420.0), (400.0, 340.0))
+
+
+def motion_xml(width=None, height=None, spp=16):
+    """MOTION: scenes/cbox.xml with its short block on an <animation> that
+    translates it by 0.3 of the room's width (166.8) along x over the
+    shutter, a deformable card of three keyframes at times 0, 0.5 and 1,
+    and a perspective sensor whose shutter is open from 0 to 1; path at
+    cbox's maxDepth 16.  24 static triangles (K1/K2), 12 animated, 2
+    deformable."""
+    with open(CBOX_XML) as f:
+        xml = f.read()
+    short = (r'<scale x="82.5" y="82.5" z="82.5"/>\s*<rotate y="1" angle="-17"/>\s*'
+             r'<translate x="185" y="82.5" z="169"/>')
+    pat = r'<transform name="toWorld">\s*(' + short + r')\s*</transform>'
+    xml, n = re.subn(pat, lambda m: _animation(m.group(1), "", 166.8), xml)
+    if n != 1:
+        raise ValueError(f"{CBOX_XML}: {n} short blocks, expected one")
+    frames = "".join(
+        f'<shape type="rectangle"><transform name="toWorld"><scale x="60" y="60" z="1"/>'
+        f'<rotate y="1" angle="180"/><translate x="{x}" y="{y}" z="300"/></transform></shape>'
+        for x, y in _CARD_FRAMES)
+    xml = xml.replace("</scene>", _DEFORM_CARD.format(frames=frames) + "\n</scene>")
+    xml = xml.replace('<sampler type="independent">',
+                      '<float name="shutterOpen" value="0"/><float name="shutterClose" value="1"/>'
+                      '<sampler type="independent">', 1)
+    xml = re.sub(r'(name="sampleCount" value=")\d+', rf"\g<1>{spp}", xml, count=1)
+    return _film_size(xml, width, height)
+
+
+# MOTION_BIG's animated cube: beside the stand-in, moving 0.08 along -x
+MOTION_BIG_CUBE = (
+    '<shape type="cube">' + _animation('<scale value="0.015"/>', '<translate x="0.05" y="0.07" '
+                                       'z="0.03"/>', -0.08)
+    + '<bsdf type="diffuse"><rgb name="reflectance" value="0.8, 0.3, 0.2"/></bsdf></shape>')
+
+
+def cube_cloud_xml(n=43, seed=0):
+    """n small cubes at seeded places around the stand-in's centre (12 n
+    triangles; 43 give 516, past BRUTE_FORCE_MAX_TRIS: the BVH path)."""
+    g = np.random.default_rng(seed)
+    pos = np.asarray(STANDIN_CENTER) + g.uniform(-0.06, 0.06, (n, 3))
+    return "".join(
+        f'<shape type="cube"><transform name="toWorld"><scale value="0.008"/>'
+        f'<rotate x="{ax:.4f}" y="{ay:.4f}" z="1" angle="{ang:.3f}"/>'
+        f'<translate x="{p[0]:.5f}" y="{p[1]:.5f}" z="{p[2]:.5f}"/></transform>'
+        '<bsdf type="diffuse"><rgb name="reflectance" value="0.65, 0.6, 0.5"/></bsdf></shape>'
+        for p, ax, ay, ang in zip(pos, g.uniform(-1, 1, n), g.uniform(-1, 1, n),
+                                  g.uniform(0, 180, n)))
+
+
+def motion_big_xml(ply_path=None, width=None, height=None, spp=16):
+    """MOTION_BIG: scenes/bunny.xml's configuration (its constant
+    environment, path at maxDepth 5) with the static mesh at `ply_path`
+    (bunny_standin(seed=0): 69,168 triangles, K3/K4/K7/K8), or without
+    one 43 seeded cubes (516 static triangles: the BVH path at a size the
+    CPU renders), beside an animated cube, under a shutter open from 0 to
+    1."""
+    if ply_path is not None:
+        xml = bunny_scene_xml(ply_path, width, height)
+    else:
+        xml = bunny_scene_xml("PLACEHOLDER", width, height)
+        xml, n = re.subn(r'<shape type="ply">.*?</shape>', cube_cloud_xml(), xml, flags=re.S)
+        if n != 1:
+            raise ValueError(f"{BUNNY_XML}: {n} ply shapes, expected one")
+    xml = xml.replace("</scene>", MOTION_BIG_CUBE + "\n</scene>")
+    xml = xml.replace('<sampler type="independent">',
+                      '<float name="shutterOpen" value="0"/><float name="shutterClose" value="1"/>'
+                      '<sampler type="independent">', 1)
+    return re.sub(r'(name="sampleCount" value=")\d+', rf"\g<1>{spp}", xml, count=1)
+
+
+def motion_vectors_xml(config="d", width=32, height=32, time=1.0):
+    """MOTION_VECTORS: MOTION under the `motion` integrator (screen-space
+    motion to `time`, chain `config`), 1 spp."""
+    xml = with_integrator(motion_xml(width, height, spp=1), "motion")
+    return xml.replace('<integer name="maxDepth" value="16"/>',
+                       f'<float name="time" value="{time}"/><string name="config" value="{config}"/>')
+
+
+def glass_slab_motion_xml(config="ttd", glass=True, width=32, height=32):
+    """tests/test_motion.py's motion-vector scene: a card translating by
+    0.5 along x behind a thin glass slab (1.5 x 1.5 x 0.02) under a
+    constant light, seen through a perspective sensor at 32 x 32, 1 spp."""
+    slab = ('<shape type="cube"><transform name="toWorld"><scale x="1.5" y="1.5" z="0.02"/>'
+            '</transform><bsdf type="dielectric"/></shape>') if glass else ""
+    return f"""
+    <scene version="0.5.0">
+      <integrator type="motion">
+        <float name="time" value="1.0"/><string name="config" value="{config}"/>
+      </integrator>
+      <sensor type="perspective"><float name="fov" value="40"/>
+        <transform name="toWorld"><lookat origin="0,0,-3" target="0,0,0" up="0,1,0"/></transform>
+        <sampler type="independent"><integer name="sampleCount" value="1"/></sampler>
+        <film type="hdrfilm"><integer name="width" value="{width}"/>
+          <integer name="height" value="{height}"/><rfilter type="box"/></film>
+      </sensor>
+      {slab}
+      <shape type="rectangle">
+        <animation name="toWorld">
+          <transform time="0"><rotate y="1" angle="180"/><translate z="1"/></transform>
+          <transform time="1"><rotate y="1" angle="180"/><translate x="0.5" z="1"/></transform>
+        </animation>
+        <bsdf type="diffuse"/>
+      </shape>
+      <emitter type="constant"><rgb name="radiance" value="1"/></emitter>
+    </scene>"""
+
+
+def moving_card_xml(kind="animated", frames=2, spp=64, width=64, height=64):
+    """tests/test_motion.py's and tests/test_deformable.py's scene: an
+    emissive card (0.5 x 1.2) sweeping x from -0.75 to +0.75 over the
+    shutter under an orthographic camera, path at maxDepth 2, a black
+    background.  kind "animated": a rigid <animation> (no static
+    triangles: occluded's intersect branch); "deformable": `frames`
+    keyframes on the same straight sweep at evenly spaced times."""
+    card = '<scale x="0.25" y="0.6" z="1"/><rotate y="1" angle="180"/>'
+    emitter = '<emitter type="area"><rgb name="radiance" value="1, 1, 1"/></emitter>'
+    if kind == "animated":
+        shape = (f'<shape type="rectangle"><animation name="toWorld">'
+                 f'<transform time="0">{card}<translate x="-0.75"/></transform>'
+                 f'<transform time="1">{card}<translate x="0.75"/></transform>'
+                 f'</animation>{emitter}</shape>')
+    else:
+        xs = np.linspace(-0.75, 0.75, frames)
+        times = ", ".join(f"{t:g}" for t in np.linspace(0.0, 1.0, frames))
+        shape = (f'<shape type="deformable"><string name="times" value="{times}"/>'
+                 + "".join(f'<shape type="rectangle"><transform name="toWorld">{card}'
+                           f'<translate x="{x:g}"/></transform></shape>' for x in xs)
+                 + f"{emitter}</shape>")
+    return f"""
+    <scene version="0.5.0">
+      <integrator type="path"><integer name="maxDepth" value="2"/></integrator>
+      <sensor type="orthographic">
+        <transform name="toWorld"><lookat origin="0,0,-3" target="0,0,0" up="0,1,0"/></transform>
+        <float name="shutterOpen" value="0"/><float name="shutterClose" value="1"/>
+        <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+        <film type="hdrfilm"><integer name="width" value="{width}"/>
+          <integer name="height" value="{height}"/><rfilter type="box"/></film>
+      </sensor>
+      {shape}
+    </scene>"""
+
+
+def card_coverage(x):
+    """The analytic share of the shutter for which the moving card of
+    moving_card_xml covers screen coordinate |x| (its centre -0.75 + 1.5
+    t, half-width 0.25; tests/test_motion.py:64-91)."""
+    lo = np.maximum((x - 0.25 + 0.75) / 1.5, 0.0)
+    hi = np.minimum((x + 0.25 + 0.75) / 1.5, 1.0)
+    return np.clip(hi - lo, 0.0, 1.0)
+
+
+# ---- the remaining media: fiber phases, hgridvolume, volcache ----
+
+def write_vol(path, grid, aabb_min=(0, 0, 0), aabb_max=(1, 1, 1)):
+    """A float32 .vol file of grid [D, H, W(, C)] in the reference's
+    save_vol format (mitsuba_tpu/medium/plugins.py:249)."""
+    grid = np.asarray(grid, np.float32)
+    if grid.ndim == 3:
+        grid = grid[..., None]
+    zres, yres, xres, c = grid.shape
+    with open(path, "wb") as f:
+        f.write(b"VOL" + bytes([3]))
+        f.write(np.asarray([1, xres, yres, zres, c], "<i4").tobytes())
+        f.write(np.asarray(list(aabb_min) + list(aabb_max), "<f4").tobytes())
+        f.write(grid.astype("<f4").tobytes())
+
+
+def _read_vol(path):
+    with open(path, "rb") as f:
+        blob = f.read()
+    _, xres, yres, zres, c = np.frombuffer(blob, "<i4", 5, 4)
+    box = np.frombuffer(blob, "<f4", 6, 24)
+    return np.frombuffer(blob, "<f4", offset=48).reshape(zres, yres, xres, c), box
+
+
+def fiber_assets(directory, seed=0):
+    """Write FIBER's volumes into `directory` (created) and return it:
+    orientation.vol, a 48^3 x 3 swirl about the plume's vertical axis
+    (tangent, plus a third of the axis) with seeded jitter, over
+    smoke.vol's box; and smoke.vol split into 2 x 2 x 2 blocks of 24^3,
+    smoke_XXX_YYY_ZZZ.vol, with their dictionary smoke.hgrid (the box,
+    the block resolution, the occupied blocks' coordinates)."""
+    os.makedirs(directory, exist_ok=True)
+    dens, box = _read_vol(os.path.join(ROOT, "scenes", "assets", "smoke.vol"))
+    n = dens.shape[0]
+    c = (np.arange(n) + 0.5) / n - 0.5
+    z, _, x = np.meshgrid(c, c, c, indexing="ij")
+    swirl = np.stack([-z, np.full_like(x, 0.3), x], axis=-1)
+    swirl += 0.15 * np.random.default_rng(seed).normal(size=swirl.shape)
+    swirl /= np.maximum(np.linalg.norm(swirl, axis=-1, keepdims=True), 1e-6)
+    write_vol(os.path.join(directory, "orientation.vol"), swirl, box[:3], box[3:])
+    b = n // 2
+    blocks = []
+    for bz in range(2):
+        for by in range(2):
+            for bx in range(2):
+                write_vol(os.path.join(directory, f"smoke_{bx:03d}_{by:03d}_{bz:03d}.vol"),
+                          dens[bz * b:(bz + 1) * b, by * b:(by + 1) * b, bx * b:(bx + 1) * b])
+                blocks.append((bx, by, bz))
+    with open(os.path.join(directory, "smoke.hgrid"), "wb") as f:
+        f.write(np.asarray(box, "<f4").tobytes())
+        f.write(np.asarray([2, 2, 2] + [i for blk in blocks for i in blk], "<i4").tobytes())
+    return directory
+
+
+FIBER_PHASES = {
+    "kkay": '<phase type="kkay"><float name="ks" value="0.5"/><float name="kd" value="0.3"/>'
+            '<float name="exponent" value="6"/></phase>',
+    "microflake": '<phase type="microflake"><float name="stddev" value="0.25"/></phase>',
+}
+
+
+def _fiber_medium(xml, phase, asset_dir, density):
+    """xml's smoke medium with the fiber `phase`, FIBER's orientation
+    volume, and its density read through `density`: "grid" (smoke.vol's
+    gridvolume), "hgrid" (the blocks' hgridvolume) or "volcache" (a
+    volcache around the gridvolume)."""
+    vol = os.path.join(ROOT, "scenes", "assets", "smoke.vol")
+    grid = (f'<volume name="density" type="gridvolume"><string name="filename" value="{vol}"/>'
+            "</volume>")
+    src = {
+        "grid": grid,
+        "hgrid": '<volume name="density" type="hgridvolume"><string name="filename" value="'
+                 + os.path.join(asset_dir, "smoke.hgrid")
+                 + '"/><string name="prefix" value="smoke_"/><string name="postfix" '
+                 'value=".vol"/></volume>',
+        "volcache": '<volume name="density" type="volcache">'
+                    + grid.replace(' name="density"', "") + "</volume>",
+    }[density]
+    xml, n = re.subn(r'<volume name="density" type="gridvolume">.*?</volume>', src, xml,
+                     flags=re.S)
+    orient = ('<volume name="orientation" type="gridvolume"><string name="filename" value="'
+              + os.path.join(asset_dir, "orientation.vol") + '"/></volume>')
+    xml, m = re.subn(r'<phase type="hg">.*?</phase>', orient + FIBER_PHASES[phase], xml,
+                     flags=re.S)
+    if (n, m) != (1, 1):
+        raise ValueError(f"{n} density volumes and {m} hg phases, expected one of each")
+    return xml
+
+
+def fiber_xml(phase, asset_dir, density="grid", width=None, height=None):
+    """FIBER: scenes/smoke.xml (volpath, 192^2 at 32 spp as it stands)
+    with the fiber `phase` ("kkay": ks 0.5, kd 0.3, exponent 6;
+    "microflake": stddev 0.25) on fiber_assets' orientation volume, the
+    density read through `density` (see _fiber_medium), optionally at
+    another film size."""
+    return _fiber_medium(smoke_xml(width, height), phase, asset_dir, density)
+
+
+def fiber_slab_xml(integrator, asset_dir, phase="kkay", width=16, height=16, spp=4,
+                   max_depth=4):
+    """The fiber slab: HOMOG_SLAB_XML's scene (lifted 0.01 off its floor,
+    out of the coplanar ties of ROADMAP C) with FIBER's heterogeneous fiber
+    medium in its cube in place of the homogeneous one, under
+    `integrator`, at maxDepth `max_depth`."""
+    medium = ('<medium name="interior" type="heterogeneous"><float name="scale" value="4"/>'
+              '<volume name="density" type="gridvolume"><string name="filename" value="x"/>'
+              '</volume><phase type="hg"><float name="g" value="0"/></phase></medium>')
+    xml = homog_slab_xml(integrator, width=width, height=height, lift=0.01)
+    xml = re.sub(r'<medium name="interior".*?</medium>', medium, xml, flags=re.S)
+    xml = xml.replace('value="6"/>', f'value="{max_depth}"/>', 1)
+    xml = re.sub(r'(name="sampleCount" value=")\d+', rf"\g<1>{spp}", xml, count=1)
+    return _fiber_medium(xml, phase, asset_dir, "grid")
