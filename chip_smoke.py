@@ -160,9 +160,10 @@ Phases, each of which raises (and exits non-zero) on failure:
      (K3/K4), cbox under vpl at 24x24 (K1/K2), 4 iterations or passes;
 4. time passes of the regenerating wavefront at 512x512, 16 spp per
    pass, and report traced rays per second (closest-hit + shadow rays)
-   for the Cornell box, both stand-ins, scenes/matpreview.xml and the
-   matpreview variant (one timed pass, no warm-up); for
-   scenes/matpreview.xml also the tone-mapped RMSE of its 32-spp image
+   for the Cornell box and both stand-ins (two timed passes),
+   scenes/matpreview.xml (one) and the matpreview variant (one timed
+   pass, no warm-up); for scenes/matpreview.xml also the tone-mapped RMSE
+   of its 16-spp image
    against bench_refs/matpreview_512.npz (no gate; the reference recorded
    0.0112 at 2,048 spp), and from one more pass under torch.profiler
    (CUDA activity) its kernels per pass and per bounce (K1 launches once
@@ -174,7 +175,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    256 spp), and from a profiled pass its device ms, events, kernels per
    event and busy share; then glass_caustics with bdpt at 16 edges at its
    bench resolution, 256x256, chunk after chunk of 131,072 lanes (2 spp)
-   for about 60 s (at least 2 chunks, at most 32 spp: `generator_throughput`),
+   for about 30 s (at least 2 chunks, at most 32 spp: `generator_throughput`),
    with seconds per chunk, rays/s, peak device memory, K3/K4/K7/K8
    launches per chunk, the tone-mapped RMSE against
    bench_refs/glass_caustics_256.npz (no gate) and a profiled chunk's
@@ -184,7 +185,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    Metropolis slice (`generator_throughput` again): scenes/door.xml as it
    stands (pssmlt, bidirectional, 8 edges; 256x256, 65,536 chains) at 32
    mutations per pixel, then the same with `bidirectional` false, then
-   glass_caustics under pssmlt (16 edges, 256x256) for about 15 s: the
+   glass_caustics under pssmlt (16 edges, 256x256) for about 8 s: the
    bootstrap's seconds, seconds per step, rays/s, kernels per step and
    busy share (one profiled step of a second run), K3/K4/K7/K8 launches per step (door's
    run is the slice's main path: its counters are set to 0 just before
@@ -285,6 +286,31 @@ medium events; for MOTION and FIBER a profiled pass's busy share and
 kernels, and in a 1-spp pass the device ms of the moving arms or of the
 phase functions, `_orient_at` and the fiber arms, profile_pass.py
 MOTION_STAGES and FIBER_STAGES).
+
+The geometry extras add, in phase 2, INSTANCED (tests/torch_meshes.py
+`instanced_xml`: 1,024 instances of two stand-in groups, 44,199,936
+instanced triangles, through the two-level accelerator; its splice's rows
+checked under 2^24, ROADMAP C7; `instanced_setup`) with K3/K4 (closest on
+the camera rays; closest and any on the first NEE) and K7/K8 on their
+fallback batches, bit for bit against plain, on each of the 16
+template-space batches its pair path hands accel/pairs.py (4 rounds x 2
+groups a query, the rays re-based into each lane's instance, t_max 0 on
+the lanes of the other groups; non-finite lanes left out), the instance
+lists' and K3's overflow shares, and K1/K2 on its 4 static rows
+(`instanced_segments`); in phase 3 the instancing scene copied into rows,
+through the pair path and through the loop path, the two-group scene, the
+shapes gallery (disk, obj, serialized, heightfield) and the BVH walk past
+a lowered cluster budget, each against its golden at its GOLDEN_GATES
+gate (`extras_goldens`), and the pair path against the loop path on
+INSTANCED's camera rays and NEE, each timed, where every disagreement
+must be a tie or a hit on a triangle's edge in float64
+(`instanced_pair_vs_loop`); in phase 4 INSTANCED through `render` at
+512x512, two passes of INSTANCED_SPP (seconds, rays/s, peak memory,
+launches with the counters set to 0 just before each, the instance
+lists' overflow; `instanced_throughput`) and BIGBVH (`bigbvh_xml`: four
+dense stand-ins, 3,481,920 triangles, no cluster tables): one intersect
+of its camera rays with sort=True beside sort=False (equal) and one
+256x256, 4-spp pass through `render` (`bigbvh_throughput`).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -1363,14 +1389,6 @@ def count_calls(mod, name):
     return inner
 
 
-def device_us(evt):
-    """Self device time of a profiler event average, in microseconds."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return getattr(evt, attr)
-    return 0.0
-
-
 def device_events(prof):
     """(device ms, count) of a finished profile's device events (kernels,
     copies, fills; not the device spans of record_function ranges), read
@@ -1553,23 +1571,28 @@ def generator_throughput(label, steps, counted, w, h, card, unit, budget_s=None,
     return launches
 
 
-def capture_calls(mod, names, run, stop):
+def capture_calls(mod, names, run, stop=None):
     """(name, args) of the calls of mod.<names> that run() makes, until
-    stop(calls) holds; run stops there.  Each spy has a `launches` count,
-    since a kernel wrapper counts its launches on its module's name."""
+    stop(calls) holds (run stops there), or with no `stop` of every call,
+    each passed through.  A function that counts on its module's name (a
+    kernel wrapper's `launches`, pair_closest's `rays`) counts on its spy
+    meanwhile, and the counts go back to it after."""
+    import functools
+
     inner, got = {n: getattr(mod, n) for n in names}, []
 
     def make(name):
+        @functools.wraps(inner[name])
         def spy(*args, **kwargs):
             got.append((name, args))
-            if stop(got):
+            if stop is not None and stop(got):
                 raise _Enough
             return inner[name](*args, **kwargs)
-        spy.launches = 0
         return spy
 
-    for n in names:
-        setattr(mod, n, make(n))
+    spies = {n: make(n) for n in names}
+    for n, spy in spies.items():
+        setattr(mod, n, spy)
     try:
         run()
     except _Enough:
@@ -1577,7 +1600,9 @@ def capture_calls(mod, names, run, stop):
     finally:
         for n, fn in inner.items():
             setattr(mod, n, fn)
-    check(stop(got), f"{mod.__name__}: the run stopped before its queries ({len(got)} calls)")
+            fn.__dict__.update({k: v for k, v in spies[n].__dict__.items() if k != "__wrapped__"})
+    check(stop is None or stop(got),
+          f"{mod.__name__}: the run stopped before its queries ({len(got)} calls)")
     return got
 
 
@@ -2309,15 +2334,53 @@ def meta_throughput(mt, scene, pack, counted, card, dev, label, stats_of, spp):
     print(json.dumps({"throughput": out}), flush=True)
 
 
+def stage_summary(prof):
+    """A finished profile's device time by stage and by kernel, from its
+    raw events: key_averages() builds every event into Python objects,
+    which took 60-115 s on a FIBER pass and minutes on an INSTANCED one.
+    A device event counts toward a stage when the runtime call that
+    launched it (matched by correlation id) lies inside one of the stage's
+    record_function ranges "stage:<name>".  Returns ({stage: (device ms,
+    calls, host ms)}, {kernel name: (device ms, launches)}, the device
+    ms, the device events).  Fails where fewer than 90 % of the device
+    events find their launch."""
+    import numpy as np
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, launch, kern, by_name = {}, {}, [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                kern.append((e.correlation_id(), e.duration_ns()))
+                k = by_name.setdefault(e.name(), [0.0, 0])
+                k[0] += e.duration_ns() / 1e6
+                k[1] += 1
+        elif e.name().startswith("stage:"):
+            ranges.setdefault(e.name()[6:], []).append((e.start_ns(),
+                                                        e.start_ns() + e.duration_ns()))
+        elif e.name().startswith("cu"):  # runtime and driver calls
+            launch[e.correlation_id()] = e.start_ns()
+    ts = np.array([launch.get(c, -1) for c, _ in kern], np.int64)
+    dur = np.array([d for _, d in kern], np.float64)
+    matched = float((ts >= 0).mean()) if len(kern) else 0.0
+    check(matched >= 0.9, f"stage_summary: only {matched:.3f} of the device events matched "
+          f"the runtime call that launched them")
+    out = {}
+    for name, iv in ranges.items():
+        iv = np.array(sorted(iv), np.int64)
+        i = np.searchsorted(iv[:, 0], ts, side="right") - 1
+        inside = (ts >= 0) & (i >= 0) & (ts <= iv[np.maximum(i, 0), 1])
+        out[name] = (float(dur[inside].sum()) / 1e6, len(iv),
+                     float((iv[:, 1] - iv[:, 0]).sum()) / 1e6)
+    return out, {k: tuple(v) for k, v in by_name.items()}, float(dur.sum()) / 1e6, len(kern)
+
+
 def stage_device_ms(rp, film, stages):
     """One pass of rp under CPU and CUDA activity with the functions of
     `stages` (profile_pass.py) in record_function ranges: ({stage: (device
-    ms, calls)}, the pass's device ms, its device events).  A device event
-    counts toward a stage when the runtime call that launched it (matched
-    by correlation id) lies inside one of the stage's ranges, read from the
-    profile's raw events: key_averages() took 60-115 s on a FIBER pass.
-    Fails where fewer than 90 % of the device events find their launch."""
-    import numpy as np
+    ms, calls)}, the pass's device ms, its device events), by
+    `stage_summary`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2331,30 +2394,8 @@ def stage_device_ms(rp, film, stages):
             torch.cuda.synchronize()
     finally:
         unstage()
-    dev_ms, n_k = device_events(prof)
-    cuda = torch.autograd.DeviceType.CUDA
-    ranges, launch, kern = {}, {}, []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda:
-            if not e.is_user_annotation():
-                kern.append((e.correlation_id(), e.duration_ns()))
-        elif e.name().startswith("stage:"):
-            ranges.setdefault(e.name()[6:], []).append((e.start_ns(),
-                                                        e.start_ns() + e.duration_ns()))
-        elif e.name().startswith("cu"):  # runtime and driver calls
-            launch[e.correlation_id()] = e.start_ns()
-    ts = np.array([launch.get(c, -1) for c, _ in kern], np.int64)
-    dur = np.array([d for _, d in kern], np.float64)
-    matched = float((ts >= 0).mean()) if len(kern) else 0.0
-    check(matched >= 0.9, f"stage_device_ms: only {matched:.3f} of the device events matched "
-          f"the runtime call that launched them")
-    out = {}
-    for name, iv in ranges.items():
-        iv = np.array(sorted(iv), np.int64)
-        i = np.searchsorted(iv[:, 0], ts, side="right") - 1
-        inside = (ts >= 0) & (i >= 0) & (ts <= iv[np.maximum(i, 0), 1])
-        out[name] = (float(dur[inside].sum()) / 1e6, len(iv))
-    return out, dev_ms, n_k
+    st, _, dev_ms, n_k = stage_summary(prof)
+    return {k: v[:2] for k, v in st.items()}, dev_ms, n_k
 
 
 def walk_probes(mt, xml, dev, lanes):
@@ -2460,6 +2501,420 @@ def slice_throughput(mt, make_render_pass, new_film, scene, pack, counted, card,
     print(line + f" on {card}", flush=True)
     print(json.dumps({"throughput": out}), flush=True)
     return launches
+
+
+# INSTANCED's second group's mesh, and its instances along each side
+INSTANCED_B_PLY = os.path.join(HERE, "build", "bunny_standin_b.ply")
+INSTANCED_N = 32
+# INSTANCED's instanced triangles: 512 x 69,168 + 512 x 17,160
+INSTANCED_TRIS = 44_199_936
+# samples per pixel of each of INSTANCED's two timed passes: a 1-spp pass
+# takes ~23 s on an H100, ~70 % of it the loop path that finishes the rays
+# past K_INST instance boxes (PERF.md), so that passes of 4 spp would not
+# fit the script's time limit beside the earlier slices
+INSTANCED_SPP = 1
+# BIGBVH's film size and samples per pixel of its one pass, and the film
+# size of its camera rays' sorted and unsorted intersect
+BIGBVH_RES = 256
+BIGBVH_RAYS_RES = 512
+BIGBVH_SPP = 4
+# the BVH route's golden scene packs no cluster tables below this budget
+BVH_WALK_BUDGET = 1000
+
+
+def instanced_setup(mt, pack_scene, dev, label="INSTANCED"):
+    """INSTANCED (tests/torch_meshes.py instanced_xml: 1,024 instances of
+    two stand-in groups, 512x512, path at maxDepth 8) packed on the card:
+    past MTS_INSTANCE_EXPAND_MAX, so the two-level accelerator, with the
+    splice's rows (float32 indices: under 2^24, ROADMAP C7), each group's
+    clusters and the pack's seconds printed and checked.  Returns (scene,
+    pack)."""
+    from torch_meshes import bunny_standin, instanced_xml, write_ply
+
+    from mitsuba_tpu_torch.scene.builder import SPLICE_EXACT_ROWS
+
+    os.makedirs(os.path.dirname(INSTANCED_B_PLY), exist_ok=True)
+    if not os.path.exists(STANDIN_PLY):
+        write_ply(STANDIN_PLY, *bunny_standin(seed=0))
+    write_ply(INSTANCED_B_PLY, *bunny_standin(seed=1, n_phi=132, n_theta=66))
+    scene = mt.load_scene_string(instanced_xml(STANDIN_PLY, INSTANCED_B_PLY, n=INSTANCED_N))
+    t0 = time.time()
+    pack = pack_scene(scene, dev)
+    sec = time.time() - t0
+    m = pack.meta
+    n_inst = m["n_instances"]
+    counts = [c for _, c, _ in m["inst_groups"]]
+    per_group = pack.inst_group[:n_inst].bincount(minlength=len(counts)).tolist()
+    n_tris = sum(n * c for n, c in zip(per_group, counts))
+    rows = pack.inst_nodes.shape[0]
+    clusters = [dict(g)["n_clusters"] for _, _, g in m["inst_groups"]]
+    print(f"  {label}: {n_inst} instances of {len(counts)} groups ({per_group} instances of "
+          f"{counts} triangles in {clusters} clusters): {n_tris} instanced triangles; "
+          f"{m['n_static_tris']} static rows; splice {rows} rows "
+          f"({pack.inst_nodes.numel() * 4 / 2**30:.3f} GiB, under 2^24 = {SPLICE_EXACT_ROWS}); "
+          f"packed in {sec:.2f} s", flush=True)
+    check(m["has_instances"] and m["inst_pairs_ok"] and n_inst == INSTANCED_N ** 2
+          and m["n_static_tris"] == 4 and not m["use_bvh"] and n_tris == INSTANCED_TRIS
+          and rows < SPLICE_EXACT_ROWS,
+          f"{label} does not pack into {INSTANCED_N ** 2} instances of {INSTANCED_TRIS} "
+          "triangles through the accelerator, with a splice under 2^24 rows")
+    return scene, pack
+
+
+def instanced_queries(tpath, make_render_pass, new_film, scene, pack, dev):
+    """INSTANCED's camera rays (t_max inf) and the NEE shadow rays of a
+    pass's first bounce (one sample per pixel): [(label, o, d, t_max)]."""
+    import torch
+
+    o, d = camera_rays(scene, dev)
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    got = capture_calls(tpath, ("occluded",), lambda: make_render_pass(
+        pack, scene.integrator, rec, rec.film, rec.sampler, 1, dev)(new_film(h, w, dev), 0, 0),
+                        lambda g: len(g) == 1)
+    return [("camera", o, d, torch.full((o.shape[0],), float("inf"), device=dev)),
+            ("NEE", *as_segment(got[0][1]))]
+
+
+def instanced_segments(pairs, pb, pk, tlas, tis, queries, scene, pack, dev, stats, label):
+    """K3/K4 (closest on the camera rays, closest and any on the NEE) and
+    K7/K8 on their fallback batches, bit for bit against plain, on the
+    template-space batches INSTANCED's pair path hands accel/pairs.py: per
+    round of the instance lists and per group, the world rays re-based
+    into each lane's instance (directions unnormalized), t_max 0 on the
+    lanes of the other groups and rounds; then K1/K2 on its 4 static rows.
+    Prints the overflow share of the instance lists (more than K_INST
+    boxes) and of K3's lists over the lanes of each batch that hold a
+    ray."""
+    import torch
+
+    ran = set()
+    for (qlabel, o, d, t_max), any_hit in zip(queries, (False, True)):
+        entry = "pair_any" if any_hit else "pair_closest"
+        inst_fn = tlas.inst_any_pairs if any_hit else tlas.inst_closest_pairs
+        inst_fn.rays = inst_fn.overflow_rays = 0
+        fn = getattr(pairs, entry)
+        fn.rays = fn.overflow_rays = 0
+        got = capture_calls(pairs, (entry,), lambda: (
+            tis.occluded(pack, o, d, t_max) if any_hit else tis.intersect(pack, o, d, t_max)))
+        live = sum(int((args[3] > 0).sum()) for _, args in got)
+        print(f"  {label} {qlabel}: {len(got)} template-space batches of {o.shape[0]} rays "
+              f"(K_INST={tlas.K_INST} rounds x {len(pack.meta['inst_groups'])} groups), "
+              f"{live} lanes holding a ray; instance lists: {inst_fn.overflow_rays} of "
+              f"{inst_fn.rays} rays meet more than K_INST boxes "
+              f"({inst_fn.overflow_rays / max(inst_fn.rays, 1):.4%}) and finish on the loop "
+              f"path; K3: {fn.overflow_rays} of the {live} lanes overflow K={pairs.K} "
+              f"({fn.overflow_rays / max(live, 1):.4%})", flush=True)
+        check(len(got) == tlas.K_INST * len(pack.meta["inst_groups"]),
+              f"{label} {qlabel}: {len(got)} pair batches")
+        for k, (_, (gv, o2, d2, tm)) in enumerate(got):
+            rd, gi = divmod(k, len(pack.meta["inst_groups"]))
+            # a camera ray that left the scene has its shadow ray start at
+            # infinity: K3 and its plain version part only on such
+            # non-finite rays, whose results nothing reads (ROADMAP)
+            fin = (torch.isfinite(o2).all(1) & torch.isfinite(d2).all(1)).nonzero().squeeze(1)
+            if fin.numel() < o2.shape[0]:
+                print(f"  {label} {qlabel} round {rd} group {gi}: {o2.shape[0] - fin.numel()} "
+                      f"lanes with non-finite rays left out", flush=True)
+            ran |= compare_segments(pairs, pb, gv, [(f"{label} {qlabel} round {rd} group {gi}",
+                                                     o2[fin], d2[fin], tm[fin])], stats,
+                                    plain_reps=1, any_hit=any_hit, retry=rd == 0)
+    check(ran == {True, False}, f"no {label} batch reached K7 and K8")
+    matpreview_brute(pk, scene, pack, dev, stats, label, n_expected=4)
+
+
+# a hit whose smallest float64 barycentric lies within this many float32
+# rounding scales of 0 sits on a triangle's edge, where the pair kernels'
+# float32 Moller-Trumbore (csrc/ray_tri.cuh, pallas_kernels.mt_test) and
+# the loop path's (intersect._moller_trumbore) may each leak through the
+# seam between two triangles.  The scale is the float32 epsilon times the
+# barycentrics' dot products' magnitudes over |det|: INSTANCED's camera
+# sits ~20-40 units from triangles ~0.01 wide, where it reaches ~1e-3
+EDGE_SCALES = 16
+
+
+def edge_hit64(tis, tlas, pack, o, d, prim, inst):
+    """(t, smallest barycentric, its float32 rounding scale) of each ray
+    against its own triangle in float64: the ray taken into its
+    instance's frame (inst >= 0) by the pack's inst_inv, Moller-Trumbore
+    on the pack's float32 triangle rows (a barycentric below 0 is a miss
+    by that much)."""
+    import torch
+
+    from mitsuba_tpu_torch.core import math as mm
+
+    p = torch.clamp(prim, min=0).long()
+    v0, e1, e2 = (pack.arrays[k][p].double() for k in ("tri_v0", "tri_e1", "tri_e2"))
+    inv = pack.inst_inv[torch.clamp(inst, min=0).long()].double()
+    on = (inst >= 0)[:, None]
+    o2 = torch.where(on, tlas.matvec(inv[:, :9], o.double()) + inv[:, 9:], o.double())
+    d2 = torch.where(on, tlas.matvec(inv[:, :9], d.double()), d.double())
+    _, t, u, v = tis._moller_trumbore(o2, d2, v0, e1, e2, float("inf"))
+    tvec, pvec = o2 - v0, mm.cross(d2, e2)
+    qvec = mm.cross(tvec, e1)
+    det = mm.dot(e1, pvec).abs()
+    scale = 2.0 ** -24 * (tvec.norm(dim=-1) * pvec.norm(dim=-1)
+                          + d2.norm(dim=-1) * qvec.norm(dim=-1)) / det
+    return t, torch.minimum(torch.minimum(u, v), 1.0 - u - v), scale
+
+
+def instanced_pair_vs_loop(tis, tlas, queries, pack, label, card):
+    """The pair path against the loop path on INSTANCED's camera rays and
+    NEE (intersect / occluded with MTS_TLAS_PAIRS unset and "0"), each
+    path timed (host clock around a synchronised call).  Where the prims
+    or instances differ, or the occlusion, the nearer hit (for the NEE:
+    the occluding path's closest hit below t_max) must lie on a triangle's
+    edge in float64: the two paths' float32 Moller-Trumbore
+    forms leak through seams in different places (ROADMAP's known
+    differences): within EDGE_SCALES float32 rounding scales of one.  t
+    within rtol 1e-4 where the prims agree."""
+    import torch
+
+    def timed(fn, loop):
+        saved = os.environ.pop("MTS_TLAS_PAIRS", None)
+        if loop:
+            os.environ["MTS_TLAS_PAIRS"] = "0"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, 1e3 * (time.time() - t0)
+        finally:
+            os.environ.pop("MTS_TLAS_PAIRS", None)
+            if saved is not None:
+                os.environ["MTS_TLAS_PAIRS"] = saved
+
+    def at_edges(hit, idx):
+        """Each lane's hit (a Hit on those lanes) on a triangle's edge."""
+        _, bary, scale = edge_hit64(tis, tlas, pack, o[idx], d[idx], hit.prim, hit.inst)
+        return (hit.prim >= 0) & (bary.abs() < EDGE_SCALES * scale)
+
+    out = {}
+    for qlabel, o, d, t_max in queries:
+        if qlabel == "camera":
+            (hp, ms_p), (hl, ms_l) = (timed(lambda: tis.intersect(pack, o, d, t_max), loop)
+                                      for loop in (False, True))
+            diff = (hp.valid != hl.valid) | (hp.valid & ((hp.prim != hl.prim)
+                                                        | (hp.inst != hl.inst)))
+            same = hp.valid & ~diff
+            rel = ((hp.t - hl.t).abs() / torch.clamp(hl.t.abs(), min=1e-30))[same]
+            idx = diff.nonzero().squeeze(1)
+            near = (hp.t <= hl.t)[idx]
+            tie = ((hp.t - hl.t).abs() <= 1e-5 * torch.clamp(hl.t.abs(), min=1.0))[idx]
+            pick = lambda h: type(h)(*[x[idx] if torch.is_tensor(x) else x for x in h])
+            sp, sl = pick(hp), pick(hl)
+            edge = torch.where(near, at_edges(sp, idx), at_edges(sl, idx)) & ~tie
+            n_inst = int((hp.inst >= 0).sum())
+            print(f"  {label} camera, pair path vs loop path: {int(hp.valid.sum())} hits "
+                  f"({n_inst} on instances); prim or inst differ on {idx.numel()} rays: "
+                  f"{int(tie.sum())} at a tie (t within 1e-5), {int(edge.sum())} where the "
+                  f"nearer hit lies on a triangle's edge in float64 (the pair path's nearer on "
+                  f"{int((near & edge).sum())}); t max rel diff where they agree "
+                  f"{float(rel.max()) if rel.numel() else 0.0:.3g}; pair path {ms_p:.1f} ms, "
+                  f"loop path {ms_l:.1f} ms on {card}", flush=True)
+            odd = (~edge & ~tie).nonzero().squeeze(1)
+            for k in odd[:8].tolist():
+                j = idx[k:k + 1]
+                tb = [edge_hit64(tis, tlas, pack, o[j], d[j], h.prim[j], h.inst[j])
+                      for h in (hp, hl)]
+                print(f"    ray {int(j)}: pair prim {int(hp.prim[j])} inst {int(hp.inst[j])} t "
+                      f"{float(hp.t[j]):.7g} (float64 t {float(tb[0][0]):.7g}, smallest "
+                      f"barycentric {float(tb[0][1]):.3g}, rounding scale {float(tb[0][2]):.3g});"
+                      f" loop prim {int(hl.prim[j])} inst {int(hl.inst[j])} t "
+                      f"{float(hl.t[j]):.7g} (float64 t {float(tb[1][0]):.7g}, "
+                      f"{float(tb[1][1]):.3g}, {float(tb[1][2]):.3g})", flush=True)
+            check(not odd.numel() and (not rel.numel() or float(rel.max()) < 1e-4)
+                  and n_inst > o.shape[0] // 4,
+                  f"{label} camera: the pair and loop paths disagree off triangle edges")
+        else:
+            (op, ms_p), (ol, ms_l) = (timed(lambda: tis.occluded(pack, o, d, t_max), loop)
+                                      for loop in (False, True))
+            idx = (op != ol).nonzero().squeeze(1)
+            occluder = torch.zeros(idx.numel(), dtype=torch.bool, device=o.device)
+            for loop in (False, True):  # the occluding path's closest hit
+                mine = (ol if loop else op)[idx]
+                if bool(mine.any()):
+                    h, _ = timed(lambda: tis.intersect(pack, o[idx], d[idx], t_max[idx]), loop)
+                    occluder |= mine & at_edges(h, idx)
+            print(f"  {label} NEE, pair path vs loop path: {int(op.sum())} of {o.shape[0]} "
+                  f"occluded; {idx.numel()} differ ({int((op & ~ol).sum())} occluded by the "
+                  f"pair path alone), the occluder on a triangle's edge in float64 on "
+                  f"{int(occluder.sum())}; pair path {ms_p:.1f} ms, loop path {ms_l:.1f} ms on "
+                  f"{card}", flush=True)
+            check(bool(occluder.all()), f"{label} NEE: the pair and loop paths disagree off "
+                                        "triangle edges")
+        out[qlabel] = {"pair_ms": ms_p, "loop_ms": ms_l, "differ": idx.numel()}
+    print(json.dumps({"pair_vs_loop": {"scene": label, "rays": queries[0][1].shape[0],
+                                       "instances": pack.meta["n_instances"], **out,
+                                       "card": card}}), flush=True)
+
+
+def extras_goldens(mt, counted, dev, feature_dir, clusters):
+    """The geometry extras' goldens on the card, each at its GOLDEN_GATES
+    gate, the launch counters set to 0 just before each render: the
+    instancing scene copied into rows (K1/K2), through the accelerator's
+    pair path (K1/K2 on the floor and light, K3/K4 per group) and its loop
+    path (MTS_TLAS_PAIRS=0), the two-group scene, the shapes gallery
+    (K3/K4), and the BVH walk with the cluster budget lowered (no kernel
+    of the pair pipeline).  Returns the launches summed."""
+    from torch_meshes import (
+        bunny_scene_xml,
+        bvh_walk_mesh,
+        instancing_two_group_xml,
+        instancing_xml,
+        shape_assets,
+        shapes_gallery_xml,
+        write_ply,
+    )
+
+    walk_ply = os.path.join(HERE, "build", "bvh_walk.ply")
+    write_ply(walk_ply, *bvh_walk_mesh())
+    shape_assets(feature_dir)
+    tlas_env = {"MTS_INSTANCE_EXPAND_MAX": "0"}
+    total = {}
+    for label, xml, golden, env, budget, must in (
+            ("instancing (rows)", instancing_xml(), "torch_instancing_32_4.npy", {}, None,
+             ("closest_hit_v2", "any_hit_v2")),
+            ("instancing (pair path)", instancing_xml(), "torch_instancing_tlas_32_4.npy",
+             tlas_env, None, ("closest_hit_v2", "any_hit_v2", "dense_cull", "pair_hit_closest",
+                              "pair_hit_any")),
+            ("instancing (loop path)", instancing_xml(), "torch_instancing_tlas_32_4.npy",
+             {**tlas_env, "MTS_TLAS_PAIRS": "0"}, None, ("closest_hit_v2", "any_hit_v2")),
+            ("instancing, two groups", instancing_two_group_xml(feature_dir),
+             "torch_instancing_two_group_32_4.npy", tlas_env, None,
+             ("dense_cull", "pair_hit_closest", "pair_hit_any")),
+            ("shapes gallery", shapes_gallery_xml(feature_dir), "torch_shapes_gallery_32_4.npy",
+             {}, None, ("dense_cull", "pair_hit_closest", "pair_hit_any")),
+            ("BVH walk", bunny_scene_xml(walk_ply, 32, 32), "torch_bvh_walk_32_4.npy", {},
+             BVH_WALK_BUDGET, ())):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        budget_saved = clusters.CLUSTER_HBM_MAX
+        if budget is not None:
+            clusters.CLUSTER_HBM_MAX = budget
+        try:
+            scene = mt.load_scene_string(xml)
+            got = render_checked(mt, counted, scene, os.path.join(HERE, "tests", "golden", golden),
+                                 dev, label, spp=4)
+        finally:
+            clusters.CLUSTER_HBM_MAX = budget_saved
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        for k in must:
+            check(got[k] > 0, f"the {label} render never launched {k}")
+        if budget is not None:
+            check(not any(got.values()), f"the {label} render launched a kernel: {got}")
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def instanced_throughput(mt, scene, pack, counted, tlas, card, spp=INSTANCED_SPP,
+                         passes=2):
+    """INSTANCED through `render` at its film size: `passes` timed renders
+    of `spp` samples per pixel, the launch counters set to 0 just before
+    each (phases 2 and 3 ran every part of the route on this pack: no
+    warm-up render): seconds, rays/s, peak device memory, launches and
+    the instance lists' overflow per pass.  Returns the launches summed."""
+    import numpy as np
+    import torch
+
+    rec = scene.sensor.record
+    w, h = rec.film.width, rec.film.height
+    total = {}
+    for i in range(passes):
+        for fn in counted.values():
+            fn.launches = 0
+        for fn in (tlas.inst_closest_pairs, tlas.inst_any_pairs):
+            fn.rays = fn.overflow_rays = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        img = mt.render(scene, spp=spp, seed=i + 1, pack=pack)
+        sec = time.time() - t0
+        rays = int(mt.render.last_ray_count)
+        launches = {k: fn.launches for k, fn in counted.items()}
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
+              "the INSTANCED image is not finite")
+        ov = {n: (fn.overflow_rays, fn.rays) for n, fn in (
+            ("closest", tlas.inst_closest_pairs), ("any", tlas.inst_any_pairs))}
+        out = {"scene": "INSTANCED", "width": w, "height": h, "spp": spp, "pass": i + 1,
+               "seconds": sec, "rays": rays, "rays_per_s": rays / sec,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+               "inst_overflow": ov, "mean": float(img.mean()), "card": card}
+        print(f"phase 4: INSTANCED {w}x{h}, pass {i + 1} of {spp} spp through render: {rays} "
+              f"rays in {sec:.3f} s = {rays / sec:.6g} rays/s, peak device memory {out['peak_gib']:.3f} GiB, launches {launches}, instance lists "
+              f"past K_INST (rays, of) {ov} on {card}", flush=True)
+        print(json.dumps({"throughput": out}), flush=True)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def bigbvh_throughput(mt, tis, pack_scene, counted, dev, card):
+    """BIGBVH (tests/torch_meshes.py bigbvh_xml: four copies of the dense
+    stand-in, 3,481,920 triangles, past the cluster budget): packed without
+    cluster tables; one intersect of its 262,144 camera rays at 512x512
+    with sort=True beside sort=False (equal, both timed); one render of BIGBVH_SPP samples at
+    BIGBVH_RES^2 through render, which launches none of the port's
+    kernels: seconds, rays/s, peak device memory."""
+    import numpy as np
+    import torch
+    from torch_meshes import bigbvh_xml, dense_standin, write_ply
+
+    if not os.path.exists(DENSE_PLY):
+        write_ply(DENSE_PLY, *dense_standin(seed=0))
+    scene = mt.load_scene_string(bigbvh_xml(DENSE_PLY, BIGBVH_RES, BIGBVH_RES))
+    t0 = time.time()
+    pack = pack_scene(scene, dev)
+    m = pack.meta
+    print(f"  BIGBVH: {m['n_tris']} triangles, BVH of {pack.bvh_nodes.shape[0]} node rows in "
+          f"{m['bvh_n_layouts']} layout(s), clusters {m.get('n_clusters', 0)}; packed in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    check(m["use_bvh"] and m.get("n_clusters", 0) == 0 and m["n_tris"] == 4 * 870_480,
+          "BIGBVH does not pack 3,481,920 triangles without cluster tables")
+    film = scene.sensor.record.film
+    film.width = film.height = BIGBVH_RAYS_RES  # 262,144 camera rays
+    o, d = camera_rays(scene, dev)
+    film.width = film.height = BIGBVH_RES
+    times = {}
+    for sort in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hit = tis.intersect(pack, o, d, sort=sort)
+        torch.cuda.synchronize()
+        times.setdefault(sort, []).append(1e3 * (time.time() - t0))
+        if sort:
+            check(all(torch.equal(a, b) for a, b in zip(
+                (hit.t, hit.prim, hit.u, hit.v), (ref.t, ref.prim, ref.u, ref.v))),
+                "BIGBVH: intersect with sort=True differs from sort=False")
+        else:
+            ref = hit
+    print(f"  BIGBVH: intersect of {o.shape[0]} camera rays ({int(ref.valid.sum())} hits): "
+          f"sort=False {[round(t, 1) for t in times[False]]} ms, sort=True "
+          f"{[round(t, 1) for t in times[True]]} ms (equal) on {card}", flush=True)
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img = mt.render(scene, spp=BIGBVH_SPP, seed=0, pack=pack)
+    sec = time.time() - t0
+    rays = int(mt.render.last_ray_count)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    check(bool(np.isfinite(img).all()) and img.mean() > 0 and not any(launches.values()),
+          f"the BIGBVH image is not finite, or it launched a kernel: {launches}")
+    out = {"scene": "BIGBVH", "width": BIGBVH_RES, "height": BIGBVH_RES, "spp": BIGBVH_SPP,
+           "seconds": sec, "rays": rays, "rays_per_s": rays / sec,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "intersect_ms": {"sort": times[True], "unsorted": times[False]}, "card": card}
+    print(f"phase 4: BIGBVH {BIGBVH_RES}x{BIGBVH_RES}, one pass of {BIGBVH_SPP} spp through "
+          f"render: {rays} rays in {sec:.3f} s = {rays / sec:.6g} rays/s, peak device memory "
+          f"{out['peak_gib']:.3f} GiB on {card}", flush=True)
+    print(json.dumps({"throughput": out}), flush=True)
 
 
 def main():
@@ -2822,6 +3277,20 @@ def main():
           "MOTION_BIG's clusters do not cover its static prefix alone, dummy slot n_tris")
     pair_segments(pairs, pb, tpath, make_render_pass, new_film, motion_big, mb_pack, dev, stats,
                   "MOTION_BIG")
+
+    # the geometry extras: INSTANCED (1,024 instances, 44.2M instanced
+    # triangles) through the accelerator's pair path: K3/K4 with K7/K8 on
+    # each round's and group's template-space batch of its camera rays and
+    # first NEE, K1/K2 on its 4 static rows
+    print(f"  geometry extras {elapsed()}", flush=True)
+    from mitsuba_tpu_torch.accel import clusters
+    from mitsuba_tpu_torch.accel import intersect as tis
+    from mitsuba_tpu_torch.accel import tlas
+
+    instanced, inst_pack = instanced_setup(mt, pack_scene, dev)
+    inst_queries = instanced_queries(tpath, make_render_pass, new_film, instanced, inst_pack, dev)
+    instanced_segments(pairs, pb, pk, tlas, tis, inst_queries, instanced, inst_pack, dev, stats,
+                       "INSTANCED")
 
     # ---- phase 3: the slices on the card, through the kernels ----
     print(f"phase 3: renders {elapsed()}", flush=True)
@@ -3206,6 +3675,13 @@ def main():
               f"its shutter coverage: largest error {err:.4f} (gate 0.12), energy "
               f"{energy:.4f} (gate 0.03)", flush=True)
         check(err < 0.12 and energy < 0.03, f"the {kind} card's blur misses its coverage")
+    # the geometry extras: the instancing, shapes and BVH-walk goldens;
+    # the pair path against the loop path on INSTANCED's camera rays and
+    # NEE
+    print(f"  geometry extras {elapsed()}", flush=True)
+    for k, n in extras_goldens(mt, counted, dev, feat_dir, clusters).items():
+        launches[k] = launches.get(k, 0) + n
+    instanced_pair_vs_loop(tis, tlas, inst_queries, inst_pack, "INSTANCED", card)
     for k, n in launches.items():
         check(n > 0, f"the render never launched {k}")
 
@@ -3214,7 +3690,7 @@ def main():
     throughput(make_render_pass, new_film, pack, scene, dev, "cbox", card)
     throughput(make_render_pass, new_film, big_pack, big, dev, "bigmesh-standin", card)
     throughput(make_render_pass, new_film, dense_pack, dense, dev, "densemesh-standin", card)
-    throughput(make_render_pass, new_film, real_pack, real, dev, "matpreview", card,
+    throughput(make_render_pass, new_film, real_pack, real, dev, "matpreview", card, passes=1,
                ref=MATPREVIEW_REF_512, iterations=lambda: pk.closest_hit_v2.launches)
     throughput(make_render_pass, new_film, mp_pack, mp, dev, "matpreview-const", card, passes=1,
                warm=False)
@@ -3226,7 +3702,7 @@ def main():
     glass256 = mt.load_scene_string(glass_xml(256, 256))
     generator_throughput(
         "glass_caustics-bdpt", lambda: tb.iter_bdpt(glass256, glass_pack, 32, 0, dev),
-        glass_counted, 256, 256, card, "chunk", budget_s=60.0, ref=GLASS_REF_256,
+        glass_counted, 256, 256, card, "chunk", budget_s=30.0, ref=GLASS_REF_256,
         note="; the reference's curve: 0.062 at 32 spp with 8 edges")
     # the scene's own film size: spp_chunk floors at 1, 262,144 lanes
     glass512 = mt.load_scene(os.path.join(HERE, "scenes", "glass_caustics.xml"))
@@ -3248,7 +3724,7 @@ def main():
 
     # the Metropolis slice: door as it stands (pssmlt, bidirectional, 8
     # edges; 65,536 chains) at 32 mutations per pixel, and unidirectional;
-    # glass_caustics under pssmlt (16 edges) for about 15 s
+    # glass_caustics under pssmlt (16 edges) for about 8 s
     print(f"phase 4: Metropolis {elapsed()}", flush=True)
     door_counted = {k: counted[k] for k in glass_names}
 
@@ -3272,7 +3748,7 @@ def main():
         note="; the reference's TPU run: 0.0728")
     generator_throughput(
         "glass-pssmlt", pssmlt_steps(glass_pssmlt, glass_pack), door_counted, 256, 256, card,
-        "step", budget_s=15.0, ref=GLASS_REF_256, setup=True, chains=65_536,
+        "step", budget_s=8.0, ref=GLASS_REF_256, setup=True, chains=65_536,
         note="; never measured on the TPU")
 
     # the photon-mapping slice: glass under sppm (maxDepth 24, 2^18
@@ -3367,6 +3843,20 @@ def main():
         for k in smoke_names[:2]:
             check(fib_launches[k] > 0, f"FIBER {phase} never launched {k}")
             launches[k] += fib_launches[k]
+
+    # the geometry extras: INSTANCED at 512x512 through render, 2 passes
+    # of 4 spp after a warm-up (its launches are the slice's main path:
+    # counters set to 0 just before each pass); BIGBVH's pass and sorted
+    # intersect
+    print(f"phase 4: geometry extras {elapsed()}", flush=True)
+    inst_launches = instanced_throughput(mt, instanced, inst_pack, {**brute, **glass_counted},
+                                         tlas, card)
+    for k in glass_names[:3] + tuple(brute):
+        check(inst_launches[k] > 0, f"INSTANCED never launched {k}")
+    for k, n in inst_launches.items():
+        launches[k] += n
+    del inst_pack
+    bigbvh_throughput(mt, tis, pack_scene, counted, dev, card)
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

@@ -1,29 +1,34 @@
 """Ray-scene intersection (port of mitsuba_tpu/accel/intersect.py: the
-triangle, animated, deformable, sphere and segment arms of `intersect` /
-`occluded`).
+triangle, animated, deformable, instance, sphere and segment arms of
+`intersect` / `occluded`).
 
-Scenes of at most 512 triangles go through the K1/K2 wrappers of
-accel/pallas_kernels.py, BVH scenes through the pair pipeline of
-accel/pairs.py (K3/K4, with the K7/K8 fallback): the CUDA kernels for
-tensors on a GPU, their plain versions for tensors on the CPU.  Analytic
-spheres, then analytic cylinder segments (accel/cyl.py), are tested after
-the triangles with plain tensor operations, as the reference tests them
-with XLA operations.
-`fill_interaction` also reads the media on either side of a hit, and the
-uv partials where bump maps or mip maps need them.
-`_bvh_traverse` / `_bvh_traverse_any` are the reference's stackless BVH
-walks (the path its intersect takes off the TPU), kept as the references
-the tests hold the pair pipeline to.
+Scenes of at most 512 static triangles go through the K1/K2 wrappers of
+accel/pallas_kernels.py, BVH scenes with cluster tables through the pair
+pipeline of accel/pairs.py (K3/K4, with the K7/K8 fallback): the CUDA
+kernels for tensors on a GPU, their plain versions for tensors on the
+CPU.  BVH scenes past the reference's cluster budget (no cluster tables)
+take the reference's stackless BVH walks `_bvh_traverse` /
+`_bvh_traverse_any` in torch operations, with `sort=True` in coherent
+chunks (`_sorted_chunked`), as the reference does there.  Instances of
+shape groups go through accel/tlas.py: its pair path (K3/K4/K7/K8 on
+each group's cluster tables) where every group has cluster tables, else
+its loop path.  Analytic spheres, then analytic cylinder segments
+(accel/cyl.py), are tested after the triangles with plain tensor
+operations, as the reference tests them with XLA operations.
+`fill_interaction` also reads the media on either side of a hit, the uv
+partials where bump maps or mip maps need them, and takes an instanced
+hit's normals and partials from its template's frame to the world.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
 
-from mitsuba_tpu_torch.accel import cyl, pairs
+from mitsuba_tpu_torch.accel import cyl, pairs, tlas
 from mitsuba_tpu_torch.accel import pallas_kernels as pk
 from mitsuba_tpu_torch.accel.bvh import LEAF_SIZE
 from mitsuba_tpu_torch.core import math as mm
@@ -42,6 +47,9 @@ class Hit(NamedTuple):
     # [R] bool, prim is a cylinder segment id; None without segments (and
     # where an integrator builds a Hit of triangles and spheres)
     is_cyl: torch.Tensor | None = None
+    # [R] int32 instance id of an instanced triangle hit, -1 elsewhere;
+    # None in a scene without the two-level accelerator
+    inst: torch.Tensor | None = None
 
 
 class SurfaceInteraction(NamedTuple):
@@ -207,6 +215,70 @@ def _bvh_traverse_any(pack, o, d, t_max):
         nxt = torch.where(found, end, nxt)  # early exit on the first hit
         node = torch.where(active, nxt, node)
     return occ
+
+
+# the sorted-chunked walk: a lockstep walk lasts as long as its slowest
+# lane, so a large incoherent batch is sorted by a coherence key and
+# walked in chunks of BVH_CHUNK rays, each chunk's walk ending with its
+# own longest lane (reference intersect.py:395-466; its MTS_BVH_CHUNK
+# default)
+BVH_CHUNK = 1 << 15
+
+
+def _ray_sort_key(pack, o, d):
+    """Coherence key [octant(3) | direction(6) | origin Morton code(15)]
+    (reference intersect.py:405-433), in int64."""
+    oct_ = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+    ad = torch.abs(d)
+    theta = torch.clamp((ad[:, 2] * 7.999).long(), 0, 7)
+    phi = torch.clamp((ad[:, 1] / torch.clamp(ad[:, 0] + ad[:, 1], min=1e-9) * 7.999).long(),
+                      0, 7)
+    lo, hi = pack.bvh_nodes[0, 0:3], pack.bvh_nodes[0, 3:6]
+    q = torch.clamp((o - lo) / torch.clamp(hi - lo, min=1e-9), 0.0, 1.0)
+    qi = (q * 31.999).long()  # 5 bits an axis
+
+    def spread5(x):  # the 5 bits of x, two zero bits between each
+        x = (x | (x << 8)) & 0x0100F
+        x = (x | (x << 4)) & 0x010C3
+        return (x | (x << 2)) & 0x09249
+
+    morton = spread5(qi[:, 0]) | (spread5(qi[:, 1]) << 1) | (spread5(qi[:, 2]) << 2)
+    return (oct_ << 21) | (theta << 18) | (phi << 15) | morton
+
+
+def _sorted_chunked(pack, o, d, t_max, traverse):
+    """`traverse` over the rays sorted by `_ray_sort_key` (a stable sort,
+    as jnp.argsort), chunk by chunk of BVH_CHUNK rays; the last chunk is
+    padded with copies of ray 0 at t_max 0, which meet nothing.  Returns
+    traverse's outputs (a tuple, or one tensor) in the rays' order."""
+    r = o.shape[0]
+    t_max = _t_max_rays(t_max, o)
+    perm = torch.sort(_ray_sort_key(pack, o, d), stable=True)[1]
+    pad = (-r) % BVH_CHUNK
+    tm_s = t_max[perm]
+    if pad:
+        perm = torch.cat([perm, torch.zeros(pad, dtype=perm.dtype, device=o.device)])
+        tm_s = torch.cat([tm_s, torch.zeros(pad, dtype=tm_s.dtype, device=o.device)])
+    o_s, d_s = o[perm], d[perm]
+    outs = [traverse(pack, o_s[c:c + BVH_CHUNK], d_s[c:c + BVH_CHUNK], tm_s[c:c + BVH_CHUNK])
+            for c in range(0, r + pad, BVH_CHUNK)]
+    single = torch.is_tensor(outs[0])
+    res = []
+    for parts in ([outs] if single else zip(*outs)):
+        back = torch.empty(r, dtype=parts[0].dtype, device=o.device)
+        back[perm[:r]] = torch.cat(list(parts))[:r]
+        res.append(back)
+    return res[0] if single else tuple(res)
+
+
+def _use_inst_pairs(pack):
+    """The instance route (reference intersect.py:384-394): the pair path
+    where every group has cluster tables, unless MTS_TLAS_PAIRS=0 forces
+    the loop path.  The reference takes its loop path off the TPU; the
+    port runs the pair path on either device (the plain K3/K4/K7/K8 on
+    the CPU)."""
+    return (os.environ.get("MTS_TLAS_PAIRS", "auto") != "0"
+            and pack.meta.get("inst_pairs_ok", False))
 
 
 def _intersect_spheres(pack, o, d, best_t):
@@ -424,31 +496,47 @@ def _deform_any(pack, o, d, time, t_max):
     return occ
 
 
-def intersect(pack, o, d, t_max=math.inf, time=None) -> Hit:
+def intersect(pack, o, d, t_max=math.inf, sort=False, time=None) -> Hit:
     """Closest-hit query (= Scene::rayIntersect, reference scene.h:187):
-    the static triangles (K1, or the pair pipeline), the animated, then
-    the deformable shapes at the lanes' shutter `time` ([R], or None for
-    the midpoint), then the spheres, then the cylinder segments
-    (reference intersect.py:698-798)."""
+    the static triangles (K1, the pair pipeline, or past the cluster
+    budget the BVH walk, sorted into coherent chunks where `sort`), the
+    animated, then the deformable shapes at the lanes' shutter `time`
+    ([R], or None for the midpoint), then the instances, then the
+    spheres, then the cylinder segments (reference
+    intersect.py:698-798).  A sphere or segment in front of an instanced
+    hit clears its `inst` to -1."""
     r = o.shape[0]
     if _static_tris(pack) == 0:
         best_t = _t_max_rays(t_max, o)
         prim = torch.full((r,), -1, dtype=torch.int32, device=o.device)
         u = v = torch.zeros(r, dtype=torch.float32, device=o.device)
     elif pack.meta.get("use_bvh", False):
-        best_t, prim, u, v = pairs.pair_closest(pack, o, d, t_max)
+        if pack.meta.get("n_clusters", 0) > 0:
+            best_t, prim, u, v = pairs.pair_closest(pack, o, d, t_max)
+        elif sort:
+            best_t, prim, u, v = _sorted_chunked(pack, o, d, t_max, _bvh_traverse)
+        else:
+            best_t, prim, u, v = _bvh_traverse(pack, o, d, t_max)
     else:
         best_t, prim, u, v = _closest(pack, o, d, t_max, pk.closest_hit_v2)
     if pack.meta.get("anim_ranges", ()):
         best_t, prim, u, v = _anim_closest(pack, o, d, time, best_t, prim, u, v)
     if pack.meta.get("deform_ranges", ()):
         best_t, prim, u, v = _deform_closest(pack, o, d, time, best_t, prim, u, v)
+    inst = None
+    if pack.meta.get("has_instances", False):
+        inst_fn = tlas.inst_closest_pairs if _use_inst_pairs(pack) else tlas.inst_closest
+        best_t, prim, u, v, inst = inst_fn(
+            pack, o, d, best_t.contiguous(), prim, u, v,
+            torch.full((r,), -1, dtype=torch.int32, device=o.device))
     is_sphere = None
     if pack.meta.get("n_spheres", 0) > 0:
         sh, st, sid = _intersect_spheres(pack, o, d, best_t)
         is_sphere = sh & (st < best_t)
         best_t = torch.where(is_sphere, st, best_t)
         prim = torch.where(is_sphere, sid, prim)
+        if inst is not None:
+            inst = torch.where(is_sphere, -1, inst)
     is_cyl = None
     if pack.meta.get("n_cyls", 0) > 0:
         ch, ct, cid = cyl.cyl_closest(pack, o, d, best_t)
@@ -457,20 +545,28 @@ def intersect(pack, o, d, t_max=math.inf, time=None) -> Hit:
         prim = torch.where(is_cyl, cid, prim)
         if is_sphere is not None:  # a segment in front clears the sphere
             is_sphere = is_sphere & ~is_cyl
+        if inst is not None:
+            inst = torch.where(is_cyl, -1, inst)
     return Hit(valid=prim >= 0, t=best_t, prim=prim, is_sphere=is_sphere, u=u, v=v,
-               is_cyl=is_cyl)
+               is_cyl=is_cyl, inst=inst)
 
 
-def occluded(pack, o, d, t_max, time=None) -> torch.Tensor:
+def occluded(pack, o, d, t_max, sort=False, time=None) -> torch.Tensor:
     """Boolean shadow query; t_max is already shortened by the caller.
-    The static triangles (K2, or the pair pipeline), ORed with the
-    spheres, the cylinder segments, then the animated and deformable
-    shapes at `time`.  Without static triangles it is intersect's hit
-    (reference intersect.py:801-854)."""
+    The static triangles (K2, the pair pipeline, or past the cluster
+    budget the BVH walk, in sorted chunks where `sort`), ORed with the
+    spheres, the cylinder segments, the animated and deformable shapes at
+    `time`, then the instances.  Without static triangles it is
+    intersect's hit (reference intersect.py:801-854)."""
     if _static_tris(pack) == 0:
         return intersect(pack, o, d, t_max, time=time).valid
     if pack.meta.get("use_bvh", False):
-        occ = pairs.pair_any(pack, o, d, t_max)
+        if pack.meta.get("n_clusters", 0) > 0:
+            occ = pairs.pair_any(pack, o, d, t_max)
+        elif sort:
+            occ = _sorted_chunked(pack, o, d, t_max, _bvh_traverse_any)
+        else:
+            occ = _bvh_traverse_any(pack, o, d, t_max)
     else:
         occ = pk.any_hit_v2(o, d, t_max, pack.tri_s)
     if pack.meta.get("n_spheres", 0) > 0:
@@ -482,6 +578,9 @@ def occluded(pack, o, d, t_max, time=None) -> torch.Tensor:
         occ = occ | _anim_any(pack, o, d, time, t_max)
     if pack.meta.get("deform_ranges", ()):
         occ = occ | _deform_any(pack, o, d, time, t_max)
+    if pack.meta.get("has_instances", False):
+        any_fn = tlas.inst_any_pairs if _use_inst_pairs(pack) else tlas.inst_any
+        occ = occ | any_fn(pack, o, d, t_max)
     return occ
 
 
@@ -506,12 +605,20 @@ _ONEHOT_MAX_ROWS = 512
 
 def _partials(pack, p, hit, prim, tri_id, has_spheres, has_cyls):
     """(dpdu, dpdv) of each hit (reference intersect.py:985-1029): the
-    triangle's tables; on a sphere the lat-long partials with their true
+    triangle's tables, on an instanced hit taken to the world by its
+    instance's transform (`inst_fwd`); on a sphere the lat-long partials with their true
     magnitudes, |dp/du| = 2 pi r sin(theta), |dp/dv| = pi r.  A segment
     lane reads what the reference's gather by its segment id gives: that
     triangle row, or zeros past a table of at most _ONEHOT_MAX_ROWS rows
     (ROADMAP C4)."""
     dpdu, dpdv = take_fused(tri_id, pack.tri_dpdu, pack.tri_dpdv)
+    if hit.inst is not None and pack.meta.get("has_instances", False):
+        # a template's partials into the world by its instance's transform
+        # (reference intersect.py:990-1000)
+        sel = (hit.inst >= 0)[:, None]
+        fwd = pack.inst_fwd[torch.clamp(hit.inst, min=0).long()]
+        dpdu = torch.where(sel, tlas.matvec(fwd, dpdu), dpdu)
+        dpdv = torch.where(sel, tlas.matvec(fwd, dpdv), dpdv)
     if has_cyls:
         rows = pack.tri_dpdu.shape[0]
         seg_row = torch.clamp(prim, max=rows - 1)
@@ -538,8 +645,9 @@ def _partials(pack, p, hit, prim, tri_id, has_spheres, has_cyls):
 def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
     """Per-hit surface data (= fillIntersectionRecord, reference
     records.inl): the triangle branch, the sphere branch where the hit is
-    a sphere (reference intersect.py:911-928) and the segment branch where
-    it is a cylinder segment (:931-949, :978-980)."""
+    a sphere (reference intersect.py:911-928), the segment branch where
+    it is a cylinder segment (:931-949, :978-980), and an instanced hit's
+    normals in the world (:951-963)."""
     has_spheres = pack.meta.get("n_spheres", 0) > 0
     has_cyls = pack.meta.get("n_cyls", 0) > 0 and hit.is_cyl is not None
     prim = torch.clamp(hit.prim, min=0)
@@ -594,6 +702,15 @@ def fill_interaction(pack, o, d, hit: Hit) -> SurfaceInteraction:
         uv = torch.where(seg[:, None], 0.0, uv)
         mat = torch.where(seg, cmat, mat)
         emit = torch.where(seg, -1, emit)
+    if hit.inst is not None and pack.meta.get("has_instances", False):
+        # an instanced hit's normals from its template's frame to the world
+        # by the inverse transpose (reference intersect.py:951-963,
+        # instance.cpp fillIntersectionRecord); the table is read at inst
+        # 0 on the other lanes
+        sel = (hit.inst >= 0)[:, None]
+        nrm = pack.inst_nrm[torch.clamp(hit.inst, min=0).long()]
+        ns = torch.where(sel, mm.normalize(tlas.matvec(nrm, ns)), ns)
+        ng = torch.where(sel, mm.normalize(tlas.matvec(nrm, ng)), ng)
     # orient the geometric normal to the shading normal's hemisphere
     ng = torch.where((mm.dot(ng, ns) < 0.0)[:, None], -ng, ng)
     if pack.meta.get("has_media", False):

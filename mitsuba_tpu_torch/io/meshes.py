@@ -1,15 +1,25 @@
-"""Triangle meshes: the `MeshData` container and the PLY reader (port of
-mitsuba_tpu/io/meshes.py; the OBJ and `.serialized` readers are not
-ported yet).
+"""Triangle meshes: the `MeshData` container and the OBJ, PLY and
+Mitsuba `.serialized` readers, and the `.serialized` writer (port of
+mitsuba_tpu/io/meshes.py).
 
-PLY: ascii and binary in both byte orders, with vertex normals, texture
-coordinates and colours (`red green blue`, over 255) when present
-(reference src/shapes/ply/*).
+* OBJ: v/vn/vt/f with negative indices, one mesh per `usemtl` group,
+  corners re-indexed by their (position, uv, normal) triple (reference
+  src/shapes/obj.cpp).
+* PLY: ascii and binary in both byte orders, with vertex normals, texture
+  coordinates and colours (`red green blue`, over 255) when present
+  (reference src/shapes/ply/*).
+* `.serialized`: little-endian, magic 0x041C, version 3 or 4, one
+  zlib-deflated mesh per chunk and a trailing offset table, the flags
+  word's normals / texcoords / colours / face-normals / precision bits
+  (reference src/librender/trimesh.cpp:34-36, 89-96, 180-300).
+
 Polygons are fan-triangulated.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,6 +34,79 @@ class MeshData:
     colors: np.ndarray | None = None  # [V, 3], read by the vertexcolors texture
     face_normals: bool = False
     name: str = ""
+
+
+def load_obj(path) -> list[MeshData]:
+    """Read an OBJ file: one MeshData per material group, in the order the
+    groups first appear (reference io/meshes.py:41-135)."""
+    positions, normals, texcoords = [], [], []
+    # (position, uv, normal) index triples per corner, by material group
+    groups: dict[str, list] = {}
+    current = "default"
+
+    def resolve(idx, n):
+        i = int(idx)
+        return i - 1 if i > 0 else n + i
+
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            if not line or line[0] in "#\n":
+                continue
+            parts = line.split()
+            if not parts:
+                continue
+            tag = parts[0]
+            if tag == "v":
+                positions.append([float(x) for x in parts[1:4]])
+            elif tag == "vn":
+                normals.append([float(x) for x in parts[1:4]])
+            elif tag == "vt":
+                texcoords.append([float(x) for x in parts[1:3]])
+            elif tag == "usemtl":
+                current = parts[1] if len(parts) > 1 else "default"
+            elif tag == "f":
+                corners = []
+                for tok in parts[1:]:
+                    sub = tok.split("/")
+                    pi = resolve(sub[0], len(positions))
+                    ti = resolve(sub[1], len(texcoords)) if len(sub) > 1 and sub[1] else -1
+                    ni = resolve(sub[2], len(normals)) if len(sub) > 2 and sub[2] else -1
+                    corners.append((pi, ti, ni))
+                tris = groups.setdefault(current, [])
+                for k in range(1, len(corners) - 1):
+                    tris.append((corners[0], corners[k], corners[k + 1]))
+
+    positions = np.asarray(positions, np.float32)
+    normals = np.asarray(normals, np.float32) if normals else None
+    texcoords = np.asarray(texcoords, np.float32) if texcoords else None
+    meshes = []
+    for name, tris in groups.items():
+        if not tris:
+            continue
+        corner_map: dict[tuple, int] = {}
+        v_pos, v_nrm, v_uv, idx = [], [], [], []
+        has_n = any(c[2] >= 0 for tri in tris for c in tri)
+        has_t = any(c[1] >= 0 for tri in tris for c in tri)
+        for tri in tris:
+            face = []
+            for c in tri:
+                if c not in corner_map:
+                    corner_map[c] = len(v_pos)
+                    v_pos.append(positions[c[0]])
+                    if has_t:
+                        v_uv.append(texcoords[c[1]] if c[1] >= 0 else np.zeros(2))
+                    if has_n:
+                        v_nrm.append(normals[c[2]] if c[2] >= 0 else np.zeros(3))
+                face.append(corner_map[c])
+            idx.append(face)
+        meshes.append(MeshData(
+            positions=np.asarray(v_pos, np.float32),
+            indices=np.asarray(idx, np.uint32),
+            normals=np.asarray(v_nrm, np.float32) if has_n else None,
+            texcoords=np.asarray(v_uv, np.float32) if has_t else None,
+            name=name,
+        ))
+    return meshes
 
 
 _PLY_TYPES = {
@@ -155,3 +238,100 @@ def load_ply(path) -> list[MeshData]:
             colors=colors,
         )
     ]
+
+
+# the .serialized flags word (reference trimesh.cpp:89-96)
+_EHasNormals = 0x0001
+_EHasTexcoords = 0x0002
+_EHasColors = 0x0008
+_EFaceNormals = 0x0010
+_ESinglePrecision = 0x1000
+_EDoublePrecision = 0x2000
+
+
+def load_serialized(path, shape_index=0) -> list[MeshData]:
+    """Read mesh `shape_index` of a .serialized container (reference
+    io/meshes.py:287-360): the chunk's offset comes from the table at the
+    file's end (64-bit in version 4, 32-bit in version 3)."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    fmt, version = struct.unpack_from("<hh", blob, 0)
+    if fmt != 0x041C:
+        raise ValueError(f"{path}: bad magic 0x{fmt:04x}")
+    if version not in (3, 4):
+        raise ValueError(f"{path}: unsupported version {version}")
+    offset = 4
+    if shape_index != 0:
+        (count,) = struct.unpack_from("<I", blob, len(blob) - 4)
+        if shape_index >= count:
+            raise IndexError(f"{path}: shape index {shape_index} out of range 0..{count - 1}")
+        if version == 4:
+            (offset,) = struct.unpack_from("<Q", blob, len(blob) - 4 - 8 * (count - shape_index))
+        else:
+            (offset,) = struct.unpack_from("<I", blob, len(blob) - 4 * (count - shape_index + 1))
+        offset += 4  # the chunk's own header
+    raw = zlib.decompressobj().decompress(blob[offset:])
+    pos = 0
+    (flags,) = struct.unpack_from("<I", raw, pos)
+    pos += 4
+    name = ""
+    if version == 4:
+        end = raw.index(b"\x00", pos)
+        name = raw[pos:end].decode("latin1")
+        pos = end + 1
+    vcount, tcount = struct.unpack_from("<QQ", raw, pos)
+    pos += 16
+    ft = np.dtype("<f8" if flags & _EDoublePrecision else "<f4")
+
+    def take(n):
+        nonlocal pos
+        arr = np.frombuffer(raw, ft, count=n, offset=pos)
+        pos += n * ft.itemsize
+        return arr.astype(np.float32)
+
+    positions = take(vcount * 3).reshape(vcount, 3)
+    normals = take(vcount * 3).reshape(vcount, 3) if flags & _EHasNormals else None
+    texcoords = take(vcount * 2).reshape(vcount, 2) if flags & _EHasTexcoords else None
+    colors = take(vcount * 3).reshape(vcount, 3) if flags & _EHasColors else None
+    indices = np.frombuffer(raw, np.dtype("<u4"), count=tcount * 3, offset=pos).reshape(tcount, 3)
+    return [MeshData(
+        positions=positions,
+        indices=indices.astype(np.uint32),
+        normals=normals,
+        texcoords=texcoords,
+        colors=colors,
+        face_normals=bool(flags & _EFaceNormals),
+        name=name,
+    )]
+
+
+def save_serialized(path, meshes: list[MeshData]):
+    """Write meshes to a version-4 .serialized container, single
+    precision, each chunk deflated by zlib at its default level (the
+    reference's bytes, io/meshes.py:363-395)."""
+    offsets = []
+    with open(path, "wb") as f:
+        for mesh in meshes:
+            offsets.append(f.tell())
+            f.write(struct.pack("<hh", 0x041C, 4))
+            flags = _ESinglePrecision
+            if mesh.normals is not None:
+                flags |= _EHasNormals
+            if mesh.texcoords is not None:
+                flags |= _EHasTexcoords
+            if mesh.colors is not None:
+                flags |= _EHasColors
+            if mesh.face_normals:
+                flags |= _EFaceNormals
+            raw = struct.pack("<I", flags)
+            raw += mesh.name.encode("latin1") + b"\x00"
+            raw += struct.pack("<QQ", len(mesh.positions), len(mesh.indices))
+            raw += mesh.positions.astype("<f4").tobytes()
+            for extra in (mesh.normals, mesh.texcoords, mesh.colors):
+                if extra is not None:
+                    raw += extra.astype("<f4").tobytes()
+            raw += mesh.indices.astype("<u4").tobytes()
+            f.write(zlib.compress(raw))
+        for off in offsets:
+            f.write(struct.pack("<Q", off))
+        f.write(struct.pack("<I", len(offsets)))

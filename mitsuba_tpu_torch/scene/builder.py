@@ -15,8 +15,13 @@ to shapes as their interior or exterior, fiber phases and orientation
 volumes among them (`_pack_media`), the camera of the motion integrator,
 and the
 subsurface point sets and coefficients of dipole and singlescatter shapes
-(`_pack_sss`).  `apply_spectral_pack` makes the pack of one bin group of
-spectral mode.
+(`_pack_sss`), and instancing: shape groups copied into plain rows up to
+MTS_INSTANCE_EXPAND_MAX triangles, past it packed once as local-space
+template rows after every other row, outside the static accelerators,
+under the two-level accelerator of accel/tlas.py (`_instances`).  BVH
+scenes past the reference's cluster budget pack no cluster tables and are
+walked by accel/intersect.py `_bvh_traverse`.  `apply_spectral_pack`
+makes the pack of one bin group of spectral mode.
 
 Array names, dtypes, shapes and meta keys are the reference's, so a
 reference pack converted with `pack_from_numpy` and the port's own pack
@@ -40,6 +45,7 @@ from mitsuba_tpu_torch.accel.pallas_kernels import (
     pack_triangles_sublane,
     pack_triangles_transposed,
 )
+from mitsuba_tpu_torch.accel.tlas import build_instance_accel
 from mitsuba_tpu_torch.bsdf.eval import PORTED as PORTED_TYPES
 from mitsuba_tpu_torch.bsdf.irawan_host import pack_tables, tables_have_noise
 from mitsuba_tpu_torch.bsdf.plugins import (
@@ -66,7 +72,7 @@ from mitsuba_tpu_torch.medium.plugins import (
     MAX_PHASE_COMPONENTS,
     MICROFLAKE,
 )
-from mitsuba_tpu_torch.scene.shapes import _apply_transform, _uv_sphere
+from mitsuba_tpu_torch.scene.shapes import ShapeInstance, SphereData, _apply_transform, _uv_sphere
 from mitsuba_tpu_torch.scene.subsurface import sample_surface_points
 from mitsuba_tpu_torch.scene.texture_eval import material_table
 from mitsuba_tpu_torch.scene.textures import (
@@ -148,17 +154,19 @@ SSS_META = (
     "has_sss", "sss_irr_samples", "sss_indirect", "sss_has_single", "sss_has_dipole",
     "sss_ss_samples", "sss_ss_depth",
 )
-# ... and, for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters
+# ... for scenes above BRUTE_FORCE_MAX_TRIS, the BVH and clusters ...
 BVH_ARRAYS = ("bvh_nodes", "tri9", "cl_tri", "cl_box", "cl_sup", "cl_mbox", "cl_pad2prim")
 BVH_META = (
     "bvh_n_layouts", "n_clusters", "cluster_tc", "n_supers",
     "cluster_super_g", "cluster_vmem_ok",
 )
-# meta flags of reference features the port does not render yet:
-# (key, value meaning "absent", feature name)
-_UNPORTED_FEATURES = (
-    ("has_instances", False, "instancing"),
-)
+# ... and for instanced scenes past MTS_INSTANCE_EXPAND_MAX, the two-level
+# accelerator (accel/tlas.py), besides each group's ig{g}_* cluster tables
+INSTANCE_ARRAYS = ("inst_nodes", "inst_tri9", "inst_tri2prim", "inst_inv", "inst_nrm",
+                   "inst_fwd", "inst_wbox", "inst_group")
+INSTANCE_META = ("has_instances", "n_instances", "inst_groups", "inst_pairs_ok")
+# the splice's node indices are float32, exact below this many rows
+SPLICE_EXACT_ROWS = 1 << 24
 
 
 @dataclass
@@ -177,10 +185,8 @@ class ScenePack:
 
 
 def check_slice(meta: dict):
-    """Raise NotImplementedError for a pack that needs unported features."""
-    for key, absent, feature in _UNPORTED_FEATURES:
-        if meta.get(key, absent) != absent:
-            raise NotImplementedError(f"{feature} not yet ported")
+    """Raise NotImplementedError for a pack with a BSDF type or an emitter
+    kind the port does not evaluate."""
     types = set(meta.get("present_types", (DIFFUSE,)))
     if types - PORTED_TYPES:
         raise NotImplementedError(
@@ -191,8 +197,6 @@ def check_slice(meta: dict):
         raise NotImplementedError(
             f"emitter kinds {sorted(kinds - PORTED_KINDS)} not yet ported"
         )
-    if meta.get("use_bvh", False):
-        _check_clusters(meta)
 
 
 def _check_textures(arrays: dict, meta: dict):
@@ -459,13 +463,17 @@ def _emissive_sphere_meshes(spheres):
     return out
 
 
-def _bounding_sphere(tri, spheres, cyl, n_cyl, deform_stacks=()):
+def _bounding_sphere(tri, spheres, cyl, n_cyl, deform_stacks=(), n_world=None, inst_root=None):
     """(center, radius) of the scene's bounds, in float32 as the reference
-    computes them (reference builder.py:1658-1682): the triangles'
-    corners, every keyframe's corners of the deformable shapes, the
-    analytic spheres' boxes and the segments' ends, each +- its radius."""
-    v = tri["tri_v0"]
-    pts = [v, v + tri["tri_e1"], v + tri["tri_e2"]] if len(v) else []
+    computes them (reference builder.py:1655-1682): the corners of the
+    first n_world triangles (all but the local-space template rows of
+    instancing), the TLAS root box `inst_root` [6], every keyframe's
+    corners of the deformable shapes, the analytic spheres' boxes and the
+    segments' ends, each +- its radius."""
+    v = tri["tri_v0"][:n_world]
+    pts = [v, v + tri["tri_e1"][:n_world], v + tri["tri_e2"][:n_world]] if len(v) else []
+    if inst_root is not None:
+        pts += [inst_root[None, 0:3], inst_root[None, 3:6]]
     for stack in deform_stacks:
         f = stack.reshape(-1, 9)
         pts += [f[:, 0:3], f[:, 0:3] + f[:, 3:6], f[:, 0:3] + f[:, 6:9]]
@@ -523,6 +531,52 @@ def _deform_tables(deform_marks) -> dict:
         if inst.emitter is not None:
             warnings.warn(f"deformable '{inst.id}': area emission is sampled at keyframe 0")
     return out
+
+
+def _instances(scene, statics):
+    """Expand or defer the scene's instances (reference
+    builder.py:401-473).  Up to MTS_INSTANCE_EXPAND_MAX triangles of
+    instanced geometry in all, each instance of each group's shape is
+    copied into `statics` (its meshes and sphere centres transformed,
+    its BSDF, emitter, media and subsurface kept); past it the groups are
+    returned as [(children, [Transform, ...])] to pack once as templates,
+    which holds plain surface meshes only."""
+    if not scene.instances:
+        return []
+    by_group: dict = {}
+    for key, t in scene.instances:
+        by_group.setdefault(key, []).append(t)
+    expand_max = int(os.environ.get("MTS_INSTANCE_EXPAND_MAX", "100000"))
+    total = sum(len(ts) * sum(len(m.indices) for s in scene.shape_groups[key] for m in s.meshes)
+                for key, ts in by_group.items())
+    if total <= expand_max:
+        for key, ts in by_group.items():
+            for t in ts:
+                for src in scene.shape_groups[key]:
+                    out = ShapeInstance(id=src.id)
+                    out.bsdf, out.emitter = src.bsdf, src.emitter
+                    out.interior_medium = src.interior_medium
+                    out.exterior_medium = src.exterior_medium
+                    out.subsurface = src.subsurface
+                    out.meshes = [_apply_transform(m, t, False) for m in src.meshes]
+                    out.spheres = [SphereData(
+                        center=t.transform_point_np(sph.center).astype(np.float32),
+                        radius=sph.radius, flip_normals=sph.flip_normals)
+                        for sph in src.spheres]
+                    statics.append(out)
+        return []
+    deferred = []
+    for key, ts in by_group.items():
+        children = scene.shape_groups[key]
+        for src in children:
+            if (src.emitter is not None or src.interior_medium is not None
+                    or src.exterior_medium is not None or src.subsurface is not None
+                    or src.spheres):
+                raise ValueError(
+                    "instanced shapegroup (above MTS_INSTANCE_EXPAND_MAX) supports plain "
+                    "surface meshes only — no emitters, media, subsurface, or spheres")
+        deferred.append((children, ts))
+    return deferred
 
 
 def _luminance(rgb):
@@ -937,18 +991,6 @@ def _pack_sss(n_mat: int, sss_mat_rows: list, sss_objs: list) -> tuple[dict, dic
     return arrays, meta
 
 
-def _check_clusters(meta: dict):
-    """The port renders BVH scenes through the cluster tables (K3-K10).
-    The reference packs none past its HBM budget (CLUSTER_HBM_MAX, at
-    24,576 clusters of 128) and walks the BVH with XLA there, which is
-    not a ported render path."""
-    if meta.get("n_clusters", 0) == 0:
-        raise NotImplementedError(
-            "BVH traversal without cluster tables (the reference's XLA BVH "
-            "walk, past its cluster HBM budget) not yet ported"
-        )
-
-
 def _to_device(arrays: dict, device) -> dict:
     """Each array as a C-contiguous tensor on `device`.  torch.tensor keeps
     a numpy array's strides, and cl_tri and tri_t are built as transposes:
@@ -987,6 +1029,10 @@ def _with_derived(arrays: dict, meta: dict) -> dict:
         out["mat_params"], out["mat_iparams"] = material_table(arrays, meta)
     if "cl_tri" in arrays:
         out["cl_cnt"] = cluster_columns(arrays["cl_tri"], meta["cluster_tc"])
+    for gi, (_, _, g_items) in enumerate(meta.get("inst_groups", ())):
+        if g_items is not None:  # each instance group's cluster tables
+            out[f"ig{gi}_cl_cnt"] = cluster_columns(arrays[f"ig{gi}_cl_tri"],
+                                                    dict(g_items)["cluster_tc"])
     return out
 
 
@@ -1066,16 +1112,22 @@ def pack_scene(scene, device="cuda") -> ScenePack:
     all_meshes = []  # in triangle order: the geometry-driven textures' tables
     spheres = []  # (SphereData, material id, emitter id, interior, exterior)
     cyls = []  # (CylData, material id)
-    # the triangle rows of static shapes first, then of animated shapes
-    # (two keyframes or more), then of deformable ones: the accelerators
-    # cover the static prefix only (reference builder.py:375-399)
+    # the triangle rows of static shapes first (the expanded instances
+    # among them), then of animated shapes (two keyframes or more), then of
+    # deformable ones, then the instance groups' local-space templates: the
+    # static accelerators cover the static prefix only (reference
+    # builder.py:375-473)
     deform_i = [i for i in scene.shapes if i.deform_frames]
     anim_i = [i for i in scene.shapes
               if not i.deform_frames and i.animation and len(i.animation) >= 2]
     moving = {id(i) for i in deform_i + anim_i}
+    statics = [i for i in scene.shapes if id(i) not in moving]
+    deferred = _instances(scene, statics)
+    templates = [src for children, _ in deferred for src in children]
+    tmpl_ids = {id(src) for src in templates}
     row = 0
-    anim_ranges, anim_m1, deform_marks = [], [], []
-    for inst in [i for i in scene.shapes if id(i) not in moving] + anim_i + deform_i:
+    anim_ranges, anim_m1, deform_marks, tmpl_marks = [], [], [], {}
+    for inst in statics + anim_i + deform_i + templates:
         start = row
         if inst.subsurface is not None:
             # a row of its own (mat_sss is per row): a copy of the BSDF
@@ -1146,6 +1198,8 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         elif id(inst) in moving:
             anim_ranges.append((start, row - start))
             anim_m1.append(_relative_motion(inst, emit_id))
+        if id(inst) in tmpl_ids:
+            tmpl_marks[id(inst)] = (start, row)
 
     def cat(parts, shape_tail, dtype=np.float32):
         if parts:
@@ -1164,7 +1218,9 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "tri_med_ex": cat(tmed_ex, (), np.int32),
     }
     n_tris = len(tri["tri_v0"])
-    n_static = n_tris - sum(c for _, c in anim_ranges) - sum(e - b for _, b, e in deform_marks)
+    n_tmpl = sum(e - b for b, e in tmpl_marks.values())
+    n_static = (n_tris - sum(c for _, c in anim_ranges) - sum(e - b for _, b, e in deform_marks)
+                - n_tmpl)
     descs = _texture_descs(materials)
     geom_tex_kinds, geom_tex = _geometry_tables(descs, all_meshes, tri)
     tri.update(geom_tex)
@@ -1185,12 +1241,28 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         tri["tri_v0"], tri["tri_e1"], tri["tri_e2"], n_static
     )
     deform = _deform_tables(deform_marks)
+    # two-level instancing over the template rows, which sit past every
+    # other row: neither the BVH's permutation nor the static tables
+    # touch them (reference builder.py:854-869)
+    inst_arrays, inst_meta = {}, {"has_instances": False, "n_instances": 0}
+    if deferred:
+        inst_arrays, inst_meta = build_instance_accel(
+            [(min(tmpl_marks[id(c)][0] for c in children),
+              max(tmpl_marks[id(c)][1] for c in children), ts) for children, ts in deferred],
+            tri["tri_v0"], tri["tri_e1"], tri["tri_e2"])
+        n_rows = len(inst_arrays["inst_nodes"])
+        if n_rows >= SPLICE_EXACT_ROWS:
+            warnings.warn(f"the instance splice holds {n_rows} rows: its float32 node indices "
+                          f"are exact below {SPLICE_EXACT_ROWS} only, so the loop path "
+                          "(accel/tlas.py inst_closest) misreads it (ROADMAP C7)")
     tri_area = 0.5 * np.linalg.norm(
         np.cross(tri["tri_e1"], tri["tri_e2"]), axis=-1
     )
     tri_emit = tri["tri_emit"]
     cyl, n_cyl = _pack_cylinders(cyls)
-    center, radius = _bounding_sphere(tri, spheres, cyl, n_cyl, deform.values())
+    center, radius = _bounding_sphere(
+        tri, spheres, cyl, n_cyl, deform.values(), n_tris - n_tmpl,
+        inst_arrays["inst_nodes"][0] if deferred else None)
     # pad with LEAF_SIZE far-away rows: index-clamped gathers and the
     # cluster tiles' dummy slots (index n_tris) never leave the tables
     pad_fill = {"tri_v0": 1e30, "tri_emit": -1, "tri_med_in": -1, "tri_med_ex": -1,
@@ -1375,6 +1447,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "anim_m1": np.stack(anim_m1) if anim_m1 else np.zeros((1, 12), np.float32),
         **deform,
         **bvh_arrays,
+        **inst_arrays,
         **sph,
         **cyl,
         **mt,
@@ -1412,6 +1485,7 @@ def pack_scene(scene, device="cuda") -> ScenePack:
         "emitter_kinds": tuple(sorted({r.kind for r in emitters})),
         "use_bvh": use_bvh,
         **bvh_meta,
+        **inst_meta,
         "has_area": any(r.kind == AREA for r in emitters),
         "env_idx": env_idx,
         "has_env": env_idx >= 0,

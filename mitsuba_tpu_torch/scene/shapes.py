@@ -3,7 +3,20 @@
 * `rectangle`: the XY square spanning [-1,1]^2, normal +z
   (reference src/shapes/rectangle.cpp:99-110)
 * `cube`: [-1,1]^3 with per-face normals (reference src/shapes/cube.cpp:24-30)
-* `ply`: a triangle mesh from a PLY file (reference src/shapes/ply/*)
+* `disk`: the unit disk in the XY plane as a fan of 64 triangles, normal
+  +z (reference src/shapes/disk.cpp)
+* `obj`, `ply`, `serialized`: triangle meshes from a file (reference
+  src/shapes/obj.cpp, ply/*, serialized.cpp), with `faceNormals`; obj
+  flips its v coordinate unless `flipTexCoords` is false, serialized
+  reads mesh `shapeIndex`
+* `heightfield`: the [-1,1]^2 grid displaced along z by the first channel
+  of an image times `scale`, strided down to at most 257 x 257 texels and
+  tessellated (reference src/shapes/heightfield.cpp intersects the grid
+  directly)
+* `shapegroup` / `instance`: a group of shapes and its placements
+  (reference src/shapes/shapegroup.cpp, instance.cpp); the XML loader
+  collects them and the builder expands them or builds the two-level
+  accelerator (accel/tlas.py)
 * `sphere`: `center` + `radius` and/or toWorld (reference
   src/shapes/sphere.cpp:73-110), kept analytic; a non-uniform scale
   tessellates it
@@ -18,7 +31,7 @@ Every shape keeps its `toWorld` animation track (`<animation>`): its
 geometry is keyframe 0, and the builder turns a track of two keyframes
 or more into a relative motion (scene/builder.py).
 
-Other shape plugins are not registered and raise NotImplementedError.
+Every shape plugin of the reference is registered.
 """
 
 from __future__ import annotations
@@ -29,7 +42,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from mitsuba_tpu_torch.core.transform import Transform
-from mitsuba_tpu_torch.io.meshes import MeshData, load_ply
+from mitsuba_tpu_torch.io.images import read_image
+from mitsuba_tpu_torch.io.meshes import MeshData, load_obj, load_ply, load_serialized
 from mitsuba_tpu_torch.scene.registry import register
 
 
@@ -158,15 +172,109 @@ class CubeShape(_ShapeBase):
         )
 
 
-@register("shape", "ply")
-class PlyShape(_ShapeBase):
+@register("shape", "disk")
+class DiskShape(_ShapeBase):
+    SEGMENTS = 64
+
+    def _mesh(self):
+        n = self.SEGMENTS
+        ang = np.linspace(0.0, 2.0 * np.pi, n, endpoint=False)
+        rim = np.stack([np.cos(ang), np.sin(ang), np.zeros(n)], axis=-1).astype(np.float32)
+        pos = np.concatenate([np.zeros((1, 3), np.float32), rim])
+        nrm = np.tile(np.array([[0, 0, 1]], np.float32), (n + 1, 1))
+        uv = np.concatenate(
+            [np.array([[0.5, 0.5]], np.float32), (rim[:, :2] + 1) / 2]
+        ).astype(np.float32)
+        idx = np.array([[0, 1 + i, 1 + (i + 1) % n] for i in range(n)], np.uint32)
+        return MeshData(pos, idx, nrm, uv)
+
+
+class _FileShape(_ShapeBase):
+    """A mesh file's meshes; `faceNormals` drops the vertex normals."""
+
     def _meshes(self):
-        meshes = load_ply(self.props.resolve_path(self.props.get_string("filename")))
+        meshes = self._load(self.props.resolve_path(self.props.get_string("filename")))
         if self.props.get_bool("faceNormals", False):
             for mesh in meshes:
                 mesh.normals = None
                 mesh.face_normals = True
         return meshes
+
+    def _load(self, path) -> list[MeshData]:
+        raise NotImplementedError
+
+
+@register("shape", "obj")
+class ObjShape(_FileShape):
+    def _load(self, path):
+        meshes = load_obj(path)
+        if self.props.get_bool("flipTexCoords", True):
+            for mesh in meshes:
+                if mesh.texcoords is not None:
+                    mesh.texcoords = np.stack(
+                        [mesh.texcoords[:, 0], 1.0 - mesh.texcoords[:, 1]], axis=-1
+                    )
+        return meshes
+
+
+@register("shape", "ply")
+class PlyShape(_FileShape):
+    def _load(self, path):
+        return load_ply(path)
+
+
+@register("shape", "serialized")
+class SerializedShape(_FileShape):
+    def _load(self, path):
+        return load_serialized(path, self.props.get_int("shapeIndex", 0))
+
+
+@register("shape", "heightfield")
+class HeightfieldShape(_ShapeBase):
+    MAX_RES = 257
+
+    def _mesh(self):
+        props = self.props
+        if "filename" in props:
+            img, _ = read_image(props.resolve_path(props.get_string("filename")))
+            hmap = np.asarray(img[..., 0], np.float32)
+        else:
+            hmap = np.zeros((2, 2), np.float32)
+        hr, wr = hmap.shape
+        hmap = hmap[::max(1, hr // self.MAX_RES), ::max(1, wr // self.MAX_RES)]
+        hr, wr = hmap.shape
+        xs = np.linspace(-1, 1, wr)
+        ys = np.linspace(-1, 1, hr)
+        gx, gy = np.meshgrid(xs, ys)
+        pos = np.stack([gx, gy, hmap * props.get_float("scale", 1.0)], -1).reshape(-1, 3)
+        uv = np.stack([np.tile((xs + 1) / 2, hr), np.repeat((ys + 1) / 2, wr)], -1)
+        # two triangles per cell, cells row by row
+        a = (np.arange(hr - 1)[:, None] * wr + np.arange(wr - 1)[None]).reshape(-1)
+        idx = np.stack([np.stack([a, a + 1, a + wr], -1),
+                        np.stack([a + 1, a + wr + 1, a + wr], -1)], axis=1).reshape(-1, 3)
+        return MeshData(pos.astype(np.float32), idx.astype(np.uint32), None,
+                        uv.astype(np.float32))
+
+
+@register("shape", "shapegroup")
+class ShapeGroup(_ShapeBase):
+    """A container of shapes that instances place (reference
+    src/shapes/shapegroup.cpp); the XML loader fills `children`."""
+
+    def _meshes(self):
+        self.children = []
+        return []
+
+
+@register("shape", "instance")
+class InstanceShape(_ShapeBase):
+    """A placement of a shape group by `toWorld` (reference
+    src/shapes/instance.cpp); the XML loader finds the group among its
+    children."""
+
+    def _meshes(self):
+        self.to_world = self.props.get_transform("toWorld")
+        return []
 
 
 @register("shape", "sphere")

@@ -3,7 +3,9 @@
 Builds nested `Properties`, instantiates plugins through the registry,
 and supports `$param` substitution, `<default>`, `<ref>`, `<include>`,
 `<alias>`, transform chains and `<animation>` keyframe tracks.  Shape
-groups and instances are not ported yet and raise NotImplementedError.
+groups and their instances are collected into `SceneDescription.
+shape_groups` and `.instances`; the builder expands them or builds the
+two-level accelerator.
 """
 
 from __future__ import annotations
@@ -57,6 +59,11 @@ class SceneDescription:
     media: dict = field(default_factory=dict)  # top-level media by id
     ids: dict = field(default_factory=dict)
     path: str = ""
+    # instancing (reference shapegroup.h:34): (group key, Transform) per
+    # instance, and each group's shapes by key; whether they expand or go
+    # through the two-level accelerator is decided at pack time
+    instances: list = field(default_factory=list)
+    shape_groups: dict = field(default_factory=dict)
 
 
 def _parse_float_list(s):
@@ -244,9 +251,7 @@ class SceneLoader:
             self._finalize_sensor(obj)
             scene.sensor = obj
         elif cat == "shape":
-            self._attach_shape_children(obj)
-            scene.shapes.append(obj.instance)
-            self._attach_nested_sensor(scene, obj)
+            self._finalize_shape(scene, obj)
         elif cat == "emitter":
             scene.emitters.append(obj.record)
         elif cat == "medium":
@@ -271,6 +276,35 @@ class SceneLoader:
             sensor_obj.record.film.width, sensor_obj.record.film.height
         )
 
+    def _finalize_shape(self, scene, shape_obj):
+        """A top-level shape joins the scene.  A shape group is a container
+        only (reference shapegroup.cpp): its shapes join the scene through
+        the instances that reference it, attached once per group (reference
+        xml_loader.py:293-322)."""
+        from mitsuba_tpu_torch.scene.shapes import InstanceShape, ShapeGroup
+
+        if isinstance(shape_obj, ShapeGroup):
+            shape_obj.children = [child for _, child in shape_obj.props.children
+                                  if hasattr(child, "instance")]
+            return
+        if isinstance(shape_obj, InstanceShape):
+            group = None
+            for _, child in shape_obj.props.children:
+                if isinstance(child, ShapeGroup):
+                    group = child
+            if group is None:
+                raise ValueError("instance: requires a shapegroup reference")
+            key = id(group)
+            if key not in scene.shape_groups:
+                for child in group.children:
+                    self._attach_shape_children(child)
+                scene.shape_groups[key] = [child.instance for child in group.children]
+            scene.instances.append((key, shape_obj.to_world))
+            return
+        self._attach_shape_children(shape_obj)
+        scene.shapes.append(shape_obj.instance)
+        self._attach_nested_sensor(scene, shape_obj)
+
     def _attach_nested_sensor(self, scene, shape_obj):
         """A sensor nested in a shape is attached to it: the
         irradiancemeter inherits its parent shape (reference
@@ -289,7 +323,6 @@ class SceneLoader:
         from mitsuba_tpu_torch.emitter.plugins import EmitterRecord
         from mitsuba_tpu_torch.medium.plugins import MediumRecord
         from mitsuba_tpu_torch.scene.subsurface import SubsurfaceRecord
-        from mitsuba_tpu_torch.sensor.plugins import SensorRecord
 
         inst = shape_obj.instance
         for name, child in shape_obj.props.children:
@@ -307,12 +340,8 @@ class SceneLoader:
                     inst.interior_medium = rec
                 elif name == "exterior":
                     inst.exterior_medium = rec
-            elif inst.deform_frames and getattr(child, "instance", None) is not None:
-                continue  # a deformable's keyframe shapes
-            elif not isinstance(rec, SensorRecord):  # sensors: _attach_nested_sensor
-                raise NotImplementedError(
-                    f"shape child {type(child).__name__} not yet ported"
-                )
+            # other children (a deformable's keyframe shapes, a nested
+            # sensor: _attach_nested_sensor) attach nothing here
 
     def _plugin(self, el):
         tag = el.tag

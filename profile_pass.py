@@ -3,7 +3,7 @@
 
     python3 profile_pass.py [dense|bigmesh|cbox|matpreview|matpreview-const|smoke|glass|door|
                              glass-sppm|smoke-pm|cbox-vpl|dipole|hairball|hairball-exact|
-                             textured|dispersion|motion|fiber|fiber-microflake]
+                             textured|dispersion|motion|fiber|fiber-microflake|instanced]
                             [--hits-only] [--mutations N]
 
 For scenes/bunny.xml's configuration on the dense stand-in (870,480
@@ -48,7 +48,11 @@ among the stages (MOTION_STAGES); or for FIBER (`fiber_xml`: scenes/
 smoke.xml's medium with the kkay, or for fiber-microflake the microflake,
 phase on the orientation volume that `fiber_assets` writes into
 build/fiber_assets; 256x256, 32 samples per pass), with the orientation
-lookup and the fiber arms among the stages (FIBER_STAGES):
+lookup and the fiber arms among the stages (FIBER_STAGES); or for
+INSTANCED (tests/torch_meshes.py `instanced_xml`: 1,024 instances of two
+stand-in groups through the two-level accelerator, 512x512, 4 samples per
+pass), with the instance route's functions (accel/tlas.py) among the
+stages (INSTANCE_STAGES):
 
 1. builds the kernels, packs the scene on the card, runs one warm-up pass
    and three timed passes (host clock around work that ends in a
@@ -83,7 +87,9 @@ lookup and the fiber arms among the stages (FIBER_STAGES):
    closest hit, and against each side's prim for its t and barycentrics
    (u, v, w = 1 - u - v; a hit near an edge has one of them near 0).
 
-`--hits-only` skips 1 and 2.
+`--hits-only` skips 1 and 2.  The last line printed is "profile_pass
+<scene>: done in <s> s"; an error goes to standard error, with a non-zero
+exit.
 
 Nothing of JAX is imported.  Exits non-zero without a CUDA device.
 """
@@ -167,13 +173,22 @@ MOTION_STAGES = STAGES + (
 FIBER_STAGES = SMOKE_STAGES + (
     ("mitsuba_tpu_torch.medium.eval", ("_orient_at", "_kkay_eval", "_microflake_eval")),
 )
+# the bounce loop's stages with the instance route (INSTANCED): the pair
+# path's instance lists and rounds, and the loop path that finishes the
+# rays past K_INST boxes, nested inside intersect and occluded
+INSTANCE_STAGES = STAGES + (
+    ("mitsuba_tpu_torch.accel.tlas",
+     ("inst_closest_pairs", "inst_any_pairs", "_inst_lists", "inst_closest", "inst_any")),
+    ("mitsuba_tpu_torch.accel.pairs", ("pair_closest", "pair_any")),
+)
 # film size and samples per pass of each scene (door: one step, one
 # mutation per pixel; the photon mappers: one iteration; dipole: its
 # film's width, and render's chunk of its 64 spp)
 RES_SPP = {"smoke": (256, 32), "glass": (256, 2), "door": (256, 1), "glass-sppm": (256, 1),
            "smoke-pm": (256, 1), "cbox-vpl": (512, 1), "dipole": (512, 10),
            "hairball": (512, 10), "hairball-exact": (512, 2), "dispersion": (256, 32),
-           "motion": (512, 8), "fiber": (256, 32), "fiber-microflake": (256, 32)}
+           "motion": (512, 8), "fiber": (256, 32), "fiber-microflake": (256, 32),
+           "instanced": (512, 1)}
 PHOTON_MODES = ("glass-sppm", "smoke-pm", "cbox-vpl")
 
 
@@ -285,7 +300,9 @@ def bdpt_pass(scene, pack, spp, dev):
 
 def staged(stages):
     """Wrap each function of `stages` in a record_function range
-    "stage:<name>"; returns a function that undoes it."""
+    "stage:<name>"; returns a function that undoes it.  While wrapped, a
+    function's counters count on the wrapper."""
+    import functools
     import importlib
 
     import torch
@@ -296,6 +313,9 @@ def staged(stages):
         for name in names:
             fn = getattr(mod, name)
 
+            # functools.wraps copies the function's counters (launches,
+            # rays), which it updates through its module's name
+            @functools.wraps(fn)
             def wrapped(*a, _fn=fn, _range=f"stage:{name}", **kw):
                 with torch.profiler.record_function(_range):
                     return _fn(*a, **kw)
@@ -311,11 +331,20 @@ def main():
                     choices=("dense", "bigmesh", "cbox", "matpreview", "matpreview-const",
                              "smoke", "glass", "door", "dipole", "hairball",
                              "hairball-exact", "textured", "dispersion", "motion", "fiber",
-                             "fiber-microflake") + PHOTON_MODES)
+                             "fiber-microflake", "instanced") + PHOTON_MODES)
     ap.add_argument("--hits-only", action="store_true")
     ap.add_argument("--mutations", type=int, default=32,
                     help="door: the mutations per pixel the steps go on to")
     args = ap.parse_args()
+    t_start = time.time()
+    rc = run(args)
+    if rc == 0:
+        print(f"profile_pass {args.scene}: done in {time.time() - t_start:.1f} s", flush=True)
+    return rc
+
+
+def run(args):
+    """Steps 1 to 3 for args.scene; returns the exit code."""
 
     import torch
 
@@ -343,6 +372,7 @@ def main():
         fiber_xml,
         glass_xml,
         hairball_xml,
+        instanced_xml,
         matpreview_const_xml,
         motion_xml,
         smoke_xml,
@@ -382,6 +412,14 @@ def main():
             feature_assets(os.path.join(HERE, "build", "feature_assets")), RES, RES, SPP))
     elif args.scene == "motion":
         scene = mt.load_scene_string(motion_xml(res, res, 16))
+    elif args.scene == "instanced":
+        from chip_smoke import INSTANCED_B_PLY, INSTANCED_N, STANDIN_PLY
+
+        os.makedirs(os.path.dirname(STANDIN_PLY), exist_ok=True)
+        write_ply(STANDIN_PLY, *bunny_standin(seed=0))
+        write_ply(INSTANCED_B_PLY, *bunny_standin(seed=1, n_phi=132, n_theta=66))
+        scene = mt.load_scene_string(instanced_xml(STANDIN_PLY, INSTANCED_B_PLY, res, res, spp,
+                                                   n=INSTANCED_N))
     elif args.scene.startswith("fiber"):
         scene = mt.load_scene_string(fiber_xml(
             "microflake" if args.scene == "fiber-microflake" else "kkay",
@@ -435,6 +473,7 @@ def main():
                              "dipole": SSS_STAGES, "hairball-exact": CYL_STAGES,
                              "textured": TEX_STAGES, "motion": MOTION_STAGES,
                              "fiber": FIBER_STAGES, "fiber-microflake": FIBER_STAGES,
+                             "instanced": INSTANCE_STAGES,
                              **dict.fromkeys(PHOTON_MODES, PHOTON_STAGES)}.get(args.scene, STAGES),
                             args.mutations)
         if args.scene == "door":
@@ -450,7 +489,7 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
     Returns the render pass."""
     import torch
 
-    from chip_smoke import device_events, device_us
+    from chip_smoke import stage_summary
 
     rec = scene.sensor.record
     if scene.integrator.kind == "bdpt":
@@ -500,40 +539,40 @@ def profile_passes(scene, pack, dev, make_render_pass, new_film, pairs, wrappers
         unstage()
     launches = {k: fn.launches for k, fn in wrappers.items()}
     events = volpath_trace.events - events  # volpath's event loop (0 for path)
-    # on the device: kernels, and the GPU-side spans of the stage ranges
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("stage:")]
-    dev_us = sum(device_us(e) for e in kernels)
-    n_k = sum(e.count for e in kernels)
-    print(f"profiled pass: wall {wall:.4f} s, {n} rays; device kernel time {dev_us / 1e3:.3f} ms, "
-          f"busy share {dev_us / 1e6 / wall:.4f}; {n_k} kernels (raw device events: "
-          f"{'%.3f ms, %d' % device_events(prof)})", flush=True)
-    kernels.sort(key=device_us, reverse=True)
+    # on the device: kernels by name, and the kernels launched inside each
+    # stage's ranges
+    st, by_name, dev_ms, n_k = stage_summary(prof)
+    print(f"profiled pass: wall {wall:.4f} s, {n} rays; device kernel time {dev_ms:.3f} ms, "
+          f"busy share {dev_ms / 1e3 / wall:.4f}; {n_k} kernels", flush=True)
+    kernels = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
 
-    def show(evts):
-        for e in evts:
-            print(f"  {device_us(e) / 1e3:10.3f} ms {100 * device_us(e) / max(dev_us, 1):6.2f} % "
-                  f"{e.count:7d} x  {e.key[:110]}", flush=True)
+    def show(rows):
+        for name, (ms, count) in rows:
+            print(f"  {ms:10.3f} ms {100 * ms / max(dev_ms, 1e-9):6.2f} % {count:7d} x  "
+                  f"{name[:110]}", flush=True)
 
     show(kernels[:TOP])
     # the port's kernels live in the anonymous namespaces of csrc/*.cu
     print("the port's own kernels:", flush=True)
-    show([e for e in kernels if e.key.startswith(("(anonymous namespace)::", "void (anonymous"))])
+    show([kv for kv in kernels if kv[0].startswith(("(anonymous namespace)::",
+                                                     "void (anonymous"))])
     print(f"kernel launches in the profiled pass: {launches}", flush=True)
     if events:
         print(f"volpath events in the profiled pass: {events}, {n_k / events:.1f} kernels per "
               f"event", flush=True)
-    stages = [e for e in prof.key_averages() if e.key.startswith("stage:")
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    stages.sort(key=lambda e: e.cpu_time_total, reverse=True)
     print("by stage (host ms inside the range, device ms of the kernels launched in it, calls):",
           flush=True)
-    for e in stages:
-        dev_total = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-        print(f"  {e.key[6:]:18s} host {e.cpu_time_total / 1e3:10.3f} ms  device "
-              f"{dev_total / 1e3:10.3f} ms  {e.count:6d} calls", flush=True)
+    for name, (s_dev, calls, s_host) in sorted(st.items(), key=lambda kv: -kv[1][2]):
+        print(f"  {name:18s} host {s_host:10.3f} ms  device {s_dev:10.3f} ms  {calls:6d} calls",
+              flush=True)
     ov = {k: pairs.pair_closest.__dict__.get(k) for k in ("rays", "overflow_rays")}
     print(f"pair_closest counters over the run: {ov}", flush=True)
+    if pack.meta.get("has_instances", False):
+        from mitsuba_tpu_torch.accel import tlas
+
+        ov = {fn.__name__: (fn.overflow_rays, fn.rays)
+              for fn in (tlas.inst_closest_pairs, tlas.inst_any_pairs)}
+        print(f"instance lists past K_INST over the run (rays, of): {ov}", flush=True)
     return rp
 
 

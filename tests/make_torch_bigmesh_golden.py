@@ -114,6 +114,20 @@ the matpreview variant.
   and torch_fiber_slab_photonmapper_16_4.npy, the fiber slab
   (`fiber_slab_xml`) under bdpt and the photon mapper (2^12 photons) at
   16x16, maxDepth 4.
+* the geometry extras, seed 0, 32x32, 4 spp: torch_instancing_32_4.npy,
+  tests/test_instancing.py's scene (`instancing_xml`: three instances of
+  a card group) with its instances copied into plain rows, and
+  torch_instancing_tlas_32_4.npy, the same through the two-level
+  accelerator (MTS_INSTANCE_EXPAND_MAX=0; the JAX package's loop path on
+  the CPU); torch_instancing_two_group_32_4.npy, `instancing_two_group_xml`
+  (a second, bump-mapped and textured group, one instance scaled
+  unevenly) through the accelerator; torch_shapes_gallery_32_4.npy,
+  `shapes_gallery_xml` (disk, obj, serialized, heightfield over the
+  files `shape_assets` and `feature_assets` write into
+  build/feature_assets); torch_bvh_walk_32_4.npy, scenes/bunny.xml's
+  configuration on `bvh_walk_mesh` (3,968 triangles) with the cluster
+  budget lowered in the JAX package (`cluster_budget`), so that it packs
+  no cluster tables and walks its BVH.
 
     JAX_PLATFORMS=cpu python -m tests.make_torch_bigmesh_golden [NAME ...]
 
@@ -173,17 +187,22 @@ from tests.torch_meshes import (
     fiber_slab_xml,
     fiber_xml,
     geom_xml,
+    bvh_walk_mesh,
     glass_slab_motion_xml,
     glass_manifold_xml,
     glass_xml,
     hairball_xml,
     homog_slab_xml,
+    instancing_two_group_xml,
+    instancing_xml,
     matpreview_const_xml,
     motion_big_xml,
     motion_vectors_xml,
     motion_xml,
     moving_card_xml,
     sensor_xml,
+    shape_assets,
+    shapes_gallery_xml,
     sky_sun_xml,
     smoke_xml,
     textured_xml,
@@ -222,6 +241,39 @@ def _feature(make):
     return xml
 
 
+def _shapes(make):
+    """An XML maker over the feature and shape assets, written first."""
+    def xml():
+        return make(shape_assets(feature_assets(FEATURE_ASSETS)))
+    return xml
+
+
+BVH_WALK_PLY = os.path.join(ROOT, "build", "bvh_walk.ply")
+# a cluster budget below bvh_walk_mesh's 46 clusters of 128
+BVH_WALK_BUDGET = 1000
+
+
+def _bvh_walk():
+    os.makedirs(os.path.dirname(BVH_WALK_PLY), exist_ok=True)
+    write_ply(BVH_WALK_PLY, *bvh_walk_mesh())
+    return bunny_scene_xml(BVH_WALK_PLY, 32, 32)
+
+
+@contextlib.contextmanager
+def cluster_budget(n_bytes):
+    """Within the block the JAX package packs cluster tables only up to
+    n_bytes (its CLUSTER_HBM_MAX; None leaves it)."""
+    from mitsuba_tpu.accel import clusters as jcl
+
+    saved = jcl.CLUSTER_HBM_MAX
+    if n_bytes is not None:
+        jcl.CLUSTER_HBM_MAX = n_bytes
+    try:
+        yield
+    finally:
+        jcl.CLUSTER_HBM_MAX = saved
+
+
 @contextlib.contextmanager
 def texture_filter(name):
     """Within the block the JAX package filters texture footprints with
@@ -258,8 +310,8 @@ def reference_pair_traversal():
 
 
 # name -> (golden, the scene's XML, [traced through the pair pipeline,
-# [spp, [environment settings for the render]]]); 64x64 at 16 spp unless
-# said otherwise
+# [spp, [environment settings for the render, [the JAX package's cluster
+# budget]]]]); 64x64 at 16 spp unless said otherwise
 GOLDENS = {
     "bigmesh": (os.path.join(ROOT, "tests", "golden", "torch_bigmesh_64_16.npy"),
                 _standin_xml(bunny_standin, os.path.join(ROOT, "build", "bunny_standin.ply"))),
@@ -386,6 +438,18 @@ GOLDENS = {
                                              "torch_fiber_slab_photonmapper_16_4.npy"),
                                 _fiber(lambda d: fiber_slab_xml("photonmapper", d)), True, 4,
                                 {"MTS_SPPM_PHOTONS": "4096"}),
+    "instancing": (os.path.join(ROOT, "tests", "golden", "torch_instancing_32_4.npy"),
+                   instancing_xml, False, 4),
+    "instancing_tlas": (os.path.join(ROOT, "tests", "golden", "torch_instancing_tlas_32_4.npy"),
+                        instancing_xml, False, 4, {"MTS_INSTANCE_EXPAND_MAX": "0"}),
+    "instancing_two_group": (os.path.join(ROOT, "tests", "golden",
+                                          "torch_instancing_two_group_32_4.npy"),
+                             _feature(instancing_two_group_xml), False, 4,
+                             {"MTS_INSTANCE_EXPAND_MAX": "0"}),
+    "shapes_gallery": (os.path.join(ROOT, "tests", "golden", "torch_shapes_gallery_32_4.npy"),
+                       _shapes(shapes_gallery_xml), False, 4),
+    "bvh_walk": (os.path.join(ROOT, "tests", "golden", "torch_bvh_walk_32_4.npy"),
+                 _bvh_walk, False, 4, {}, BVH_WALK_BUDGET),
 }
 
 
@@ -398,14 +462,14 @@ def main(names):
 
     for name in names:
         golden, make_xml, *rest = GOLDENS[name]
-        pairs, spp, env = (rest + [False, 16, {}][len(rest):])[:3]
+        pairs, spp, env, budget = (rest + [False, 16, {}, None][len(rest):])[:4]
         t0 = time.time()
         scene = load_scene_string(make_xml())
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
             with reference_pair_traversal() if pairs else contextlib.nullcontext(), \
-                    texture_filter(env.get("MTS_TEX_FILTER", "feline")):
+                    texture_filter(env.get("MTS_TEX_FILTER", "feline")), cluster_budget(budget):
                 img = np.asarray(mitsuba_tpu.render(scene, spp=spp, seed=0), np.float32)
         finally:
             for k, v in saved.items():

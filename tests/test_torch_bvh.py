@@ -1,9 +1,13 @@
 """The port's big-mesh host side against the reference: the PLY reader,
 the BVH builders and their octant layouts, the cluster cut and tables,
 the whole `pack_scene` of a PLY mesh (all exact), and the stackless BVH
-walks `_bvh_traverse` / `_bvh_traverse_any` (the references the pair
-pipeline is held to; hit masks and prims equal but for exact-t ties, t at
-rtol 1e-4 as in tests/test_pairs.py, u/v at rtol 1e-3)."""
+walks `_bvh_traverse` / `_bvh_traverse_any` (hit masks and prims equal
+but for exact-t ties, t at rtol 1e-4 as in tests/test_pairs.py, u/v at
+rtol 1e-3); then the render route past the cluster budget (both
+packages' budgets lowered): packs without cluster tables, the golden,
+and `sort=True` equal to `sort=False` lane for lane."""
+
+import os
 
 import numpy as np
 import pytest
@@ -27,7 +31,16 @@ from mitsuba_tpu_torch.scene.builder import (
     pack_scene,
 )
 from mitsuba_tpu_torch.scene.xml_loader import load_scene_string
-from torch_meshes import bunny_scene_xml, bunny_standin, uv_sphere, write_ply
+from torch_meshes import (
+    GOLDEN_GATES,
+    ROOT,
+    bunny_scene_xml,
+    bunny_standin,
+    bvh_walk_mesh,
+    tm_rmse,
+    uv_sphere,
+    write_ply,
+)
 
 torch.set_num_threads(1)
 
@@ -163,3 +176,70 @@ def test_bvh_traverse_matches_reference(ply_packs):
     occ = tis._bvh_traverse_any(tp, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_max))
     assert 0.05 < occ_ref.mean() < 0.95
     np.testing.assert_array_equal(occ.numpy(), occ_ref)
+
+
+# ---- the BVH route past the cluster budget ----------------------------------
+
+@pytest.fixture(scope="module")
+def walk_packs(tmp_path_factory):
+    """scenes/bunny.xml's configuration on bvh_walk_mesh (3,968 triangles,
+    46 clusters) with the cluster budget lowered in both packages below
+    its clusters, so that neither packs cluster tables; and the XML."""
+    path = str(tmp_path_factory.mktemp("walk") / "walk.ply")
+    write_ply(path, *bvh_walk_mesh())
+    xml = bunny_scene_xml(path, 32, 32)
+    saved = jcl.CLUSTER_HBM_MAX, tcl.CLUSTER_HBM_MAX
+    jcl.CLUSTER_HBM_MAX = tcl.CLUSTER_HBM_MAX = 1000
+    try:
+        yield pack_scene(load_scene_string(xml), "cpu"), jpack_scene(jload_string(xml)), xml
+    finally:
+        jcl.CLUSTER_HBM_MAX, tcl.CLUSTER_HBM_MAX = saved
+
+
+def test_bvh_route_pack(walk_packs):
+    """No cluster tables in either pack; the BVH, its node rows and the
+    triangle rows equal."""
+    tp, jp, _ = walk_packs
+    assert tp.meta["use_bvh"] and jp.meta["use_bvh"]
+    assert tp.meta.get("n_clusters", 0) == jp.meta.get("n_clusters", 0) == 0
+    assert "cl_tri" not in tp.arrays and "cl_tri" not in jp.arrays
+    for k in ("bvh_nodes", "tri9", "tri_v0", "tri_e1", "tri_e2", "tri_s"):
+        np.testing.assert_array_equal(tp.arrays[k].numpy(), np.asarray(jp.arrays[k]), err_msg=k)
+    assert tp.meta["bvh_n_layouts"] == jp.meta["bvh_n_layouts"]
+
+
+def test_bvh_route_golden(walk_packs):
+    """The render walks the BVH (the pair pipeline never runs), at the
+    golden's gate."""
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.accel import pairs
+
+    tp, _, xml = walk_packs
+    before = pairs.pair_closest.rays
+    img = mt.render(load_scene_string(xml), spp=4, seed=0, device="cpu", pack=tp)
+    assert pairs.pair_closest.rays == before
+    golden = "torch_bvh_walk_32_4.npy"
+    gold = np.load(os.path.join(ROOT, "tests", "golden", golden))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert tm_rmse(img, gold) < GOLDEN_GATES[golden]
+
+
+@pytest.mark.parametrize("chunk", [1 << 10, 1 << 15])
+def test_bvh_route_sort_equal(walk_packs, monkeypatch, chunk):
+    """intersect / occluded with sort=True (coherent chunks of BVH_CHUNK
+    rays, the last padded at t_max 0) equal sort=False lane for lane, and
+    the reference's walk."""
+    tp, jp, _ = walk_packs
+    monkeypatch.setattr(tis, "BVH_CHUNK", chunk)
+    o, d = _rays(5000, 12)
+    t_max = np.random.default_rng(13).uniform(0.02, 0.3, 5000).astype(np.float32)
+    to, td, tm = torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_max)
+    a, b = tis.intersect(tp, to, td), tis.intersect(tp, to, td, sort=True)
+    for x, y in zip((a.t, a.prim, a.u, a.v), (b.t, b.prim, b.u, b.v)):
+        assert torch.equal(x, y)
+    check_closest(jis._bvh_traverse(jp, o, d, np.float32(np.inf)),
+                  [x.numpy() for x in (b.t, b.prim, b.u, b.v)])
+    occ = tis.occluded(tp, to, td, tm, sort=True)
+    assert torch.equal(occ, tis.occluded(tp, to, td, tm))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jis._bvh_traverse_any(jp, o, d, t_max)))
+    assert 0.05 < occ.float().mean() < 0.95

@@ -1907,3 +1907,109 @@ def test_generate_rays_on_card_matches_cpu(dev, name):
     o_ref, d_ref = generate_rays(rec.pack(24, 24, torch.device("cpu")), pos01, u)
     np.testing.assert_allclose(o.cpu().numpy(), o_ref.numpy(), rtol=0, atol=2e-6)
     np.testing.assert_allclose(d.cpu().numpy(), d_ref.numpy(), rtol=0, atol=2e-6)
+
+
+@pytest.fixture(scope="module")
+def instanced_small(tmp_path_factory):
+    """INSTANCED's configuration at 8 x 8 instances and 128x128
+    (tests/torch_meshes.py instanced_xml), packed on the card through the
+    two-level accelerator."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mitsuba_tpu_torch as mt
+    from torch_meshes import instanced_xml
+
+    d = tmp_path_factory.mktemp("instanced")
+    a, b = str(d / "a.ply"), str(d / "b.ply")
+    write_ply(a, *bunny_standin(seed=0))
+    write_ply(b, *bunny_standin(seed=1, n_phi=132, n_theta=66))
+    scene = mt.load_scene_string(instanced_xml(a, b, 128, 128, 4, n=8))
+    pack = pack_scene(scene, torch.device("cuda"))
+    assert pack.meta["has_instances"] and pack.meta["inst_pairs_ok"]
+    return scene, pack
+
+
+def test_instanced_batches_equal_plain(dev, instanced_small):
+    """K3/K4 (closest; closest and any on the NEE) and K7/K8 bit-equal to
+    plain on the template-space batches the instance pair path hands
+    accel/pairs.py (chip_smoke.instanced_segments), and K1/K2 on the
+    static rows."""
+    from chip_smoke import instanced_queries, instanced_segments
+    from mitsuba_tpu_torch.accel import intersect as tis
+    from mitsuba_tpu_torch.accel import tlas
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.integrator import path as tpath
+    from mitsuba_tpu_torch.renderer import make_render_pass
+
+    scene, pack = instanced_small
+    queries = instanced_queries(tpath, make_render_pass, new_film, scene, pack, dev)
+    instanced_segments(pairs, pb, pk, tlas, tis, queries, scene, pack, dev, [], "INSTANCED 8x8")
+
+
+def test_instanced_pair_path_equals_loop_path(dev, instanced_small):
+    """The instance pair path against the loop path on the camera rays and
+    the first NEE (chip_smoke.instanced_pair_vs_loop)."""
+    from chip_smoke import instanced_pair_vs_loop, instanced_queries
+    from mitsuba_tpu_torch.accel import intersect as tis
+    from mitsuba_tpu_torch.accel import tlas
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.integrator import path as tpath
+    from mitsuba_tpu_torch.renderer import make_render_pass
+
+    scene, pack = instanced_small
+    queries = instanced_queries(tpath, make_render_pass, new_film, scene, pack, dev)
+    instanced_pair_vs_loop(tis, tlas, queries, pack, "INSTANCED 8x8", "card")
+
+
+@pytest.mark.parametrize("name", [
+    "torch_instancing_32_4.npy", "torch_instancing_tlas_32_4.npy",
+    "torch_instancing_two_group_32_4.npy", "torch_shapes_gallery_32_4.npy",
+    "torch_bvh_walk_32_4.npy"])
+def test_extras_goldens_on_card(dev, name):
+    """The geometry extras' goldens on the card through render
+    (chip_smoke.extras_goldens renders them all; here each alone)."""
+    import os
+
+    import mitsuba_tpu_torch as mt
+    from chip_smoke import BVH_WALK_BUDGET, HERE
+    from mitsuba_tpu_torch.accel import clusters
+    from torch_meshes import (
+        GOLDEN_GATES,
+        bvh_walk_mesh,
+        feature_assets,
+        instancing_two_group_xml,
+        instancing_xml,
+        shape_assets,
+        shapes_gallery_xml,
+        tm_rmse,
+    )
+
+    fd = feature_assets(os.path.join(HERE, "build", "feature_assets"))
+    walk = os.path.join(HERE, "build", "bvh_walk.ply")
+    write_ply(walk, *bvh_walk_mesh())
+    xml, env, budget = {
+        "torch_instancing_32_4.npy": (instancing_xml(), {}, None),
+        "torch_instancing_tlas_32_4.npy": (instancing_xml(), {"MTS_INSTANCE_EXPAND_MAX": "0"},
+                                           None),
+        "torch_instancing_two_group_32_4.npy": (instancing_two_group_xml(fd),
+                                                {"MTS_INSTANCE_EXPAND_MAX": "0"}, None),
+        "torch_shapes_gallery_32_4.npy": (shapes_gallery_xml(shape_assets(fd)), {}, None),
+        "torch_bvh_walk_32_4.npy": (bunny_scene_xml(walk, 32, 32), {}, BVH_WALK_BUDGET),
+    }[name]
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    saved_budget = clusters.CLUSTER_HBM_MAX
+    if budget is not None:
+        clusters.CLUSTER_HBM_MAX = budget
+    try:
+        img = mt.render(mt.load_scene_string(xml), spp=4, seed=0, device=dev)
+    finally:
+        clusters.CLUSTER_HBM_MAX = saved_budget
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    gold = np.load(os.path.join(HERE, "tests", "golden", name))
+    assert img.shape == gold.shape and np.isfinite(img).all()
+    assert tm_rmse(img, gold) < GOLDEN_GATES[name]

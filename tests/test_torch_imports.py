@@ -360,3 +360,43 @@ def test_animation_element_loads():
     assert [t for t, _ in track] == [0.0, 1.0]
     assert track[0][1].m[0, 3] == 1.0 and track[1][1].m[0, 3] == 2.0
     assert scene.shapes[0].meshes[0].positions[:, 0].min() == 0.0  # keyframe 0: x + 1
+
+
+def test_geometry_extras_modules_are_checked():
+    """The modules of the geometry extras (the two-level accelerator, the
+    disk, obj, serialized, heightfield, shapegroup and instance shapes,
+    the mesh readers and writer, the loader's groups) are among the
+    sources checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("accel/tlas.py", "accel/intersect.py", "scene/shapes.py", "scene/xml_loader.py",
+                "scene/builder.py", "io/meshes.py", "accel/clusters.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("mitsuba_tpu_torch.accel.tlas",
+     ("_world_box", "build_instance_accel", "_rebase", "inst_closest", "inst_any", "_group_view",
+      "_inst_lists_tile", "_inst_lists", "inst_closest_pairs", "inst_any_pairs")),
+    ("mitsuba_tpu_torch.scene.shapes",
+     ("DiskShape", "ObjShape", "SerializedShape", "PlyShape", "HeightfieldShape", "ShapeGroup",
+      "InstanceShape")),
+    ("mitsuba_tpu_torch.io.meshes", ("load_obj", "load_serialized", "save_serialized")),
+    ("mitsuba_tpu_torch.accel.intersect",
+     ("_ray_sort_key", "_sorted_chunked", "_use_inst_pairs", "_bvh_traverse",
+      "_bvh_traverse_any")),
+    ("mitsuba_tpu_torch.scene.builder", ("_instances",)),
+])
+def test_geometry_extras_modules_stand_alone(mod, names):
+    """The slice's modules import nothing of JAX or of the JAX package and
+    keep their own copies of the reference's code; every shape plugin of
+    the reference is registered."""
+    import importlib
+
+    from mitsuba_tpu_torch.scene import registry
+
+    m = importlib.import_module(mod)
+    assert not [r for r, _ in _imported_roots(m.__file__) if r in FORBIDDEN]
+    for name in names:
+        assert getattr(m, name).__module__ == mod, name
+    assert {"disk", "obj", "serialized", "heightfield", "shapegroup", "instance"} <= set(
+        registry.names("shape"))

@@ -120,17 +120,15 @@ def test_srgb_reflectance_within_one_ulp():
 @pytest.mark.parametrize(
     "snippet",
     [
-        '<shape type="disk"/>',
-        '<shape type="heightfield"/>',
-        '<shape type="obj"/>',
-        '<shape type="serialized"/>',
-        '<shape type="shapegroup"/>',
+        '<film type="ldrfilm"/>',
+        '<film type="tiledhdrfilm"/>',
+        '<film type="mfilm"/>',
     ],
 )
 def test_unported_features_raise(snippet):
     xml = (
-        '<scene version="0.5.0"><sensor type="perspective"/>'
-        f"{snippet}</scene>"
+        '<scene version="0.5.0"><sensor type="perspective">'
+        f"{snippet}</sensor></scene>"
     )
     with pytest.raises(NotImplementedError, match="not yet ported"):
         load_scene_string(xml)
@@ -138,18 +136,16 @@ def test_unported_features_raise(snippet):
 
 def test_unported_pack_features_raise():
     jp = jpack_scene(jload(CBOX))
-    # use_bvh without cluster tables: the reference's plain BVH walk is
-    # not a ported render path
-    for key, value in (("has_instances", True), ("use_bvh", True), ("present_types", (0, 13))):
+    for key, value in (("present_types", (0, 13)),):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             pack_from_numpy(_jax_np(jp), {**jp.meta, key: value}, "cpu")
 
 
 def test_large_scene_raises(monkeypatch):
     """Above 512 triangles the pack carries a BVH and cluster tables, past
-    DENSE_C clusters too (K5/K6, K9/K10).  Packing raises only where the
-    reference packs no clusters (past its cluster HBM budget) and would
-    walk the BVH with XLA."""
+    DENSE_C clusters too (K5/K6, K9/K10).  Past the cluster budget it packs
+    no cluster tables, as the reference, and raises nothing: intersect
+    walks the BVH."""
     from mitsuba_tpu_torch.accel import clusters, pairs
 
     cubes = "".join(
@@ -165,8 +161,8 @@ def test_large_scene_raises(monkeypatch):
     assert pack_scene(scene, "cpu").meta["n_clusters"] == meta["n_clusters"]
     c, tc = meta["n_clusters"], meta["cluster_tc"]
     monkeypatch.setattr(clusters, "CLUSTER_HBM_MAX", c * tc * 256 - 1)
-    with pytest.raises(NotImplementedError, match="without cluster tables"):
-        pack_scene(scene, "cpu")
+    meta = pack_scene(scene, "cpu").meta
+    assert meta["use_bvh"] and "n_clusters" not in meta
 
 
 def test_unported_texture_kinds_raise():

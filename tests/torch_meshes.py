@@ -1,6 +1,6 @@
 """Seeded test meshes for the port's big-mesh slice (plain numpy; imports
-neither JAX nor torch, so chip_smoke.py can use it on a machine without
-JAX).
+no JAX, so chip_smoke.py can use it on a machine without JAX, and torch
+only through the port's `.serialized` writer in `shape_assets`).
 
 `bunny_standin` stands in for the Stanford bunny of scenes/bunny.xml
 until bunny.ply is in the repository: a UV sphere of the bunny's size
@@ -24,7 +24,12 @@ slice's are at the end: MOTION (`motion_xml`), MOTION_BIG
 (`motion_big_xml`), the motion-vector scenes (`motion_vectors_xml`,
 `glass_slab_motion_xml`), the reference tests' moving cards
 (`moving_card_xml`), FIBER (`fiber_xml` over the volumes `fiber_assets`
-writes) and the fiber slab (`fiber_slab_xml`).
+writes) and the fiber slab (`fiber_slab_xml`).  Last the geometry
+extras': the instancing scenes (`instancing_xml`,
+`instancing_two_group_xml`, INSTANCED: `instanced_xml`), the shapes
+gallery (`shapes_gallery_xml` over the files `shape_assets` writes with
+the port's `.serialized` writer, the one import of the port here), the
+BVH route's mesh (`bvh_walk_mesh`) and BIGBVH (`bigbvh_xml`).
 """
 
 import os
@@ -403,6 +408,17 @@ GOLDEN_GATES = {
     "torch_fiber_microflake_24_4.npy": 2.5e-3,
     "torch_fiber_slab_bdpt_16_4.npy": 2.5e-7,
     "torch_fiber_slab_photonmapper_16_4.npy": 8e-7,
+    # the geometry extras (CPU readings: the instancing scene 1.9e-8 with
+    # its instances copied into rows, through the pair path and through
+    # the loop path; the two-group scene 2.3e-6 (its bump map amplifies a
+    # last place of the partials under the uneven scale); the shapes
+    # gallery 6.3e-8; the BVH walk 1.3e-8).  Each gate is 2-3x its larger
+    # reading.
+    "torch_instancing_32_4.npy": 5e-8,
+    "torch_instancing_tlas_32_4.npy": 5e-8,
+    "torch_instancing_two_group_32_4.npy": 6e-6,
+    "torch_shapes_gallery_32_4.npy": 2e-7,
+    "torch_bvh_walk_32_4.npy": 4e-8,
 }
 
 # the gates on the card where its reading lies far above the CPU's (see
@@ -1554,3 +1570,274 @@ def fiber_slab_xml(integrator, asset_dir, phase="kkay", width=16, height=16, spp
     xml = xml.replace('value="6"/>', f'value="{max_depth}"/>', 1)
     xml = re.sub(r'(name="sampleCount" value=")\d+', rf"\g<1>{spp}", xml, count=1)
     return _fiber_medium(xml, phase, asset_dir, "grid")
+
+
+# ---- the geometry extras: instancing, the file and fan shapes, the BVH
+# walk past the cluster budget ----
+
+_CARD_GROUP = """<shape type="shapegroup" id="grp">
+    <shape type="rectangle">
+      <transform name="toWorld"><scale value="0.4"/><rotate y="1" angle="180"/>
+        <translate y="0.45"/></transform>
+      <bsdf type="diffuse"><rgb name="reflectance" value="0.7, 0.3, 0.2"/></bsdf>
+    </shape>
+  </shape>"""
+
+_CARD_INSTANCES = """<shape type="instance"><ref id="grp"/>
+    <transform name="toWorld"><translate x="-1.1"/></transform></shape>
+  <shape type="instance"><ref id="grp"/>
+    <transform name="toWorld"><rotate y="1" angle="40"/><translate x="0.2" z="0.5"/></transform>
+  </shape>
+  <shape type="instance"><ref id="grp"/>
+    <transform name="toWorld"><scale x="1.6" y="0.7" z="1.0"/><translate x="1.3" z="-0.3"/>
+    </transform></shape>"""
+
+
+def instancing_xml(width=32, height=32, spp=4, groups=None, instances=None, floor=True):
+    """tests/test_instancing.py's scene (path, maxDepth 3): three
+    instances of a one-card group, translated, rotated and scaled
+    unevenly (x 1.6, y 0.7), on a floor under an area light, unless
+    `groups` / `instances` replace its group and instances; without the
+    floor and the light (`floor` false) the instances stand in a constant
+    environment alone."""
+    lights = """<shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="-90"/><scale value="5"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.5, 0.5, 0.5"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="90"/><scale value="1.5"/><translate y="3"/>
+    </transform>
+    <emitter type="area"><rgb name="radiance" value="6, 6, 6"/></emitter>
+  </shape>""" if floor else '<emitter type="constant"><rgb name="radiance" value="1, 1, 1"/></emitter>'
+    return f"""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="3"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="55"/>
+    <transform name="toWorld"><lookat origin="0,1.5,-4" target="0,0.4,0" up="0,1,0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{width}"/>
+      <integer name="height" value="{height}"/><rfilter type="box"/></film>
+  </sensor>
+  {lights}
+  {groups or _CARD_GROUP}
+  {instances or _CARD_INSTANCES}
+</scene>"""
+
+
+def instancing_two_group_xml(asset_dir, width=32, height=32, spp=4):
+    """The instancing scene with a second group, a card under checker.png
+    and a bumpmap of height.pfm (from `feature_assets`), placed twice,
+    once scaled unevenly (x 1.6, y 0.7), beside two of the first group's
+    cards: the partials and normals of a bump-mapped, textured template
+    taken to the world."""
+    tex = f"""<shape type="shapegroup" id="tex">
+    <shape type="rectangle">
+      <transform name="toWorld"><scale value="0.35"/><rotate y="1" angle="180"/>
+        <translate y="0.4"/></transform>
+      <bsdf type="bumpmap"><texture type="scale"><float name="scale" value="6"/>
+        <texture type="bitmap"><string name="filename"
+          value="{os.path.join(asset_dir, 'height.pfm')}"/>
+          <float name="uscale" value="2"/><float name="vscale" value="2"/></texture></texture>
+        <bsdf type="diffuse"><texture name="reflectance" type="bitmap">
+          <string name="filename" value="{os.path.join(asset_dir, 'checker.png')}"/>
+        </texture></bsdf></bsdf>
+    </shape>
+  </shape>"""
+    inst = """<shape type="instance"><ref id="grp"/>
+    <transform name="toWorld"><translate x="-1.2"/></transform></shape>
+  <shape type="instance"><ref id="tex"/>
+    <transform name="toWorld"><rotate y="1" angle="25"/><translate x="-0.3" z="0.4"/>
+    </transform></shape>
+  <shape type="instance"><ref id="tex"/>
+    <transform name="toWorld"><scale x="1.6" y="0.7" z="1.0"/><rotate y="1" angle="-20"/>
+      <translate x="0.7" z="-0.2"/></transform></shape>
+  <shape type="instance"><ref id="grp"/>
+    <transform name="toWorld"><rotate y="1" angle="-35"/><translate x="1.5" z="0.6"/>
+    </transform></shape>"""
+    return instancing_xml(width, height, spp, _CARD_GROUP + "\n  " + tex, inst)
+
+
+def shape_assets(directory, seed=0):
+    """The shapes gallery's files, drawn from np.random.default_rng(seed):
+    gallery.obj (a 4 x 3 grid of quads, displaced, with uv and normals, in
+    two `usemtl` groups, the second one's faces given by negative
+    indices), gallery.serialized (two meshes: a 12 x 6 sphere with
+    normals and uv, and a bent quad strip with colours and face normals;
+    the port's io/meshes.py save_serialized writes it) and bumps.pfm (a
+    48 x 600 height image: its 600 columns, past twice the heightfield's
+    257 texels, are strided by 2).  Returns the directory."""
+    from mitsuba_tpu_torch.io.meshes import MeshData, save_serialized
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    gx, gy = np.meshgrid(np.linspace(-1, 1, 5), np.linspace(-1, 1, 4))
+    pos = np.stack([gx, gy, 0.15 * rng.standard_normal(gx.shape)], -1).reshape(-1, 3)
+    uv = np.stack([(gx + 1) / 2, (gy + 1) / 2], -1).reshape(-1, 2)
+    nrm = pos * [0.3, 0.3, 0.0] + [0.0, 0.0, 1.0]
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    lines = ["# the shapes gallery's mesh"]
+    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in pos]
+    lines += [f"vt {u:.6f} {v:.6f}" for u, v in uv]
+    lines += [f"vn {x:.6f} {y:.6f} {z:.6f}" for x, y, z in nrm]
+    n = len(pos)
+    for row in range(3):
+        if row == 2:
+            lines.append("usemtl second")
+        for col in range(4):
+            a = row * 5 + col + 1
+            quad = [a, a + 1, a + 6, a + 5]
+            if row == 2:  # negative (relative) indices
+                quad = [q - n - 1 for q in quad]
+            lines.append("f " + " ".join(f"{q}/{q}/{q}" for q in quad))
+    with open(os.path.join(directory, "gallery.obj"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    pos_s, idx_s, uv_s = lat_long_sphere(12, 6)
+    strip = np.array([[x, y, 0.3 * x * x] for x in np.linspace(-1, 1, 4) for y in (-0.5, 0.5)],
+                     np.float32)
+    strip_idx = np.array([[2 * i, 2 * i + 2, 2 * i + 3] for i in range(3)]
+                         + [[2 * i, 2 * i + 3, 2 * i + 1] for i in range(3)], np.uint32)
+    save_serialized(os.path.join(directory, "gallery.serialized"), [
+        MeshData(pos_s, idx_s, pos_s.copy(), uv_s, name="sphere"),
+        MeshData(strip, strip_idx, colors=rng.uniform(0, 1, (8, 3)).astype(np.float32),
+                 face_normals=True, name="strip"),
+    ])
+    yy, xx = np.mgrid[0:48, 0:600] / np.array([[[6.0]], [[40.0]]])
+    height = 0.5 + 0.25 * np.sin(xx) * np.cos(1.3 * yy) + 0.05 * rng.random((48, 600))
+    write_pfm(os.path.join(directory, "bumps.pfm"), np.repeat(height[..., None], 3, -1))
+    return directory
+
+
+def shapes_gallery_xml(asset_dir, width=32, height=32, spp=4, flip_tex=True, face_normals=False):
+    """The shapes gallery (path, maxDepth 3, a constant environment and an
+    area light): a disk, gallery.obj (under checker.png, so its uv show;
+    `flipTexCoords` and `faceNormals` as given), mesh 1 of
+    gallery.serialized (and mesh 0 by default index), and the heightfield
+    of bumps.pfm, scaled by 0.3 (`shape_assets`; checker.png from
+    `feature_assets`)."""
+    obj_props = ("" if flip_tex else '<boolean name="flipTexCoords" value="false"/>') + (
+        '<boolean name="faceNormals" value="true"/>' if face_normals else "")
+    ser = os.path.join(asset_dir, "gallery.serialized")
+    return f"""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="3"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="50"/>
+    <transform name="toWorld"><lookat origin="0,3,-5" target="0,0,0.3" up="0,1,0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{width}"/>
+      <integer name="height" value="{height}"/><rfilter type="box"/></film>
+  </sensor>
+  <emitter type="constant"><rgb name="radiance" value="0.3, 0.3, 0.3"/></emitter>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="90"/><translate y="4"/></transform>
+    <emitter type="area"><rgb name="radiance" value="4, 4, 4"/></emitter>
+  </shape>
+  <shape type="disk">
+    <transform name="toWorld"><scale value="0.7"/><rotate x="1" angle="-70"/>
+      <translate x="-1.6" y="0.2" z="0.5"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.8, 0.5, 0.2"/></bsdf>
+  </shape>
+  <shape type="obj">
+    <string name="filename" value="{os.path.join(asset_dir, 'gallery.obj')}"/>{obj_props}
+    <transform name="toWorld"><scale value="0.6"/><rotate y="1" angle="180"/>
+      <translate x="-0.3" y="0.7" z="1.2"/></transform>
+    <bsdf type="diffuse"><texture name="reflectance" type="bitmap">
+      <string name="filename" value="{os.path.join(asset_dir, 'checker.png')}"/>
+    </texture></bsdf>
+  </shape>
+  <shape type="serialized">
+    <string name="filename" value="{ser}"/><integer name="shapeIndex" value="1"/>
+    <transform name="toWorld"><scale value="0.5"/><translate x="1.2" y="0.8" z="0.4"/>
+    </transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.3, 0.7, 0.4"/></bsdf>
+  </shape>
+  <shape type="serialized">
+    <string name="filename" value="{ser}"/>
+    <transform name="toWorld"><scale value="0.35"/><translate x="1.4" y="0.35" z="-0.6"/>
+    </transform>
+    <bsdf type="roughplastic"><rgb name="diffuseReflectance" value="0.2, 0.3, 0.8"/></bsdf>
+  </shape>
+  <shape type="heightfield">
+    <string name="filename" value="{os.path.join(asset_dir, 'bumps.pfm')}"/>
+    <float name="scale" value="0.3"/>
+    <transform name="toWorld"><rotate x="1" angle="-90"/><scale value="3"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.6, 0.6, 0.6"/></bsdf>
+  </shape>
+</scene>"""
+
+
+def bvh_walk_mesh(seed=0):
+    """The BVH route's test mesh: the stand-in's surface at 64 x 32, 3,968
+    triangles in 46 clusters of <= 128 (a lowered cluster budget leaves it
+    with none)."""
+    return bunny_standin(seed=seed, n_phi=64, n_theta=32)
+
+
+def bigbvh_xml(ply_path, width=None, height=None):
+    """BIGBVH: scenes/bunny.xml's configuration with four copies of
+    `ply_path` (the dense stand-in: 3,481,920 triangles, past the cluster
+    budget of 24,576 clusters of 128) side by side, the camera drawn back
+    to see them."""
+    xml = bunny_scene_xml(ply_path, width, height)
+    shape = re.search(r'<shape type="ply">.*?</shape>', xml, re.S).group(0)
+    copies = "\n".join(
+        shape.replace('<bsdf', f'<transform name="toWorld"><translate x="{dx}" y="{dy}"/>'
+                      f'</transform><bsdf', 1)
+        for dx, dy in ((-0.08, 0.0), (0.08, 0.0), (-0.08, -0.11), (0.08, -0.11)))
+    xml = xml.replace(shape, copies)
+    return xml.replace('origin="0.0, 0.12, 0.25"', 'origin="0.0, 0.1, 0.5"').replace(
+        'target="-0.02, 0.1, 0.0"', 'target="-0.02, 0.045, 0.0"')
+
+
+def instanced_xml(ply_a, ply_b, width=512, height=512, spp=16, n=32, seed=0):
+    """INSTANCED: n x n instances on a floor under an area light, in two
+    shape groups taken in turn, `ply_a` (bunny_standin(seed=0): 69,168
+    triangles) and `ply_b` (bunny_standin(seed=1, n_phi=132, n_theta=66):
+    17,160), each moved from the stand-in's place to the origin at a
+    radius of 0.4; each instance drawn from np.random.default_rng(seed)
+    a yaw and a uniform scale in [0.8, 1.2], the first row scaled
+    unevenly (x 1.5, y 0.7, z 1.1).  Diffuse, path at maxDepth 8, a
+    camera that sees the whole grid.  At n = 32: 1,024 instances,
+    44,206,080 instanced triangles."""
+    rng = np.random.default_rng(seed)
+    k = 0.4 / STANDIN_RADIUS
+    cx, cy, cz = STANDIN_CENTER
+    groups = []
+    for gid, ply, rgb in (("ga", ply_a, "0.7, 0.45, 0.3"), ("gb", ply_b, "0.3, 0.5, 0.7")):
+        groups.append(f"""<shape type="shapegroup" id="{gid}"><shape type="ply">
+    <string name="filename" value="{ply}"/>
+    <transform name="toWorld"><translate x="{-cx}" y="{-cy}" z="{-cz}"/><scale value="{k}"/>
+      <translate y="0.4"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="{rgb}"/></bsdf></shape></shape>""")
+    insts = []
+    for i in range(n):
+        for j in range(n):
+            yaw = rng.uniform(0.0, 360.0)
+            s = rng.uniform(0.8, 1.2)
+            sc = (f'<scale x="{1.5 * s}" y="{0.7 * s}" z="{1.1 * s}"/>' if i == 0
+                  else f'<scale value="{s}"/>')
+            insts.append(f"""<shape type="instance"><ref id="{'ga' if (i + j) % 2 == 0 else 'gb'}"/>
+    <transform name="toWorld">{sc}<rotate y="1" angle="{yaw}"/>
+      <translate x="{j - (n - 1) / 2}" z="{i - (n - 1) / 2}"/></transform></shape>""")
+    half = n / 2 + 1
+    return f"""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="8"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="60"/>
+    <transform name="toWorld"><lookat origin="0,{0.62 * n},{-0.75 * n}" target="0,0,0"
+      up="0,1,0"/></transform>
+    <sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{width}"/>
+      <integer name="height" value="{height}"/></film>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="-90"/><scale value="{half}"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.5, 0.5, 0.5"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="90"/><scale value="{0.4 * n}"/>
+      <translate y="{1.2 * n}"/></transform>
+    <emitter type="area"><rgb name="radiance" value="6, 6, 6"/></emitter>
+  </shape>
+  {chr(10).join(groups)}
+  {chr(10).join(insts)}
+</scene>"""
