@@ -312,6 +312,23 @@ dense stand-ins, 3,481,920 triangles, no cluster tables): one intersect
 of its camera rays with sort=True beside sort=False (equal) and one
 256x256, 4-spp pass through `render` (`bigbvh_throughput`).
 
+5. the host side (`host_phase`): `python -m mitsuba_tpu_torch
+   scenes/cbox.xml -s 64 -o build/host/cbox.exr` as a subprocess at the
+   scene's own 512x512, its EXR read back equal to render's image in
+   process after half rounding (its Msamples/s line printed); that
+   render stopped through `progress` after pass 4 of 8 and resumed from
+   its checkpoint, equal to the uninterrupted render; cbox under mitchell
+   through `tiledhdrfilm` at 1 << 17 lanes a pass (3 row bands), 8 spp,
+   against `hdrfilm` at rtol 1e-4, with each one's seconds and peak memory;
+   scenes/smoke.xml at 28 spp at 1 << 21 and at 1 << 18 lanes a pass
+   (one pass, four), agreeing at rtol 1e-4, the smaller taking less
+   memory; `python -m mitsuba_tpu_torch.tools kdbench` on the stand-in's
+   scene (10M random rays, best of 3, then --coherent) with its MRays/s
+   and its kernels' launches; the cbox and stand-in packs saved to
+   .mtspack files, loaded onto the card and rendered equal to the fresh
+   packs.  The launches of its renders and of kdbench's timed calls count
+   in the kernels line.
+
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -2917,6 +2934,223 @@ def bigbvh_throughput(mt, tis, pack_scene, counted, dev, card):
     print(json.dumps({"throughput": out}), flush=True)
 
 
+def run_cli(args, label):
+    """Run `python <args>` from the checkout's root; returns (its standard
+    output, wall seconds).  Fails on a non-zero exit."""
+    env = {**os.environ, "PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.time()
+    out = subprocess.run([sys.executable, *args], cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=300)
+    wall = time.time() - t0
+    check(out.returncode == 0, f"{label} exited {out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout, wall
+
+
+# runs `python -m mitsuba_tpu_torch <arguments>` as -m runs it (runpy, the
+# package's __main__) with every kernel wrapper's count set to 0 just
+# before, then prints the CLI's own launches on a last line of its own
+CLI_COUNTED = """
+import json, runpy, sys
+from mitsuba_tpu_torch.tools import _kernel_wrappers
+wrappers = _kernel_wrappers()
+for fn in wrappers.values():
+    fn.launches = 0
+try:
+    runpy.run_module("mitsuba_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    if e.code:
+        raise
+print("launches", json.dumps({k: fn.launches for k, fn in wrappers.items() if fn.launches}))
+"""
+
+
+def zeroed(counted):
+    """Set the given launch counters to 0; returns them."""
+    for fn in counted.values():
+        fn.launches = 0
+    return counted
+
+
+def read_launches(counted, into, names, label):
+    """The counters' launches since they were set to 0, added to `into`;
+    fails unless each of `names` launched."""
+    got = {k: fn.launches for k, fn in counted.items()}
+    for k in names:
+        check(got[k] > 0, f"{label} never launched {k}")
+    for k, n in got.items():
+        into[k] = into.get(k, 0) + n
+    return got
+
+
+def peak_gib(fn):
+    """(fn's result, the device memory it allocated at its peak above what
+    was allocated before it, GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def host_phase(mt, brute, cluster_counted, big, big_pack, dev, card):
+    """The host side (phase 5): the CLI, checkpoint and resume, the
+    out-of-core film, lanes_per_pass, kdbench and the .mtspack round trip.
+    Returns the launches of the paths it drives, each read from its own run
+    with the counters set to 0 just before it: the CLI's (read in its
+    process), the checkpointed and resumed renders', the tiled film's, each
+    lane budget's, kdbench's timed calls' and the loaded packs' renders."""
+    import ast
+
+    import numpy as np
+    import torch
+    from mitsuba_tpu_torch.io.exr import read_exr
+    from mitsuba_tpu_torch.renderer import band_plan
+    from mitsuba_tpu_torch.scene.serialize import load_pack, save_pack
+    from mitsuba_tpu_torch.scene.builder import pack_scene
+    from torch_meshes import bunny_scene_xml, cbox_mitchell_xml, smoke_xml
+
+    launches = {}
+    out_dir = os.path.join(HERE, "build", "host")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()  # room for the subprocesses
+    # the CLI at the scene's own 512x512, 64 spp, against render in process
+    exr = os.path.join(out_dir, "cbox.exr")
+    stdout, wall = run_cli(["-c", CLI_COUNTED, CBOX, "-s", "64", "-o", exr], "the CLI")
+    lines = stdout.strip().splitlines()
+    cli = json.loads(lines[-1].split("launches", 1)[1])
+    for k in brute:
+        check(cli.get(k, 0) > 0, f"the CLI never launched {k}")
+    for k, n in cli.items():
+        launches[k] = launches.get(k, 0) + n
+    written, _ = read_exr(exr)
+    scene = mt.load_scene(CBOX)
+    t0 = time.time()
+    img = mt.render(scene, spp=64, seed=0, device=dev)
+    render_s = time.time() - t0
+    diff = float(np.abs(written - img.astype(np.float16).astype(np.float32)).max())
+    print(f"phase 5: CLI cbox 512x512, 64 spp: {lines[-2].strip()}; wall {wall:.2f} s with the "
+          f"process's start; the CLI's launches {cli}; the EXR against render in process "
+          f"({render_s:.2f} s) after half rounding: largest difference {diff:.6g} on {card}",
+          flush=True)
+    check(written.shape == img.shape and diff == 0.0, "the CLI's EXR differs from render's image")
+    # checkpoint: stop after pass 4 of 8, resume, and hold to the whole render
+    ck = os.path.join(out_dir, "cbox_ck.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+
+    class Stop(Exception):
+        pass
+
+    def interrupt(i, n):
+        if i == n // 2:
+            raise Stop
+
+    zeroed(brute)
+    try:
+        mt.render(scene, spp=64, seed=0, device=dev, checkpoint=ck, checkpoint_every=1,
+                  progress=interrupt)
+        check(False, "the interrupted render was not interrupted")
+    except Stop:
+        pass
+    before = read_launches(brute, launches, brute, "the interrupted render")
+    done = int(np.load(ck)["passes_done"])
+    zeroed(brute)
+    t0 = time.time()
+    resumed = mt.render(scene, spp=64, seed=0, device=dev, checkpoint=ck, checkpoint_every=1)
+    resumed_s = time.time() - t0
+    after = read_launches(brute, launches, brute, "the resumed render")
+    diff = float(np.abs(resumed - img).max())
+    print(f"phase 5: checkpoint cbox 512x512, 64 spp: interrupted after pass {done} of 8 "
+          f"(launches {before}), resumed in {resumed_s:.2f} s (launches {after}); largest "
+          f"difference to the uninterrupted render {diff:.6g}", flush=True)
+    check(done == 4 and diff == 0.0, "the resumed render differs from the uninterrupted one")
+    # the out-of-core film against hdrfilm, both under mitchell (the batched
+    # splat), 8 spp; the tiled film in passes of 1 << 17 lanes: 3 bands
+    hdr_scene = mt.load_scene_string(cbox_mitchell_xml(), base_dir=os.path.dirname(CBOX))
+    tiled_scene = mt.load_scene_string(cbox_mitchell_xml().replace('type="hdrfilm"',
+                                                                   'type="tiledhdrfilm"'),
+                                       base_dir=os.path.dirname(CBOX))
+    check(tiled_scene.sensor.record.film.out_of_core, "tiledhdrfilm did not load out of core")
+    t0 = time.time()
+    ref, ref_gib = peak_gib(lambda: mt.render(hdr_scene, spp=8, seed=0, device=dev))
+    ref_s = time.time() - t0
+    zeroed(brute)
+    t0 = time.time()
+    tiled, tiled_gib = peak_gib(lambda: mt.render(tiled_scene, spp=8, seed=0, device=dev,
+                                                  lanes_per_pass=1 << 17))
+    tiled_s = time.time() - t0
+    tiled_launches = read_launches(brute, launches, brute, "tiledhdrfilm")
+    hb, pad, n_bands, chunk, passes = band_plan(tiled_scene.sensor.record.film, 8, 1 << 17)
+    rel = float(np.abs(np.asarray(tiled) - ref).max() / max(np.abs(ref).max(), 1e-30))
+    print(f"phase 5: tiledhdrfilm cbox 512x512 mitchell, 8 spp: {n_bands} bands of {hb} rows "
+          f"(halo {pad}), {passes} passes of {chunk} spp each, {tiled_s:.2f} s, peak "
+          f"{tiled_gib:.3f} GiB, launches {tiled_launches}; hdrfilm {ref_s:.2f} s, peak "
+          f"{ref_gib:.3f} GiB; largest difference {rel:.3g} of the image's largest value "
+          f"(rtol 1e-4)", flush=True)
+    check(isinstance(tiled, np.memmap) and n_bands > 1, "tiledhdrfilm did not render in bands")
+    check(np.allclose(np.asarray(tiled), ref, rtol=1e-4, atol=1e-4),
+          "tiledhdrfilm differs from hdrfilm")
+    # lanes_per_pass: smoke as it stands (192x192) at 28 spp, one pass of
+    # 1,032,192 lanes at 1 << 21 and four of 7 spp at 1 << 18 (at its 32
+    # spp, 1 << 18 lanes would render 5 passes of 7 spp, 35 in all)
+    smoke = mt.load_scene_string(smoke_xml())
+    runs = {}
+    for lanes in (1 << 21, 1 << 18):
+        zeroed(cluster_counted)
+        t0 = time.time()
+        img_l, gib = peak_gib(lambda: mt.render(smoke, spp=28, seed=0, device=dev,
+                                                lanes_per_pass=lanes))
+        sec = time.time() - t0
+        # K3/K4 must launch; K7 only on the rays that overflow K3's 3 clusters
+        got = read_launches(cluster_counted, launches, ("dense_cull", "pair_hit_closest"),
+                            f"smoke at {lanes} lanes")
+        runs[lanes] = (img_l, gib, sec, got)
+    (a, gib_a, s_a, n_a), (b, gib_b, s_b, n_b) = runs[1 << 21], runs[1 << 18]
+    rel = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+    print(f"phase 5: lanes_per_pass smoke 192x192, 28 spp: 1 << 21 lanes {s_a:.2f} s, peak "
+          f"{gib_a:.3f} GiB, launches {n_a}; 1 << 18 lanes {s_b:.2f} s, peak {gib_b:.3f} GiB, "
+          f"launches {n_b}; largest difference {rel:.3g} of the image's largest value (rtol "
+          f"1e-4: the order of the float sums)", flush=True)
+    check(np.allclose(a, b, rtol=1e-4, atol=1e-5) and gib_b < gib_a,
+          "the two lane budgets disagree, or the smaller one did not take less memory")
+    # kdbench on the 69k stand-in: 10M random rays, then coherent ones
+    xml = os.path.join(out_dir, "bunny_standin.xml")
+    with open(xml, "w") as f:
+        f.write(bunny_scene_xml(STANDIN_PLY))
+    for extra in ([], ["--coherent"]):
+        stdout, wall = run_cli(["-m", "mitsuba_tpu_torch.tools", "kdbench", xml, *extra],
+                               "kdbench")
+        lines = stdout.strip().splitlines()
+        got = ast.literal_eval(lines[-1].split("launches", 1)[1].strip())
+        print(f"phase 5: {lines[-2].strip()}; wall {wall:.2f} s with the process's start and the "
+              f"pack; launches over the timed calls {got}", flush=True)
+        check(got.get("dense_cull", 0) > 0 and got.get("pair_hit_closest", 0) > 0,
+              "kdbench did not run the pair pipeline")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    # the .mtspack round trip: cbox's and the stand-in's packs saved, loaded
+    # onto the card, and rendered against the fresh packs
+    for label, sc, fresh, counted, names in (
+            ("cbox", scene, None, brute, tuple(brute)),
+            ("stand-in", big, big_pack, cluster_counted, ("dense_cull", "pair_hit_closest"))):
+        fresh = fresh if fresh is not None else pack_scene(sc, dev)
+        path = os.path.join(out_dir, f"{label}.mtspack")
+        save_pack(fresh, path)
+        loaded = load_pack(path, device=dev)
+        a = mt.render(sc, spp=4, seed=0, device=dev, pack=fresh)
+        zeroed(counted)
+        b = mt.render(sc, spp=4, seed=0, device=dev, pack=loaded)
+        got = read_launches(counted, launches, names, f"the loaded {label} pack's render")
+        print(f"phase 5: .mtspack {label}: {os.path.getsize(path)} bytes, render from the loaded "
+              f"pack equal to the fresh pack's: {np.array_equal(a, b)} (largest difference "
+              f"{float(np.abs(a - b).max()):.6g}); launches {got}", flush=True)
+        check(np.array_equal(a, b), f"{label}: the loaded pack renders otherwise")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -3857,6 +4091,19 @@ def main():
         launches[k] += n
     del inst_pack
     bigbvh_throughput(mt, tis, pack_scene, counted, dev, card)
+
+    # the host side: the CLI and kdbench as subprocesses, checkpoint and
+    # resume, the out-of-core film, lanes_per_pass, the .mtspack round
+    # trip (each render's launches are the phase's main path: counters set
+    # to 0 just before it; kdbench's are its timed calls')
+    print(f"phase 5: host side {elapsed()}", flush=True)
+    host_launches = host_phase(mt, brute, {k: counted[k] for k in glass_names}, big, big_pack,
+                               dev, card)
+    for k in ("closest_hit_v2", "any_hit_v2", "dense_cull", "pair_hit_closest",
+              "cluster_traverse_closest"):
+        check(host_launches.get(k, 0) > 0, f"the host phase never launched {k}")
+    for k, n in host_launches.items():
+        launches[k] += n
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and
     # K12, the stand-ins' camera rays for the others (K9/K10: the seeded

@@ -47,6 +47,17 @@ def srgb_degamma(srgb):
     ).astype(np.float32)
 
 
+def srgb_gamma(linear):
+    """Linear -> the sRGB transfer curve, float32 numpy (reference bitmap
+    gamma handling)."""
+    linear = np.maximum(np.asarray(linear, np.float32), np.float32(0.0))
+    return np.where(
+        linear <= np.float32(0.0031308),
+        np.float32(12.92) * linear,
+        np.float32(1.055) * np.power(linear, np.float32(1.0 / 2.4)) - np.float32(0.055),
+    ).astype(np.float32)
+
+
 def luminance(rgb):
     """Y of linear RGB (reference spectrum.h getLuminance); rgb [..., 3]."""
     return rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 + rgb[..., 2] * 0.072169

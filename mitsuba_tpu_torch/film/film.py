@@ -77,15 +77,18 @@ def filter_eval_1d(rec: RFilterRecord, x):
     raise ValueError(f"unknown filter kind {rec.kind}")
 
 
-def splat_grid(film, jitter, value, rfilter: RFilterRecord):
+def splat_grid(film, jitter, value, rfilter: RFilterRecord, valid=None):
     """Grid-aligned splat: one sample per (sample, pixel) lane.
 
     film: [H, W, 4]; jitter: [S, H, W, 2], each sample's position inside
-    its pixel in [0, 1); value: [S, H, W, 3].  Non-finite values count as
-    0.  Returns the updated film."""
+    its pixel in [0, 1); value: [S, H, W, 3]; valid: optional [S, H, W]
+    mask, a lane outside it adding neither value nor weight (the rows of a
+    row band's halo that lie outside the frame).  Non-finite values count
+    as 0.  Returns the updated film."""
     h, w = film.shape[0], film.shape[1]
     value = torch.nan_to_num(value, nan=0.0, posinf=0.0, neginf=0.0)
     jx, jy = jitter[..., 0], jitter[..., 1]
+    vmask = None if valid is None else valid.to(value.dtype)[..., None]
     # receiving pixel offsets d satisfy |d + 0.5 - j| < radius for some
     # j in [0, 1): d in (-0.5 - r, 0.5 + r)
     lo = int(math.floor(-0.5 - rfilter.radius)) + 1
@@ -96,6 +99,8 @@ def splat_grid(film, jitter, value, rfilter: RFilterRecord):
         for dx in range(lo, hi + 1):
             wx = filter_eval_1d(rfilter, dx + 0.5 - jx)
             wgt = (wx * wy)[..., None]
+            if vmask is not None:
+                wgt = wgt * vmask
             contrib = torch.cat([value * wgt, wgt], dim=-1).sum(dim=0)  # [H, W, 4]
             # shift by (dy, dx) with zero padding and add
             ys = slice(max(dy, 0), h + min(dy, 0))

@@ -1,8 +1,10 @@
-"""Image reading by file extension (port of the read side of
+"""Image reading and writing by file extension (port of
 mitsuba_tpu/io/images.py; the format dispatch of reference
 src/libcore/bitmap.cpp).  `read_image` returns (float32 [H, W, C],
 is_ldr): LDR formats come in their stored (gamma) space and the caller
-de-gammas them.  The writers are not ported yet."""
+de-gammas them.  `write_image` writes .exr (half, ZIPS), .pfm, .png,
+.hdr/.rgbe, .npy and .m (mfilm's MATLAB text) itself, and .jpg, .tga,
+.bmp and .webp through PIL, raising ImportError where PIL is missing."""
 
 from __future__ import annotations
 
@@ -41,6 +43,69 @@ def read_image(path):
         with Image.open(path) as im:
             return np.asarray(im.convert("RGB"), np.float32) / 255.0, True
     raise ValueError(f"unsupported image format: {path}")
+
+
+def write_image(path, img):
+    """Write a host image [H, W, C] (numpy) in the format its extension
+    names."""
+    ext = os.path.splitext(path)[1].lower()
+    img = np.asarray(img)
+    if ext == ".exr":
+        from mitsuba_tpu_torch.io.exr import write_exr
+
+        write_exr(path, img)
+    elif ext == ".pfm":
+        from mitsuba_tpu_torch.io.pfm import write_pfm
+
+        write_pfm(path, img)
+    elif ext == ".png":
+        from mitsuba_tpu_torch.io.png import write_png
+
+        write_png(path, img)
+    elif ext in (".hdr", ".rgbe"):
+        write_rgbe(path, img)
+    elif ext == ".npy":
+        np.save(path, img)
+    elif ext == ".m":
+        _write_matlab(path, img)
+    elif ext in (".jpg", ".jpeg", ".tga", ".bmp", ".webp"):
+        from PIL import Image
+
+        u8 = np.clip(np.asarray(img, np.float32) * 255.0 + 0.5, 0, 255)
+        Image.fromarray(u8.astype(np.uint8)).save(path)
+    else:
+        raise ValueError(f"unsupported output format: {path}")
+
+
+def _write_matlab(path, img):
+    """MATLAB text matrices (reference src/films/mfilm.cpp): one variable
+    per channel, `data` for one channel, else `data_<c>`, rows separated
+    by ';', each value at %.8g."""
+    img = np.asarray(img, np.float64)
+    if img.ndim == 2:
+        img = img[..., None]
+    with open(path, "w") as f:
+        for c in range(img.shape[-1]):
+            name = "data" if img.shape[-1] == 1 else f"data_{c}"
+            rows = ";\n".join(" ".join(f"{v:.8g}" for v in row) for row in img[..., c])
+            f.write(f"{name} = [{rows}];\n")
+
+
+def write_rgbe(path, img):
+    """Radiance RGBE (reference bitmap.cpp writeRGBE), flat scanlines."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    rgb = img[..., :3]
+    maxc = rgb.max(axis=-1)
+    nz = maxc >= 1e-32
+    e = np.where(nz, np.ceil(np.log2(np.maximum(maxc, 1e-32))).astype(np.int32) + 1, 0)
+    scale = np.where(nz, 256.0 / np.exp2(e.astype(np.float64)), 0.0)
+    mant = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    ebyte = np.where(nz, e + 128, 0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(np.concatenate([mant, ebyte[..., None]], axis=-1).tobytes())
 
 
 def read_rgbe(path):

@@ -1,6 +1,7 @@
-"""PNG reading with zlib alone (port of mitsuba_tpu/io/png.py read_png;
-the reference links libpng, src/libcore/bitmap.cpp readPNG): 8- and
-16-bit grey, grey-alpha, RGB, RGBA and palette images, not interlaced."""
+"""PNG I/O with zlib alone (port of mitsuba_tpu/io/png.py; the reference
+links libpng, src/libcore/bitmap.cpp readPNG/writePNG).  The reader takes
+8- and 16-bit grey, grey-alpha, RGB, RGBA and palette images, not
+interlaced; the writer writes 8- or 16-bit images, unfiltered."""
 
 from __future__ import annotations
 
@@ -8,6 +9,32 @@ import struct
 import zlib
 
 import numpy as np
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path, image):
+    """image: uint8 or uint16 [H, W] or [H, W, C], C in {1, 2, 3, 4}; a
+    float image in [0, 1] is rounded to 8 bits."""
+    img = np.asarray(image)
+    if img.dtype in (np.float32, np.float64):
+        img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    depth = 16 if img.dtype == np.uint16 else 8
+    raw = img.astype(">u2" if depth == 16 else np.uint8).tobytes()
+    stride = w * c * depth // 8
+    scan = b"".join(b"\x00" + raw[y * stride:(y + 1) * stride] for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(scan, 6)))
+        f.write(_chunk(b"IEND", b""))
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:

@@ -2013,3 +2013,59 @@ def test_extras_goldens_on_card(dev, name):
     gold = np.load(os.path.join(HERE, "tests", "golden", name))
     assert img.shape == gold.shape and np.isfinite(img).all()
     assert tm_rmse(img, gold) < GOLDEN_GATES[name]
+
+
+def test_cli_on_card(dev, tmp_path):
+    """`python -m mitsuba_tpu_torch` renders on the card (no --cpu) and
+    writes the EXR of render's image at half precision."""
+    import os
+    import subprocess
+    import sys
+
+    from mitsuba_tpu_torch.io.exr import read_exr
+    from mitsuba_tpu_torch.renderer import render
+    from mitsuba_tpu_torch.scene.xml_loader import load_scene
+    from torch_meshes import ROOT
+
+    cbox = os.path.join(ROOT, "scenes", "cbox.xml")
+    out = str(tmp_path / "cbox.exr")
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    run = subprocess.run([sys.executable, "-m", "mitsuba_tpu_torch", cbox, "--size", "64x64",
+                          "-s", "16", "-o", out], env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr
+    assert "Msamples/s" in run.stdout
+    scene = load_scene(cbox)
+    scene.sensor.record.film.width = scene.sensor.record.film.height = 64
+    img = render(scene, spp=16, seed=0, device=dev)
+    np.testing.assert_array_equal(read_exr(out)[0], img.astype(np.float16).astype(np.float32))
+
+
+def test_checkpoint_resume_on_card(dev, tmp_path):
+    """A checkpointed render stopped halfway resumes on the card to the
+    uninterrupted render, bit for bit."""
+    import os
+
+    from mitsuba_tpu_torch.renderer import render
+    from mitsuba_tpu_torch.scene.xml_loader import load_scene
+    from torch_meshes import ROOT
+
+    scene = load_scene(os.path.join(ROOT, "scenes", "cbox.xml"))
+    scene.sensor.record.film.width = scene.sensor.record.film.height = 64
+    lanes = 64 * 64 * 4
+    ref = render(scene, spp=16, seed=0, device=dev, lanes_per_pass=lanes)
+    ck = str(tmp_path / "ck.npz")
+
+    class Stop(Exception):
+        pass
+
+    def stop(i, n):
+        if i == 2:
+            raise Stop
+
+    with pytest.raises(Stop):
+        render(scene, spp=16, seed=0, device=dev, lanes_per_pass=lanes, checkpoint=ck,
+               checkpoint_every=1, progress=stop)
+    resumed = render(scene, spp=16, seed=0, device=dev, lanes_per_pass=lanes, checkpoint=ck,
+                     checkpoint_every=1)
+    np.testing.assert_array_equal(resumed, ref)

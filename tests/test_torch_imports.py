@@ -400,3 +400,66 @@ def test_geometry_extras_modules_stand_alone(mod, names):
         assert getattr(m, name).__module__ == mod, name
     assert {"disk", "obj", "serialized", "heightfield", "shapegroup", "instance"} <= set(
         registry.names("shape"))
+
+
+def test_host_side_modules_are_checked():
+    """The modules of the host side (the CLI and its entry point, the
+    tools, the preview, the importers, logging, numerics, streams, PIZ,
+    the writers, .mtspack serialization, the films and the renderer's
+    options) are among the sources checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in ("__main__.py", "cli.py", "tools.py", "preview.py", "mtsimport.py",
+                "core/logging.py", "core/numerics.py", "core/stream.py", "io/collada.py",
+                "io/piz.py", "io/exr.py", "io/images.py", "io/pfm.py", "io/png.py",
+                "scene/serialize.py", "film/plugins.py", "film/film.py", "renderer.py"):
+        assert os.path.join("mitsuba_tpu_torch", mod) in rel, mod
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("mitsuba_tpu_torch.core.logging", ("Logger", "StreamAppender", "StatsCounter", "counter",
+                                        "all_counters", "reset_statistics", "stats_summary")),
+    ("mitsuba_tpu_torch.core.stream", ("Stream", "FileStream", "MemoryStream", "SocketStream",
+                                       "PipeStream", "ZStream", "ConsoleStream",
+                                       "MemoryMappedFile")),
+    ("mitsuba_tpu_torch.core.numerics", ("gauss_legendre", "brent", "spline_eval", "sh_eval",
+                                         "SHSampler", "vmf_pdf", "vmf_sample")),
+    ("mitsuba_tpu_torch.io.piz", ("piz_uncompress", "_huf_decode", "_wav2_decode", "_wdec14")),
+    ("mitsuba_tpu_torch.io.collada", ("Collada",)),
+    ("mitsuba_tpu_torch.mtsimport", ("import_obj", "import_dae", "main")),
+    ("mitsuba_tpu_torch.io.exr", ("write_exr", "_zip_compress", "read_exr")),
+    ("mitsuba_tpu_torch.io.images", ("write_image", "write_rgbe", "read_image")),
+    ("mitsuba_tpu_torch.film.plugins", ("FilmRecord", "_FilmBase", "TiledHDRFilm", "LDRFilm",
+                                        "MFilm")),
+    ("mitsuba_tpu_torch.scene.serialize", ("save_pack", "load_pack")),
+    ("mitsuba_tpu_torch.renderer", ("render", "render_to_file", "band_plan")),
+    ("mitsuba_tpu_torch.tools", ("tonemap", "addimages", "joinrgb", "kdbench", "rdielprec",
+                                 "cylclip", "cyl_clip_aabb", "main")),
+    ("mitsuba_tpu_torch.preview", ("CameraRig", "progressive_render", "_serve", "main")),
+    ("mitsuba_tpu_torch.cli", ("build_parser", "main")),
+])
+def test_host_side_modules_stand_alone(mod, names):
+    """The host side's modules import nothing of JAX or of the JAX package,
+    not even its pure-Python modules, and keep their own copies."""
+    import importlib
+
+    m = importlib.import_module(mod)
+    assert not [r for r, _ in _imported_roots(m.__file__) if r in FORBIDDEN]
+    for name in names:
+        assert getattr(m, name).__module__ == mod, name
+
+
+def test_host_entry_points_default_to_the_card():
+    """The CLI, kdbench and the preview render on the card unless --cpu
+    asks for the CPU; progressive_render and load_pack default to it."""
+    from mitsuba_tpu_torch import cli, preview
+    from mitsuba_tpu_torch.scene.serialize import load_pack
+
+    assert cli.build_parser().parse_args(["a.xml"]).cpu is False
+    for fn in (preview.progressive_render, load_pack):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn.__name__
+    for src in (inspect.getsource(cli.main), inspect.getsource(preview.main)):
+        assert '"cpu" if args.cpu else "cuda"' in src
+    from mitsuba_tpu_torch import tools
+
+    assert 'torch.device("cpu" if args.cpu else "cuda")' in inspect.getsource(tools.kdbench)

@@ -2,7 +2,7 @@
 package's, array for array: scenes/assets/sky.exr, and small files the
 reference's writers produce (EXR without compression, ZIPS and ZIP, half
 and float channels; PFM; RGBE; PNG), read by both.  No tolerance: every
-comparison is exact.  PIZ and tiled EXR raise by name."""
+comparison is exact.  Tiled EXR raises by name."""
 
 import os
 import struct
@@ -102,14 +102,20 @@ def test_exr_uint_channel(tmp_path):
 
 
 def test_exr_piz_and_tiled_raise(tmp_path):
+    """A PIZ file whose one chunk (one scanline) is stored raw, as a writer
+    stores a chunk that compression does not shrink, reads as the
+    reference reads it (tests/test_torch_image_io.py decodes compressed
+    PIZ chunks); tiled files raise by name."""
     path = str(tmp_path / "p.exr")
-    jexr.write_exr(path, _image((4, 4, 3)), compression="none")
+    src = _image((1, 4, 3))
+    jexr.write_exr(path, src, compression="none")
     data = bytearray(open(path, "rb").read())
     comp = data.index(b"compression\x00compression\x00") + len("compression\x00compression\x00") + 4
     data[comp] = 4
     open(path, "wb").write(bytes(data))
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        exr.read_exr(path)
+    img, names = exr.read_exr(path)
+    np.testing.assert_array_equal(img, jexr.read_exr(path)[0])
+    np.testing.assert_array_equal(img, src.astype(np.float16))
     data[comp] = 0
     data[4:8] = struct.pack("<i", 2 | 0x200)
     open(path, "wb").write(bytes(data))
