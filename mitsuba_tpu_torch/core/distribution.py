@@ -40,7 +40,9 @@ def build_alias(weights):
     alias[i]: one table row per draw for the density of the weights.
     The compiled O(n) Vose build of the reference's source, with the
     reference's pure-Python Vose as the fallback (its float64 sum may
-    round otherwise, so the two can differ in a bin at 1.0)."""
+    round otherwise, so the two can differ in a bin at 1.0).  Unlike the
+    reference's fallback, this one writes a NaN bin as the compiled
+    builder does (ROADMAP C10)."""
     w = np.ascontiguousarray(np.maximum(np.asarray(weights, np.float64).ravel(), 0.0))
     n = w.size
     prob = np.empty(n, np.float32)
@@ -57,8 +59,10 @@ def build_alias(weights):
     s = w.sum()
     p = (w * (n / s)) if s > 0 else np.ones(n, np.float64)
     alias[:] = np.arange(n, dtype=np.int32)
+    # a bin that is not below 1 goes to `large`, NaN included (n / s can
+    # overflow), as in the compiled builder, so that every bin is written
     small = [i for i in range(n) if p[i] < 1.0]
-    large = [i for i in range(n) if p[i] >= 1.0]
+    large = [i for i in range(n) if not p[i] < 1.0]
     while small and large:
         si = small.pop()
         li = large.pop()

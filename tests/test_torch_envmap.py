@@ -33,7 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import example, given, settings
+from hypothesis import assume, example, given, settings
 from hypothesis import strategies as st
 
 import mitsuba_tpu
@@ -142,6 +142,11 @@ def test_alias_fallback_equals_reference_fallback(weights):
     import mitsuba_tpu.native as jnative
 
     w = np.asarray(weights, np.float64)
+    # C10: where n / sum overflows, the reference's fallback leaves its NaN
+    # bins unwritten (np.empty's memory), which cannot be compared;
+    # test_c10_fallback_writes_every_bin covers those weights
+    s = w.sum()
+    assume(s == 0 or np.isfinite(w.size / s))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tdist, "alias_library", lambda: None)
         mp.setattr(jnative, "alias_builder", lambda: None)
@@ -149,6 +154,47 @@ def test_alias_fallback_equals_reference_fallback(weights):
         ref_prob, ref_alias = jdist.build_alias(w)
     np.testing.assert_array_equal(prob, ref_prob)
     np.testing.assert_array_equal(alias, ref_alias)
+
+
+C10_WEIGHTS = (
+    [0.0, 2.2250738585072014e-308, 0.0, 0.0],
+    [0.0, 0.0, 2.2250738585072014e-308, 0.0, 0.0, 0.0, 2.2250738585072014e-308, 0.0],
+)
+
+
+@pytest.mark.parametrize("weights", C10_WEIGHTS, ids=("n4", "n8"))
+def test_c10_fallback_writes_every_bin(weights):
+    """C10: n / sum overflows to inf, so the zero bins' p is NaN.  The
+    port's fallback puts them with the full bins, as both compiled
+    builders do, and writes every bin; the reference's fallback puts
+    them in neither list and leaves np.empty's memory there, shown here
+    with a sentinel fill."""
+    import mitsuba_tpu.native as jnative
+
+    w = np.asarray(weights, np.float64)
+    assert not np.isfinite(w.size / w.sum())
+    nan_bins = np.flatnonzero(w == 0.0)
+    compiled = tdist.build_alias(w)
+    ref_compiled = jdist.build_alias(w)
+    sentinel = -7.0
+    real_empty = np.empty
+
+    def filled(shape, dtype=float, *a, **k):
+        return np.full(shape, sentinel, dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdist, "alias_library", lambda: None)
+        mp.setattr(jnative, "alias_builder", lambda: None)
+        mp.setattr(np, "empty", filled)
+        fallback = tdist.build_alias(w)
+        ref_fallback = jdist.build_alias(w)
+    assert np.empty is real_empty
+    for got in (fallback, ref_compiled):
+        np.testing.assert_array_equal(got[0], compiled[0])
+        np.testing.assert_array_equal(got[1], compiled[1])
+    assert (fallback[0] != sentinel).all()
+    np.testing.assert_array_equal(ref_fallback[0][nan_bins], sentinel)
+    assert (ref_fallback[0][w > 0] == 1.0).all()
 
 
 def _check_2d(w):
