@@ -175,7 +175,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    256 spp), and from a profiled pass its device ms, events, kernels per
    event and busy share; then glass_caustics with bdpt at 16 edges at its
    bench resolution, 256x256, chunk after chunk of 131,072 lanes (2 spp)
-   for about 30 s (at least 2 chunks, at most 32 spp: `generator_throughput`),
+   for about 15 s (at least 2 chunks, at most 32 spp: `generator_throughput`),
    with seconds per chunk, rays/s, peak device memory, K3/K4/K7/K8
    launches per chunk, the tone-mapped RMSE against
    bench_refs/glass_caustics_256.npz (no gate) and a profiled chunk's
@@ -183,19 +183,19 @@ Phases, each of which raises (and exits non-zero) on failure:
    lanes); and the particle tracer on cbox at 512x512, 4 particles per
    pixel (one batch of 1,048,576): seconds and rays/s; last the
    Metropolis slice (`generator_throughput` again): scenes/door.xml as it
-   stands (pssmlt, bidirectional, 8 edges; 256x256, 65,536 chains) at 32
-   mutations per pixel, then the same with `bidirectional` false, then
+   stands (pssmlt, bidirectional, 8 edges; 256x256, 65,536 chains) at
+   DOOR_MUTATIONS (16) per pixel, then the same with `bidirectional` false, then
    glass_caustics under pssmlt (16 edges, 256x256) for about 8 s: the
    bootstrap's seconds, seconds per step, rays/s, kernels per step and
    busy share (one profiled step of a second run), K3/K4/K7/K8 launches per step (door's
    run is the slice's main path: its counters are set to 0 just before
    and read just after), peak device memory, and the tone-mapped RMSE
-   against bench_refs/door_256.npz (the reference's TPU run: 0.0424
-   bidirectional, 0.0728 unidirectional) or
+   against bench_refs/door_256.npz (the reference's TPU run at 32
+   mutations per pixel: 0.0424 bidirectional, 0.0728 unidirectional) or
    bench_refs/glass_caustics_256.npz (no gate); last the photon-mapping
    slice: glass_caustics under sppm (maxDepth 24, 256x256, 2^18 photons
-   an iteration) for about 15 s and smoke under the volumetric photon
-   mapper (256x256, 2^17 photons) for about 10 s (`photon_throughput`:
+   an iteration) for about 8 s and smoke under the volumetric photon
+   mapper (256x256, 2^17 photons) for about 5 s (`photon_throughput`:
    seconds per iteration and the eye and photon passes' means, photons
    stored, the gather's overflow share, kernels and busy share of a
    profiled iteration, peak memory, launches per iteration, RMSE against
@@ -255,8 +255,9 @@ telecentric, spherical, thinlens, perspective_rdist), 4 spp, each against
 its golden at its GOLDEN_GATES gate, and the meters (fluencemeter,
 radiancemeter, irradiancemeter on a sphere and on a rectangle) against
 their exact 1 and pi; in phase 4 scenes/dispersion.xml as it stands
-(256x256, 256 spp, path at maxDepth 8) through `render` with its default
-device, in RGB mode and with 9 bins (rays/s, peak memory, K1/K2
+(256x256, path at maxDepth 8) through `render` with its default device,
+in RGB mode at its 256 spp and with 9 bins at DISPERSION_BINS_SPP (64)
+(rays/s, peak memory, K1/K2
 launches: the slice's main path, counters set to 0 just before each
 render; then the seconds of each bin group and of each
 apply_spectral_pack, timed here over the groups), and
@@ -305,12 +306,12 @@ gate (`extras_goldens`), and the pair path against the loop path on
 INSTANCED's camera rays and NEE, each timed, where every disagreement
 must be a tie or a hit on a triangle's edge in float64
 (`instanced_pair_vs_loop`); in phase 4 INSTANCED through `render` at
-512x512, two passes of INSTANCED_SPP (seconds, rays/s, peak memory,
-launches with the counters set to 0 just before each, the instance
+512x512, one pass of INSTANCED_SPP (seconds, rays/s, peak memory,
+launches with the counters set to 0 just before it, the instance
 lists' overflow; `instanced_throughput`) and BIGBVH (`bigbvh_xml`: four
 dense stand-ins, 3,481,920 triangles, no cluster tables): one intersect
 of its camera rays with sort=True beside sort=False (equal) and one
-256x256, 4-spp pass through `render` (`bigbvh_throughput`).
+256x256, BIGBVH_SPP (1) pass through `render` (`bigbvh_throughput`).
 
 5. the host side (`host_phase`): `python -m mitsuba_tpu_torch
    scenes/cbox.xml -s 64 -o build/host/cbox.exr` as a subprocess at the
@@ -328,6 +329,20 @@ of its camera rays with sort=True beside sort=False (equal) and one
    .mtspack files, loaded onto the card and rendered equal to the fresh
    packs.  The launches of its renders and of kdbench's timed calls count
    in the kernels line.
+6. the parallel slice (`parallel_phase`): an NCCL world of one (a file
+   store): `render_sharded` of cbox at 512x512, 16 spp against render's
+   image, with K1/K2 bit for bit against plain on the sharded pass's
+   camera and NEE rays; the 69k stand-in at 256x256, 4 spp through
+   K3/K4/K7/K8 (bit for bit on the sharded pass's queries); bdpt, sppm,
+   ptracer, vpl and pssmlt against their unsharded renders at the CPU
+   tests' gates; two spawned ranks on cuda:0 over gloo against the world
+   of one (rel RMSE 1e-4) with both rays/s; the elastic pass loop
+   re-queueing passes 2..7 after a fault at pass 3 of 8, bit for bit; the
+   render service with one of two workers killed, its film bit for bit
+   the local pass loop's; `python -m mitsuba_tpu_torch.parallel.multihost
+   --num-hosts 1`, its EXR equal to render_to_file's; `entry()` on the
+   card.  Each part's seconds are printed, every child process has a time
+   limit, and the launches of its renders count in the kernels line.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Nothing of JAX is imported.
@@ -2255,9 +2270,10 @@ def textured_throughput(make_render_pass, new_film, ttex, scene, pack, counted, 
 
 
 def dispersion_throughput(mt, scene, counted, card, dev):
-    """scenes/dispersion.xml as it stands through `render` (the scene's own
-    256 spp, packed by render itself), once in RGB mode and once with 9
-    spectral bins, the launch counters set to 0 just before each render:
+    """scenes/dispersion.xml as it stands through `render` (packed by
+    render itself), once in RGB mode at the scene's own 256 spp and once
+    with 9 spectral bins at DISPERSION_BINS_SPP (for the script's time
+    limit), the launch counters set to 0 just before each render:
     seconds, rays/s, peak device memory and launches of each.  Then the
     9-bin render again as its bin groups, timed here: each group's
     apply_spectral_pack and its render on that pack, whose projected sum
@@ -2278,14 +2294,16 @@ def dispersion_throughput(mt, scene, counted, card, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        img = mt.render(scene, spectral_bins=bins)  # the default device: the card
+        # the default device: the card; 9 bins at DISPERSION_BINS_SPP
+        img = mt.render(scene, spp=DISPERSION_BINS_SPP if bins else None, spectral_bins=bins)
         secs = time.time() - t0
         launches = {k: fn.launches for k, fn in counted.items()}
         check(img.shape == (rec.film.height, rec.film.width, 3) and bool(np.isfinite(img).all())
               and img.mean() > 0, f"dispersion.xml ({bins} bins): the image is not finite")
         rays = mt.render.last_ray_count
+        spp = DISPERSION_BINS_SPP if bins else rec.sampler.sample_count
         out = {"scene": "dispersion", "bins": bins or 3, "width": rec.film.width,
-               "height": rec.film.height, "spp": rec.sampler.sample_count, "seconds": secs,
+               "height": rec.film.height, "spp": spp, "seconds": secs,
                "rays": rays, "rays_per_s": rays / secs,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
                "mean": float(img.mean()), "card": card}
@@ -2299,7 +2317,8 @@ def dispersion_throughput(mt, scene, counted, card, dev):
                 torch.cuda.synchronize()
                 pack_s.append(time.time() - t0)
                 t0 = time.time()
-                img_g = mt.render(scene, device=dev, pack=pack_g, _spectral_inner=True)
+                img_g = mt.render(scene, spp=spp, device=dev, pack=pack_g,
+                                  _spectral_inner=True)
                 group_s.append(time.time() - t0)
                 xyz = xyz + img_g @ np.asarray(sb.group(g)[0], np.float32).T
             img_groups = np.maximum(xyz @ _XYZ_TO_RGB.T, 0.0)
@@ -2311,7 +2330,7 @@ def dispersion_throughput(mt, scene, counted, card, dev):
                   f"dispersion.xml: the bin groups' mean {img_groups.mean()} is not the "
                   f"entry point's {out['mean']}")
         print(f"phase 4: dispersion.xml {rec.film.width}x{rec.film.height}, "
-              f"{rec.sampler.sample_count} spp, {f'{bins} bins' if bins else 'RGB mode'}: {rays} "
+              f"{spp} spp, {f'{bins} bins' if bins else 'RGB mode'}: {rays} "
               f"rays in {secs:.3f} s = {rays / secs:.6g} rays/s"
               + (f" (bin groups rendered alone {['%.3f' % x for x in out['group_s']]} s, "
                  f"apply_spectral_pack {['%.4f' % x for x in out['pack_s']]} s, their image "
@@ -2532,9 +2551,14 @@ INSTANCED_TRIS = 44_199_936
 INSTANCED_SPP = 1
 # BIGBVH's film size and samples per pixel of its one pass, and the film
 # size of its camera rays' sorted and unsorted intersect
+# the depth of earlier phases' paths, cut so that the whole script, phase 6
+# included, stays well inside its time limit: door's mutations per pixel
+# (32 before), dispersion.xml's spp with 9 bins (its own 256 before)
+DOOR_MUTATIONS = 16
+DISPERSION_BINS_SPP = 64
 BIGBVH_RES = 256
 BIGBVH_RAYS_RES = 512
-BIGBVH_SPP = 4
+BIGBVH_SPP = 1
 # the BVH route's golden scene packs no cluster tables below this budget
 BVH_WALK_BUDGET = 1000
 
@@ -2831,7 +2855,7 @@ def extras_goldens(mt, counted, dev, feature_dir, clusters):
 
 
 def instanced_throughput(mt, scene, pack, counted, tlas, card, spp=INSTANCED_SPP,
-                         passes=2):
+                         passes=1):
     """INSTANCED through `render` at its film size: `passes` timed renders
     of `spp` samples per pixel, the launch counters set to 0 just before
     each (phases 2 and 3 ran every part of the route on this pack: no
@@ -3149,6 +3173,343 @@ def host_phase(mt, brute, cluster_counted, big, big_pack, dev, card):
               f"{float(np.abs(a - b).max()):.6g}); launches {got}", flush=True)
         check(np.array_equal(a, b), f"{label}: the loaded pack renders otherwise")
     return launches
+
+
+# ---- phase 6: the parallel slice (parallel/ and the port's entry) ----
+
+PARALLEL_DIR = os.path.join(HERE, "build", "parallel")
+RANK_TIMEOUT_S = 300.0
+# sppm's photons a pass in phase 6's sharded render (its unsharded twin
+# passes the same count)
+PARALLEL_SPPM_PHOTONS = 8192
+
+
+def rel_rmse(a, b):
+    """RMSE of a against b over b's mean magnitude (tests/conftest.py)."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.sqrt(np.mean((a - b) ** 2)) / max(float(np.abs(b).mean()), 1e-6))
+
+
+def gloo_pair_rank(rank, world, init_method, out_dir):
+    """Phase 6 (b): one of `world` ranks on cuda:0 over gloo (NCCL takes
+    one rank per card): cbox at 512x512, 16 spp, through render_sharded
+    after a 2-spp warm-up, its film all-reduced as CUDA tensors.  Before
+    it, rank 0 renders the same on a world of one while the others wait,
+    so that one rank's rays/s are taken in a fresh process too.  Writes
+    the image, the seconds, the rays of all ranks, this rank's K1/K2
+    launches and rank 0's world-of-one seconds and rays to
+    out_dir/rank<r>.npz."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import mitsuba_tpu_torch as mt
+    from mitsuba_tpu_torch.accel import pallas_kernels as pk
+    from mitsuba_tpu_torch.parallel.mesh import (
+        Mesh,
+        destroy_world,
+        init_world,
+        make_mesh,
+        render_sharded,
+    )
+
+    def timed(mesh_):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img_ = render_sharded(scene, mesh=mesh_, spp=16)
+        torch.cuda.synchronize()
+        return img_, time.time() - t0, render_sharded.last_ray_count
+
+    init_world("gloo", init_method, world, rank, timeout_s=RANK_TIMEOUT_S)
+    try:
+        mesh = make_mesh(device="cuda:0", backend="gloo")
+        scene = mt.load_scene(CBOX)
+        render_sharded(scene, mesh=mesh, spp=2)
+        one_s = one_rays = 0
+        torch.distributed.barrier()
+        if rank == 0:
+            _, one_s, one_rays = timed(Mesh(None, 0, 1, mesh.device, None))
+        torch.distributed.barrier()
+        for fn in (pk.closest_hit_v2, pk.any_hit_v2):
+            fn.launches = 0
+        img, sec, rays = timed(mesh)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), img=img, sec=sec, rays=rays,
+                 k1=pk.closest_hit_v2.launches, k2=pk.any_hit_v2.launches, one_s=one_s,
+                 one_rays=one_rays)
+    finally:
+        destroy_world()
+
+
+def sharded_pass_builder(make_sharded_render_pass, mesh):
+    """A make_render_pass stand-in whose pass is the sharded one on `mesh`
+    (for pair_segments' capture of a pass's first NEE query)."""
+    def build(pack, integ, rec, film_rec, sampler, spp_chunk, dev):
+        return make_sharded_render_pass(pack, integ, rec, film_rec, sampler, spp_chunk, mesh)
+    return build
+
+
+def parallel_phase(mt, pk, pairs, pb, tpath, brute, cluster_counted, dev, card, stats):
+    """The parallel slice (phase 6), on one card:
+
+    (a) an NCCL world of one (a file store in a temporary directory):
+        render_sharded of cbox at 512x512, 16 spp, against render's image
+        (its largest difference: 0, or the order of the film's sums), with
+        K1/K2 bit for bit against plain on the sharded pass's camera rays
+        and first NEE rays; the 69k stand-in at 256x256, 4 spp, through
+        K3/K4/K7/K8 (bit for bit on the sharded pass's queries); bdpt,
+        sppm, ptracer, vpl and pssmlt small renders against their
+        unsharded renders at the CPU tests' gates;
+    (b) two spawned ranks on cuda:0 over gloo: cbox at 512x512, 16 spp,
+        within rel RMSE 1e-4 of (a)'s image, and both ranks' rays/s;
+    (c) elastic: a SimulatedFault at pass 3 of 8 with a checkpoint every 2
+        passes re-queues passes 2..7 and gives the uninterrupted image bit
+        for bit;
+    (d) the render service: two workers on cuda:0, one killed once its
+        first unit has arrived; the film equals the local pass loop's bit
+        for bit;
+    (e) the multi-host CLI with --num-hosts 1: its EXR equals
+        render_to_file's;
+    (f) entry() on the card.
+
+    Each part's seconds are printed; every child process has a time
+    limit.  Returns the launches of the paths it drives, each read from
+    its own run with the counters set to 0 just before it."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mitsuba_tpu_torch.entry import entry
+    from mitsuba_tpu_torch.film.film import new_film
+    from mitsuba_tpu_torch.integrator.pssmlt import render_pssmlt
+    from mitsuba_tpu_torch.integrator.sppm import render_sppm
+    from mitsuba_tpu_torch.io.exr import read_exr
+    from mitsuba_tpu_torch.parallel import elastic
+    from mitsuba_tpu_torch.parallel.mesh import (
+        destroy_world,
+        init_world,
+        make_mesh,
+        make_sharded_render_pass,
+        render_sharded,
+        spawn_ranks,
+    )
+    from mitsuba_tpu_torch.parallel.service import RenderService
+    from mitsuba_tpu_torch.renderer import render_to_file
+    from mitsuba_tpu_torch.scene.builder import pack_scene
+    from torch_meshes import bunny_scene_xml, cbox_chain_xml, cbox_xml
+
+    launches = {}
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    torch.cuda.empty_cache()  # room for the ranks and workers
+    t_phase = time.time()
+
+    # (a) an NCCL world of one
+    t0 = time.time()
+    store = tempfile.mkdtemp(prefix="nccl_", dir=PARALLEL_DIR)
+    init_world("nccl", f"file://{store}/store", 1, 0, device=dev, timeout_s=RANK_TIMEOUT_S)
+    try:
+        mesh = make_mesh(device=dev, backend="nccl")
+        check(mesh.group is not None and (mesh.rank, mesh.world) == (0, 1),
+              f"the NCCL world of one is {mesh}")
+        scene = mt.load_scene(CBOX)
+        ref = mt.render(scene, spp=16, seed=0, device=dev)
+        render_sharded(scene, mesh=mesh, spp=2)  # warm-up, as (b)'s ranks do
+        zeroed(brute)
+        t1 = time.time()
+        a_img = render_sharded(scene, mesh=mesh, spp=16)
+        torch.cuda.synchronize()
+        a_s = time.time() - t1
+        a_rays = render_sharded.last_ray_count
+        got = read_launches(brute, launches, brute, "the sharded cbox render")
+        diff = float(np.abs(a_img - ref).max())
+        print(f"phase 6 (a): NCCL world of one, render_sharded cbox 512x512, 16 spp: {a_s:.3f} s, "
+              f"{a_rays} rays = {a_rays / a_s:.6g} rays/s, launches {got} (2 passes); largest "
+              f"difference to render {diff:.6g}, rel RMSE {rel_rmse(a_img, ref):.3g} on {card}",
+              flush=True)
+        check(rel_rmse(a_img, ref) < 1e-4, "the sharded cbox render differs from render's")
+        # K1/K2 on the sharded pass's camera rays and its first NEE query
+        pack = pack_scene(scene, dev)
+        rec = scene.sensor.record
+        n_box = int((pack.tri_t[0] < FAR_V0).sum())
+        o, d = camera_rays(scene, dev)
+        compare_brute(pk, "closest_hit_v2", o, d, torch.full((o.shape[0],), 1e30, device=dev),
+                      pack.tri_s, n_box, stats, exact=True)
+        rp = make_sharded_render_pass(pack, scene.integrator, rec, rec.film, rec.sampler, 8, mesh)
+        seg = capture_calls(tpath, ("occluded",),
+                            lambda: rp(new_film(rec.film.height, rec.film.width, dev), 0, 0),
+                            lambda g: len(g) == 1)
+        compare_brute(pk, "any_hit_v2", *as_segment(seg[0][1]), pack.tri_s, n_box, stats,
+                      exact=True)
+        # the 69k stand-in through the pair pipeline
+        big = mt.load_scene_string(bunny_scene_xml(STANDIN_PLY, 256, 256))
+        zeroed(cluster_counted)
+        big_img = render_sharded(big, mesh=mesh, spp=4)
+        got = read_launches(cluster_counted, launches, ("dense_cull", "pair_hit_closest",
+                                                        "pair_hit_any", "cluster_traverse_closest",
+                                                        "cluster_traverse_any"),
+                            "the sharded stand-in render")
+        big_ref = mt.render(big, spp=4, seed=0, device=dev)
+        print(f"phase 6 (a): render_sharded 69k stand-in 256x256, 4 spp (1 pass): launches {got}; "
+              f"largest "
+              f"difference to render {float(np.abs(big_img - big_ref).max()):.6g}, rel RMSE "
+              f"{rel_rmse(big_img, big_ref):.3g}", flush=True)
+        check(rel_rmse(big_img, big_ref) < 1e-4, "the sharded stand-in differs from render's")
+        big_pack = pack_scene(big, dev)
+        pair_segments(pairs, pb, tpath, sharded_pass_builder(make_sharded_render_pass, mesh),
+                      new_film, big, big_pack, dev, stats, "sharded stand-in")
+        # the other families, each against its unsharded render
+        os.environ["MTS_SPPM_PHOTONS"] = str(PARALLEL_SPPM_PHOTONS)
+        families = (
+            ("bdpt", cbox_xml("bdpt", 64, 64, 4), 8, 2, 1e-4, mt.render),
+            ("sppm", cbox_xml("sppm", 64, 64, 6), 2, 1, 0.05,
+             lambda s, **kw: render_sppm(s, photons_per_pass=PARALLEL_SPPM_PHOTONS, **kw)),
+            ("ptracer", cbox_xml("ptracer", 64, 64), 8, 0, 1e-4, mt.render),
+            ("vpl", cbox_xml("vpl", 64, 64, 4), 8, 1, 1e-4, mt.render),
+            ("pssmlt", cbox_chain_xml("pssmlt", 32, 32), 4, 0, None, render_pssmlt),
+        )
+        for kind, xml, spp, seed, gate, unsharded in families:
+            zeroed(brute)
+            t1 = time.time()
+            img = render_sharded(mt.load_scene_string(xml), mesh=mesh, spp=spp, seed=seed)
+            sec = time.time() - t1
+            got = read_launches(brute, launches, brute, f"the sharded {kind} render")
+            ref_k = unsharded(mt.load_scene_string(xml), spp=spp, seed=seed, device=dev)
+            err = rel_rmse(img, ref_k)
+            big_err = float(np.abs(img - ref_k).max() / np.abs(ref_k).max())
+            print(f"phase 6 (a): render_sharded {kind}: {sec:.3f} s, launches {got}; rel RMSE "
+                  f"{err:.3g}, largest difference {big_err:.3g} of the image's largest value "
+                  f"(gate {'rel RMSE %g' % gate if gate else 'largest 1e-5'})", flush=True)
+            check(np.isfinite(img).all() and (err < gate if gate else big_err <= 1e-5),
+                  f"the sharded {kind} render differs from its unsharded render")
+    finally:
+        destroy_world()
+    print(f"phase 6 (a): {time.time() - t0:.2f} s", flush=True)
+
+    # (b) two ranks on cuda:0 over gloo
+    t0 = time.time()
+    out = tempfile.mkdtemp(prefix="gloo_", dir=PARALLEL_DIR)
+    spawn_ranks(gloo_pair_rank, 2, (f"file://{out}/store", out), RANK_TIMEOUT_S)
+    ranks = [np.load(os.path.join(out, f"rank{r}.npz")) for r in range(2)]
+    b_s = max(float(r["sec"]) for r in ranks)
+    b_rays = int(ranks[0]["rays"])
+    err = rel_rmse(ranks[0]["img"], a_img)
+    one_s, one_rays = float(ranks[0]["one_s"]), int(ranks[0]["one_rays"])
+    print(f"phase 6 (b): two gloo ranks on cuda:0, render_sharded cbox 512x512, 16 spp: "
+          f"{b_s:.3f} s (rank seconds {[round(float(r['sec']), 3) for r in ranks]}), {b_rays} rays "
+          f"= {b_rays / b_s:.6g} rays/s; a world of one in rank 0's fresh process {one_s:.3f} s "
+          f"= {one_rays / one_s:.6g} rays/s (in this process, (a): {a_rays / a_s:.6g}); K1/K2 "
+          f"launches per rank {[(int(r['k1']), int(r['k2'])) for r in ranks]}; rel RMSE to (a) "
+          f"{err:.3g}, ranks equal {np.array_equal(ranks[0]['img'], ranks[1]['img'])}; "
+          f"{time.time() - t0:.2f} s", flush=True)
+    check(err < 1e-4 and np.array_equal(ranks[0]["img"], ranks[1]["img"]),
+          "the two gloo ranks' image differs from the world of one's, or between the ranks")
+    check(all(int(r["k1"]) > 0 and int(r["k2"]) > 0 for r in ranks),
+          "a gloo rank launched no K1/K2")
+
+    # (e) the multi-host CLI on one host, run beside (c) and (d), which
+    # time nothing
+    t_e = time.time()
+    exr = os.path.join(PARALLEL_DIR, "multihost.exr")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "mitsuba_tpu_torch.parallel.multihost", CBOX, "-o", exr, "--spp",
+         "16", "--num-hosts", "1"], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": HERE + os.pathsep
+                        + os.environ.get("PYTHONPATH", "")})
+    try:
+        # (c) elastic: a fault at pass 3 of 8, a checkpoint every 2 passes
+        t0 = time.time()
+        w, h = scene.sensor.record.film.width, scene.sensor.record.film.height
+        lanes = w * h * 2  # 8 passes of 2 spp
+        clean = mt.render(scene, spp=16, seed=0, device=dev, lanes_per_pass=lanes)
+        seen = []
+
+        def fault(i):
+            seen.append(i)
+            if i == 3 and seen.count(3) == 1:
+                raise elastic.SimulatedFault(i)
+
+        ck = os.path.join(PARALLEL_DIR, "elastic_ck.npz")
+        elastic._fault_hook = fault
+        zeroed(brute)
+        try:
+            img = mt.render(scene, spp=16, seed=0, device=dev, lanes_per_pass=lanes,
+                            checkpoint=ck, checkpoint_every=2)
+        finally:
+            elastic._fault_hook = None
+        got = read_launches(brute, launches, brute, "the elastic render")
+        requeued = seen[seen.index(3) + 1:]
+        print(f"phase 6 (c): elastic cbox {w}x{h}, 16 spp in 8 passes: passes run {seen}, "
+              f"re-queued {requeued[0]}..{requeued[-1]}; launches {got}; difference to the "
+              f"uninterrupted render {float(np.abs(img - clean).max()):.6g}; "
+              f"{time.time() - t0:.2f} s", flush=True)
+        check(requeued == list(range(2, 8)) and np.array_equal(img, clean),
+              "the elastic render did not re-queue passes 2..7, or differs")
+
+        # (d) the render service: two workers on cuda:0, one killed
+        t0 = time.time()
+        size, spp, chunk = 256, 8, 1
+        svc_scene = mt.load_scene(CBOX)
+        svc_scene.sensor.record.film.width = svc_scene.sensor.record.film.height = size
+        _, local_film = mt.render(svc_scene, spp=spp, seed=0, device=dev,
+                                  lanes_per_pass=size * size * chunk, return_film=True)
+        killed = []
+
+        def kill_first(done, n, pid):
+            if not killed:
+                killed.append(pid)
+                os.kill(pid, signal.SIGKILL)
+
+        svc = RenderService(n_workers=2, device="cuda")
+        try:
+            sid = svc.broadcast_scene(CBOX, film_size={"width": size, "height": size})
+            _, film = svc.render(sid, w=size, h=size, spp=spp, spp_chunk=chunk,
+                                 progress=kill_first)
+            dead = [wk.pid for wk in svc.workers if wk.dead]
+            requeued = list(svc.requeued)
+        finally:
+            svc.shutdown()
+        equal = np.array_equal(film, local_film.cpu().numpy())
+        print(f"phase 6 (d): service, two workers on cuda:0, cbox {size}x{size}, {spp} units "
+              f"of {chunk} spp: worker {killed} killed after its first unit, units re-queued "
+              f"{requeued}; film equal to the local pass loop's: {equal}; "
+              f"{time.time() - t0:.2f} s", flush=True)
+        check(dead == killed and requeued and equal,
+              "the service did not survive its killed worker, or its film differs")
+        _, err = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait(30)
+    check(cli.returncode == 0, f"the multi-host CLI exited {cli.returncode}: {err[-2000:]}")
+    wall = time.time() - t_e
+    ref_path, _ = render_to_file(mt.load_scene(CBOX), os.path.join(PARALLEL_DIR, "ref.exr"),
+                                 spp=16, device=dev)
+    got_exr, ref_exr = read_exr(exr)[0], read_exr(ref_path)[0]
+    equal = got_exr.shape == ref_exr.shape and np.array_equal(got_exr, ref_exr)
+    print(f"phase 6 (e): python -m mitsuba_tpu_torch.parallel.multihost --num-hosts 1, cbox "
+          f"512x512, 16 spp: wall {wall:.2f} s with the process's start (beside (c) and (d)); its "
+          f"EXR equal to render_to_file's: {equal}", flush=True)
+    check(equal, "the multi-host CLI's EXR differs from render_to_file's")
+
+    # (f) the entry on the card
+    t0 = time.time()
+    zeroed(brute)
+    fn, args = entry()
+    film, rays = fn(*args)
+    torch.cuda.synchronize()
+    got = read_launches(brute, launches, brute, "entry()")
+    print(f"phase 6 (f): entry() on {film.device}: film {tuple(film.shape)}, alpha > 0 "
+          f"everywhere: {bool((film[..., 3] > 0).all())}, {int(rays)} rays, launches {got}; "
+          f"{time.time() - t0:.2f} s", flush=True)
+    check(tuple(film.shape) == (64, 64, 4) and film.device.type == "cuda"
+          and bool((film[..., 3] > 0).all()), "entry() gave no film on the card")
+    print(f"phase 6: {time.time() - t_phase:.2f} s", flush=True)
+    return launches
+
 
 
 def main():
@@ -3936,7 +4297,7 @@ def main():
     glass256 = mt.load_scene_string(glass_xml(256, 256))
     generator_throughput(
         "glass_caustics-bdpt", lambda: tb.iter_bdpt(glass256, glass_pack, 32, 0, dev),
-        glass_counted, 256, 256, card, "chunk", budget_s=30.0, ref=GLASS_REF_256,
+        glass_counted, 256, 256, card, "chunk", budget_s=15.0, ref=GLASS_REF_256,
         note="; the reference's curve: 0.062 at 32 spp with 8 edges")
     # the scene's own film size: spp_chunk floors at 1, 262,144 lanes
     glass512 = mt.load_scene(os.path.join(HERE, "scenes", "glass_caustics.xml"))
@@ -3957,21 +4318,23 @@ def main():
           f"launches {({k: fn.launches for k, fn in brute.items()})} on {card}", flush=True)
 
     # the Metropolis slice: door as it stands (pssmlt, bidirectional, 8
-    # edges; 65,536 chains) at 32 mutations per pixel, and unidirectional;
+    # edges; 65,536 chains) at DOOR_MUTATIONS per pixel, and unidirectional;
     # glass_caustics under pssmlt (16 edges) for about 8 s
     print(f"phase 4: Metropolis {elapsed()}", flush=True)
     door_counted = {k: counted[k] for k in glass_names}
 
     def pssmlt_steps(scene, pack):
         return lambda: ((img, done, st["rays"])
-                        for img, done, _, st in tps.iter_pssmlt(scene, pack, 32, 0, None, dev))
+                        for img, done, _, st in tps.iter_pssmlt(scene, pack, DOOR_MUTATIONS, 0,
+                                                                None, dev))
 
     door_uni = mt.load_scene_string(door_xml(bidirectional=False))
     glass_pssmlt = mt.load_scene_string(with_integrator(glass_xml(256, 256), "pssmlt"))
     door_launches = generator_throughput(
         "door-pssmlt", pssmlt_steps(door, door_pack), door_counted, 256, 256, card, "step",
         ref=DOOR_REF_256, setup=True, chains=65_536,
-        note="; the reference's TPU run: 0.0424 bidirectional, 0.0728 unidirectional")
+        note="; the reference's TPU run at 32 mutations per pixel: 0.0424 bidirectional, "
+             "0.0728 unidirectional")
     for k in glass_names[:3]:
         check(door_launches[k] > 0, f"door's pssmlt never launched {k}")
     for k in glass_names:
@@ -3979,22 +4342,22 @@ def main():
     generator_throughput(
         "door-pssmlt-unidirectional", pssmlt_steps(door_uni, door_pack), door_counted, 256,
         256, card, "step", ref=DOOR_REF_256, setup=True, chains=65_536,
-        note="; the reference's TPU run: 0.0728")
+        note="; the reference's TPU run at 32 mutations per pixel: 0.0728")
     generator_throughput(
         "glass-pssmlt", pssmlt_steps(glass_pssmlt, glass_pack), door_counted, 256, 256, card,
         "step", budget_s=8.0, ref=GLASS_REF_256, setup=True, chains=65_536,
         note="; never measured on the TPU")
 
     # the photon-mapping slice: glass under sppm (maxDepth 24, 2^18
-    # photons an iteration) for about 15 s, smoke under the volumetric
-    # photon mapper (2^17 photons) for about 10 s, both at 256x256, and
+    # photons an iteration) for about 8 s, smoke under the volumetric
+    # photon mapper (2^17 photons) for about 5 s, both at 256x256, and
     # cbox under vpl at 512x512, 4 passes of 64 VPL paths
     print(f"phase 4: photon mapping {elapsed()}", flush=True)
     photon_throughput("glass_caustics-sppm", tsppm.iter_sppm, glass_sppm, glass_pack, 1 << 18,
-                      glass_counted, card, GLASS_REF_256, 15.0, dev,
+                      glass_counted, card, GLASS_REF_256, 8.0, dev,
                       note="; bdpt's 0.0634 at 32 spp")
     photon_throughput("smoke-photonmapper", tpm.iter_photonmapper, smoke_pm, smoke_pack,
-                      1 << 17, {k: counted[k] for k in smoke_names}, card, SMOKE_REF_256, 10.0,
+                      1 << 17, {k: counted[k] for k in smoke_names}, card, SMOKE_REF_256, 5.0,
                       dev)
     generator_throughput(
         "cbox-vpl", lambda: ((img, done, st["rays"])
@@ -4078,10 +4441,9 @@ def main():
             check(fib_launches[k] > 0, f"FIBER {phase} never launched {k}")
             launches[k] += fib_launches[k]
 
-    # the geometry extras: INSTANCED at 512x512 through render, 2 passes
-    # of 4 spp after a warm-up (its launches are the slice's main path:
-    # counters set to 0 just before each pass); BIGBVH's pass and sorted
-    # intersect
+    # the geometry extras: INSTANCED at 512x512 through render, one pass
+    # of INSTANCED_SPP (its launches are the slice's main path: counters
+    # set to 0 just before it); BIGBVH's pass and sorted intersect
     print(f"phase 4: geometry extras {elapsed()}", flush=True)
     inst_launches = instanced_throughput(mt, instanced, inst_pack, {**brute, **glass_counted},
                                          tlas, card)
@@ -4103,6 +4465,19 @@ def main():
               "cluster_traverse_closest"):
         check(host_launches.get(k, 0) > 0, f"the host phase never launched {k}")
     for k, n in host_launches.items():
+        launches[k] += n
+
+    # the parallel slice: the sharded render over an NCCL world of one and
+    # two gloo ranks on the card, the elastic pass loop, the service, the
+    # multi-host CLI and the entry (each render's launches are the phase's
+    # main path: counters set to 0 just before it)
+    print(f"phase 6: parallel {elapsed()}", flush=True)
+    par_launches = parallel_phase(mt, pk, pairs, pb, tpath, brute,
+                                  {k: counted[k] for k in glass_names}, dev, card, stats)
+    for k in ("closest_hit_v2", "any_hit_v2", "dense_cull", "pair_hit_closest", "pair_hit_any",
+              "cluster_traverse_closest", "cluster_traverse_any"):
+        check(par_launches.get(k, 0) > 0, f"the parallel phase never launched {k}")
+    for k, n in par_launches.items():
         launches[k] += n
 
     # the main shape of each kernel: cbox camera rays for K1/K2, K11 and

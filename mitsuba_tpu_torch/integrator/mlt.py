@@ -54,6 +54,7 @@ from mitsuba_tpu_torch.integrator.pssmlt import (
     add_direct_component,
     bootstrap_chains,
     chain_setup,
+    chain_shard,
     dim_words,
     dims_for,
     path_from_primary,
@@ -146,18 +147,22 @@ def _mh_tail(film, state, U_prop, corr, k, trace, seed_mlt, lanes, w, h):
     return _mh(film, state, (U_prop, pos_p, L_p, luminance(L_p)), u_acc, corr, w, h)
 
 
-def render_mlt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda"):
+def render_mlt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda", mesh=None):
     """A Veach-mutation MLT render (= MLT::render, mlt.cpp) on `device`:
     PSSMLT's normalization and film with the structured proposals above.
-    `spp` is the mutations per pixel.  Returns numpy [H, W, 3]."""
+    `spp` is the mutations per pixel.  Returns numpy [H, W, 3].  With
+    `mesh` the chains split over its ranks on mesh.device (reference
+    mlt.py:263-280): each rank runs the bootstrap over all chains, then its
+    own chains against its own film, and one all-reduce merges the films
+    at the end."""
     from mitsuba_tpu_torch.scene.builder import pack_scene
 
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     if pack is None:
         pack = pack_scene(scene, device)
     # the bidirectional mutation (the large step) is one of five mutators
     _, integ, w, h, cam, max_depth, n_px, mutations_pp, n_chains, p_large = chain_setup(
-        scene, pack, spp, chains, device, 0.2)
+        scene, pack, spp, chains, device, 0.2, 1 if mesh is None else mesh.world)
     D = dims_for(max_depth)
     seed_mlt = rng.stream_seed(seed, rng.STREAM_MLT)
 
@@ -168,6 +173,8 @@ def render_mlt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda"):
     U_cur, b_norm = bootstrap_chains(trace, D, n_chains, n_boot, seed, seed_mlt, device)
     if U_cur is None:
         return np.zeros((h, w, 3), np.float32)
+    lanes, mine = chain_shard(mesh, n_chains, device)
+    U_cur = U_cur[mine]
     pos_cur, L_cur = trace(U_cur)
     state = (U_cur, pos_cur, L_cur, luminance(L_cur))
     n_steps = max(mutations_pp * n_px // n_chains, 1)
@@ -181,7 +188,6 @@ def render_mlt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda"):
     # (mut_manifold imports this module's lens move)
     from mitsuba_tpu_torch.integrator.mut_manifold import propose_manifold
 
-    lanes = torch.arange(n_chains, device=device)
     film = torch.zeros(h, w, 3, dtype=torch.float32, device=device)
     for k in range(n_steps):
         if mani_on and k % 4 == 3:
@@ -192,21 +198,27 @@ def render_mlt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda"):
                                       lanes=lanes)
             corr = 1.0
         film, state, _, _ = _mh_tail(film, state, U_prop, corr, k, trace, seed_mlt, lanes, w, h)
+    if mesh is not None:
+        film = mesh.all_reduce(film)
     scale = b_norm * n_px / (n_steps * n_chains)
     return add_direct_component((film * scale).cpu().numpy(), scene, pack, integ, seed, device)
 
 
-def render_erpt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda"):
+def render_erpt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda", mesh=None):
     """Energy redistribution path tracing (= ERPT::render, erpt.cpp:134) on
     `device`.  Each round: fresh path-traced seeds; each seed runs
     floor(I / e_d + u) chains' worth of deposition over `chainLength`
     perturbation-only mutations (no large steps), each step depositing
     the quantum with expected-value (1 - a) / a splitting.  `spp` is the
     seeds per pixel (None: the sampler's sampleCount).  Returns numpy
-    [H, W, 3]."""
+    [H, W, 3].  With `mesh` the seed lanes, padded to a multiple of the
+    world, split over its ranks on mesh.device (reference mlt.py:288-314):
+    every rank computes the quantum over all lanes, then each round
+    deposits its lanes into a film of its own, which one all-reduce adds
+    to the image."""
     from mitsuba_tpu_torch.scene.builder import pack_scene
 
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     if pack is None:
         pack = pack_scene(scene, device)
     sen = scene.sensor.record
@@ -218,57 +230,71 @@ def render_erpt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda"):
     n_px = w * h
     samples_pp = spp or sen.sampler.sample_count
     chain_len = max(integ.chain_length or 100, 1)
-    n_lanes = chains or min(1 << 16, n_px)
+    world = 1 if mesh is None else mesh.world
+    n_lanes = -(-(chains or min(1 << 16, n_px)) // world) * world
     seed_mlt = rng.stream_seed(seed, rng.STREAM_MLT)
 
     def trace(U):
         return path_from_primary(pack, integ, cam, w, h, U)
 
-    lanes = torch.arange(n_lanes, device=device)
-    words = dim_words(lanes, D)
-
-    def rows(index):
-        return rng.rand4(words // D, words % D, index, seed_mlt)[:, 0].reshape(n_lanes, D)
+    def rows(lanes, index):
+        words = dim_words(lanes, D)
+        return rng.rand4(words // D, words % D, index, seed_mlt)[:, 0].reshape(-1, D)
 
     # the deposition quantum e_d = b, the mean path luminance, so that a
     # seed starts one chain in expectation (erpt.cpp numChains = 1)
-    boot = [luminance(trace(rows(9000 + b))[1]).cpu().numpy() for b in range(4)]
+    lanes_all = torch.arange(n_lanes, device=device)
+    boot = [luminance(trace(rows(lanes_all, 9000 + b))[1]).cpu().numpy() for b in range(4)]
     b_norm = float(np.concatenate(boot).mean())
     if b_norm <= 0:
         return np.zeros((h, w, 3), np.float32)
     e_d = b_norm
+    lanes, _ = chain_shard(mesh, n_lanes, device)
 
     n_rounds = max((samples_pp * n_px) // n_lanes, 1)
     film = torch.zeros(h, w, 3, dtype=torch.float32, device=device)
     for ri in range(n_rounds):
-        U = rows(ri * 2 + 101)
-        pos, L = trace(U)
-        I = luminance(L)
-        # a chain runs with probability min(1, I / e_d); bright seeds
-        # carry proportionally more deposition
-        n_c = torch.floor(I / e_d + rng.rand4(lanes, ri, 7, seed_mlt)[:, 0])
-        dep = n_c * e_d / float(chain_len)  # per-step deposit
-        run = n_c > 0
-        for k in range(chain_len):
-            kk = (ri * 65536 + k) & _MASK
-            u_acc = rng.rand4(lanes, kk, 8, seed_mlt)
-            U_p, _ = propose_veach(U, kk, seed_mlt, w, h, max_depth, 0.0, lanes=lanes)
-            pos_p, L_p = trace(U_p)
-            I_p = luminance(L_p)
-            a = torch.clamp(I_p / torch.clamp(I, min=1e-12), 0.0, 1.0)
-            # equal-deposition splat: e_d (1 - a) at x, e_d a at y
-            v_cur = torch.where((run & (I > 0))[:, None],
-                                L / torch.clamp(I, min=1e-12)[:, None] * (dep * (1.0 - a))[:, None],
-                                0.0)
-            v_p = torch.where((run & (I_p > 0))[:, None],
-                              L_p / torch.clamp(I_p, min=1e-12)[:, None] * (dep * a)[:, None], 0.0)
-            film = _splat(film, pos, v_cur, w, h)
-            film = _splat(film, pos_p, v_p, w, h)
-            accept = u_acc[:, 1] < a
-            U = torch.where(accept[:, None], U_p, U)
-            pos = torch.where(accept[:, None], pos_p, pos)
-            L = torch.where(accept[:, None], L_p, L)
-            I = torch.where(accept, I_p, I)
+        if mesh is None:
+            film = _erpt_round(film, ri, lanes, rows, trace, e_d, chain_len, seed_mlt, w, h,
+                               max_depth)
+        else:
+            film = film + mesh.all_reduce(_erpt_round(
+                torch.zeros_like(film), ri, lanes, rows, trace, e_d, chain_len, seed_mlt, w, h,
+                max_depth))
     # each seed stands for 1 / (seeds per pixel) of the estimator
     scale = n_px / (n_rounds * n_lanes)
     return add_direct_component((film * scale).cpu().numpy(), scene, pack, integ, seed, device)
+
+
+def _erpt_round(film, ri, lanes, rows, trace, e_d, chain_len, seed_mlt, w, h, max_depth):
+    """One ERPT round of the seed lanes `lanes`, deposited into film."""
+    U = rows(lanes, ri * 2 + 101)
+    pos, L = trace(U)
+    I = luminance(L)
+    # a chain runs with probability min(1, I / e_d); bright seeds
+    # carry proportionally more deposition
+    n_c = torch.floor(I / e_d + rng.rand4(lanes, ri, 7, seed_mlt)[:, 0])
+    dep = n_c * e_d / float(chain_len)  # per-step deposit
+    run = n_c > 0
+    for k in range(chain_len):
+        kk = (ri * 65536 + k) & _MASK
+        u_acc = rng.rand4(lanes, kk, 8, seed_mlt)
+        U_p, _ = propose_veach(U, kk, seed_mlt, w, h, max_depth, 0.0, lanes=lanes)
+        pos_p, L_p = trace(U_p)
+        I_p = luminance(L_p)
+        a = torch.clamp(I_p / torch.clamp(I, min=1e-12), 0.0, 1.0)
+        # equal-deposition splat: e_d (1 - a) at x, e_d a at y
+        v_cur = torch.where((run & (I > 0))[:, None],
+                            L / torch.clamp(I, min=1e-12)[:, None] * (dep * (1.0 - a))[:, None],
+                            0.0)
+        v_p = torch.where((run & (I_p > 0))[:, None],
+                          L_p / torch.clamp(I_p, min=1e-12)[:, None] * (dep * a)[:, None], 0.0)
+        film = _splat(film, pos, v_cur, w, h)
+        film = _splat(film, pos_p, v_p, w, h)
+        accept = u_acc[:, 1] < a
+        U = torch.where(accept[:, None], U_p, U)
+        pos = torch.where(accept[:, None], pos_p, pos)
+        L = torch.where(accept[:, None], L_p, L)
+        I = torch.where(accept, I_p, I)
+    return film
+

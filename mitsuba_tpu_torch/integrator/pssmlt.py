@@ -22,6 +22,8 @@ loop whose decisions come from U instead of the counter hash.
 The reference cuts the step scan into executions of MTS_TPU_MLT_STEPS
 steps for its TPU's per-execution budget; the port runs the steps as a
 host loop over device tensors and keeps the chain state on the device.
+Split over the ranks of a mesh (`mesh=`), the chains' films merge every
+MTS_TPU_MLT_STEPS steps, as the reference's sharded executions do.
 The path loop checks its exit every EXIT_CHECK_EVERY depths (core/lanes.py).
 The chain draws are the reference's: `rand4` on STREAM_MLT, slot 1 for a
 step's control draws, slot 2 for its per-dimension draws, index 7000 + b
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import copy
 import math
+import os
 
 import numpy as np
 import torch
@@ -366,10 +369,11 @@ def _mh(film, cur, prop, u_acc, corr, w, h):
     return film, state, a, accept
 
 
-def chain_setup(scene, pack, spp, chains, device, p_large_default):
+def chain_setup(scene, pack, spp, chains, device, p_large_default, world=1):
     """What every chain render starts from: (sensor record, integrator,
     w, h, the packed camera, max_depth, pixels, mutations per pixel,
-    chains, p_large)."""
+    chains, p_large).  The chains are padded to a multiple of `world`, the
+    ranks that split them."""
     sen = scene.sensor.record
     integ = scene.integrator
     w, h = sen.film.width, sen.film.height
@@ -378,40 +382,60 @@ def chain_setup(scene, pack, spp, chains, device, p_large_default):
     n_px = w * h
     mutations_pp = spp or MUTATIONS_PER_PIXEL
     p_large = integ.p_large if integ.p_large > 0 else p_large_default
-    n_chains = chains or min(1 << 17, n_px)
+    n_chains = -(-(chains or min(1 << 17, n_px)) // world) * world
     return sen, integ, w, h, cam, max_depth, n_px, mutations_pp, n_chains, p_large
 
 
-def iter_pssmlt(scene, pack, spp=None, seed=0, chains=None, device="cuda"):
+def chain_shard(mesh, n_chains, device):
+    """This rank's chain ids (all of them without a mesh)."""
+    lo, hi = (0, n_chains) if mesh is None else mesh.shard(n_chains)
+    return torch.arange(lo, hi, device=device), slice(lo, hi)
+
+
+def merge_every(n_steps):
+    """Steps between two merges of the ranks' films (MTS_TPU_MLT_STEPS,
+    64, as the reference's executions)."""
+    return max(min(int(os.environ.get("MTS_TPU_MLT_STEPS", 64)), n_steps), 1)
+
+
+def iter_pssmlt(scene, pack, spp=None, seed=0, chains=None, device="cuda", mesh=None):
     """The steps of a PSSMLT render, one at a time (reference
-    pssmlt.py:400-562 without the execution split).  `spp` is the
-    mutations per pixel (None: MUTATIONS_PER_PIXEL).  Yields
-    (the image of the steps so far [H, W, 3] on the device, the direct
-    component not included; steps done; steps in all; the trace's stats),
-    once after the bootstrap (0 steps: a black image) and after every
-    step.  A black scene yields once.  The work of each step sits
+    pssmlt.py:400-562).  `spp` is the mutations per pixel (None:
+    MUTATIONS_PER_PIXEL).  Yields (the image of the steps so far [H, W, 3]
+    on the device, the direct component not included; steps done; steps in
+    all; the trace's stats), once after the bootstrap (0 steps: a black
+    image) and after every step.  A black scene yields once.
+
+    With `mesh` (parallel/mesh.py) the chains, padded to a multiple of the
+    world, split over the ranks (reference pssmlt.py:427-431, :515-550):
+    every rank runs the bootstrap over all chains, then its own chains
+    against its own film, which one all-reduce merges every merge_every()
+    steps into the image; it yields after each merge.  The work of each step sits
     in record_function ranges "stage:bootstrap", "stage:propose",
     "stage:trace", "stage:splat" and "stage:accept"."""
     device = torch.device(device)
     sen, integ, w, h, cam, _, n_px, mutations_pp, n_chains, p_large = chain_setup(
-        scene, pack, spp, chains, device, 0.3)
+        scene, pack, spp, chains, device, 0.3, 1 if mesh is None else mesh.world)
     seed_mlt = rng.stream_seed(seed, rng.STREAM_MLT)
     trace, D, _ = make_chain_trace(pack, integ, sen, cam, w, h)
     n_steps = max(mutations_pp * n_px // n_chains, 1)
     film = torch.zeros(h, w, 3, dtype=torch.float32, device=device)
+    lanes, mine = chain_shard(mesh, n_chains, device)
 
     n_boot_batches = max(integ.luminance_samples // n_chains, 2)
     with torch.profiler.record_function("stage:bootstrap"):
         U_cur, b_norm = bootstrap_chains(trace, D, n_chains, n_boot_batches, seed, seed_mlt,
                                          device)
         if U_cur is not None:
+            U_cur = U_cur[mine]
             pos_cur, L_cur = trace(U_cur)
             I_cur = _chain_lum(L_cur)
     yield film.clone(), 0, n_steps, trace.stats
     if U_cur is None:
         return
-    lanes = torch.arange(n_chains, device=device)
     state = (U_cur, pos_cur, L_cur, I_cur)
+    merged = film.clone()
+    every = merge_every(n_steps)
     for k in range(n_steps):
         with torch.profiler.record_function("stage:propose"):
             U_prop, u_ctl = _propose(state[0], k, lanes, seed_mlt, p_large)
@@ -421,19 +445,28 @@ def iter_pssmlt(scene, pack, spp=None, seed=0, chains=None, device="cuda"):
         film, state, _, _ = _mh(film, state, (U_prop, pos_p, L_p, I_p), u_ctl[:, 1], 1.0, w, h)
         # each splat pair carries total weight L / I: scale so that the
         # image equals the path-traced mean
-        yield film * (b_norm * n_px / ((k + 1) * n_chains)), k + 1, n_steps, trace.stats
+        scale = b_norm * n_px / ((k + 1) * n_chains)
+        if mesh is None:
+            yield film * scale, k + 1, n_steps, trace.stats
+        elif (k + 1) % every == 0 or k + 1 == n_steps:
+            merged = merged + mesh.all_reduce(film)
+            film = torch.zeros_like(film)
+            yield merged * scale, k + 1, n_steps, trace.stats
 
 
-def render_pssmlt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda"):
+def render_pssmlt(scene, spp=None, seed=0, pack=None, chains=None, device="cuda", mesh=None):
     """A PSSMLT render (= PSSMLT::render, pssmlt.cpp) on `device`: `spp`
     is the mutations per pixel.  Returns the linear HDR image as numpy
-    [H, W, 3]; the rays traced are left in render_pssmlt.last_ray_count."""
+    [H, W, 3]; the rays traced (by this rank, with `mesh`) are left in
+    render_pssmlt.last_ray_count.  With `mesh` the chains split over its
+    ranks (iter_pssmlt), which run on mesh.device, and every rank returns
+    the image."""
     from mitsuba_tpu_torch.scene.builder import pack_scene
 
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     if pack is None:
         pack = pack_scene(scene, device)
-    for img, _, _, stats in iter_pssmlt(scene, pack, spp, seed, chains, device):
+    for img, _, _, stats in iter_pssmlt(scene, pack, spp, seed, chains, device, mesh):
         pass
     render_pssmlt.last_ray_count = stats["rays"]
     return add_direct_component(img.cpu().numpy(), scene, pack, scene.integrator, seed, device)

@@ -30,7 +30,10 @@ MTS_TPU_LANES_PER_PASS) bounds the lanes, and so the memory, of a pass;
 `progress(i, n)` is called after each pass, once the device has finished
 it; `checkpoint` saves the film every `checkpoint_every` passes and
 resumes from the file it finds; `return_film` returns the [H, W, 4] film
-beside the image.  The `tiledhdrfilm` film renders in row bands through
+beside the image.  Both pass loops (the whole frame's and each row
+band's) run through parallel/elastic.py `run_passes`: a recoverable
+failure re-queues the passes lost since the checkpoint, or since the
+film's start.  The `tiledhdrfilm` film renders in row bands through
 the batched wavefront (whatever its filter), each band with a halo of the
 filter's footprint, and flushes each developed band to a host memory-map
 (reference renderer.py:379-462).  Lane ids stay global pixel ids, so a
@@ -59,6 +62,7 @@ from mitsuba_tpu_torch.film.plugins import filter_importance_sample, supports_fi
 from mitsuba_tpu_torch.integrator import volpath  # noqa: F401 (registers "volpath")
 from mitsuba_tpu_torch.integrator.path import TRACE_FNS, path_trace_regen
 from mitsuba_tpu_torch.integrator.plugins import IntegratorRecord
+from mitsuba_tpu_torch.parallel import elastic
 from mitsuba_tpu_torch.scene.builder import pack_scene
 from mitsuba_tpu_torch.sensor.plugins import generate_rays
 
@@ -259,16 +263,17 @@ def render(scene, spp=None, seed=0, *, device="cuda", pack=None, lanes_per_pass=
     n_passes = math.ceil(spp / spp_chunk)
     logger.debug("render: %dx%d, %d spp (%d passes x %d), integrator=%s",
                  w, h, spp, n_passes, spp_chunk, integ.kind)
-    render_pass = make_render_pass(
-        pack, integ, sensor_rec, film_rec, sensor_rec.sampler, spp_chunk, device,
-    )
-    film, i0 = _resume(checkpoint, (h, w, 4), spp_chunk, device)
-    if film is None:
-        film = new_film(h, w, device)
-    rays = torch.zeros((), dtype=torch.int64, device=device)
-    for i in range(i0, n_passes):
-        film, n_rays = render_pass(film, i * spp_chunk, seed)
-        rays = rays + n_rays
+    rays = {}  # pass -> its rays; a re-queued pass replaces its entry
+
+    def build_pass(attempt):
+        return make_render_pass(pack, integ, sensor_rec, film_rec, sensor_rec.sampler,
+                                spp_chunk, device)
+
+    def run_pass(render_pass, film, i):
+        film, rays[i] = render_pass(film, i * spp_chunk, seed)
+        return film
+
+    def after_pass(film, i):
         counter("Samples rendered").add(spp_chunk * w * h)
         if checkpoint and ((i + 1) % checkpoint_every == 0 or i + 1 == n_passes):
             np.savez(checkpoint, film=film.cpu().numpy(), passes_done=i + 1,
@@ -276,9 +281,15 @@ def render(scene, spp=None, seed=0, *, device="cuda", pack=None, lanes_per_pass=
         if progress:
             _synchronize(device)
             progress(i + 1, n_passes)
+
+    # the checkpoint is also the re-queue point after a recoverable failure
+    film = elastic.run_passes(
+        build_pass, run_pass, n_passes, film_init=lambda: new_film(h, w, device),
+        reload_state=lambda: _resume(checkpoint, (h, w, 4), spp_chunk), after_pass=after_pass,
+        device=device)
     # constant sampleRay importance (irradiancemeter's pi; 1 otherwise)
     img = (develop(film) * sensor_rec.ray_weight).cpu().numpy()
-    render.last_ray_count = int(rays)
+    render.last_ray_count = int(sum(rays.values(), torch.zeros((), dtype=torch.int64)))
     return (img, film) if return_film else img
 
 
@@ -295,16 +306,16 @@ def _ones_alpha(img, device):
     return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
 
 
-def _resume(checkpoint, shape, spp_chunk, device):
-    """(film, passes done) of a checkpoint whose film shape and samples per
-    pass match, else (None, 0)."""
+def _resume(checkpoint, shape, spp_chunk):
+    """(film as numpy, passes done) of a checkpoint whose film shape and
+    samples per pass match, else None."""
     if not checkpoint or not os.path.exists(checkpoint):
-        return None, 0
+        return None
     with np.load(checkpoint) as ck:
         if tuple(ck["film"].shape) != shape or int(ck["spp_chunk"]) != spp_chunk:
-            return None, 0
+            return None
         logger.info("render: resumed from %s at pass %d", checkpoint, int(ck["passes_done"]))
-        return torch.as_tensor(ck["film"], device=device), int(ck["passes_done"])
+        return ck["film"], int(ck["passes_done"])
 
 
 def _render_orchestrated(scene, spp, seed, device, pack):
@@ -381,29 +392,37 @@ def _render_bands(scene, pack, spp, seed, device, lanes, progress, return_film):
     w, h = film_rec.width, film_rec.height
     hb, pad, n_bands, spp_chunk, n_passes = band_plan(film_rec, spp, lanes)
     hbe = hb + 2 * pad
-    render_pass = make_render_pass(pack, scene.integrator, sensor_rec, film_rec,
-                                   sensor_rec.sampler, spp_chunk, device, band_rows=hbe)
+
+    def build_pass(attempt):
+        return make_render_pass(pack, scene.integrator, sensor_rec, film_rec,
+                                sensor_rec.sampler, spp_chunk, device, band_rows=hbe)
     tdir = tempfile.mkdtemp(prefix="mts_tiledfilm_")
     film_mm = np.lib.format.open_memmap(os.path.join(tdir, "film.npy"), mode="w+",
                                         dtype=np.float32, shape=(h, w, 4))
     img_mm = np.lib.format.open_memmap(os.path.join(tdir, "image.npy"), mode="w+",
                                        dtype=np.float32, shape=(h, w, 3))
-    rays = torch.zeros((), dtype=torch.int64, device=device)
+    rays = {}  # (band, pass) -> its rays; a re-queued pass replaces its entry
     for b in range(n_bands):
-        band = new_film(hbe, w, device)
-        for i in range(n_passes):
-            band, n_rays = render_pass(band, i * spp_chunk, seed, b * hb - pad)
-            rays = rays + n_rays
+        def run_pass(render_pass, band, i, b=b):
+            band, rays[b, i] = render_pass(band, i * spp_chunk, seed, b * hb - pad)
+            return band
+
+        def after_pass(band, i, b=b):
             if progress:
                 _synchronize(device)
                 progress(b * n_passes + i + 1, n_bands * n_passes)
+
+        # a failure re-queues only the current band's passes
+        band = elastic.run_passes(build_pass, run_pass, n_passes,
+                                  film_init=lambda: new_film(hbe, w, device),
+                                  after_pass=after_pass, device=device)
         rows = min(hb, h - b * hb)
         band = band[pad:pad + rows]
         film_mm[b * hb:b * hb + rows] = band.cpu().numpy()
         img_mm[b * hb:b * hb + rows] = (develop(band) * sensor_rec.ray_weight).cpu().numpy()
     film_mm.flush()
     img_mm.flush()
-    render.last_ray_count = int(rays)
+    render.last_ray_count = int(sum(rays.values(), torch.zeros((), dtype=torch.int64)))
     return (img_mm, film_mm) if return_film else img_mm
 
 

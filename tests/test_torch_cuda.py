@@ -2069,3 +2069,38 @@ def test_checkpoint_resume_on_card(dev, tmp_path):
     resumed = render(scene, spp=16, seed=0, device=dev, lanes_per_pass=lanes, checkpoint=ck,
                      checkpoint_every=1)
     np.testing.assert_array_equal(resumed, ref)
+
+
+def test_sharded_nccl_world_of_one_on_card(dev, tmp_path):
+    """render_sharded over a one-rank NCCL process group (a file store)
+    equals render on cbox 64x64, 16 spp, at tests/test_sharding.py's gate
+    (relative RMSE < 1e-4: render keeps 16 lanes a pixel, the sharded
+    pass one, so the film's sums are reassociated), and bit for bit at one
+    sample layer a pass, where both keep one lane a pixel."""
+    import os
+
+    from mitsuba_tpu_torch.parallel.mesh import (
+        destroy_world,
+        init_world,
+        make_mesh,
+        render_sharded,
+    )
+    from mitsuba_tpu_torch.renderer import render
+    from mitsuba_tpu_torch.scene.xml_loader import load_scene
+    from torch_meshes import ROOT
+
+    scene = load_scene(os.path.join(ROOT, "scenes", "cbox.xml"))
+    scene.sensor.record.film.width = scene.sensor.record.film.height = 64
+    init_world("nccl", f"file://{tmp_path}/store", 1, 0, device="cuda:0", timeout_s=120)
+    try:
+        mesh = make_mesh(device="cuda:0", backend="nccl")
+        assert mesh.group is not None and (mesh.rank, mesh.world) == (0, 1)
+        img = render_sharded(scene, mesh=mesh, spp=16)
+        ref = render(scene, spp=16, seed=0, device=dev)
+        rel = np.sqrt(np.mean((img - ref) ** 2)) / np.abs(ref).mean()
+        assert rel < 1e-4, rel
+        one = render_sharded(scene, mesh=mesh, spp=16, spp_chunk=1)
+        np.testing.assert_array_equal(one, render(scene, spp=16, seed=0, device=dev,
+                                                  lanes_per_pass=64 * 64))
+    finally:
+        destroy_world()

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under mitsuba_tpu_torch/, and neither
-chip_smoke.py, profile_pass.py, time_brute.py nor the mesh generator they import
-(tests/torch_meshes.py), imports JAX or the JAX package (checked on the source's syntax tree, so
+chip_smoke.py, profile_pass.py, time_brute.py, sharded_scaling.py, the
+mesh generator they import (tests/torch_meshes.py) nor the CPU tests'
+rank bodies (tests/torch_ranks.py), imports JAX or the JAX package (checked on the source's syntax tree, so
 lazy imports inside functions count too), or names a path under
 mitsuba_tpu/ in its code (docstrings and comments may cite the
 reference, and a "file:line" string may name the TPU kernel a port
@@ -20,7 +21,8 @@ FORBIDDEN = {"jax", "jaxlib", "mitsuba_tpu"}
 SOURCES = sorted(
     glob.glob(os.path.join(ROOT, "mitsuba_tpu_torch", "**", "*.py"), recursive=True)
 ) + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "profile_pass.py", "time_brute.py",
-                                    "tests/torch_meshes.py")]
+                                    "sharded_scaling.py", "tests/torch_meshes.py",
+                                    "tests/torch_ranks.py")]
 # a citation of a TPU kernel: "mitsuba_tpu/<module>.py:<line>"
 CITATION = re.compile(r"mitsuba_tpu/[\w/]+\.py:\d+")
 
@@ -463,3 +465,48 @@ def test_host_entry_points_default_to_the_card():
     from mitsuba_tpu_torch import tools
 
     assert 'torch.device("cpu" if args.cpu else "cuda")' in inspect.getsource(tools.kdbench)
+
+
+PARALLEL_MODULES = ("mitsuba_tpu_torch.parallel.mesh", "mitsuba_tpu_torch.parallel.elastic",
+                    "mitsuba_tpu_torch.parallel.service", "mitsuba_tpu_torch.parallel.multihost",
+                    "mitsuba_tpu_torch.entry")
+
+
+def test_parallel_modules_are_checked():
+    """parallel/ and entry.py are among the sources checked above."""
+    rel = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for mod in PARALLEL_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in rel, mod
+
+
+@pytest.mark.parametrize("mod", PARALLEL_MODULES)
+def test_parallel_modules_stand_alone(mod):
+    """Imported in a fresh interpreter, each module of parallel/ and the
+    entry leave neither JAX nor the JAX package in sys.modules, start no
+    process and join no process group."""
+    import subprocess
+    import sys
+
+    # only what the import itself loads counts (an interpreter's
+    # sitecustomize may have loaded other modules already)
+    code = (f"import sys, torch; before = set(sys.modules); import {mod}; "
+            "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', "
+            "'jaxlib', 'mitsuba_tpu')); "
+            "assert not bad, bad; "
+            "assert not torch.distributed.is_initialized(); "
+            "import multiprocessing; assert not multiprocessing.active_children()")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_parallel_entry_points_default_to_the_card():
+    from mitsuba_tpu_torch import entry
+    from mitsuba_tpu_torch.parallel import mesh, multihost, service
+
+    for fn in (mesh.make_mesh, multihost.init_multihost, multihost.render_multihost,
+               entry.entry, entry.dryrun_multichip):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn.__name__
+    assert inspect.signature(service.RenderService).parameters["device"].default == "cuda"
